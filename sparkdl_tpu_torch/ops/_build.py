@@ -1,0 +1,126 @@
+"""Builds the package's CUDA kernels at first use and loads them.
+
+Every ``sparkdl_tpu_torch/csrc/*.cu`` goes through ONE ``nvcc`` call into
+a shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o _build/libsparkdl_kernels_<hash>.so csrc/*.cu
+
+(``-Xptxas -v``: each kernel's registers, shared memory and spills land
+in ``_build/libsparkdl_kernels_<hash>.log``.)
+
+No PyTorch header is compiled, so the build takes seconds. The library
+lands in ``sparkdl_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+name keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads the library already built. It is
+loaded with ``ctypes``; each ``extern "C"`` launcher returns its
+``cudaError_t`` and :func:`check` raises when that is not 0.
+
+A missing ``nvcc`` or a failed build raises. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+# name → argtypes of every launcher in csrc/ (restype is always c_int,
+# the launcher's cudaError_t).
+SIGNATURES = {
+    # q, k, v, kv_mask|NULL, o, lse, B, H, S, D, causal, is_bf16, stream
+    "sdl_flash_attention_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # q, k, v, o, cur|NULL, cur_scalar, pad|NULL, B, Hkv, rep, L, D,
+    # is_bf16, stream
+    "sdl_flash_decode": [P, P, P, P, P, I, P, I, I, I, I, I, I, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
+        "kernels of sparkdl_tpu_torch are built from source at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> None:
+    cu = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_info.update(seconds=time.perf_counter() - t0, command=cmd,
+                      log=res.stdout + res.stderr)
+    out.with_suffix(".log").write_text(build_info["log"])
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent process sees all or none
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            BUILD_DIR.mkdir(exist_ok=True)
+            so = BUILD_DIR / f"libsparkdl_kernels_{_digest()}.so"
+            if so.exists():
+                build_info.setdefault("seconds", 0.0)
+            else:
+                _compile(so)
+            lib = ctypes.CDLL(str(so))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.sdl_error_string.argtypes = [ctypes.c_int]
+            lib.sdl_error_string.restype = ctypes.c_char_p
+            build_info["library"] = str(so)
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launcher returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        name = library().sdl_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name})")

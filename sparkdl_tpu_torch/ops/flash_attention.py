@@ -1,0 +1,185 @@
+"""Flash attention forward: a hand-written CUDA kernel and its policy.
+
+The counterpart of ``sparkdl_tpu/ops/flash_attention.py``. Layout
+``[B, H, S, D]``; the same ``(q, k, v, causal=..., kv_mask=...)``
+signature as :func:`parallel.ring_attention.dense_attention`, so it drops
+into ``LlamaModel(attn_fn=...)``.
+
+- :func:`flash_attention_fwd` returns ``(O, lse)``; :func:`flash_attention`
+  returns O. A CPU tensor takes :func:`attention_plain`, the plain
+  PyTorch version of the same arithmetic. A CUDA tensor launches the
+  kernel in ``csrc/flash_attention.cu`` or raises — nothing falls back.
+- Masking is the JAX kernel's exactly (``_fwd_kernel``,
+  ``sparkdl_tpu/ops/flash_attention.py:78-98``): a score is live when
+  ``col < S``, ``kv_mask[col] > 0`` and, causal, ``col <= row``; a
+  fully-masked row gives O = 0 and lse = ``NEG_INF`` (finite).
+- Forward only. The JAX package's backward (``_flash_bwd``) is plain JAX
+  under a ``custom_vjp``; its port, a ``torch.autograd.Function`` whose
+  backward is a kernel too, belongs to the training slice (ROADMAP.md).
+
+The TPU's tuning does not carry over: no 128-lane padding, no pre-blocked
+lse/mask layouts, no block-size cost model. ``SPARKDL_FLASH_MIN_SEQ``
+(the shortest sequence :func:`adaptive_attention` sends to the kernel)
+defaults to 0 here, so the kernel runs at every prefill length; its
+H100 crossover with dense attention is not measured yet (PERF.md).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from ..parallel.ring_attention import NEG_INF, dense_attention
+from ..utils.platform import is_cuda_backend
+
+#: what the CUDA kernel takes (its plain version takes anything)
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def attention_plain(q, k, v, causal: bool = False, kv_mask=None):
+    """Plain PyTorch version of the kernel: ``(O, lse)`` from the whole
+    score matrix at once, in f32, with the kernel's mask semantics. O in
+    q's dtype, lse ``[B, H, S]`` f32."""
+    _, _, s, d = q.shape
+    scores = (q.float() * (1.0 / math.sqrt(d))) @ k.float().transpose(-1, -2)
+    live = torch.ones((1, 1, 1, s), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        live = (kv_mask.float() > 0)[:, None, None, :]
+    if causal:
+        live = live & torch.ones((s, s), dtype=torch.bool,
+                                 device=q.device).tril()
+    scores = torch.where(live, scores, NEG_INF)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m[..., None])
+    p = torch.where(m[..., None] <= NEG_INF, 0.0, p)  # fully-masked rows
+    l = p.sum(-1)
+    safe_l = torch.where(l > 0, l, 1.0)
+    o = (p @ v.float()) / safe_l[..., None]
+    return o.to(q.dtype), m + torch.log(safe_l)
+
+
+def support_reason(q, k, v) -> str | None:
+    """None when :func:`flash_attention` takes these inputs, else why not.
+    CPU tensors take the plain version, which covers every shape; CUDA
+    tensors need what the kernel needs: head dim 64 or 128, f32 or bf16,
+    one dtype for q, k and v."""
+    if q.device.type == "cpu":
+        return None
+    d = q.shape[-1]
+    if d not in KERNEL_HEAD_DIMS:
+        return f"head_dim {d} is not one of {KERNEL_HEAD_DIMS}"
+    if q.dtype not in KERNEL_DTYPES:
+        return f"dtype {q.dtype} is not f32 or bf16"
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        return (f"q, k, v dtypes differ ({q.dtype}, {k.dtype}, "
+                f"{v.dtype})")
+    return None
+
+
+def _check(q, k, v, kv_mask) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one [B, H, S, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if kv_mask is not None and tuple(kv_mask.shape) != (q.shape[0],
+                                                        q.shape[2]):
+        raise ValueError(f"kv_mask must be [B, S] = "
+                         f"{(q.shape[0], q.shape[2])}, got "
+                         f"{tuple(kv_mask.shape)}")
+    devs = {t.device for t in (q, k, v)} | (
+        set() if kv_mask is None else {kv_mask.device})
+    if len(devs) != 1:
+        raise ValueError(f"q, k, v, kv_mask lie on different devices: "
+                         f"{sorted(map(str, devs))}")
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None):
+    """``(O, lse)``: O ``[B, H, S, D]`` in q's dtype, lse ``[B, H, S]``
+    f32. CPU tensors → :func:`attention_plain`; CUDA tensors → the
+    kernel, after checks that raise on what it does not take. Counts
+    its launches in ``flash_attention_fwd.launches``."""
+    _check(q, k, v, kv_mask)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal, kv_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    reason = support_reason(q, k, v)
+    if reason is not None:
+        raise ValueError(f"flash_attention kernel: {reason}")
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention kernel needs contiguous, "
+                             "16-byte aligned q, k, v")
+    from . import _build
+
+    b, h, s, d = q.shape
+    mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.sdl_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, s, d, int(bool(causal)),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention(q, k, v, causal: bool = False, *, kv_mask=None):
+    """Flash attention. q/k/v: ``[B, H, S, D]`` → ``[B, H, S, D]``.
+
+    ``kv_mask``: optional ``[B, S]`` 0/1 tensor — key positions with 0 are
+    excluded from every query's softmax (the BERT attention-mask
+    contract)."""
+    return flash_attention_fwd(q, k, v, causal, kv_mask=kv_mask)[0]
+
+
+def dense_attention_masked(q, k, v, causal: bool = False, kv_mask=None):
+    """The dense arm of :func:`adaptive_attention`: delegates to
+    ``parallel.ring_attention.dense_attention`` (one source of truth for
+    the reference numerics)."""
+    return dense_attention(q, k, v, causal, kv_mask)
+
+
+def _flash_min_seq() -> int:
+    return int(os.environ.get("SPARKDL_FLASH_MIN_SEQ", "0"))
+
+
+def adaptive_attention(q, k, v, causal: bool = False, *, kv_mask=None):
+    """Length-adaptive attention: :func:`flash_attention` at and above
+    ``SPARKDL_FLASH_MIN_SEQ`` (default 0: every length), dense attention
+    below. Inputs the kernel does not take (see :func:`support_reason`)
+    raise there, as they do through :func:`flash_attention`; pass
+    ``attn_fn=None`` to a model for dense attention instead."""
+    if q.shape[2] >= _flash_min_seq():
+        return flash_attention(q, k, v, causal, kv_mask=kv_mask)
+    return dense_attention_masked(q, k, v, causal, kv_mask)
+
+
+def auto_attn_fn():
+    """The default-attention policy: :func:`adaptive_attention` when a
+    CUDA device exists, ``None`` (dense attention in-model) elsewhere.
+    Models accept the returned value as their ``attn_fn``."""
+    if is_cuda_backend():
+        return adaptive_attention
+    return None
+
+
+def resolve_attn_fn(attn_fn):
+    """Model-side resolver: the sentinel ``"auto"`` (the Llama module
+    default) becomes :func:`auto_attn_fn`'s pick; any explicit callable
+    or None passes through untouched."""
+    if isinstance(attn_fn, str) and attn_fn == "auto":
+        return auto_attn_fn()
+    return attn_fn
