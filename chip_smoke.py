@@ -19,6 +19,13 @@ b. kernels — each kernel against its plain PyTorch version on the same
    fill levels, and at llama3_8b's 32:8 GQA layout. Each prints the
    kernel's time, its bound, the plain version's time and, as a yardstick
    the port never calls, ``F.scaled_dot_product_attention``'s.
+   paged_flash_decode at ``LlamaConfig.small()``'s serving shapes (8
+   slots, 16/8 heads, D 128, block 16, 132 blocks a table), ragged fills
+   [2047, 1500, 900, 513, 300, 64, 17, 0] (the last slot parked on the
+   trash block), non-contiguous tables, every block no live range reads
+   filled with NaN; S = 1 and S = 5; bf16 and f32 pools, int8 and fp8
+   pools with scales. Its SDPA yardstick runs on the pre-gathered dense
+   view and so excludes the gather.
 c. main path — ``generate()`` on ``LlamaConfig.small()`` at full width and
    depth (2048 hidden, 16 layers, 16/8 heads, head_dim 128, vocab 32000),
    bf16, random weights from a seeded generator on the card; four prompts
@@ -31,6 +38,29 @@ d. parity — the same model in f32 (TF32 off): the dense in-model path
    (``attn_fn=None``) is fed the kernel path's tokens and its logits are
    held to the kernel path's at the prefill's last position and at every
    decode step.
+e. serve — ``GenerationEngine.from_model`` on ``LlamaConfig.small()`` at
+   full width and depth, bf16, seeded random weights on the card; four
+   legs, each a fresh engine and one JSON line (requests completed, new
+   tokens/s over the leg, TTFT p50/p95, mean decode-iteration ms, peak
+   device memory, launch counters set to 0 just before the leg and read
+   just after):
+   1. paged (block 16, 256-token chunks), 12 requests of 32–1536 prompt
+      tokens, four sharing their first 512 (radix grafts), 32 new tokens
+      each: paged_flash_decode launches == 16 × engine steps, and
+      flash_decode none;
+   2. the same with ``spec_k=4`` (n-gram drafts), 4 requests whose
+      prompts repeat n-grams: 16 paged launches per verify or decode
+      iteration;
+   3. ``kv_dtype="int8"``, 4 requests: the same identity, on int8 codes;
+   4. unpaged blocking (``block_size=0, stall_free=False``), 4 requests:
+      flash_attention launches == 16 × prefills and flash_decode
+      launches == 16 × steps.
+f. serve parity — f32, TF32 off, full depth: the paged engine (kernel)
+   against the port's static ``generate()`` (flash kernels) on 4 prompts,
+   16 new tokens each. Greedy streams must be identical at every position
+   whose top-2 logit gap (from one dense forward over each finished
+   sequence) exceeds 10 × ``LOGIT_TOL``; a flip below that is printed as
+   a near tie with its gap.
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the package beside this file,
@@ -60,6 +90,11 @@ LOGIT_TOL = 2e-3
 PROMPT_LENS = [2048, 1500, 700, 33]
 NEW_TOKENS = 64
 PARITY_TOKENS = 16
+# paged_flash_decode cases: LlamaConfig.small()'s serving shapes
+PAGED_CUR = [2047, 1500, 900, 513, 300, 64, 17, 0]  # slot 7 parked on trash
+PAGED_PADS = [0, 0, 37, 0, 0, 0, 0, 0]
+PAGED_BS, PAGED_MB = 16, 132
+SERVE_NEW = 32
 
 
 def emit(obj) -> None:
@@ -114,12 +149,41 @@ def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_summary(log: str | None) -> dict | str:
+    """Registers and spill stores of every kernel, from ``nvcc -Xptxas
+    -v``: the most registers any kernel uses, and each kernel that
+    spills (mangled name, cut). "not measured" without a report."""
+    import re
+
+    if not log:
+        return "not measured"
+
+    fn, regs, spills = None, {}, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn and int(m.group(1)):
+            spills[fn[:90]] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    return dict(kernels=len(regs), max_registers=max(regs.values(),
+                                                     default=None),
+                spilling=spills)
+
+
 def phase_build(_build) -> dict:
     t0 = time.perf_counter()
     _build.library()
+    cached = _build.build_info.get("cached")
     info = dict(phase="build", seconds=time.perf_counter() - t0,
-                nvcc_seconds=_build.build_info.get("seconds"),
+                cached=cached,
+                nvcc_seconds="not measured" if cached
+                else _build.build_info.get("seconds"),
                 library=Path(_build.build_info["library"]).name,
+                ptxas=ptxas_summary(_build.build_info.get("log")),
                 nvidia_smi=smi())
     print(info["nvidia_smi"], flush=True)
     emit(info)
@@ -237,7 +301,109 @@ def decode_case(torch, fd, flush, *, name, b, hq, hkv, length, d, cur, pads,
     return rec
 
 
-def phase_kernels(torch, fa, fd) -> dict:
+def paged_case(torch, pfd, flush, *, name, dtype, kv, s_q):
+    """paged_flash_decode kernel vs plain on one seeded pool, then the
+    three times; returns the phase-b record. ``kv``: "same" (pools in
+    ``dtype``), "int8" or "fp8" (codes with a scale plane)."""
+    import torch.nn.functional as F
+
+    b, hq, hkv, d, bs, mb = 8, 16, 8, 128, PAGED_BS, PAGED_MB
+    g = torch.Generator().manual_seed(1000 * s_q + len(kv))
+    dt = getattr(torch, dtype)
+    need = [0 if c == 0 else -(-min(c + s_q, mb * bs) // bs)
+            for c in PAGED_CUR]
+    spare = 64
+    pool = 1 + sum(need) + spare
+    ids = torch.randperm(pool - 1, generator=g) + 1
+    dead = ids[sum(need):]
+    tables = torch.zeros((b, mb), dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(need):
+        if n:  # a non-contiguous run of pool ids, then NaN blocks
+            tables[r, :n] = ids[used:used + n].int()
+            tables[r, n:] = int(dead[r % spare])
+            used += n
+    shape = (pool, hkv, bs, d)
+    scales = None
+    if kv == "same":
+        kp, vp = (torch.randn(shape, generator=g).to(dt) for _ in range(2))
+        kp[dead], vp[dead] = float("nan"), float("nan")
+    else:
+        code = torch.int8 if kv == "int8" else torch.float8_e4m3fn
+        qmax = 127.0 if kv == "int8" else 448.0
+        kp, vp = ((torch.rand(shape, generator=g) * 2 - 1) * qmax
+                  for _ in range(2))
+        kp, vp = kp.round().to(code), vp.round().to(code)
+        scales = torch.rand((pool, hkv, 2), generator=g) * 0.02 + 1e-3
+        scales[dead] = float("nan")
+        if kv == "fp8":
+            kp[dead], vp[dead] = float("nan"), float("nan")
+    q = torch.randn((b, hq, s_q, d), generator=g).to(dt)
+    cur_t = torch.tensor(PAGED_CUR, dtype=torch.int32)
+    pad_t = torch.tensor(PAGED_PADS, dtype=torch.int32)
+    q, kp, vp, tables, cur_t, pad_t = (
+        t.to("cuda") for t in (q, kp, vp, tables, cur_t, pad_t))
+    scales = None if scales is None else scales.to("cuda")
+    args = (q, kp, vp, tables, cur_t, pad_t, scales)
+    o = pfd.paged_flash_decode(*args)
+    o_ref = pfd.paged_flash_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all(), f"{name}: NaN reached the output"
+    err = check_close(o, o_ref, dtype, name)
+    # the parked slot attends position 0 of trash block 0: finite
+    # garbage, not the all-masked zero output
+    assert torch.any(o[7, :, 0] != 0), f"{name}: parked slot output is 0"
+
+    # what the function must move: the K/V rows of the live positions
+    # [pad, min(cur + S, MB·bs)) of each slot, the scale pair of each
+    # live block those rows lie in, q and O; the operations of the live
+    # (query, column) pairs
+    length = mb * bs
+    spans = [(p, min(c + s_q, length)) for c, p in zip(PAGED_CUR, PAGED_PADS)]
+    rows = sum(max(0, e - p) for p, e in spans)
+    blocks = sum(max(0, -(-e // bs) - p // bs) for p, e in spans)
+    pairs = sum(max(0, min(c + i, length - 1) - p + 1)
+                for c, p in zip(PAGED_CUR, PAGED_PADS) for i in range(s_q))
+    nbytes = (2 * rows * hkv * d * kp.element_size()
+              + (0 if scales is None else blocks * hkv * 2 * 4)
+              + 2 * q.numel() * q.element_size())
+    flops = 4.0 * d * hq * pairs
+    bms, by = bound(flops, nbytes, dtype)
+    # yardstick: SDPA over the PRE-GATHERED dense view, never-read
+    # columns zeroed and masked (the gather itself is not timed)
+    kv_k = pfd.gathered_view(kp, tables, scales, 0)
+    kv_v = pfd.gathered_view(vp, tables, scales, 1)
+    col = torch.arange(length, device="cuda")
+    qpos = cur_t.long()[:, None] + torch.arange(s_q, device="cuda")
+    pad_l = pad_t.long()
+    read = ((col >= pad_l[:, None]) & (col < qpos[:, -1:] + 1))
+    kv_k = torch.where(read[:, None, :, None], kv_k, 0.0).to(dt)
+    kv_v = torch.where(read[:, None, :, None], kv_v, 0.0).to(dt)
+    mask = ((col[None, None] <= qpos[..., None])
+            & (col[None, None] >= pad_l[:, None, None]))[:, None]
+    tol, rtol = TOL[dtype]
+    rec = dict(phase="kernels", kernel="paged_flash_decode", case=name,
+               dtype=dtype, kv=kv, s_q=s_q,
+               shape=[b, hq, hkv, s_q, d, bs, mb, pool], cur=PAGED_CUR,
+               pads=PAGED_PADS, live_rows=rows, blocks_touched=blocks,
+               max_abs_err=err,
+               tol=tol, rtol=rtol,
+               ms=time_ms(torch, lambda: pfd.paged_flash_decode(*args),
+                          flush=flush),
+               plain_ms=time_ms(torch, lambda: pfd.paged_flash_decode_plain(
+                   *args), flush=flush),
+               library_ms=time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       q, kv_k, kv_v, attn_mask=mask, enable_gqa=True),
+                   flush=flush),
+               library="SDPA on the pre-gathered dense view (excludes "
+                       "the gather)",
+               bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+    emit(rec)
+    return rec
+
+
+def phase_kernels(torch, fa, fd, pfd) -> dict:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     b, s = len(PROMPT_LENS), PROMPT_LENS[0]
     main_pads = [s - n for n in PROMPT_LENS]           # [0, 548, 1348, 2015]
@@ -263,6 +429,15 @@ def phase_kernels(torch, fa, fd) -> dict:
         decode_case(torch, fd, flush, name="llama3_8b_gqa", b=b, hq=32,
                     hkv=8, length=length, d=128, cur=s + 1, pads=None,
                     dtype=dtype)
+        for kv in ("same", "int8", "fp8"):
+            if kv != "same" and dtype == "float32":
+                continue  # a quantized pool serves the bf16 model
+            for s_q in (1, 5):
+                rec = paged_case(torch, pfd, flush,
+                                 name=f"paged_{kv}_s{s_q}", dtype=dtype,
+                                 kv=kv, s_q=s_q)
+                if dtype == "bfloat16" and kv == "same" and s_q == 1:
+                    main["paged_flash_decode"] = rec
     del flush
     return main
 
@@ -349,21 +524,19 @@ def phase_main(torch, fa, fd) -> dict:
     return rec
 
 
-def profile_decode(torch, L, model, ids, pads, steps: int = 4) -> dict:
-    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
-    decode steps after a prefill — device busy share of the wall time and
-    the kernels that take it. Reports "not measured" when the profiler
-    sees no device activity."""
+def device_profile(torch, step, steps: int, window: str) -> dict:
+    """Where ``steps`` calls of ``step`` spend their time:
+    ``torch.profiler`` device busy share of the wall time and the kernels
+    that take it. Reports "not measured" when the profiler sees no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
-    cache = L.init_cache(model, ids.shape[0], ids.shape[1] + steps + 1)
-    tok = L._prefill(model, ids, cache, pads).argmax(-1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tok = L._decode_step(model, cache, tok, pads).argmax(-1)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
@@ -376,7 +549,7 @@ def profile_decode(torch, L, model, ids, pads, steps: int = 4) -> dict:
     busy_us = sum(t for _, t in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     return dict(
-        phase="profile", window=f"{steps} decode steps, small bf16",
+        phase="profile", window=window,
         wall_ms_per_step=wall_us / steps / 1e3,
         device_busy_ms_per_step=(busy_us / steps / 1e3) if busy_us
         else "not measured",
@@ -385,6 +558,18 @@ def profile_decode(torch, L, model, ids, pads, steps: int = 4) -> dict:
         device_launches_per_step=sum(n for n, _ in kernels.values()) / steps,
         top_kernels=[dict(name=n[:80], launches=c, us=t)
                      for n, (c, t) in top])
+
+
+def profile_decode(torch, L, model, ids, pads, steps: int = 4) -> dict:
+    """Where a decode step of ``generate()`` spends its time, over
+    ``steps`` steps after a prefill."""
+    cache = L.init_cache(model, ids.shape[0], ids.shape[1] + steps + 1)
+    tok = [L._prefill(model, ids, cache, pads).argmax(-1)]
+
+    def step():
+        tok[0] = L._decode_step(model, cache, tok[0], pads).argmax(-1)
+    return device_profile(torch, step, steps,
+                          f"{steps} decode steps, small bf16")
 
 
 def phase_parity(torch) -> dict:
@@ -426,6 +611,238 @@ def phase_parity(torch) -> dict:
     return rec
 
 
+def serve_prompts(torch, cfg, lens, seed, shared=(), head_len=512,
+                  repeat=None):
+    """Seeded prompts of ``lens`` tokens; those at indices ``shared`` start
+    with one common ``head_len``-token head; ``repeat`` n makes every
+    prompt a cycle of an n-token phrase (n-gram drafts find matches)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+
+    head = rand(head_len)
+    out = []
+    for i, n in enumerate(lens):
+        if repeat:
+            phrase = rand(repeat)
+            p = (phrase * (n // repeat + 1))[:n]
+        elif i in shared:
+            p = head + rand(n - head_len)
+        else:
+            p = rand(n)
+        out.append(p)
+    return out
+
+
+def reset_counts(fa, fd, pfd) -> None:
+    fa.flash_attention_fwd.launches = 0
+    fd.flash_decode.launches = 0
+    pfd.paged_flash_decode.launches = 0
+
+
+def read_counts(fa, fd, pfd) -> dict:
+    return {"flash_attention": fa.flash_attention_fwd.launches,
+            "flash_decode": fd.flash_decode.launches,
+            "paged_flash_decode": pfd.paged_flash_decode.launches}
+
+
+def serve_leg(torch, model, kernels, *, leg, prompts, **kw) -> tuple:
+    """One fresh engine serving ``prompts`` (all submitted at once) to the
+    end; the launch counters are set to 0 just before and read just
+    after. Returns the leg's record and the engine."""
+    from sparkdl_tpu_torch import GenerationEngine
+
+    eng = GenerationEngine.from_model(model, num_slots=8, max_len=2048,
+                                      device="cuda", **kw)
+    iter_s = []
+    for attr in ("step", "verify"):  # time each decode iteration
+        fn = getattr(eng.backend, attr)
+
+        def timed(*a, _fn=fn, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)  # returns host tokens: the device is done
+            iter_s.append(time.perf_counter() - t0)
+            return out
+        setattr(eng.backend, attr, timed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(*kernels)
+    outs = [h.result(1) for h in hs]
+    ttft = sorted(h.t_first_token - h.t_submit for h in hs)
+    st = eng.stats
+    new = sum(len(o) for o in outs)
+    for o in outs:
+        assert len(o) == SERVE_NEW and 0 <= min(o) and max(o) < \
+            model.cfg.vocab_size, f"{leg}: bad stream {o[:8]}"
+    rec = dict(phase="serve", leg=leg, config="LlamaConfig.small",
+               dtype="bfloat16", layers=model.cfg.num_layers,
+               engine={k: v for k, v in kw.items()}, num_slots=8,
+               max_len=2048, requests=len(prompts),
+               completed=st["completed"],
+               prompt_lens=[len(p) for p in prompts], new_tokens=new,
+               wall_s=wall, new_tokens_per_s=new / wall,
+               ttft_p50_s=ttft[len(ttft) // 2],
+               ttft_p95_s=ttft[max(0, -(-95 * len(ttft) // 100) - 1)],
+               decode_iterations=len(iter_s),
+               decode_iter_ms_mean=1e3 * sum(iter_s) / max(len(iter_s), 1),
+               steps=st["steps"], prefills=st["prefills"],
+               prefill_chunks=st["prefill_chunks"],
+               preemptions=st["preemptions"],
+               spec_verifies=st["spec_verifies"],
+               spec_tokens_accepted=st["spec_tokens_accepted"],
+               prefix=eng.backend.prefix_stats(), launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    assert st["completed"] == len(prompts), rec
+    return rec, eng
+
+
+def profile_serve(torch, eng, cfg, steps: int = 4) -> dict:
+    """Where a paged engine iteration spends its time once all 8 slots
+    decode: 8 requests of 64-token prompts are prefilled (one chunk an
+    iteration), then ``steps`` decode-only iterations are profiled."""
+    for p in serve_prompts(torch, cfg, [64] * 8, 9):
+        eng.submit(p, max_new_tokens=SERVE_NEW)
+    for _ in range(10):  # 8 one-chunk prefills, then decoding
+        eng.step()
+    rec = device_profile(torch, eng.step, steps,
+                         f"{steps} paged engine iterations, 8 slots "
+                         f"decoding, small bf16")
+    eng.run_until_idle()
+    return rec
+
+
+def phase_serve(torch, kernels) -> dict:
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = L.LlamaConfig.small()
+    nl = cfg.num_layers
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    paged = dict(block_size=16, prefill_chunk=256)
+    # warm-up (cuBLAS handles, allocator), outside every counted leg
+    warm, _ = serve_leg(torch, model, kernels, leg="warm-up",
+                        prompts=[[1, 2, 3] * 20], **paged)
+    del warm
+    g = torch.Generator().manual_seed(3)
+    lens = torch.randint(32, 1537, (12,), generator=g).tolist()
+    shared = (0, 9, 10, 11)  # 9-11 queue behind 0's committed prefix
+    for i in shared:
+        lens[i] = max(lens[i], 600)
+    legs = {}
+
+    rec, eng = serve_leg(torch, model, kernels, leg="paged",
+                         prompts=serve_prompts(torch, cfg, lens, 4, shared),
+                         **paged)
+    hits = (rec["prefix"] or {}).get("hits", 0)
+    assert rec["launches"]["paged_flash_decode"] == nl * rec["steps"], rec
+    assert rec["launches"]["flash_decode"] == 0, rec
+    assert hits >= 1, f"no radix graft in the paged leg: {rec['prefix']}"
+    emit(rec)
+    legs["paged"] = rec
+    emit(profile_serve(torch, eng, cfg))
+    del eng
+
+    rec, eng = serve_leg(
+        torch, model, kernels, leg="speculative", spec_k=4,
+        prompts=serve_prompts(torch, cfg, [700, 400, 260, 96], 5,
+                              repeat=24), **paged)
+    assert rec["spec_verifies"] >= 1, rec
+    assert rec["launches"]["paged_flash_decode"] == nl * rec["steps"], rec
+    emit(rec)
+    legs["speculative"] = rec
+    del eng
+
+    rec, eng = serve_leg(torch, model, kernels, leg="int8_kv",
+                         kv_dtype="int8",
+                         prompts=serve_prompts(torch, cfg,
+                                               [700, 300, 1200, 64], 6),
+                         **paged)
+    assert eng.backend.cache.k[0].dtype == torch.int8
+    assert rec["launches"]["paged_flash_decode"] == nl * rec["steps"] > 0, \
+        rec  # every launch read int8 codes: the pool holds nothing else
+    emit(rec)
+    legs["int8_kv"] = rec
+    del eng
+
+    rec, eng = serve_leg(torch, model, kernels, leg="unpaged_blocking",
+                         block_size=0, stall_free=False,
+                         prompts=serve_prompts(torch, cfg,
+                                               [900, 500, 200, 40], 7))
+    assert rec["launches"]["flash_attention"] == nl * rec["prefills"], rec
+    assert rec["launches"]["flash_decode"] == nl * rec["steps"], rec
+    assert rec["launches"]["paged_flash_decode"] == 0, rec
+    emit(rec)
+    legs["unpaged_blocking"] = rec
+    del eng, model
+    torch.cuda.empty_cache()
+    return legs
+
+
+def phase_serve_parity(torch, kernels) -> dict:
+    from sparkdl_tpu_torch import GenerationEngine
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = L.LlamaConfig.small()
+    model = L.LlamaModel(cfg, dtype=torch.float32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve_prompts(torch, cfg, [600, 300, 90, 33], 8)
+    new = PARITY_TOKENS
+    ids, pads = L.left_pad_prompts(prompts)
+    out = L.generate(model, ids, new, pad_lens=pads)
+    refs = [out[i, ids.shape[1]:].tolist() for i in range(len(prompts))]
+    eng = GenerationEngine.from_model(model, num_slots=4, max_len=1024,
+                                      block_size=16, prefill_chunk=256,
+                                      device="cuda")
+    reset_counts(*kernels)
+    hs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    eng.run_until_idle()
+    launches = read_counts(*kernels)
+    got = [h.result(1) for h in hs]
+    assert launches["paged_flash_decode"] == \
+        cfg.num_layers * eng.stats["steps"] > 0, launches
+    # top-2 logit gaps at every generated position, from one dense
+    # forward over each finished engine sequence
+    model.attn_fn = None
+    gate = 10 * LOGIT_TOL
+    near_ties, min_gap, identical = [], float("inf"), 0
+    with torch.no_grad():
+        for r, (p, stream, ref) in enumerate(zip(prompts, got, refs)):
+            seq = torch.tensor([p + stream], device="cuda")
+            logits = model(seq)[0, len(p) - 1:len(p) - 1 + new]
+            top2 = logits.topk(2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            min_gap = min(min_gap, min(gaps))
+            flip = next((j for j in range(new) if stream[j] != ref[j]),
+                        None)
+            if flip is None:
+                identical += 1
+                continue
+            assert gaps[flip] <= gate, (
+                f"request {r}: engine and generate() differ at position "
+                f"{flip} with a top-2 gap of {gaps[flip]} > {gate}")
+            near_ties.append(dict(request=r, position=flip,
+                                  gap=gaps[flip]))
+    rec = dict(phase="serve_parity", config="LlamaConfig.small",
+               dtype="float32", tf32=False, layers=cfg.num_layers,
+               depth_cut=False, prompt_lens=[len(p) for p in prompts],
+               new_tokens=new, engine="paged, block 16, 256-token chunks",
+               reference="generate() through the flash kernels",
+               identical_streams=identical, requests=len(prompts),
+               near_tie_gate=gate, near_ties=near_ties,
+               min_top2_gap=min_gap, launches=launches)
+    emit(rec)
+    del eng, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -443,24 +860,35 @@ def main() -> int:
     from sparkdl_tpu_torch.ops import _build
     from sparkdl_tpu_torch.ops import flash_attention as fa
     from sparkdl_tpu_torch.ops import flash_decode as fd
+    from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
 
     phase_build(_build)
-    main_recs = phase_kernels(torch, fa, fd)
+    main_recs = phase_kernels(torch, fa, fd, pfd)
     mp = phase_main(torch, fa, fd)
     phase_parity(torch)
+    legs = phase_serve(torch, (fa, fd, pfd))
+    phase_serve_parity(torch, (fa, fd, pfd))
 
+    # each kernel's launches come from the main path that runs it:
+    # generate() (phase c) for the first two, the paged serve leg for B3
     sources = {
         "flash_attention": ("sparkdl_tpu_torch/csrc/flash_attention.cu",
-                            "sparkdl_tpu/ops/flash_attention.py:50"),
+                            "sparkdl_tpu/ops/flash_attention.py:50",
+                            mp["launches"]),
         "flash_decode": ("sparkdl_tpu_torch/csrc/flash_decode.cu",
-                         "sparkdl_tpu/ops/flash_decode.py:62"),
+                         "sparkdl_tpu/ops/flash_decode.py:62",
+                         mp["launches"]),
+        "paged_flash_decode": (
+            "sparkdl_tpu_torch/csrc/paged_flash_decode.cu",
+            "sparkdl_tpu/ops/paged_flash_decode.py:63",
+            legs["paged"]["launches"]),
     }
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, counts) in sources.items():
         r = main_recs[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=mp["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=counts[name], max_abs_err=r["max_abs_err"],
             tol=r["tol"], rtol=r["rtol"], case=r["case"], dtype=r["dtype"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

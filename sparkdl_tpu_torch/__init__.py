@@ -12,9 +12,16 @@ CPU tensors take.
 This package imports ``torch`` and never ``jax``, ``flax`` or anything of
 ``sparkdl_tpu``. Importing it builds nothing and touches no device.
 
-Ported so far: Llama generation (``models.llama.generate``) with its two
-kernels, ``ops.flash_attention`` (prefill) and ``ops.flash_decode``
-(per-token decode). ROADMAP.md lists what is still to port.
+Ported so far: Llama generation (``models.llama.generate``) and the
+continuous-batching serving engine (``GenerationEngine.from_model``,
+unpaged and paged, speculative verify, int8 / fp8 KV pool) with the
+three kernels they run: ``ops.flash_attention`` (prefill),
+``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
+(block-table decode and verify). ROADMAP.md lists what is still to port.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+from .serving import GenerationEngine  # noqa: E402 — as sparkdl_tpu does
+
+__all__ = ["GenerationEngine"]

@@ -1,4 +1,5 @@
-"""Model families of the port. Only Llama generation so far."""
+"""Model families of the port. Only Llama (generation and the serving
+engine's slot primitives) so far."""
 
 from .llama import LlamaConfig, LlamaModel, generate
 

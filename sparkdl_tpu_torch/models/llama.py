@@ -1,11 +1,12 @@
 """Llama-style decoder-only transformer with LoRA, and KV-cache generation.
 
-The counterpart of ``sparkdl_tpu/models/llama.py:36-1052``: the single-
-device, float-weight part — config, RMSNorm, LoRADense, rope, the
-attention with its training path and its static-cache decode path, MLP,
-layer, model, and ``generate``. The continuous-batching slot and paged
-primitives, weight and KV quantization and the tensor-parallel kernel
-mesh are not ported yet (ROADMAP.md).
+The counterpart of ``sparkdl_tpu/models/llama.py``'s single-device,
+float-weight part: config, RMSNorm, LoRADense, rope, the attention with
+its training path, its static-cache decode path and its per-slot
+(``slot_cur``) serving branches, MLP, layer, model, ``generate``, the
+continuous-batching slot primitives, the paged block-table primitives
+and the block-quantized (int8 / fp8) KV pool. Weight quantization and
+the tensor-parallel kernel mesh are not ported yet (ROADMAP.md).
 
 Hazards the port keeps, each from the JAX module:
 
@@ -19,12 +20,14 @@ Hazards the port keeps, each from the JAX module:
   masks each row's left pad (``:627-635``).
 
 Differences of idiom: the model holds its weights (``nn.Module``), so
-:func:`generate` takes no ``variables``; :func:`load_flax_params` fills a
-model from the JAX package's parameter tree. The KV cache is a
-:class:`KVCache` whose tensors are written IN PLACE at the running index
-(JAX returned a new cache from every step). Sampling draws from an
-explicit ``torch.Generator``; greedy decoding is deterministic and
-matches the JAX package token for token.
+:func:`generate` and the slot primitives take no ``variables``;
+:func:`load_flax_params` fills a model from the JAX package's parameter
+tree. The KV cache, the slot cache and the paged pool are each a
+:class:`KVCache` whose tensors are written IN PLACE (JAX donated its
+buffers and returned new ones from every step); the running ``idx`` and
+a quantized pool's ``kv_scale`` planes are plain attributes. Sampling
+draws from an explicit ``torch.Generator``; greedy decoding is
+deterministic and matches the JAX package token for token.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import flash_decode as fd
+from ..ops import paged_flash_decode as pfd
 from ..ops.flash_attention import resolve_attn_fn
 from ..parallel.ring_attention import NEG_INF
 from ..utils.platform import resolve_device
@@ -150,6 +154,179 @@ def _prefill_attn_fn(fn, need_mask: bool):
     return fn if "kv_mask" in params else None
 
 
+def _table_blocks(tables, bi, real):
+    """Physical pool block for each logical block index ``bi``, with
+    every position whose ``real`` flag is False routed to the trash
+    block 0 — the trash-route-NEVER-clamp rule shared by the paged
+    chunk prefill and the in-layer decode/verify writes (an
+    out-of-table or pad position must land where nobody reads, never
+    slide back over a committed block). ``tables`` is a ``[MB]`` row
+    (the chunk primitive) or ``[B, MB]`` slot tables; the ``min`` clamp
+    only keeps the gather in bounds — clamped positions are ~real and
+    route to trash."""
+    mb = tables.shape[-1]
+    safe = bi.clamp_max(mb - 1).long()
+    blk = tables.long()[safe] if tables.dim() == 1 else \
+        torch.gather(tables.long(), 1, safe)
+    return torch.where(real, blk, 0)
+
+
+def _dense_slot_attention(q, k_all, v_all, qpos, pads, cfg, dtype):
+    """Masked dense causal-vs-cache attention for the per-slot
+    (``slot_cur``) serving paths — ONE definition shared by the paged
+    and unpaged dense arms: query i of row r attends cache columns
+    ``[pads[r], qpos[r, i]]``. GQA runs against the untiled cache (group
+    axis in the einsum, no repeat of K/V); masked columns get exactly
+    zero probability (exp underflow of -1e30), so table-aliased garbage
+    never perturbs live rows."""
+    B, S = qpos.shape
+    hd = cfg.head_dim
+    rep = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(B, cfg.num_kv_heads, rep, S, hd)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k_all) / math.sqrt(hd)
+    col = torch.arange(k_all.shape[2], device=q.device)[None, None, :]
+    valid = (col <= qpos[..., None]) & (col >= pads[:, None, None])
+    s = torch.where(valid[:, None, None], s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1).to(dtype)
+    return torch.einsum("bgrqk,bgkd->bgrqd", p, v_all).reshape(
+        B, cfg.num_heads, S, hd)
+
+
+# ---------------------------------------------------------------------------
+# Block-quantized KV: the paged pool's K/V leaves store int8 (or fp8)
+# CODES and a parallel ``kv_scale`` [pool_blocks, Hkv, 2] f32 plane per
+# layer holds one absmax scale per (physical block, kv head, K-or-V):
+# dequant is codes·scale. The scale is a property of the PHYSICAL block,
+# so radix grafts (table pointer copies) and copy-on-write (block copies)
+# move scales with their codes, and the paged kernel dequantizes as it
+# reads — no float copy of the cache exists in device memory.
+# ---------------------------------------------------------------------------
+
+KV_QUANT_DTYPES: dict = {"int8": (torch.int8, 127.0),
+                         "fp8": (torch.float8_e4m3fn, 448.0)}
+
+
+def kv_quant_spec(name: str):
+    """(storage dtype, qmax) for a KV quant mode name — raises with the
+    available modes on a miss, never silently falls back."""
+    try:
+        return KV_QUANT_DTYPES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown KV quant dtype {name!r}; available: "
+            f"{sorted(KV_QUANT_DTYPES)}") from None
+
+
+def kv_quant_name(dtype) -> str | None:
+    """Quant mode name for a stored K/V dtype, or None for a float
+    cache — quantization is detected from the POOL, not a model flag."""
+    for name, (dt, _) in KV_QUANT_DTYPES.items():
+        if dtype == dt:
+            return name
+    return None
+
+
+def _kv_qmax(dtype) -> float:
+    for dt, qmax in KV_QUANT_DTYPES.values():
+        if dtype == dt:
+            return qmax
+    raise ValueError(f"not a KV quant storage dtype: {dtype}")
+
+
+def _requant(x, qdt, qmax):
+    """f32 values (already divided by scale) → codes: round (half to
+    even, as ``jnp.round``) and clip for int storage, clip and cast for
+    fp8 (the cast itself rounds to nearest even)."""
+    if not qdt.is_floating_point:
+        x = torch.round(x)
+    return x.clamp(-qmax, qmax).to(qdt)
+
+
+def _quant_insert_rows(codes, plane, ch, blk, off, rows):
+    """Insert float ``rows`` [N, Hkv, hd] at pool positions
+    ``(blk[n], :, off[n], :)`` of a quantized ``codes`` leaf IN PLACE,
+    maintaining the shared per-(block, head) scale ``plane[..., ch]``
+    (ch 0 = K, 1 = V). ONE routine serves the in-layer decode/verify
+    writes, the chunk-prefill scatter and the blocking-prefill scatter.
+
+    Scale discipline, in scatter order (as the JAX package's):
+    1. an ``off == 0`` row is a block's FIRST write (positions fill
+       sequentially under the write-frontier invariant), so its scale
+       resets to 0 — a freed-then-reallocated block must not inherit
+       the previous tenant's scale (non-first rows reset the trash
+       block 0, which nothing reads live);
+    2. scatter-max of the incoming rows' absmax/qmax grows the scale
+       (duplicate blocks in ``blk`` accumulate — a multi-row write into
+       one block yields the block's true absmax);
+    3. surviving rows of every touched block requantize by
+       old_s/new_s — exact when the scale did not grow, one ≤½-LSB
+       rounding when it did; ratio 0 (a fresh block) wipes stale codes;
+    4. the new rows quantize at the final scale.
+
+    ``index_put_`` with duplicate indices keeps one of the written
+    values: step 3's duplicates (one block named by several rows) carry
+    identical content — the same old codes times the same ratio — and
+    step 4's duplicate (block, offset) pairs occur only on the trash
+    block 0, whose content nothing reads live."""
+    qdt = codes.dtype
+    qmax = _kv_qmax(qdt)
+    rows = rows.float()
+    blk = blk.long()
+    off = off.long()
+    col = plane[:, :, ch]                       # [P, Hkv] view
+    col[torch.where(off == 0, blk, 0)] = 0.0
+    amax = rows.abs().amax(-1)                  # [N, Hkv]
+    old_s = col[blk]
+    col.scatter_reduce_(0, blk[:, None].expand_as(amax), amax / qmax,
+                        "amax")
+    new_s = col[blk]
+    safe = new_s.clamp_min(1e-30)
+    ratio = torch.where(new_s > 0, old_s / safe, 0.0)
+    codes[blk] = _requant(codes[blk].float() * ratio[:, :, None, None],
+                          qdt, qmax)
+    codes[blk, :, off] = _requant(rows / safe[:, :, None], qdt, qmax)
+
+
+@dataclasses.dataclass
+class _SlotStep:
+    """What every layer of one slot step (decode or verify window)
+    shares: the per-row fill indices, pads, logical query positions
+    ``qpos`` ``[B, S]``, rope positions, the block tables (paged) and
+    the cache write's index tuple, computed once per forward. ``sel``
+    picks the written rows of the step's ``[B, S]`` K/V (None: all)."""
+    cur: torch.Tensor
+    pads: torch.Tensor
+    qpos: torch.Tensor
+    pos: torch.Tensor
+    tables: torch.Tensor | None
+    where: tuple
+    sel: tuple | None = None
+
+
+def _slot_step(slot_cur, pad_lens, s: int, cache, tables) -> _SlotStep:
+    dev = slot_cur.device
+    cur = slot_cur.to(torch.int32)
+    pads = (torch.zeros_like(cur) if pad_lens is None
+            else pad_lens.to(device=dev, dtype=torch.int32))
+    qpos = cur.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    pos = (qpos - pads.long()[:, None]).clamp_min(0)
+    if tables is not None:
+        # Writes go through the table; a position past it (an
+        # overhanging draft column) routes to the trash block 0.
+        bs, mb = cache.k[0].shape[2], tables.shape[1]
+        bi = qpos // bs
+        return _SlotStep(cur, pads, qpos, pos, tables,
+                         (_table_blocks(tables, bi, bi < mb), qpos % bs))
+    rows = torch.arange(cur.shape[0], device=dev)[:, None].expand(-1, s)
+    if s == 1:
+        # a decode step writes at cur < max_len (the engine's admission)
+        return _SlotStep(cur, pads, qpos, pos, None, (rows, qpos))
+    # A verify window's writes past the row's end are DROPPED, never
+    # clamped back over committed rows.
+    sel = (qpos < cache.k[0].shape[2]).nonzero(as_tuple=True)
+    return _SlotStep(cur, pads, qpos, pos, None, (rows[sel], qpos[sel]), sel)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -168,12 +345,16 @@ class LlamaAttention(nn.Module):
         self.o_proj = proj("o_proj", c.num_heads * hd, c.hidden_size)
 
     def forward(self, x, positions, attn_fn, kv=None, cur: int = 0,
-                pad_lens=None, first_chunk: bool = False):
+                pad_lens=None, first_chunk: bool = False, slots=None):
         """``kv`` None: the training path (causal self-attention over x).
         ``kv = (k_cache, v_cache)``: the serving path — this call's S
         tokens are written into the caches at slot ``cur`` (in place) and
         attend the cache; ``pad_lens`` ``[B]`` masks each row's left pad
-        and counts rope positions from its first real token."""
+        and counts rope positions from its first real token. With
+        ``slots`` (a :class:`_SlotStep`) every row is an independent
+        in-flight request at its own fill index (:meth:`_slot`); ``kv``
+        then is the slot cache or the paged pool, plus a quantized
+        pool's scale plane as a third entry."""
         c = self.cfg
         B, S, _ = x.shape
         hd, hq, hkv = c.head_dim, c.num_heads, c.num_kv_heads
@@ -198,11 +379,72 @@ class LlamaAttention(nn.Module):
                 s = torch.where(mask, s.float(), NEG_INF)
                 p = torch.softmax(s, dim=-1).to(q.dtype)
                 o = torch.einsum("bhqk,bhkd->bhqd", p, v)
+        elif slots is not None:
+            o = self._slot(q, k, v, kv, attn_fn, slots)
         else:
             o = self._cached(q, k, v, kv, attn_fn, cur, pad_lens,
                              first_chunk)
         o = o.transpose(1, 2).reshape(B, S, hq * hd)
         return self.o_proj(o)
+
+    def _slot(self, q, k, v, kv, attn_fn, st: _SlotStep):
+        """The continuous-batching step / speculative verify window: row
+        r's S tokens write at ``[cur[r], cur[r] + S)`` and query i
+        attends ``[pads[r], cur[r] + i]`` — dense causal-vs-cache under
+        the write-frontier invariant: every row at or past the frontier
+        is (re)written before any attention can read it, so rejected
+        drafts leave inert garbage the next real write overwrites.
+
+        Paged (``st.tables``): ``kv`` is the shared pool, written and
+        read through the tables; attention runs in the paged kernel
+        (:func:`ops.paged_flash_decode.paged_decode_fn_for`) or, where
+        the caller turned it off, over the gathered view. Unpaged:
+        ``kv`` is the ``[num_slots, Hkv, max_len, hd]`` slot cache; a
+        decode step (S = 1) runs the flash-decode kernel with per-row
+        ``cur + 1`` when the model's attention pairs with it; a verify
+        window attends densely, as in the JAX package."""
+        c = self.cfg
+        hkv, hd = c.num_kv_heads, c.head_dim
+        q = rope(q, st.pos, c.rope_theta)
+        k = rope(k, st.pos, c.rope_theta)
+        kr, vr = k.transpose(1, 2), v.transpose(1, 2)   # [B, S, Hkv, hd]
+        k_cache, v_cache = kv[0], kv[1]
+        plane = kv[2] if len(kv) > 2 else None
+        if st.tables is not None:
+            blk, off = st.where
+            if plane is None:
+                # duplicate (block, offset) pairs occur only on the trash
+                # block 0 (parked slots, overhanging columns)
+                k_cache[blk, :, off] = kr.to(k_cache.dtype)
+                v_cache[blk, :, off] = vr.to(v_cache.dtype)
+            else:
+                fb, fo = blk.reshape(-1), off.reshape(-1)
+                _quant_insert_rows(k_cache, plane, 0, fb, fo,
+                                   kr.reshape(-1, hkv, hd))
+                _quant_insert_rows(v_cache, plane, 1, fb, fo,
+                                   vr.reshape(-1, hkv, hd))
+            dec = pfd.paged_decode_fn_for(attn_fn)
+            if dec is not None:
+                return dec(q.contiguous(), k_cache, v_cache, st.tables,
+                           st.cur, st.pads, plane)
+            k_all = pfd.gathered_view(k_cache, st.tables, plane, 0).to(
+                q.dtype)
+            v_all = pfd.gathered_view(v_cache, st.tables, plane, 1).to(
+                q.dtype)
+            return _dense_slot_attention(q, k_all, v_all, st.qpos, st.pads,
+                                         c, q.dtype)
+        rows, cols = st.where
+        if st.sel is not None:
+            kr, vr = kr[st.sel], vr[st.sel]
+        k_cache[rows, :, cols] = kr.to(k_cache.dtype)
+        v_cache[rows, :, cols] = vr.to(v_cache.dtype)
+        if q.shape[2] == 1:
+            dec = fd.decode_fn_for(attn_fn)
+            if dec is not None:
+                # per-row cur: each slot reads only its own live slots
+                return dec(q, k_cache, v_cache, st.cur + 1, st.pads)
+        return _dense_slot_attention(q, k_cache, v_cache, st.qpos, st.pads,
+                                     c, q.dtype)
 
     def _cached(self, q, k, v, kv, attn_fn, cur, pad_lens, first_chunk):
         c = self.cfg
@@ -296,19 +538,34 @@ class LlamaLayer(nn.Module):
         self.mlp = LlamaMLP(cfg, dtype, device)
 
     def forward(self, x, positions, attn_fn, kv=None, cur: int = 0,
-                pad_lens=None, first_chunk: bool = False):
+                pad_lens=None, first_chunk: bool = False, slots=None):
         x = x + self.attn(self.attn_norm(x), positions, attn_fn, kv, cur,
-                          pad_lens, first_chunk)
+                          pad_lens, first_chunk, slots)
         return x + self.mlp(self.mlp_norm(x))
 
 
 @dataclasses.dataclass
 class KVCache:
-    """Per-layer K/V tensors ``[B, Hkv, max_len, head_dim]`` and the
-    running fill index, a host int (``idx``). Written in place."""
+    """Per-layer K/V tensors and the running fill index, a host int
+    (``idx``), all written in place. A generate() cache or the engine's
+    slot cache holds ``[B, Hkv, max_len, head_dim]`` per layer; a paged
+    pool holds ``[pool_blocks, Hkv, block_size, head_dim]`` blocks, and a
+    quantized pool the codes plus one ``[pool_blocks, Hkv, 2]`` f32 scale
+    plane per layer (``kv_scale``; None for a float cache)."""
     k: list
     v: list
     idx: int = 0
+    kv_scale: list | None = None
+
+    def layer(self, i: int) -> tuple:
+        """Layer ``i``'s ``(k, v)``, plus its scale plane when quantized."""
+        if self.kv_scale is None:
+            return self.k[i], self.v[i]
+        return self.k[i], self.v[i], self.kv_scale[i]
+
+    def tensors(self) -> list:
+        """Every tensor of the cache (K, V and scale planes)."""
+        return [*self.k, *self.v, *(self.kv_scale or [])]
 
 
 class LlamaModel(nn.Module):
@@ -361,26 +618,37 @@ class LlamaModel(nn.Module):
                 normal(p, 1.0 / math.sqrt(p.shape[1]))
 
     def forward(self, input_ids, cache: KVCache | None = None, pad_lens=None,
-                first_chunk: bool = False, last_only: bool = False):
+                first_chunk: bool = False, last_only: bool = False,
+                slot_cur=None, block_tables=None):
         """``cache`` None: the training forward. With a :class:`KVCache`:
         the serving forward — writes at ``cache.idx`` and advances it.
         ``first_chunk`` (serving, True only when writing at slot 0 —
         :func:`_prefill` passes it) enables the square flash prefill.
-        ``last_only``: logits of the last position only, ``[B, 1, V]``."""
+        ``last_only``: logits of the last position only, ``[B, 1, V]``.
+
+        ``slot_cur`` ``[B]`` (continuous batching): every cache row is an
+        independent request at its own fill index; ``cache.idx`` is
+        neither read nor advanced. With ``block_tables`` ``[B, MB]`` the
+        cache is the paged pool, addressed through the tables."""
         if pad_lens is not None and cache is None:
             raise ValueError(
                 "pad_lens is a KV-cache serving feature; the training path "
                 "has no left-pad masking — feed right-padded batches with a "
                 "loss mask instead")
+        if slot_cur is not None and cache is None:
+            raise ValueError("slot_cur needs the slot cache or paged pool")
         S = input_ids.shape[1]
         positions = torch.arange(S, device=input_ids.device)
         attn_fn = resolve_attn_fn(self.attn_fn)
         cur = 0 if cache is None else cache.idx
+        slots = None if slot_cur is None else _slot_step(
+            slot_cur, pad_lens, S, cache, block_tables)
         x = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
-            kv = None if cache is None else (cache.k[i], cache.v[i])
-            x = layer(x, positions, attn_fn, kv, cur, pad_lens, first_chunk)
-        if cache is not None:
+            kv = None if cache is None else cache.layer(i)
+            x = layer(x, positions, attn_fn, kv, cur, pad_lens, first_chunk,
+                      slots)
+        if cache is not None and slots is None:
             cache.idx = cur + S
         if last_only:
             x = x[:, -1:]
@@ -639,3 +907,304 @@ def generate(model: LlamaModel, prompt_ids, max_new_tokens: int,
                             eos_id=None if eos_id is None else int(eos_id))
     ids = torch.cat([prompt_ids, toks], dim=1)
     return (ids, n_steps) if return_steps else ids
+
+
+# ---------------------------------------------------------------------------
+# Slot-level serving primitives (continuous batching — serving.engine)
+# ---------------------------------------------------------------------------
+# generate() runs whole batches in lockstep. The primitives below are the
+# per-SLOT halves the in-flight batching engine composes instead: a
+# refill writes one new request's cache into one row of a shared slot
+# cache (the other rows' in-flight state untouched), and a decode step
+# advances EVERY slot one token at its own fill index. The caches are
+# written in place; slot, offset and fill indices are plain arguments.
+
+
+@torch.no_grad()
+def prefill_into_slot(model: LlamaModel, prompt_ids, pad_len, cache: KVCache,
+                      slot: int, generator=None, *, temperature: float = 0.0,
+                      top_k: int = 0, top_p: float = 1.0):
+    """Prefill ONE request into row ``slot`` of the engine's slot cache
+    (the blocking whole-prompt refill).
+
+    ``prompt_ids``: ``[1, Lb]``, left-padded to the engine's bucket
+    length (``pad_len``: ``[1]`` — the :func:`left_pad_prompts`
+    contract). The prompt runs the standard first-chunk prefill (the
+    flash kernel when the model's attention resolves to it) against the
+    row's first ``Lb`` positions, which it writes in place — compute is
+    O(Lb²), never O(Lb·max_len), and positions count from the first real
+    token exactly as in ``generate()``, so a refilled slot's logits are
+    those of a fresh static run of the same prompt. Returns the first
+    sampled token, ``[1]``."""
+    lb = prompt_ids.shape[1]
+    row = KVCache([k[slot:slot + 1, :, :lb] for k in cache.k],
+                  [v[slot:slot + 1, :, :lb] for v in cache.v])
+    logits = model(prompt_ids, cache=row, pad_lens=pad_len, first_chunk=True,
+                   last_only=True)
+    return _sample(logits[:, -1].float(), generator, temperature, top_k,
+                   top_p)
+
+
+@torch.no_grad()
+def prefill_chunk_into_slot(model: LlamaModel, chunk_ids, cache: KVCache,
+                            slot: int, offset: int, n_valid: int,
+                            generator=None, *, window: int | None = None,
+                            temperature: float = 0.0, top_k: int = 0,
+                            top_p: float = 1.0):
+    """Consume ``C`` prompt tokens of ONE request into row ``slot`` at
+    cache positions ``[offset, offset + C)`` — the stall-free engine's
+    chunk primitive, interleaved with :func:`slot_decode_step` so a
+    refill never monopolizes the device.
+
+    ``chunk_ids``: ``[1, C]``, **zero-aligned** (token ``i`` at cache
+    position ``i``, no left pad); the FINAL chunk right-pads and
+    ``n_valid`` names its real tokens. The pad tail's K/V rows are
+    written but harmless (causality bounds every real query, and the
+    decode step overwrites position ``L`` first). ``window`` (default the
+    full row) bounds the rows the chunk attends: the caller passes the
+    request's chunk-aligned prompt length. The chunk runs the model's
+    multi-call cache path (dense attention over the window) against the
+    slot's own row, written in place. Returns the token sampled at the
+    last REAL position, ``[1]`` — meaningful on the final chunk."""
+    w = cache.k[0].shape[2] if window is None \
+        else min(int(window), cache.k[0].shape[2])
+    row = KVCache([k[slot:slot + 1, :, :w] for k in cache.k],
+                  [v[slot:slot + 1, :, :w] for v in cache.v], idx=offset)
+    logits = model(chunk_ids, cache=row)
+    last = logits[:, max(int(n_valid) - 1, 0)]
+    return _sample(last.float(), generator, temperature, top_k, top_p)
+
+
+@torch.no_grad()
+def slot_decode_step(model: LlamaModel, cache: KVCache, tokens, slot_cur,
+                     pad_lens, generator=None, *, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 1.0):
+    """One in-flight decode iteration: every slot advances one token at
+    its OWN fill index. ``tokens`` ``[num_slots]`` (idle slots' values
+    are irrelevant — their output is discarded host-side); ``slot_cur``
+    ``[num_slots]`` per-slot fill indices (the token writes there and
+    attends ``[pad_lens[r], slot_cur[r]]``). Returns the next tokens,
+    ``[num_slots]``."""
+    logits = model(tokens[:, None], cache=cache, pad_lens=pad_lens,
+                   slot_cur=slot_cur)
+    return _sample(logits[:, -1].float(), generator, temperature, top_k,
+                   top_p)
+
+
+@torch.no_grad()
+def slot_verify_step(model: LlamaModel, cache: KVCache, tokens, slot_cur,
+                     pad_lens):
+    """The speculative VERIFY window: one batched forward checks k
+    drafted tokens per slot. ``tokens`` ``[num_slots, k+1]`` — column 0
+    is each slot's current token, columns 1..k its drafts. Row r writes
+    its k+1 K/V rows at ``[slot_cur[r], slot_cur[r]+k]`` (writes past
+    ``max_len`` are dropped) and query i attends ``[pad_lens[r],
+    slot_cur[r]+i]``; rejected rows sit past the new frontier and are
+    overwritten before any attention reads them, so reject is a pure
+    host-side ``cur`` non-advance. Returns the greedy proposals
+    ``[num_slots, k+1]``: ``proposals[r, i]`` is the token the target
+    emits after ``tokens[r, :i+1]``."""
+    logits = model(tokens, cache=cache, pad_lens=pad_lens, slot_cur=slot_cur)
+    return logits.float().argmax(-1)
+
+
+# ---------------------------------------------------------------------------
+# Paged slot primitives (block-table serving)
+# ---------------------------------------------------------------------------
+# The primitives above address a PRIVATE [num_slots, ..., max_len, ...]
+# cache row per slot. The paged variants address ONE shared pool of
+# [pool_blocks, Hkv, block_size, hd] K/V blocks per layer through a
+# per-slot block TABLE ([max_blocks] ints): logical cache position p of a
+# slot lives at pool position (table[p // block_size], p % block_size).
+# The decode / verify primitives hand the pool and the tables straight
+# to the model: each layer writes only the new positions through the
+# table and attends the pool THROUGH the table (the paged flash-decode
+# kernel, ops.paged_flash_decode), so per-step traffic is O(cur) per
+# slot. The chunk / whole-prompt prefill primitives attend a
+# window-bounded gathered view (prefill is compute-bound).
+
+
+def paged_pool_spec(model: LlamaModel, pool_blocks: int, block_size: int,
+                    kv_quant: str | None = None) -> list:
+    """``(shape, dtype)`` of every tensor of the paged pool — the single
+    source of truth for allocation (:func:`init_paged_pool`) AND byte
+    accounting (``serving.backend.pool_bytes_per_block``). With
+    ``kv_quant`` ('int8'/'fp8') the K/V leaves store codes in the quant
+    dtype and every layer gains a ``kv_scale`` ``[pool_blocks, Hkv, 2]``
+    f32 plane (``[..., 0]`` = K scales, ``[..., 1]`` = V)."""
+    c = model.cfg
+    shape = (int(pool_blocks), c.num_kv_heads, int(block_size), c.head_dim)
+    dt = model.dtype if kv_quant is None else kv_quant_spec(kv_quant)[0]
+    spec = [(shape, dt)] * (2 * c.num_layers)
+    if kv_quant is not None:
+        spec += [((int(pool_blocks), c.num_kv_heads, 2),
+                  torch.float32)] * c.num_layers
+    return spec
+
+
+def init_paged_pool(model: LlamaModel, pool_blocks: int, block_size: int,
+                    kv_quant: str | None = None) -> KVCache:
+    """Zeroed shared K/V pool: per layer ``[pool_blocks, kv_heads,
+    block_size, head_dim]`` — structurally an :func:`init_cache` with
+    batch=pool_blocks and max_len=block_size, which is exactly the
+    block-major paged layout. Block 0 is the trash block
+    (``serving.paging.BlockAllocator``): idle slots' tables point at it,
+    so masked garbage writes land where no request reads. ``kv_quant``
+    stores K/V as codes with a per-block ``kv_scale`` plane
+    (:func:`paged_pool_spec`)."""
+    spec = paged_pool_spec(model, pool_blocks, block_size, kv_quant)
+    n = model.cfg.num_layers
+    made = [torch.zeros(s, dtype=dt, device=model.device) for s, dt in spec]
+    return KVCache(made[:n], made[n:2 * n],
+                   kv_scale=made[2 * n:] if kv_quant is not None else None)
+
+
+def _gather_view(pool: KVCache, tables) -> KVCache:
+    """Dense per-slot cache view through the block tables: ``[P, Hkv,
+    bs, hd]`` pool leaves + ``[S, MB]`` tables → ``[S, Hkv, MB*bs, hd]``
+    rows per layer. A quantized pool yields the DEQUANTIZED f32 view
+    (codes·per-block scale). The reference the equivalence tests compare
+    against; the serving paths read through the tables instead."""
+    planes = pool.kv_scale or [None] * len(pool.k)
+    return KVCache(
+        [pfd.gathered_view(k, tables, p, 0) for k, p in zip(pool.k, planes)],
+        [pfd.gathered_view(v, tables, p, 1) for v, p in zip(pool.v, planes)])
+
+
+def _pool_insert(pool: KVCache, i: int, blk, off, k_rows, v_rows) -> None:
+    """Write ``[N, Hkv, hd]`` K/V rows of layer ``i`` at pool positions
+    ``(blk[n], off[n])``, quantizing into a codes pool. Duplicate
+    (block, offset) pairs occur only on the trash block 0."""
+    if pool.kv_scale is None:
+        pool.k[i][blk, :, off] = k_rows.to(pool.k[i].dtype)
+        pool.v[i][blk, :, off] = v_rows.to(pool.v[i].dtype)
+    else:
+        _quant_insert_rows(pool.k[i], pool.kv_scale[i], 0, blk, off, k_rows)
+        _quant_insert_rows(pool.v[i], pool.kv_scale[i], 1, blk, off, v_rows)
+
+
+@torch.no_grad()
+def paged_slot_decode_step(model: LlamaModel, pool: KVCache, tables, tokens,
+                           slot_cur, pad_lens, generator=None, *,
+                           temperature: float = 0.0, top_k: int = 0,
+                           top_p: float = 1.0):
+    """One in-flight decode iteration over the BLOCK-TABLE cache: every
+    slot advances one token at its own fill index, reading its cache
+    through ``tables`` (``[num_slots, max_blocks]``) and writing exactly
+    its one new position into the pool. Idle or block-stalled slots'
+    writes land at whatever their table names at the frontier — the
+    engine parks those entries on the trash block. Attention runs in the
+    paged flash-decode kernel (no gathered view exists), or over the
+    gathered view where the caller turned the kernel off. Returns the
+    next tokens, ``[num_slots]``."""
+    logits = model(tokens[:, None], cache=pool, pad_lens=pad_lens,
+                   slot_cur=slot_cur, block_tables=tables)
+    return _sample(logits[:, -1].float(), generator, temperature, top_k,
+                   top_p)
+
+
+@torch.no_grad()
+def paged_slot_verify_step(model: LlamaModel, pool: KVCache, tables, tokens,
+                           slot_cur, pad_lens):
+    """:func:`slot_verify_step` through the block tables: row r's k+1
+    positions write through ``tables`` into the pool (the engine
+    allocated the window's growth blocks up front; a position whose
+    block it could not serve routes to the trash block 0 and its
+    proposal is never committed), and attention reads the pool through
+    the tables exactly like :func:`paged_slot_decode_step` — the paged
+    kernel covers this S = k+1 window too. Returns the greedy proposals
+    ``[num_slots, k+1]``."""
+    logits = model(tokens, cache=pool, pad_lens=pad_lens, slot_cur=slot_cur,
+                   block_tables=tables)
+    return logits.float().argmax(-1)
+
+
+@torch.no_grad()
+def paged_prefill_chunk_into_slot(model: LlamaModel, chunk_ids,
+                                  pool: KVCache, table_row, offset: int,
+                                  n_valid: int, generator=None, *,
+                                  window: int, temperature: float = 0.0,
+                                  top_k: int = 0, top_p: float = 1.0):
+    """:func:`prefill_chunk_into_slot` through a block table: consume
+    ``C`` zero-aligned prompt tokens at logical positions ``[offset,
+    offset + C)`` of the slot whose table is ``table_row`` (``[MB]``).
+    The chunk attends a dense (dequantized) view of the table's first
+    ``ceil(window / block_size)`` blocks and scatters only its own REAL
+    positions back through the table, so a grafted shared-prefix block
+    is READ here, never written. A window past the table (a resume
+    whose chunk-aligned length exceeds max_len) pads the view with
+    scratch rows instead of sliding the write back over committed rows.
+    No kernel runs here: the chunk attends the view densely, as in the
+    JAX package. Returns the last-real-position sample ``[1]``."""
+    bs = pool.k[0].shape[2]
+    c = chunk_ids.shape[1]
+    wb = -(-int(window) // bs)
+    mbv = min(wb, table_row.shape[0])
+
+    def view(leaf, plane, ch):
+        v = pfd.gathered_view(leaf, table_row[None, :mbv], plane, ch).to(
+            model.dtype)                           # [1, Hkv, mbv*bs, hd]
+        if wb > mbv:
+            v = torch.cat([v, v.new_zeros((1, leaf.shape[1], (wb - mbv) * bs,
+                                           leaf.shape[3]))], dim=2)
+        return v
+
+    planes = pool.kv_scale or [None] * len(pool.k)
+    row = KVCache([view(k, p, 0) for k, p in zip(pool.k, planes)],
+                  [view(v, p, 1) for v, p in zip(pool.v, planes)],
+                  idx=int(offset))
+    logits = model(chunk_ids, cache=row)
+    pos = int(offset) + torch.arange(c, device=table_row.device)
+    bi = pos // bs
+    # Only REAL tokens' rows persist: the final chunk's pad tail and
+    # anything past the table route to the trash block 0 — never clamp
+    # onto a live block.
+    real = (pos < int(offset) + int(n_valid)) & (bi < table_row.shape[0])
+    blk = _table_blocks(table_row, bi, real)
+    off = pos % bs
+    for i in range(len(pool.k)):
+        new_k = row.k[i][0, :, offset:offset + c].transpose(0, 1)
+        new_v = row.v[i][0, :, offset:offset + c].transpose(0, 1)
+        _pool_insert(pool, i, blk, off, new_k, new_v)
+    last = logits[:, max(int(n_valid) - 1, 0)]
+    return _sample(last.float(), generator, temperature, top_k, top_p)
+
+
+@torch.no_grad()
+def paged_prefill_into_slot(model: LlamaModel, prompt_ids, pad_len,
+                            pool: KVCache, table_row, generator=None, *,
+                            temperature: float = 0.0, top_k: int = 0,
+                            top_p: float = 1.0):
+    """:func:`prefill_into_slot` through a block table — the blocking
+    (whole-prompt, left-padded bucket) refill for paged backends: the
+    prompt runs the first-chunk prefill (the flash kernel when the
+    model's attention resolves to it) against a private ``[1, Lb]``
+    scratch cache, then every one of its ``Lb`` rows scatters to the
+    pool position the table names (left-pad rows included — masked
+    garbage, as in the per-slot variant). Returns the first token
+    ``[1]``."""
+    bs = pool.k[0].shape[2]
+    lb = prompt_ids.shape[1]
+    small = init_cache(model, 1, lb)
+    logits = model(prompt_ids, cache=small, pad_lens=pad_len,
+                   first_chunk=True, last_only=True)
+    pos = torch.arange(lb, device=table_row.device)
+    blk = table_row.long()[pos // bs]
+    off = pos % bs
+    for i in range(len(pool.k)):
+        _pool_insert(pool, i, blk, off, small.k[i][0].transpose(0, 1),
+                     small.v[i][0].transpose(0, 1))
+    return _sample(logits[:, -1].float(), generator, temperature, top_k,
+                   top_p)
+
+
+@torch.no_grad()
+def copy_pool_block(pool: KVCache, src: int, dst: int) -> None:
+    """Copy one physical block's K/V (every layer) in place — the paged
+    copy-on-write primitive: a write that would land in a SHARED block
+    (refcount >= 2 after a radix graft) first duplicates it so the other
+    holders keep reading the original. A quantized pool's scale planes
+    copy with their codes, so the duplicate dequantizes bit-identically
+    to the original."""
+    for t in pool.tensors():
+        t[dst] = t[src]

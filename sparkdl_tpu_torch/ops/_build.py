@@ -49,6 +49,10 @@ SIGNATURES = {
     # q, k, v, o, cur|NULL, cur_scalar, pad|NULL, B, Hkv, rep, L, D,
     # is_bf16, stream
     "sdl_flash_decode": [P, P, P, P, P, I, P, I, I, I, I, I, I, P],
+    # q, k, v, scales|NULL, tables, cur, pad|NULL, o, B, Hkv, rep, S, D,
+    # bs, MB, is_bf16, kv_kind, stream
+    "sdl_paged_flash_decode": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                               I, I, P],
 }
 
 _lock = threading.Lock()
@@ -104,9 +108,15 @@ def library() -> ctypes.CDLL:
             BUILD_DIR.mkdir(exist_ok=True)
             so = BUILD_DIR / f"libsparkdl_kernels_{_digest()}.so"
             if so.exists():
-                build_info.setdefault("seconds", 0.0)
+                # built earlier: no nvcc ran, so no build time; the
+                # ptxas report is the one written beside the library
+                log = so.with_suffix(".log")
+                build_info.update(cached=True, seconds=None,
+                                  log=log.read_text() if log.exists()
+                                  else None)
             else:
                 _compile(so)
+                build_info["cached"] = False
             lib = ctypes.CDLL(str(so))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -119,8 +129,14 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+class CudaError(RuntimeError):
+    """A launcher returned a non-zero ``cudaError_t``: the launch was
+    refused, or an earlier kernel on the stream faulted."""
+
+
 def check(err: int, what: str) -> None:
-    """Raise when a launcher returned a non-zero ``cudaError_t``."""
+    """Raise :class:`CudaError` when a launcher returned a non-zero
+    ``cudaError_t``."""
     if err != 0:
         name = library().sdl_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+        raise CudaError(f"{what}: CUDA error {err} ({name})")

@@ -22,6 +22,7 @@ import torch
 
 from sparkdl_tpu_torch.ops import flash_attention as fa
 from sparkdl_tpu_torch.ops import flash_decode as fd
+from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
 
 pytestmark = pytest.mark.cuda
 
@@ -178,3 +179,138 @@ def test_unsupported_shapes_raise_instead_of_running_dense(dev):
     with pytest.raises(ValueError, match="head_dim 32"):
         L._decode_step(model, cache, torch.tensor([1, 2], device=dev),
                        pads.to(dev))
+
+
+def _paged_case(rng, dev, *, dtype, kv, b, hkv, rep, s_q, d, bs, mb, curs,
+                pads):
+    """A pool whose live blocks are non-contiguous ids scattered over it,
+    every block no table names filled with NaN, tables padded past each
+    slot's fill with NaN blocks too; slot cur 0 parks on trash block 0.
+    Returns (q, k_pool, v_pool, scales, tables, cur, pad)."""
+    need = [-(-(c + s_q) // bs) for c in curs]
+    pool = 1 + sum(need) + 8
+    ids = rng.permutation(np.arange(1, pool))
+    nan_ids = ids[sum(need):]
+    tables = np.zeros((b, mb), np.int32)
+    nxt = 0
+    for r, n in enumerate(need):
+        if curs[r] == 0:
+            continue  # parked on the trash block 0
+        tables[r, :n] = ids[nxt:nxt + n]
+        tables[r, n:] = nan_ids[r % len(nan_ids)]
+        nxt += n
+    q = _randn(rng, (b, hkv * rep, s_q, d), dtype, dev)
+    if kv in ("int8", "fp8"):
+        code = torch.int8 if kv == "int8" else torch.float8_e4m3fn
+        qmax = 127.0 if kv == "int8" else 448.0
+        raw = rng.uniform(-qmax, qmax, (2, pool, hkv, bs, d))
+        if kv == "int8":
+            raw = np.round(raw)
+        k_pool = torch.from_numpy(raw[0].astype(np.float32)).to(dev, code)
+        v_pool = torch.from_numpy(raw[1].astype(np.float32)).to(dev, code)
+        scales = torch.from_numpy(rng.uniform(
+            1e-3, 2e-2, (pool, hkv, 2)).astype(np.float32)).to(dev)
+        scales[torch.from_numpy(nan_ids).to(dev)] = float("nan")
+    else:
+        k_pool = _randn(rng, (pool, hkv, bs, d), dtype, dev)
+        v_pool = _randn(rng, (pool, hkv, bs, d), dtype, dev)
+        scales = None
+        nan = torch.from_numpy(nan_ids).to(dev)
+        k_pool[nan] = float("nan")
+        v_pool[nan] = float("nan")
+    return (q, k_pool, v_pool, scales, torch.from_numpy(tables).to(dev),
+            torch.tensor(curs, dtype=torch.int32, device=dev),
+            torch.tensor(pads, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("kv", ["same", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q", [1, 5])
+@pytest.mark.parametrize("rep,d", [(2, 128), (4, 64), (8, 128)])
+def test_paged_flash_decode_kernel_matches_plain(dev, kv, dtype, s_q, rep, d):
+    """Kernel B3 against its plain version over the phase-b matrix of
+    chip_smoke.py at a narrower width: ragged fills, a slot parked on the
+    trash block, non-contiguous tables, NaN in every block no live range
+    reads."""
+    rng = np.random.default_rng(rep * 100 + s_q * 10 + d)
+    curs = [500, 301, 77, 16, 15, 1, 0, 200]
+    pads = [0, 3, 40, 0, 15, 0, 0, 190]
+    args = _paged_case(rng, dev, dtype=dtype, kv=kv, b=8, hkv=2, rep=rep,
+                       s_q=s_q, d=d, bs=16, mb=33, curs=curs, pads=pads)
+    before = pfd.paged_flash_decode.launches
+    got = pfd.paged_flash_decode(*args[:3], args[4], args[5], args[6],
+                                 kv_scales=args[3])
+    torch.cuda.synchronize()
+    assert pfd.paged_flash_decode.launches == before + 1
+    want = pfd.paged_flash_decode_plain(*args[:3], args[4], args[5],
+                                        args[6], kv_scales=args[3])
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    if kv != "same":  # codes of 10-100 times a unit scale: f32 sums of
+        atol = 1e-4   # larger terms, the same one-rounding bf16 rule
+    np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                               atol=atol, rtol=rtol)
+    # the parked slot (cur 0, pad 0) returns V at position 0 of trash
+    # block 0 for its first query: finite garbage, not the zero output
+    assert torch.any(got[6, :, 0] != 0)
+
+
+def test_paged_flash_decode_raises_instead_of_running_dense(dev):
+    """A CUDA input the kernel cannot take raises: head_dim 32, a pool
+    whose dtype differs from q's, too many query rows, codes without
+    scales."""
+    rng = np.random.default_rng(0)
+    args = _paged_case(rng, dev, dtype=torch.float32, kv="same", b=2, hkv=2,
+                       rep=2, s_q=1, d=64, bs=16, mb=4, curs=[20, 3],
+                       pads=[0, 0])
+    q, kp, vp, _, tables, cur, pad = args
+    with pytest.raises(ValueError, match="head_dim 32"):
+        pfd.paged_flash_decode(q[..., :32].contiguous(),
+                               kp[..., :32].contiguous(),
+                               vp[..., :32].contiguous(), tables, cur, pad)
+    with pytest.raises(ValueError, match="differs"):
+        pfd.paged_flash_decode(q, kp.bfloat16(), vp.bfloat16(), tables, cur,
+                               pad)
+    big = q.repeat(1, 1, 65, 1)
+    with pytest.raises(ValueError, match="query rows"):
+        pfd.paged_flash_decode(big, kp, vp, tables, cur, pad)
+    with pytest.raises(ValueError, match="kv_scales"):
+        pfd.paged_flash_decode(q, kp.to(torch.int8), vp.to(torch.int8),
+                               tables, cur, pad)
+
+
+def test_serving_engine_runs_the_kernels_on_card(dev):
+    """The paged engine with spec_k and the unpaged blocking engine on a
+    head_dim-64 model give generate()'s greedy tokens, through the
+    kernels (launch counts), f32 with TF32 off."""
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.serving import GenerationEngine
+
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        rope_theta=10000.0)
+    model = L.LlamaModel(cfg, attn_fn=fa.flash_attention, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    prompts = [[5, 6, 7], [9, 3, 2, 8, 1, 4, 4, 7] * 5, [11] * 70]
+    ids, pads = L.left_pad_prompts(prompts)
+    out = L.generate(model, ids, 8, pad_lens=pads)
+    refs = [out[i, ids.shape[1]:].tolist() for i in range(len(prompts))]
+    for kw in (dict(block_size=16, prefill_chunk=32, spec_k=2),
+               dict(block_size=16, prefill_chunk=32, kv_dtype="int8"),
+               dict(stall_free=False, min_bucket=8)):
+        p0, d0 = pfd.paged_flash_decode.launches, fd.flash_decode.launches
+        eng = GenerationEngine.from_model(model, num_slots=2, max_len=160,
+                                          **kw)
+        hs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle()
+        got = [h.result(1) for h in hs]
+        if kw.get("kv_dtype") is None:
+            assert got == refs, kw
+        else:
+            assert all(len(g) == 8 for g in got)
+        if "block_size" in kw:
+            assert pfd.paged_flash_decode.launches > p0
+            assert fd.flash_decode.launches == d0
+        else:
+            assert fd.flash_decode.launches - d0 == \
+                cfg.num_layers * eng.stats["steps"]

@@ -379,14 +379,29 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     """In a fresh interpreter, importing every module of the port (and
-    building nothing) leaves jax, flax and the JAX package unloaded."""
+    building nothing), then serving requests through a CPU engine (paged,
+    speculative, int8 pool), leaves jax, flax and the JAX package
+    unloaded."""
     mods = sorted(
         ".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(
             ".__init__")
         for f in (ROOT / "sparkdl_tpu_torch").rglob("*.py")
         if "_build" not in f.parts)
+    assert "sparkdl_tpu_torch.serving.backend" in mods
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"from sparkdl_tpu_torch import GenerationEngine\n"
+            f"from sparkdl_tpu_torch.models import llama as L\n"
+            f"from sparkdl_tpu_torch.ops import flash_attention as fa\n"
+            f"m = L.LlamaModel(L.LlamaConfig.tiny(), "
+            f"attn_fn=fa.flash_attention, device='cpu')\n"
+            f"for kw in ({{}}, dict(block_size=8, spec_k=2, "
+            f"kv_dtype='int8')):\n"
+            f"    e = GenerationEngine.from_model(m, num_slots=2, "
+            f"max_len=64, device='cpu', **kw)\n"
+            f"    h = e.submit([5, 6, 7, 5, 6], max_new_tokens=4)\n"
+            f"    e.run_until_idle()\n"
+            f"    assert len(h.result(1)) == 4\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"('jax', 'jaxlib', 'flax', 'sparkdl_tpu')]\n"
             f"print(len({mods!r}), bad)")
