@@ -1,4 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), f32 or bf16 in, f32 math.
+// Flash-attention forward for Hopper (sm_90a): the f32 variant ("fma_f32",
+// f32 FMAs on the CUDA cores) and the C entry point that picks a variant by
+// dtype. bf16 inputs launch the tensor-core kernel of flash_attention_tc.cu
+// ("tc_mma_bf16"); f32 inputs launch the kernel below, because the tensor
+// cores have no full-precision f32 product (TF32 keeps ~3 decimal digits).
 //
 // Replaces: sparkdl_tpu/ops/flash_attention.py:_fwd_kernel (the Pallas
 // kernel that _fwd hands to pl.pallas_call). Same contract: q, k, v
@@ -10,15 +14,11 @@
 // gives O = 0 and lse = NEG_INF (finite).
 //
 // What bounds it on this card: at the prefill shapes of the port's main
-// path (B = 4, H = 16, S = 2048, D = 128, bf16, causal, left pads 0, 548,
-// 1348, 2015) the live work is 28.4 GFLOP against ~87 MB that the
-// function must move (q for rows with a live key, k/v for live columns,
-// all of O and lse), about 330 operations a byte — above the H100's
-// ridge (~295 bf16 operations a byte), so the bound is the tensor-core
-// rate, ~0.029 ms. This first kernel does NOT reach it: it runs the two
-// products as f32 FMAs on the CUDA cores (67 TFLOP/s peak), which keeps
-// one simple path for both dtypes and the reference's f32 arithmetic.
-// Moving QK^T and PV onto mma/wgmma is the next step (PERF.md).
+// path (B = 4, H = 16, S = 2048, D = 128, causal, left pads 0, 548, 1348,
+// 2015) in f32 the live work is 28.4 GFLOP against ~170 MB that the
+// function must move; outside the tensor cores f32 peaks at 67 TFLOP/s, so
+// the bound is operations, ~0.42 ms. This kernel runs the two products as
+// f32 FMAs, which keeps the reference's f32 arithmetic.
 //
 // Design (what it does about the bound it has):
 // - one 256-thread block per (64-row Q tile, b·h); the Q tile is staged
@@ -254,21 +254,36 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, o: [B, H, S, D] contiguous, f32 (is_bf16 = 0) or bf16;
-// kv_mask: [B, S] f32 or NULL; lse: [B, H, S] f32. D must be 64 or 128.
+namespace sdl {
+cudaError_t flash_attention_tc_bf16(const void* q, const void* k,
+                                    const void* v, const void* kv_mask,
+                                    void* o, void* lse, int* tiles, int B,
+                                    int H, int S, int D, int causal,
+                                    cudaStream_t stream);
+}  // namespace sdl
+
+// q, k, v, o: [B, H, S, D] contiguous; kv_mask: [B, S] f32 or NULL;
+// lse: [B, H, S] f32. D must be 64 or 128. variant (the wrapper's
+// kernel_variant picks it): 0 "fma_f32", f32 tensors, the CUDA-core kernel
+// above; 1 "tc_mma_bf16", bf16 tensors, the tensor-core kernel of
+// flash_attention_tc.cu. tiles: int32 or NULL; the tensor-core kernel adds
+// the (Q tile, K tile) pairs it computed there.
 extern "C" int sdl_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* kv_mask,
                                        void* o, void* lse, int B, int H, int S,
-                                       int D, int causal, int is_bf16,
-                                       void* stream) {
+                                       int D, int causal, int variant,
+                                       void* tiles, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
   if (B * H > 65535) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  if (variant == 1)
+    return sdl::flash_attention_tc_bf16(q, k, v, kv_mask, o, lse,
+                                        static_cast<int*>(tiles), B, H, S, D,
+                                        causal, st);
+  if (variant != 0) return cudaErrorInvalidValue;
   if (D == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, kv_mask, o, lse, B, H, S, causal, st)
-                   : launch<float, 64>(q, k, v, kv_mask, o, lse, B, H, S, causal, st);
+    return launch<float, 64>(q, k, v, kv_mask, o, lse, B, H, S, causal, st);
   if (D == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, kv_mask, o, lse, B, H, S, causal, st)
-                   : launch<float, 128>(q, k, v, kv_mask, o, lse, B, H, S, causal, st);
+    return launch<float, 128>(q, k, v, kv_mask, o, lse, B, H, S, causal, st);
   return cudaErrorInvalidValue;
 }

@@ -44,8 +44,9 @@ I = ctypes.c_int
 # name → argtypes of every launcher in csrc/ (restype is always c_int,
 # the launcher's cudaError_t).
 SIGNATURES = {
-    # q, k, v, kv_mask|NULL, o, lse, B, H, S, D, causal, is_bf16, stream
-    "sdl_flash_attention_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # q, k, v, kv_mask|NULL, o, lse, B, H, S, D, causal, variant,
+    # tiles|NULL, stream
+    "sdl_flash_attention_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
     # q, k, v, o, cur|NULL, cur_scalar, pad|NULL, B, Hkv, rep, L, D,
     # is_bf16, stream
     "sdl_flash_decode": [P, P, P, P, P, I, P, I, I, I, I, I, I, P],

@@ -7,8 +7,16 @@ into ``LlamaModel(attn_fn=...)``.
 
 - :func:`flash_attention_fwd` returns ``(O, lse)``; :func:`flash_attention`
   returns O. A CPU tensor takes :func:`attention_plain`, the plain
-  PyTorch version of the same arithmetic. A CUDA tensor launches the
-  kernel in ``csrc/flash_attention.cu`` or raises — nothing falls back.
+  PyTorch version of the same arithmetic. A CUDA tensor launches a
+  kernel or raises — nothing falls back. The kernel is picked by dtype
+  (:func:`kernel_variant`, the one place that choice is made; the C entry
+  point launches the variant it is handed): bf16 runs ``"tc_mma_bf16"``
+  (``csrc/flash_attention_tc.cu``, both products on the tensor cores),
+  f32 runs ``"fma_f32"`` (``csrc/flash_attention.cu``, f32 FMAs on the
+  CUDA cores: the tensor cores have no full-precision f32 product).
+- The tensor-core variant rounds P to bf16 once before ``P·V`` (the JAX
+  kernel and :func:`attention_plain` keep p in f32). Checks hold it to
+  :func:`tc_bf16_tolerance`.
 - Masking is the JAX kernel's exactly (``_fwd_kernel``,
   ``sparkdl_tpu/ops/flash_attention.py:78-98``): a score is live when
   ``col < S``, ``kv_mask[col] > 0`` and, causal, ``col <= row``; a
@@ -21,7 +29,7 @@ The TPU's tuning does not carry over: no 128-lane padding, no pre-blocked
 lse/mask layouts, no block-size cost model. ``SPARKDL_FLASH_MIN_SEQ``
 (the shortest sequence :func:`adaptive_attention` sends to the kernel)
 defaults to 0 here, so the kernel runs at every prefill length; its
-H100 crossover with dense attention is not measured yet (PERF.md).
+H100 crossover with dense attention is in PERF.md.
 """
 
 from __future__ import annotations
@@ -37,12 +45,25 @@ from ..utils.platform import is_cuda_backend
 #: what the CUDA kernel takes (its plain version takes anything)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_VARIANT_IDS = {"fma_f32": 0, "tc_mma_bf16": 1}  # the C entry's `variant`
+# The tensor-core variant's rule: atol, ·|O_plain|, ·(P|V|)_plain
+TC_BF16_RULE = (1e-5, 2.0 ** -7, 2.0 ** -8)
 
 
-def attention_plain(q, k, v, causal: bool = False, kv_mask=None):
-    """Plain PyTorch version of the kernel: ``(O, lse)`` from the whole
-    score matrix at once, in f32, with the kernel's mask semantics. O in
-    q's dtype, lse ``[B, H, S]`` f32."""
+def kernel_variant(dtype) -> str:
+    """Which CUDA kernel :func:`flash_attention_fwd` launches for ``dtype``:
+    ``"tc_mma_bf16"`` (tensor cores) for bf16, ``"fma_f32"`` (CUDA cores)
+    for f32. Other dtypes have no kernel (see :func:`support_reason`)."""
+    if dtype == torch.bfloat16:
+        return "tc_mma_bf16"
+    if dtype == torch.float32:
+        return "fma_f32"
+    raise ValueError(f"flash_attention has no kernel for {dtype}")
+
+
+def _plain_probs(q, k, causal, kv_mask):
+    """Unnormalized f32 probabilities ``p``, row max ``m`` and ``safe_l``
+    of :func:`attention_plain`, with the kernel's mask semantics."""
     _, _, s, d = q.shape
     scores = (q.float() * (1.0 / math.sqrt(d))) @ k.float().transpose(-1, -2)
     live = torch.ones((1, 1, 1, s), dtype=torch.bool, device=q.device)
@@ -56,9 +77,36 @@ def attention_plain(q, k, v, causal: bool = False, kv_mask=None):
     p = torch.exp(scores - m[..., None])
     p = torch.where(m[..., None] <= NEG_INF, 0.0, p)  # fully-masked rows
     l = p.sum(-1)
-    safe_l = torch.where(l > 0, l, 1.0)
+    return p, m, torch.where(l > 0, l, 1.0)
+
+
+def attention_plain(q, k, v, causal: bool = False, kv_mask=None):
+    """Plain PyTorch version of the kernel: ``(O, lse)`` from the whole
+    score matrix at once, in f32, with the kernel's mask semantics. O in
+    q's dtype, lse ``[B, H, S]`` f32."""
+    p, m, safe_l = _plain_probs(q, k, causal, kv_mask)
     o = (p @ v.float()) / safe_l[..., None]
     return o.to(q.dtype), m + torch.log(safe_l)
+
+
+def attention_abs_pv_plain(q, k, v, causal: bool = False, kv_mask=None):
+    """``(P|V|)/l`` in f32, ``[B, H, S, D]``: :func:`attention_plain`'s O
+    with |v| in place of v. Rounding each p_j to bf16 moves O by at most
+    2**-9 of it; checks of the tensor-core variant scale their tolerance
+    by it. Used only by checks."""
+    p, _, safe_l = _plain_probs(q, k, causal, kv_mask)
+    return (p @ v.float().abs()) / safe_l[..., None]
+
+
+def tc_bf16_tolerance(o_plain, pv):
+    """Elementwise bound on ``|O_kernel - O_plain|`` for the tensor-core
+    variant: ``1e-5 + 2**-7·|O_plain| + 2**-8·pv``, ``pv`` from
+    :func:`attention_abs_pv_plain` (:data:`TC_BF16_RULE`). 2**-7·|O| is
+    one bf16 output step; rounding each p_j to bf16 moves O by at most
+    2**-9·(P|V|), and l, summed from the unrounded p, disagrees with the
+    rounded P by about as much again. Used only by checks."""
+    atol, rtol, pv_rtol = TC_BF16_RULE
+    return atol + rtol * o_plain.float().abs() + pv_rtol * pv
 
 
 def support_reason(q, k, v) -> str | None:
@@ -96,12 +144,24 @@ def _check(q, k, v, kv_mask) -> None:
                          f"{sorted(map(str, devs))}")
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None):
+def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None,
+                        tile_counter=None):
     """``(O, lse)``: O ``[B, H, S, D]`` in q's dtype, lse ``[B, H, S]``
     f32. CPU tensors → :func:`attention_plain`; CUDA tensors → the
     kernel, after checks that raise on what it does not take. Counts
-    its launches in ``flash_attention_fwd.launches``."""
+    its launches in ``flash_attention_fwd.launches``.
+
+    ``tile_counter``: an optional one-element int32 tensor on q's device;
+    the tensor-core kernel adds to it the (64-row Q tile, 64-row K tile)
+    pairs it computed, the f32 kernel leaves it as it is. For checks of
+    the dead-tile skip; it costs one atomic a block."""
     _check(q, k, v, kv_mask)
+    if tile_counter is not None and (
+            tile_counter.dtype != torch.int32
+            or tile_counter.numel() != 1
+            or tile_counter.device != q.device):
+        raise ValueError("tile_counter must be one int32 element on q's "
+                         "device")
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal, kv_mask)
     if q.device.type != "cuda":
@@ -126,7 +186,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, s, d, int(bool(causal)),
-            int(q.dtype == torch.bfloat16),
+            _VARIANT_IDS[kernel_variant(q.dtype)],
+            None if tile_counter is None else tile_counter.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention_fwd.launches += 1

@@ -12,6 +12,11 @@ different orders, so they agree to ~1e-6; atol = rtol = 1e-5. bf16 out,
 each rounds its f32 value to bf16 once, and the two roundings can land
 one bf16 step apart, which is at most 2**-7 of the value: rtol 2**-7,
 atol 1e-5.
+
+bf16 flash attention runs on the tensor cores ("tc_mma_bf16"), which
+round P to bf16 before P·V (the plain version keeps p in f32). It is held
+to ``fa.tc_bf16_tolerance``, the rule above plus 2**-8·(P|V|)_plain with
+(P|V|) = sum_j p_j·|v_j| / l; that function gives the reason.
 """
 
 import math
@@ -27,6 +32,12 @@ from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
+NEG_INF = -1e30
+# bf16 generate() prefill logits, kernel vs dense in-model path, as a
+# share of the largest logit (test_generate_bf16_through_tensor_core_kernel):
+# 0.0082 on an H100 80GB HBM3 at 700 W, where the planted faults gave
+# 1.33 and 1.35; the bound is about twice the first
+GEN_BF16_BOUND = 2.0 ** -6
 
 
 @pytest.fixture
@@ -43,6 +54,18 @@ def _randn(rng, shape, dtype, dev):
         dev, dtype)
 
 
+def _assert_tc_bf16_close(o, q, k, v, causal, mask):
+    """O within ``fa.tc_bf16_tolerance`` of the plain version's,
+    elementwise, with the plain side on the CPU."""
+    args = (q.cpu(), k.cpu(), v.cpu(), causal,
+            None if mask is None else mask.cpu())
+    want = fa.attention_plain(*args)[0]
+    allowed = fa.tc_bf16_tolerance(want, fa.attention_abs_pv_plain(*args))
+    excess = ((o.float().cpu() - want.float()).abs() - allowed).max().item()
+    assert excess <= 0, (f"|O - O_plain| exceeds the bf16 tensor-core "
+                         f"rule by {excess}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s", [1, 37, 64, 200, 1000])
@@ -55,20 +78,91 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, d, s, causal):
     mask = torch.tensor([[float(c >= p) for c in range(s)] for p in pads],
                         device=dev)
     before = fa.flash_attention_fwd.launches
-    o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
+    walked = torch.zeros(1, dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask,
+                                    tile_counter=walked)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == before + 1
     o_ref, lse_ref = fa.attention_plain(q.cpu(), k.cpu(), v.cpu(), causal,
                                         mask.cpu())
     assert o.dtype == dtype and lse.dtype == torch.float32
-    atol, rtol = TOL[dtype]
-    np.testing.assert_allclose(o.float().cpu(), o_ref.float(), atol=atol,
-                               rtol=rtol)
+    # only the tensor-core kernel counts tiles: the card shows which ran
+    assert walked.item() == (_tiles_walked(mask, h, causal)
+                             if dtype == torch.bfloat16 else 0)
+    if dtype == torch.bfloat16:
+        assert fa.kernel_variant(dtype) == "tc_mma_bf16"
+        _assert_tc_bf16_close(o, q, k, v, causal, mask)
+    else:
+        assert fa.kernel_variant(dtype) == "fma_f32"
+        atol, rtol = TOL[dtype]
+        np.testing.assert_allclose(o.float().cpu(), o_ref.float(), atol=atol,
+                                   rtol=rtol)
     live = lse_ref > -1e29
     np.testing.assert_allclose(lse.cpu()[live], lse_ref[live], atol=1e-4,
                                rtol=1e-5)
     assert torch.all(lse.cpu()[~live] == lse_ref[~live])
     assert torch.all(o[2] == 0)
+
+
+def _tiles_walked(mask, h, causal):
+    """(64-row Q tile, 64-row K tile) pairs the tensor-core kernel should
+    compute: per head, each K tile with a live column, up to the causal
+    stop."""
+    b, s = mask.shape
+    n_t = -(-s // 64)
+    live = [[bool((mask[r, kt * 64:(kt + 1) * 64] > 0).any())
+             for kt in range(n_t)] for r in range(b)]
+    return h * sum(live[r][kt] for r in range(b) for qt in range(n_t)
+                   for kt in range(qt + 1 if causal else n_t))
+
+
+def _mask_rows(s, rows, dev):
+    """[B, S] 0/1 mask; each row is ("pad", p) or ("hole", lo, hi)."""
+    m = torch.ones((len(rows), s), device=dev)
+    for r, spec in enumerate(rows):
+        if spec[0] == "pad":
+            m[r, :spec[1]] = 0
+        else:
+            m[r, spec[1]:spec[2]] = 0
+    return m
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", [
+    # causal, S, mask rows
+    ("interior_hole", True, 512, [("hole", 128, 256), ("pad", 0),
+                                  ("hole", 64, 448)]),
+    ("dead_q_tiles", True, 512, [("pad", 64), ("pad", 200), ("pad", 511)]),
+    ("ragged_pads", True, 1000, [("pad", 0), ("pad", 130), ("pad", 999)]),
+    ("not_causal_mask", False, 300, [("hole", 64, 128), ("pad", 70),
+                                     ("pad", 300)]),
+], ids=lambda c: c[0] if isinstance(c, tuple) else None)
+def test_flash_attention_bf16_dead_tiles(dev, d, case):
+    """The tensor-core kernel's skips: K tiles with no live column (an
+    interior hole, left pads) and Q tiles with no live score (causal, pad
+    >= 64) — those rows are exactly O = 0 and lse = NEG_INF."""
+    _, causal, s, rows = case
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_randn(rng, (3, 2, s, d), torch.bfloat16, dev)
+               for _ in range(3))
+    mask = _mask_rows(s, rows, dev)
+    walked = torch.zeros(1, dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask,
+                                    tile_counter=walked)
+    torch.cuda.synchronize()
+    assert walked.item() == _tiles_walked(mask, 2, causal)
+    _assert_tc_bf16_close(o, q, k, v, causal, mask)
+    _, lse_ref = fa.attention_plain(q.cpu(), k.cpu(), v.cpu(), causal,
+                                    mask.cpu())
+    live = lse_ref > -1e29
+    np.testing.assert_allclose(lse.cpu()[live], lse_ref[live], atol=1e-4,
+                               rtol=1e-5)
+    dead = ~live  # rows with no live key: exactly O = 0, lse = NEG_INF
+    assert torch.all(lse.cpu()[dead] == NEG_INF)
+    assert torch.all(o.cpu()[dead] == 0)
+    if case[0] == "dead_q_tiles":  # Q tile 0 of every row is dead
+        assert torch.all(o[:, :, :64] == 0)
+        assert torch.all(lse[:, :, :64] == NEG_INF)
 
 
 def test_flash_attention_no_mask_and_wrapper_checks(dev):
@@ -154,6 +248,65 @@ def test_generate_flash_matches_dense_on_card(dev):
     want = L.generate(model, ids, 6, pad_lens=pads)
     assert torch.equal(got, want)
     assert math.isfinite(float(got.float().sum()))
+
+
+def test_generate_bf16_through_tensor_core_kernel(dev):
+    """bf16 generate() runs the tensor-core flash kernel once a layer in
+    prefill, with finite logits; its prefill logits are held to the dense
+    in-model path's (both bf16).
+
+    Tolerance, as a share of the largest logit: the dense bf16 path
+    rounds the scores and P to bf16, the kernel rounds P only, and the
+    difference goes on through the norms and bf16 projections of 2
+    layers. GEN_BF16_BOUND is a small factor above the difference seen on
+    an H100, and the test shows that two planted faults of the attention
+    (its output zeroed, its pad mask dropped) each land above it."""
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        rope_theta=10000.0)
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, attn_fn=fa.flash_attention,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    ids, pads = L.left_pad_prompts([[5, 6, 7], [9, 3, 2, 8, 1, 4, 4, 7] * 9,
+                                    [11] * 130])
+    ids, pads = ids.to(dev), pads.to(dev)
+    assert fa.kernel_variant(torch.bfloat16) == "tc_mma_bf16"
+
+    def prefill(attn_fn):
+        model.attn_fn = attn_fn
+        cache = L.init_cache(model, ids.shape[0], ids.shape[1] + 2)
+        return L._prefill(model, ids, cache, pads).float()
+
+    fa0 = fa.flash_attention_fwd.launches
+    got = prefill(fa.flash_attention)
+    assert fa.flash_attention_fwd.launches - fa0 == cfg.num_layers
+    assert torch.isfinite(got).all()
+    out, steps = L.generate(model, ids.cpu(), 4, pad_lens=pads.cpu(),
+                            return_steps=True)
+    assert fa.flash_attention_fwd.launches - fa0 == 2 * cfg.num_layers
+    assert steps == 4 and out.shape[1] == ids.shape[1] + 4
+    want = prefill(None)
+    scale = want.abs().max().item()
+
+    def rel_err(logits):
+        return (logits - want).abs().max().item() / scale
+
+    def zeroed(q, k, v, causal=False, *, kv_mask=None):
+        return torch.zeros_like(q)
+
+    def mask_dropped(q, k, v, causal=False, *, kv_mask=None):
+        return fa.flash_attention(q, k, v, causal)
+
+    err = rel_err(got)
+    faults = {"zeroed": rel_err(prefill(zeroed)),
+              "mask_dropped": rel_err(prefill(mask_dropped))}
+    print(f"prefill logits: kernel {err}, planted faults {faults} "
+          f"(max |logit - dense| / max |dense logit|)")
+    assert err <= GEN_BF16_BOUND, err
+    for name, e in faults.items():
+        assert e > GEN_BF16_BOUND, (name, e)
 
 
 def test_unsupported_shapes_raise_instead_of_running_dense(dev):
