@@ -10,9 +10,9 @@ code is not 0:
 
 a. build — every ``sparkdl_tpu_torch/csrc/*.cu`` through one ``nvcc`` for
    ``sm_90a``, timed; registers and spills from ptxas (the most of any
-   kernel, every spilling kernel, and each tensor-core flash-attention
-   kernel by head dim); the card's name and power limit from
-   ``nvidia-smi``.
+   kernel, every spilling kernel, each tensor-core flash-attention
+   kernel by head dim, and the split-KV decode variants, none of which
+   may spill); the card's name and power limit from ``nvidia-smi``.
 b. kernels — each kernel against its plain PyTorch version on the same
    inputs on the card, in f32 and bf16 (tolerances at ``TOL``), at the
    main path's shapes:
@@ -38,6 +38,18 @@ b. kernels — each kernel against its plain PyTorch version on the same
    filled with NaN; S = 1 and S = 5; bf16 and f32 pools, int8 and fp8
    pools with scales. Its SDPA yardstick runs on the pre-gathered dense
    view and so excludes the gather.
+   Both decode kernels are split-KV launches: each record carries the
+   wrapper's plan (``chunk`` positions a split, ``n_splits``,
+   ``rows_per_block``) and the blocks the kernel counted itself, those
+   it ran and those that found a live position (``grid_blocks``,
+   ``live_blocks``), asserted equal to the plan's model
+   (``*_blocks_model``). Every time is the mean of CUDA events around
+   one launch after a flush and a device sleep (``time_ms``);
+   an ``event_floor`` line times an empty kernel the same way. The two
+   main-path cases add the profiler's kernel time (``profiler_ms``), the
+   time with the L2 flushed by a read instead of a write
+   (``ms_read_flush``) and the time of the same launch with one live
+   position a row (``fixed_ms``).
 c. main path — ``generate()`` on ``LlamaConfig.small()`` at full width and
    depth (2048 hidden, 16 layers, 16/8 heads, head_dim 128, vocab 32000),
    bf16, random weights from a seeded generator on the card; four prompts
@@ -104,6 +116,7 @@ TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 # above (the reason is in that function).
 FLASH_SWEEP = [128, 256, 512, 1024, 2048]
 LOGIT_TOL = 2e-3
+SLEEP_CYCLES = 200_000  # ~0.1 ms of device sleep ahead of each timed launch
 PROMPT_LENS = [2048, 1500, 700, 33]
 NEW_TOKENS = 64
 PARITY_TOKENS = 16
@@ -125,17 +138,24 @@ def smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 10, flush=None) -> float:
+def time_ms(torch, fn, iters: int = 10, flush=None,
+            read_flush: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, CUDA events
     around each launch; ``flush`` (a large buffer) is zeroed before each
-    one so the inputs come from device memory, not the 50 MB L2."""
+    one so the inputs come from device memory, not the 50 MB L2 (with
+    ``read_flush``, read instead, which leaves the L2 clean rather than
+    full of dirty lines to write back). A device-side sleep of
+    ``SLEEP_CYCLES`` precedes the start event, so the device is still busy
+    while the host enqueues ``fn`` and the events bracket the device work
+    only, not the wrapper's host time."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            flush.sum() if read_flush else flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -144,6 +164,47 @@ def time_ms(torch, fn, iters: int = 10, flush=None) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def profiler_kernel_ms(torch, fn, match: str, iters: int = 10,
+                       flush=None) -> float | str:
+    """Mean device time per call of the kernels whose name holds
+    ``match``, from ``torch.profiler`` over ``iters`` calls of ``fn``
+    (flushed as in :func:`time_ms`): the cross-check of the event time.
+    "not measured" when the profiler sees no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "device_time_total", 0.0) or 0.0
+             for ev in prof.key_averages() if match in ev.key)
+    return us / iters / 1e3 if us else "not measured"
+
+
+def split_record(torch, launch, npos: int, rows: int, spans,
+                 hkv: int) -> dict:
+    """Runs ``launch(counter)`` once with the kernel's block counter and
+    returns the wrapper's split plan with the blocks the kernel counted,
+    asserted equal to the plan's model (``split_blocks`` over the slots'
+    live ``spans``)."""
+    from sparkdl_tpu_torch.ops.flash_decode import split_blocks
+
+    cnt = torch.zeros(2, dtype=torch.int32, device="cuda")
+    launch(cnt)
+    model = split_blocks(npos, rows, hkv, spans)
+    ran, live = cnt.tolist()
+    assert (ran, live) == (model["grid_blocks"], model["live_blocks"]), (
+        ran, live, model)
+    return dict(chunk=model["chunk"], n_splits=model["n_splits"],
+                rows_per_block=model["rows_per_block"], grid_blocks=ran,
+                live_blocks=live, grid_blocks_model=model["grid_blocks"],
+                live_blocks_model=model["live_blocks"])
 
 
 def check_close(got, want, dtype: str, what: str, allowed=None) -> float:
@@ -195,10 +256,15 @@ def ptxas_summary(log: str | None) -> dict | str:
         if m:
             tc[f"D{m.group(1)}"] = dict(registers=n,
                                         spill_bytes=spills.get(fn))
+    skv = [f for f in regs if "splitkv_kernel" in f]
     return dict(kernels=len(regs), max_registers=max(regs.values(),
                                                      default=None),
                 spilling={f[:90]: n for f, n in spills.items() if n},
-                flash_attention_tc=tc)
+                flash_attention_tc=tc,
+                decode_splitkv=dict(
+                    variants=len(skv),
+                    max_registers=max((regs[f] for f in skv), default=None),
+                    spill_bytes=sum(spills.get(f) or 0 for f in skv)))
 
 
 def phase_build(_build) -> dict:
@@ -214,6 +280,8 @@ def phase_build(_build) -> dict:
                 nvidia_smi=smi())
     print(info["nvidia_smi"], flush=True)
     emit(info)
+    if isinstance(info["ptxas"], dict):  # no decode variant spills
+        assert info["ptxas"]["decode_splitkv"]["spill_bytes"] == 0, info
     return info
 
 
@@ -348,12 +416,9 @@ def flash_sweep(torch, fa, flush) -> dict:
     return rec
 
 
-def decode_case(torch, fd, flush, *, name, b, hq, hkv, length, d, cur, pads,
-                dtype):
-    """flash_decode kernel vs plain on one seeded input, then the three
-    times; returns the phase-b record."""
-    import torch.nn.functional as F
-
+def decode_inputs(torch, *, b, hq, hkv, length, d, cur, pads, dtype):
+    """One seeded flash_decode input on the card: (q, k cache, v cache,
+    cur, pad)."""
     g = torch.Generator(device="cuda").manual_seed(hq * 1000 + length)
     dt = getattr(torch, dtype)
     q = torch.randn((b, hq, 1, d), generator=g, device="cuda").to(dt)
@@ -363,6 +428,18 @@ def decode_case(torch, fd, flush, *, name, b, hq, hkv, length, d, cur, pads,
                                                    device="cuda")
     cur_arg = cur if isinstance(cur, int) else torch.tensor(
         cur, dtype=torch.int32, device="cuda")
+    return q, kc, vc, cur_arg, pad_t
+
+
+def decode_case(torch, fd, flush, *, name, b, hq, hkv, length, d, cur, pads,
+                dtype, profile=False):
+    """flash_decode kernel vs plain on one seeded input, then the three
+    times; returns the phase-b record."""
+    import torch.nn.functional as F
+
+    q, kc, vc, cur_arg, pad_t = decode_inputs(
+        torch, b=b, hq=hq, hkv=hkv, length=length, d=d, cur=cur, pads=pads,
+        dtype=dtype)
     o = fd.flash_decode(q, kc, vc, cur_arg, pad_t)
     o_ref = fd.flash_decode_plain(q, kc, vc, cur_arg, pad_t)
     torch.cuda.synchronize()
@@ -377,7 +454,11 @@ def decode_case(torch, fd, flush, *, name, b, hq, hkv, length, d, cur, pads,
     rec = dict(phase="kernels", kernel="flash_decode", case=name,
                dtype=dtype, shape=[b, hq, hkv, length, d], cur=cur,
                pads=pads, live_slots=live, max_abs_err=err, tol=tol,
-               rtol=rtol)
+               rtol=rtol, **split_record(
+                   torch, lambda c: fd.flash_decode(
+                       q, kc, vc, cur_arg, pad_t, block_counter=c),
+                   length, hq // hkv,
+                   [(p, min(c, length)) for c, p in zip(curs, pl)], hkv))
     elt = q.element_size()
     nbytes = 2 * hkv * d * elt * sum(live) + 2 * b * hq * d * elt
     flops = 4.0 * hq * d * sum(live)
@@ -396,16 +477,24 @@ def decode_case(torch, fd, flush, *, name, b, hq, hkv, length, d, cur, pads,
             q, kc, vc, attn_mask=sdpa_mask, enable_gqa=True),
             flush=flush),
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+    if profile:  # the event time against the profiler's kernel time
+        run = lambda: fd.flash_decode(q, kc, vc, cur_arg, pad_t)  # noqa: E731
+        rec.update(
+            profiler_ms=profiler_kernel_ms(torch, run, "splitkv_kernel",
+                                           flush=flush),
+            ms_read_flush=time_ms(torch, run, flush=flush, read_flush=True),
+            # the same launch with one live position a row: its fixed cost
+            fixed_ms=time_ms(torch, lambda: fd.flash_decode(q, kc, vc, 1),
+                             flush=flush))
     emit(rec)
     return rec
 
 
-def paged_case(torch, pfd, flush, *, name, dtype, kv, s_q):
-    """paged_flash_decode kernel vs plain on one seeded pool, then the
-    three times; returns the phase-b record. ``kv``: "same" (pools in
+def paged_inputs(torch, *, dtype, kv, s_q):
+    """One seeded paged_flash_decode input on the card, the main path's
+    serving shapes: (q, k pool, v pool, tables, cur, pad, scales), every
+    block no live range reads filled with NaN. ``kv``: "same" (pools in
     ``dtype``), "int8" or "fp8" (codes with a scale plane)."""
-    import torch.nn.functional as F
-
     b, hq, hkv, d, bs, mb = 8, 16, 8, 128, PAGED_BS, PAGED_MB
     g = torch.Generator().manual_seed(1000 * s_q + len(kv))
     dt = getattr(torch, dtype)
@@ -443,7 +532,21 @@ def paged_case(torch, pfd, flush, *, name, dtype, kv, s_q):
     q, kp, vp, tables, cur_t, pad_t = (
         t.to("cuda") for t in (q, kp, vp, tables, cur_t, pad_t))
     scales = None if scales is None else scales.to("cuda")
-    args = (q, kp, vp, tables, cur_t, pad_t, scales)
+    return q, kp, vp, tables, cur_t, pad_t, scales
+
+
+def paged_case(torch, pfd, flush, *, name, dtype, kv, s_q, profile=False):
+    """paged_flash_decode kernel vs plain on one seeded pool
+    (:func:`paged_inputs`), then the three times; returns the phase-b
+    record."""
+    import torch.nn.functional as F
+
+    args = paged_inputs(torch, dtype=dtype, kv=kv, s_q=s_q)
+    q, kp, vp, tables, cur_t, pad_t, scales = args
+    b, hq, s_q, d = q.shape
+    pool, hkv, bs, _ = kp.shape
+    mb = tables.shape[1]
+    dt = q.dtype
     o = pfd.paged_flash_decode(*args)
     o_ref = pfd.paged_flash_decode_plain(*args)
     torch.cuda.synchronize()
@@ -497,7 +600,21 @@ def paged_case(torch, pfd, flush, *, name, dtype, kv, s_q):
                    flush=flush),
                library="SDPA on the pre-gathered dense view (excludes "
                        "the gather)",
-               bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+               bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+               **split_record(
+                   torch, lambda c: pfd.paged_flash_decode(
+                       *args, block_counter=c),
+                   length, s_q * hq // hkv, spans, hkv))
+    if profile:  # the event time against the profiler's kernel time
+        run = lambda: pfd.paged_flash_decode(*args)  # noqa: E731
+        one = (q, kp, vp, tables, torch.zeros_like(cur_t), None, scales)
+        rec.update(
+            profiler_ms=profiler_kernel_ms(torch, run, "splitkv_kernel",
+                                           flush=flush),
+            ms_read_flush=time_ms(torch, run, flush=flush, read_flush=True),
+            # the same launch with one live position a slot: fixed cost
+            fixed_ms=time_ms(torch, lambda: pfd.paged_flash_decode(*one),
+                             flush=flush))
     emit(rec)
     return rec
 
@@ -521,7 +638,8 @@ def phase_kernels(torch, fa, fd, pfd) -> dict:
                        pads=[0, 300, 999, 1000], dtype=dtype)
         rec = decode_case(torch, fd, flush, name="decode_step1", b=b, hq=16,
                           hkv=8, length=length, d=128, cur=s + 1,
-                          pads=main_pads, dtype=dtype)
+                          pads=main_pads, dtype=dtype,
+                          profile=dtype == "bfloat16")
         if dtype == "bfloat16":
             main["flash_decode"] = rec
         decode_case(torch, fd, flush, name="per_row_cur", b=b, hq=16, hkv=8,
@@ -534,12 +652,20 @@ def phase_kernels(torch, fa, fd, pfd) -> dict:
             if kv != "same" and dtype == "float32":
                 continue  # a quantized pool serves the bf16 model
             for s_q in (1, 5):
+                main_case = dtype == "bfloat16" and kv == "same" \
+                    and s_q == 1
                 rec = paged_case(torch, pfd, flush,
                                  name=f"paged_{kv}_s{s_q}", dtype=dtype,
-                                 kv=kv, s_q=s_q)
-                if dtype == "bfloat16" and kv == "same" and s_q == 1:
+                                 kv=kv, s_q=s_q, profile=main_case)
+                if main_case:
                     main["paged_flash_decode"] = rec
     main["flash_sweep"] = flash_sweep(torch, fa, flush)
+    # what the events read around an empty kernel: the floor under every
+    # time of this phase
+    floor = dict(phase="kernels", case="event_floor",
+                 ms=time_ms(torch, lambda: torch.cuda._sleep(0), flush=flush))
+    emit(floor)
+    main["event_floor_ms"] = floor["ms"]
     del flush
     return main
 
@@ -995,6 +1121,14 @@ def main() -> int:
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if name != "flash_attention":  # the split-KV decode kernels
+            kernels[-1].update(
+                chunk=r["chunk"], n_splits=r["n_splits"],
+                rows_per_block=r["rows_per_block"],
+                live_blocks=r["live_blocks"], grid_blocks=r["grid_blocks"],
+                profiler_ms=r["profiler_ms"],
+                ms_read_flush=r["ms_read_flush"], fixed_ms=r["fixed_ms"],
+                event_floor_ms=main_recs["event_floor_ms"])
         if name == "flash_attention":  # bf16 on the main path; f32 beside
             f32 = main_recs["flash_attention_f32"]
             kernels[-1].update(

@@ -40,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 
 # name → argtypes of every launcher in csrc/ (restype is always c_int,
 # the launcher's cudaError_t).
@@ -48,12 +49,14 @@ SIGNATURES = {
     # tiles|NULL, stream
     "sdl_flash_attention_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
     # q, k, v, o, cur|NULL, cur_scalar, pad|NULL, B, Hkv, rep, L, D,
-    # is_bf16, stream
-    "sdl_flash_decode": [P, P, P, P, P, I, P, I, I, I, I, I, I, P],
+    # is_bf16, rt, chunk, ws, ws_floats, counters, blocks|NULL, stream
+    "sdl_flash_decode": [P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P, LL,
+                         P, P, P],
     # q, k, v, scales|NULL, tables, cur, pad|NULL, o, B, Hkv, rep, S, D,
-    # bs, MB, is_bf16, kv_kind, stream
+    # bs, MB, is_bf16, kv_kind, rt, chunk, ws, ws_floats, counters,
+    # blocks|NULL, stream
     "sdl_paged_flash_decode": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                               I, I, P],
+                               I, I, I, I, P, LL, P, P, P],
 }
 
 _lock = threading.Lock()

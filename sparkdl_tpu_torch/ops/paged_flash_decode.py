@@ -10,17 +10,26 @@ decode step, ``S = k+1`` the speculative verify window, and query ``i``
 of slot ``r`` attends logical positions ``[pad_lens[r], slot_cur[r] +
 i]``; a position past the table has nothing to attend.
 
-The kernel (``csrc/paged_flash_decode.cu``) is bound by the bytes it
-reads. It reads only the live positions of each slot, each through the
-table, so no dense per-slot view of the pool is ever made and a step
-costs O(cur) bytes per slot. A quantized pool (int8 or fp8 codes) comes
-with its ``[P, Hkv, 2]`` f32 scale plane, and the scales fold in after
-each product, so only the codes are read.
+The kernel (``csrc/paged_flash_decode.cu`` over the split-KV template
+``csrc/decode_splitkv.cuh``) is bound by the bytes it reads. It reads
+only the live positions of each slot, each through the table, so no
+dense per-slot view of the pool is ever made and a step costs O(cur)
+bytes per slot. Each slot's ``MB * bs`` positions split into chunks of
+256 (:func:`ops.flash_decode.split_plan`, from static shapes only) spread
+over the grid; a block reads its chunk's table entries once, streams
+the live rows through a ``cp.async`` ring, and the chunks' partial
+softmaxes merge in the same launch, in split order, in the block that
+finishes last (its workspace allocated per call, its counters kept per
+device by :func:`ops.flash_decode.splitkv_workspace`). A quantized pool
+(int8 or fp8 codes) comes with its ``[P, Hkv, 2]`` f32 scale plane, and
+the scales fold in after each product, so only the codes are read.
 
 A CPU tensor takes :func:`paged_flash_decode_plain`; a CUDA tensor
 launches the kernel or raises. There is no stand-down to the gathered
 view: dense attention runs only where the caller asks for it
 (``attn_fn=None`` or ``SPARKDL_SERVE_PAGED_KERNEL=0``).
+:func:`paged_flash_decode_emulation` repeats the kernel's arithmetic
+for the CPU tests; nothing on the main path calls it.
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ import math
 import torch
 
 from ..parallel.ring_attention import NEG_INF
-from .flash_decode import _rows, tri_state_env
+from .flash_decode import (MAX_POSITIONS, _rows, check_block_counter,
+                           split_plan, splitkv_emulation, splitkv_workspace,
+                           tri_state_env)
 
 #: the explicit engagement knob: ``0`` off (the gathered view, the
 #: ablation lever), anything else engages exactly when the dense
@@ -43,7 +54,7 @@ KERNEL_Q_DTYPES = (torch.float32, torch.bfloat16)
 #: quantized pool storage the kernel reads, with its kind code
 KERNEL_CODE_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 #: the most query rows (S * rep) one call may carry: the rows split into
-#: groups of 8 across blocks, and each group reads the live K/V again
+#: groups of 2 across blocks, and each group reads the live K/V again
 KERNEL_MAX_ROWS = 128
 
 
@@ -96,14 +107,50 @@ def paged_flash_decode_plain(q, k_pool, v_pool, tables, slot_cur,
     return o.reshape(b, hq, s_q, d).to(q.dtype)
 
 
-def support_reason(q, k_pool, kv_scales=None) -> str | None:
+def paged_flash_decode_emulation(q, k_pool, v_pool, tables, slot_cur,
+                                 pad_lens=None, kv_scales=None):
+    """:func:`ops.flash_decode.splitkv_emulation` with the kernel's table
+    pages, for the CPU tests: query row ``i * rep + g`` attends
+    ``[pad, cur + i]``; positions outside ``[pad, min(cur + S, MB*bs))``
+    are zero (the kernel zero-fills them without reading), and a code
+    pool's scales fold in per position, after each product."""
+    b, hq, s_q, d = q.shape
+    hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    rep, npos = hq // hkv, tables.shape[1] * bs
+    cur = _rows(slot_cur, b, "cpu", "slot_cur").long()
+    start = (torch.zeros(b, dtype=torch.long) if pad_lens is None else
+             _rows(pad_lens, b, "cpu", "pad_lens").long().clamp(min=0))
+    end = torch.minimum(cur + s_q, torch.tensor(npos))
+    col = torch.arange(npos)
+    ok = (col[None] >= start[:, None]) & (col[None] < end[:, None])
+    ok4 = ok[:, None, :, None]
+    k, v = (torch.where(ok4, gathered_view(x, tables).float(), 0.0)
+            for x in (k_pool, v_pool))
+    sk = sv = None
+    if kv_scales is not None:
+        blk = tables.long()[:, col // bs]                     # [B, npos]
+        pair = kv_scales.float()[blk].permute(0, 2, 1, 3)     # [B,Hkv,P,2]
+        sk, sv = (torch.where(ok[:, None], pair[..., c], 1.0)
+                  for c in (0, 1))
+    qg = q.float().reshape(b, hkv, rep, s_q, d).transpose(2, 3).reshape(
+        b, hkv, s_q * rep, d)
+    lim = cur[:, None] + torch.arange(s_q * rep)[None] // rep
+    o = splitkv_emulation(qg, k, v, lim, start, end,
+                          elt_bytes=k_pool.element_size(), sk=sk, sv=sv)
+    return o.reshape(b, hkv, s_q, rep, d).transpose(2, 3).reshape(
+        b, hq, s_q, d).to(q.dtype)
+
+
+def support_reason(q, k_pool, kv_scales=None, tables=None) -> str | None:
     """None when :func:`paged_flash_decode` takes these inputs, else a
     human-readable reason, which it raises with. CPU tensors take the
     plain version, which covers every shape. CUDA tensors need what the
     kernel needs: head dim 64 or 128; f32 or bf16 queries; a pool in the
     query's dtype, or int8 / e4m3 codes with their scale plane; at most
-    :data:`KERNEL_MAX_ROWS` query rows (``S * rep``). Any block size,
-    table width and GQA ratio work (the TPU kernel's ``block_size % 8``
+    :data:`KERNEL_MAX_ROWS` query rows (``S * rep``); at most
+    :data:`ops.flash_decode.MAX_POSITIONS` positions a table (``MB *
+    bs``, checked when ``tables`` is given). Any block size, table width
+    up to that and GQA ratio work (the TPU kernel's ``block_size % 8``
     was a Mosaic sublane rule)."""
     if q.device.type == "cpu":
         return None
@@ -121,6 +168,10 @@ def support_reason(q, k_pool, kv_scales=None) -> str | None:
     if rows > KERNEL_MAX_ROWS:
         return (f"S * rep = {rows} query rows exceed the kernel's "
                 f"{KERNEL_MAX_ROWS}")
+    if tables is not None and tables.shape[1] * k_pool.shape[2] > \
+            MAX_POSITIONS:
+        return (f"{tables.shape[1]} blocks of {k_pool.shape[2]} positions "
+                f"a table exceed the kernel's {MAX_POSITIONS}")
     return None
 
 
@@ -151,7 +202,7 @@ def _check(q, k_pool, v_pool, tables, kv_scales):
 
 
 def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
-                       kv_scales=None):
+                       kv_scales=None, *, block_counter=None):
     """Block-table cache attention over the shared pool → ``[B, Hq, S,
     D]`` in q's dtype.
 
@@ -164,15 +215,17 @@ def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
     when the pools hold int8 / fp8 codes. CPU tensors →
     :func:`paged_flash_decode_plain`; CUDA tensors → the kernel, after
     checks that raise on what it does not take. Counts its launches in
-    ``paged_flash_decode.launches``."""
+    ``paged_flash_decode.launches``. ``block_counter``: as
+    :func:`ops.flash_decode.flash_decode`'s."""
     _check(q, k_pool, v_pool, tables, kv_scales)
+    check_block_counter(block_counter, q.device)
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pool, v_pool, tables, slot_cur,
                                         pad_lens, kv_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    reason = support_reason(q, k_pool, kv_scales)
+    reason = support_reason(q, k_pool, kv_scales, tables)
     if reason is not None:
         raise ValueError(f"paged_flash_decode kernel: {reason}")
     if v_pool.dtype != k_pool.dtype:
@@ -200,7 +253,11 @@ def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
            else _rows(pad_lens, b, q.device, "pad_lens"))
     o = torch.empty_like(q)
     lib = _build.library()
+    rows = s_q * (hq // hkv)
+    rt, chunk, n_splits = split_plan(mb * bs, rows)
     with torch.cuda.device(q.device):
+        ws, cnt = splitkv_workspace(q.device, b * hkv * -(-rows // rt),
+                                    n_splits, rt, d)
         err = lib.sdl_paged_flash_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             None if kv_scales is None else kv_scales.data_ptr(),
@@ -208,7 +265,9 @@ def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
             None if pad is None else pad.data_ptr(), o.data_ptr(), b, hkv,
             hq // hkv, s_q, d, bs, mb, int(q.dtype == torch.bfloat16),
             KERNEL_CODE_DTYPES.get(k_pool.dtype, 0) if kv_scales is not None
-            else 0, torch.cuda.current_stream().cuda_stream)
+            else 0, rt, chunk, ws.data_ptr(), ws.numel(), cnt.data_ptr(),
+            None if block_counter is None else block_counter.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_flash_decode")
     paged_flash_decode.launches += 1
     return o

@@ -467,3 +467,205 @@ def test_serving_engine_runs_the_kernels_on_card(dev):
         else:
             assert fd.flash_decode.launches - d0 == \
                 cfg.num_layers * eng.stats["steps"]
+
+
+# --- split-KV decode: chunk edges, long tables, the in-launch merge -------
+
+SC = fd.SPLIT_CHUNK
+
+
+def _tol(dtype, kv="same"):
+    atol, rtol = TOL[dtype]
+    return (1e-4 if kv != "same" else atol), rtol
+
+
+def test_split_kv_counts_its_blocks(dev):
+    """The kernel's own count of the blocks it ran and of those that found
+    a live position equals the plan (``fd.split_blocks``): chunk edges, a
+    chunk of pad only, a row with nothing live, the S = 5 window and a
+    16384-position table. Counting changes no output bit."""
+    rng = np.random.default_rng(14)
+    length = 4 * SC
+    q = _randn(rng, (4, 8, 1, 64), torch.bfloat16, dev)
+    k = _randn(rng, (4, 2, length, 64), torch.bfloat16, dev)
+    v = _randn(rng, (4, 2, length, 64), torch.bfloat16, dev)
+    curs, pads = [SC, SC + 1, 3 * SC, 5], [0, SC - 1, 2 * SC, 5]
+    cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+    pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = fd.flash_decode(q, k, v, cur, pad, block_counter=cnt)
+    plan = fd.split_blocks(length, 4, 2, list(zip(pads, curs)))
+    assert cnt.tolist() == [plan["grid_blocks"], plan["live_blocks"]], plan
+    assert torch.equal(got, fd.flash_decode(q, k, v, cur, pad))
+    for s_q, mb in ((5, 3 * SC // 16), (1, 16384 // 16)):
+        pcur, ppad = [SC - 1, 0, 2 * SC + 3, mb * 16 - 6], [0, 0, 2 * SC, SC]
+        args = _paged_case(rng, dev, dtype=torch.bfloat16, kv="same", b=4,
+                           hkv=2, rep=2, s_q=s_q, d=128, bs=16, mb=mb,
+                           curs=pcur, pads=ppad)
+        qp, kp, vp, _, tables, curp, padp = args
+        cnt.zero_()
+        got = pfd.paged_flash_decode(qp, kp, vp, tables, curp, padp,
+                                     block_counter=cnt)
+        spans = [(p, min(c + s_q, mb * 16)) for c, p in zip(pcur, ppad)]
+        plan = fd.split_blocks(mb * 16, 2 * s_q, 2, spans)
+        assert cnt.tolist() == [plan["grid_blocks"],
+                                plan["live_blocks"]], (s_q, plan)
+        assert torch.equal(got, pfd.paged_flash_decode(qp, kp, vp, tables,
+                                                        curp, padp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_decode_split_edges(dev, dtype, d):
+    """cur and pad on each side of a chunk edge, chunks of pad only, a
+    row with nothing live; the kernel against the plain version and the
+    CPU emulation of its arithmetic."""
+    rng = np.random.default_rng(d + 1)
+    b, h_kv, rep, length = 8, 2, 4, 4 * SC
+    q = _randn(rng, (b, h_kv * rep, 1, d), dtype, dev)
+    k = _randn(rng, (b, h_kv, length, d), dtype, dev)
+    v = _randn(rng, (b, h_kv, length, d), dtype, dev)
+    cur = torch.tensor([SC - 1, SC, SC + 1, 4 * SC, 2 * SC + 1, 3 * SC, 5,
+                        2 * SC - 1], dtype=torch.int32, device=dev)
+    pads = torch.tensor([0, SC - 1, SC, SC + 1, 2 * SC, 2 * SC - 1, 0,
+                         2 * SC - 1], dtype=torch.int32, device=dev)
+    got = fd.flash_decode(q, k, v, cur, pads)
+    torch.cuda.synchronize()
+    args = (q.cpu(), k.cpu(), v.cpu(), cur.cpu(), pads.cpu())
+    atol, rtol = _tol(dtype)
+    for want in (fd.flash_decode_plain(*args),
+                 fd.flash_decode_emulation(*args)):
+        np.testing.assert_allclose(got.float().cpu(), want.float(),
+                                   atol=atol, rtol=rtol)
+    assert torch.all(got[7] == 0)  # cur <= pad: nothing live
+
+
+@pytest.mark.parametrize("kv", ["same", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s_q", [1, 5])
+def test_paged_flash_decode_split_edges(dev, kv, d, s_q):
+    """The paged kernel with fills and pads on each side of chunk edges,
+    a chunk of pad only and a parked slot, bf16 queries, NaN in every
+    block no live range reads."""
+    rng = np.random.default_rng(d * 10 + s_q)
+    curs = [SC - 1, SC, SC + 1, 0, 2 * SC + 3, SC + 10, 3 * SC - 6, 1]
+    pads = [0, SC, SC - 1, 0, 2 * SC, SC + 1, SC, 0]
+    args = _paged_case(rng, dev, dtype=torch.bfloat16, kv=kv, b=8, hkv=2,
+                       rep=2, s_q=s_q, d=d, bs=16, mb=3 * SC // 16,
+                       curs=curs, pads=pads)
+    q, kp, vp, sc, tables, cur, pad = args
+    got = pfd.paged_flash_decode(q, kp, vp, tables, cur, pad, kv_scales=sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    cpu = [x if x is None else x.cpu() for x in (q, kp, vp, tables, cur,
+                                                    pad, sc)]
+    atol, rtol = _tol(torch.bfloat16, kv)
+    for want in (pfd.paged_flash_decode_plain(*cpu[:6], kv_scales=cpu[6]),
+                 pfd.paged_flash_decode_emulation(*cpu[:6],
+                                                  kv_scales=cpu[6])):
+        np.testing.assert_allclose(got.float().cpu(), want.float(),
+                                   atol=atol, rtol=rtol)
+
+
+def test_split_kv_long_tables(dev):
+    """16384 positions a row: 256 splits of both kernels, merged in the
+    launch, against the plain versions."""
+    rng = np.random.default_rng(11)
+    n = 16384
+    q = _randn(rng, (3, 8, 1, 128), torch.bfloat16, dev)
+    k = _randn(rng, (3, 2, n, 128), torch.bfloat16, dev)
+    v = _randn(rng, (3, 2, n, 128), torch.bfloat16, dev)
+    cur = torch.tensor([n, 9001, 65], dtype=torch.int32, device=dev)
+    pads = torch.tensor([0, 4000, 64], dtype=torch.int32, device=dev)
+    got = fd.flash_decode(q, k, v, cur, pads)
+    want = fd.flash_decode_plain(q, k, v, cur, pads)
+    atol, rtol = _tol(torch.bfloat16)
+    np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                               atol=atol, rtol=rtol)
+    args = _paged_case(rng, dev, dtype=torch.bfloat16, kv="same", b=4, hkv=2,
+                       rep=2, s_q=1, d=128, bs=16, mb=n // 16,
+                       curs=[n - 1, 12000, 63, 0], pads=[0, 5000, 0, 0])
+    qp, kp, vp, _, tables, curp, padp = args
+    got = pfd.paged_flash_decode(qp, kp, vp, tables, curp, padp)
+    want = pfd.paged_flash_decode_plain(qp, kp, vp, tables, curp, padp)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                               atol=atol, rtol=rtol)
+
+
+def test_split_kv_merge_is_deterministic(dev):
+    """Three calls back to back, then two shapes interleaved: the outputs
+    are bitwise equal, so the counters reset after every launch and the
+    merge does not depend on the order in which the splits finish."""
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (4, 16, 1, 128), torch.bfloat16, dev)
+    k = _randn(rng, (4, 8, 2112, 128), torch.bfloat16, dev)
+    v = _randn(rng, (4, 8, 2112, 128), torch.bfloat16, dev)
+    cur = torch.tensor([2049, 1501, 701, 34], dtype=torch.int32, device=dev)
+    args = _paged_case(rng, dev, dtype=torch.bfloat16, kv="same", b=8, hkv=8,
+                       rep=2, s_q=1, d=128, bs=16, mb=132,
+                       curs=[2047, 1500, 900, 513, 300, 64, 17, 0],
+                       pads=[0, 0, 37, 0, 0, 0, 0, 0])
+    qp, kp, vp, _, tables, curp, padp = args
+
+    def dec():
+        return fd.flash_decode(q, k, v, cur)
+
+    def paged():
+        return pfd.paged_flash_decode(qp, kp, vp, tables, curp, padp)
+
+    first = [dec() for _ in range(3)]
+    mixed = [f() for f in (paged, dec, paged, dec, paged)]
+    torch.cuda.synchronize()
+    for o in first[1:] + mixed[1::2]:
+        assert torch.equal(o, first[0])
+    for o in mixed[2::2]:
+        assert torch.equal(o, mixed[0])
+    np.testing.assert_allclose(
+        first[0].float().cpu(), fd.flash_decode_plain(q, k, v,
+                                                      cur).float().cpu(),
+        atol=1e-5, rtol=2.0 ** -7)
+
+
+def test_split_kv_graph_capture_and_replay(dev):
+    """Each wrapper captured in a CUDA graph after a warm-up, replayed
+    after cur changes in place: equal to the plain version at the new
+    fill. The grid comes from static shapes and the launch syncs nothing
+    with the host."""
+    rng = np.random.default_rng(13)
+    q = _randn(rng, (4, 16, 1, 128), torch.bfloat16, dev)
+    k = _randn(rng, (4, 8, 1024, 128), torch.bfloat16, dev)
+    v = _randn(rng, (4, 8, 1024, 128), torch.bfloat16, dev)
+    cur = torch.tensor([1000, 500, 64, 3], dtype=torch.int32, device=dev)
+    pads = torch.tensor([0, 10, 0, 0], dtype=torch.int32, device=dev)
+    args = _paged_case(rng, dev, dtype=torch.bfloat16, kv="int8", b=4, hkv=8,
+                       rep=2, s_q=1, d=128, bs=16, mb=64,
+                       curs=[1000, 700, 65, 0], pads=[0, 0, 64, 0])
+    qp, kp, vp, sc, tables, curp, padp = args
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: library, counters
+        fd.flash_decode(q, k, v, cur, pads)
+        pfd.paged_flash_decode(qp, kp, vp, tables, curp, padp, kv_scales=sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(q, k, v, cur, pads)
+        outp = pfd.paged_flash_decode(qp, kp, vp, tables, curp, padp,
+                                      kv_scales=sc)
+    atol, rtol = _tol(torch.bfloat16)
+    for new, newp in (([1001, 400, 65, 0], [1001, 300, 70, 0]),
+                      ([12, 1024, 128, 64], [63, 699, 64, 0])):
+        cur.copy_(torch.tensor(new, dtype=torch.int32))
+        curp.copy_(torch.tensor(newp, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(
+            out.float().cpu(),
+            fd.flash_decode_plain(q, k, v, cur, pads).float().cpu(),
+            atol=atol, rtol=rtol)
+        np.testing.assert_allclose(
+            outp.float().cpu(),
+            pfd.paged_flash_decode_plain(qp, kp, vp, tables, curp, padp,
+                                         kv_scales=sc).float().cpu(),
+            atol=1e-4, rtol=rtol)
