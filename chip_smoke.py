@@ -54,10 +54,19 @@ c. main path — ``generate()`` on ``LlamaConfig.small()`` at full width and
    depth (2048 hidden, 16 layers, 16/8 heads, head_dim 128, vocab 32000),
    bf16, random weights from a seeded generator on the card; four prompts
    of 2048, 1500, 700 and 33 tokens, left-padded; 64 new tokens, greedy.
-   The launch counters are set to 0 just before and read just after:
-   flash_attention must have launched once a layer, flash_decode once a
-   layer per decode step. Prefill ms and decode ms per step are timed
-   inside that one call.
+   Four calls in turns: eager, graph, graph, eager. The graph arm is
+   ``generate()`` as shipped, every S = 1 step replayed from a CUDA graph
+   captured at its first step; the eager arm is the same call with its
+   decode loop calling the eager step (``L._decode_step``) directly. Each
+   prints a ``main_path`` line: prefill ms, decode ms a step (with and
+   without the capture), capture ms (from the ``graph_capture`` event),
+   new tokens/s. The launch counters are set to 0 just before each call
+   and read just after: flash_attention must have launched once a layer,
+   flash_decode once a layer per decode step, in both arms; the greedy
+   tokens of every call must be equal. Then three ``profile`` lines: two
+   prefills, 4 eager decode steps and 4 replayed ones (device busy and
+   idle share from ``torch.profiler``, beside wall and CUDA-event ms; a
+   window where the profiler sees no device activity says so).
 d. parity — the same model in f32 (TF32 off): the dense in-model path
    (``attn_fn=None``) is fed the kernel path's tokens and its logits are
    held to the kernel path's at the prefill's last position and at every
@@ -67,7 +76,13 @@ e. serve — ``GenerationEngine.from_model`` on ``LlamaConfig.small()`` at
    legs, each a fresh engine and one JSON line (requests completed, new
    tokens/s over the leg, TTFT p50/p95, mean decode-iteration ms, peak
    device memory, launch counters set to 0 just before the leg and read
-   just after):
+   just after, the backend's graph captures and replays, which must be
+   one capture and a replay for every later S = 1 step, and capture ms).
+   After leg 1, two ``profile`` lines of 4 iterations with 8 slots
+   decoding: the step from the graph, with the iteration split by the
+   host clock (scheduler, operands, tables, replay, the ``_advance``
+   sync), and the eager step (``L.paged_slot_decode_step`` called
+   directly):
    1. paged (block 16, 256-token chunks), 12 requests of 32–1536 prompt
       tokens, four sharing their first 512 (radix grafts), 32 new tokens
       each: paged_flash_decode launches == 16 × engine steps, and
@@ -679,7 +694,105 @@ def prompts(torch, cfg):
     return left_pad_prompts(toks)
 
 
+def graph_captures(since: float) -> list:
+    """Capture times (ms) of the CUDA graphs made since ``since`` (a
+    ``time.time()``), from the flight recorder's ``graph_capture``
+    events."""
+    from sparkdl_tpu_torch.runner import events
+
+    return [e["ms"] for e in events.get_recorder().tail()
+            if e["name"] == "graph_capture" and e["t"] >= since]
+
+
+def eager_decode(torch, L):
+    """``L._decode`` with every step run eagerly (``L._decode_step``
+    called directly, no graph): the eager arm of phase c. Greedy, no
+    eos, as phase c calls it."""
+    def run(model, cache, last_logits, generator, pad_lens=None, *,
+            max_new_tokens, temperature, top_k=0, top_p=1.0, eos_id=None):
+        assert eos_id is None and temperature <= 0.0
+        tok = last_logits.argmax(-1)
+        out = []
+        for _ in range(max_new_tokens):
+            out.append(tok)
+            tok = L._decode_step(model, cache, tok, pad_lens).argmax(-1)
+        return torch.stack(out, dim=1), max_new_tokens
+    return run
+
+
+def generate_arm(torch, L, fa, fd, model, ids, pads, arm: str,
+                 run: int) -> tuple:
+    """One timed ``generate()`` call, its decode loop eager or from the
+    graph (the shipped path). The prefill and the decode loop are timed
+    inside that call: generate() calls the module's _prefill and _decode,
+    which are wrapped here for the call only (host clock, device synced
+    on both sides, so each span holds its own device work). The launch
+    counters are set to 0 just before and read just after."""
+    spans, outs = {}, {}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = time.perf_counter() - t0
+            return outs[name]
+        return wrapped
+
+    real = L._prefill, L._decode
+    decode = eager_decode(torch, L) if arm == "eager" else real[1]
+    L._prefill, L._decode = timed("prefill", real[0]), timed("decode", decode)
+    try:
+        fa.flash_attention_fwd.launches = 0
+        fd.flash_decode.launches = 0
+        since = time.time()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, steps = L.generate(model, ids, NEW_TOKENS, pad_lens=pads,
+                                return_steps=True)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {"flash_attention": fa.flash_attention_fwd.launches,
+                    "flash_decode": fd.flash_decode.launches}
+    finally:
+        L._prefill, L._decode = real
+    captures = graph_captures(since)
+    assert len(captures) == (arm == "graph"), (arm, captures)
+    cfg = model.cfg
+    assert torch.isfinite(outs["prefill"]).all(), "prefill logits not finite"
+    assert steps == NEW_TOKENS, f"decode ran {steps} steps"
+    assert launches["flash_attention"] == cfg.num_layers, launches
+    assert launches["flash_decode"] == cfg.num_layers * steps, launches
+    assert out.shape == (len(PROMPT_LENS), ids.shape[1] + NEW_TOKENS)
+    assert torch.equal(out[:, :ids.shape[1]].cpu(), ids), "prompt changed"
+    new = out[:, ids.shape[1]:]
+    assert int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
+    capture_ms = captures[0] if captures else None
+    rec = dict(phase="main_path", arm=arm, run=run,
+               config="LlamaConfig.small", dtype="bfloat16",
+               layers=cfg.num_layers, hidden=cfg.hidden_size,
+               heads=[cfg.num_heads, cfg.num_kv_heads],
+               head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+               prompt_lens=PROMPT_LENS, new_tokens=NEW_TOKENS,
+               decode_steps=steps, launches=launches, generate_s=total_s,
+               prefill_ms=spans["prefill"] * 1e3,
+               decode_ms_per_step=spans["decode"] * 1e3 / steps,
+               capture_ms=capture_ms,
+               decode_ms_per_step_without_capture=(
+                   spans["decode"] * 1e3 - (capture_ms or 0.0)) / steps,
+               rest_ms=(total_s - spans["prefill"] - spans["decode"]) * 1e3,
+               new_tokens_per_s=len(PROMPT_LENS) * steps / total_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               first_new_tokens=new[:, :4].tolist())
+    emit(rec)
+    return rec, new
+
+
 def phase_main(torch, fa, fd) -> dict:
+    """generate() on the main path: the eager arm and the graph arm in
+    turns (eager, graph, graph, eager), the same greedy tokens from
+    every run; then the prefill and both decode arms profiled."""
     from sparkdl_tpu_torch.models import llama as L
 
     cfg = L.LlamaConfig.small()
@@ -691,80 +804,47 @@ def phase_main(torch, fa, fd) -> dict:
     ids, pads = prompts(torch, cfg)
     L.generate(model, ids, 2, pad_lens=pads)  # warm-up: cuBLAS handles etc.
     dev_ids, dev_pads = ids.cuda(), pads.cuda()
-
-    # The prefill and the decode loop are timed inside the one generate()
-    # call below: generate() calls the module's _prefill and _decode, which
-    # are wrapped here for that call only (host clock, device synced on
-    # both sides, so each span holds its own device work).
-    spans, outs = {}, {}
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs[name] = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spans[name] = time.perf_counter() - t0
-            return outs[name]
-        return run
-
-    real = L._prefill, L._decode
-    L._prefill, L._decode = timed("prefill", real[0]), timed("decode", real[1])
-    try:
-        fa.flash_attention_fwd.launches = 0
-        fd.flash_decode.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, steps = L.generate(model, ids, NEW_TOKENS, pad_lens=pads,
-                                return_steps=True)
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        launches = {"flash_attention": fa.flash_attention_fwd.launches,
-                    "flash_decode": fd.flash_decode.launches}
-    finally:
-        L._prefill, L._decode = real
-
-    assert torch.isfinite(outs["prefill"]).all(), "prefill logits not finite"
-    assert steps == NEW_TOKENS, f"decode ran {steps} steps"
-    assert launches["flash_attention"] == cfg.num_layers, launches
-    assert launches["flash_decode"] == cfg.num_layers * steps, launches
-    assert out.shape == (len(PROMPT_LENS), ids.shape[1] + NEW_TOKENS)
-    assert torch.equal(out[:, :ids.shape[1]].cpu(), ids), "prompt changed"
-    new = out[:, ids.shape[1]:]
-    assert int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
-    prefill_ms = spans["prefill"] * 1e3
-    decode_ms = spans["decode"] * 1e3 / steps
-    rec = dict(phase="main_path", config="LlamaConfig.small", dtype="bfloat16",
-               layers=cfg.num_layers, hidden=cfg.hidden_size,
-               heads=[cfg.num_heads, cfg.num_kv_heads], head_dim=cfg.head_dim,
-               vocab=cfg.vocab_size, prompt_lens=PROMPT_LENS,
-               new_tokens=NEW_TOKENS, decode_steps=steps, launches=launches,
-               init_s=init_s, generate_s=total_s, prefill_ms=prefill_ms,
-               decode_ms_per_step=decode_ms,
-               rest_ms=(total_s - spans["prefill"] - spans["decode"]) * 1e3,
-               new_tokens_per_s=len(PROMPT_LENS) * steps / total_s,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               first_new_tokens=new[:, :4].tolist())
-    emit(rec)
+    runs = [generate_arm(torch, L, fa, fd, model, ids, pads, arm, run)
+            for arm, run in (("eager", 1), ("graph", 1), ("graph", 2),
+                             ("eager", 2))]
+    for rec, new in runs[1:]:
+        assert torch.equal(new, runs[0][1]), (
+            f"{rec['arm']} run {rec['run']}: tokens differ from the eager "
+            f"arm's")
+    by_arm = {a: [r for r, _ in runs if r["arm"] == a]
+              for a in ("eager", "graph")}
+    emit(dict(phase="main_path", arm="summary", init_s=init_s,
+              tokens_equal=True,
+              **{k: {a: [r[k] for r in rs] for a, rs in by_arm.items()}
+                 for k in ("decode_ms_per_step", "new_tokens_per_s",
+                           "prefill_ms")},
+              capture_ms=[r["capture_ms"] for r in by_arm["graph"]]))
+    emit(profile_prefill(torch, L, model, dev_ids, dev_pads))
     emit(profile_decode(torch, L, model, dev_ids, dev_pads))
+    emit(profile_decode_graph(torch, L, model, dev_ids, dev_pads))
     del model
     torch.cuda.empty_cache()
-    return rec
+    return dict(by_arm["graph"][0], init_s=init_s)
 
 
 def device_profile(torch, step, steps: int, window: str) -> dict:
     """Where ``steps`` calls of ``step`` spend their time:
     ``torch.profiler`` device busy share of the wall time and the kernels
-    that take it. Reports "not measured" when the profiler sees no device
+    that take it, beside the wall time and the CUDA-event time of the
+    same window. Reports "not measured" when the profiler sees no device
     activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        s.record()
         for _ in range(steps):
             step()
+        e.record()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
@@ -779,8 +859,9 @@ def device_profile(torch, step, steps: int, window: str) -> dict:
     return dict(
         phase="profile", window=window,
         wall_ms_per_step=wall_us / steps / 1e3,
+        event_ms_per_step=s.elapsed_time(e) / steps,
         device_busy_ms_per_step=(busy_us / steps / 1e3) if busy_us
-        else "not measured",
+        else "not measured: the profiler saw no device activity",
         device_idle_share=(1 - busy_us / wall_us) if busy_us
         else "not measured",
         device_launches_per_step=sum(n for n, _ in kernels.values()) / steps,
@@ -788,8 +869,19 @@ def device_profile(torch, step, steps: int, window: str) -> dict:
                      for n, (c, t) in top])
 
 
+def profile_prefill(torch, L, model, ids, pads, steps: int = 2) -> dict:
+    """Where a prefill of ``generate()`` spends its time: ``steps``
+    prefills of the main path's prompts, each into a fresh cache."""
+    caches = [L.init_cache(model, ids.shape[0], ids.shape[1] + 1)
+              for _ in range(steps)]
+
+    def step():
+        L._prefill(model, ids, caches.pop(), pads)
+    return device_profile(torch, step, steps, f"{steps} prefills, small bf16")
+
+
 def profile_decode(torch, L, model, ids, pads, steps: int = 4) -> dict:
-    """Where a decode step of ``generate()`` spends its time, over
+    """Where an eager decode step of ``generate()`` spends its time, over
     ``steps`` steps after a prefill."""
     cache = L.init_cache(model, ids.shape[0], ids.shape[1] + steps + 1)
     tok = [L._prefill(model, ids, cache, pads).argmax(-1)]
@@ -797,7 +889,33 @@ def profile_decode(torch, L, model, ids, pads, steps: int = 4) -> dict:
     def step():
         tok[0] = L._decode_step(model, cache, tok[0], pads).argmax(-1)
     return device_profile(torch, step, steps,
-                          f"{steps} decode steps, small bf16")
+                          f"{steps} eager decode steps, small bf16")
+
+
+def profile_decode_graph(torch, L, model, ids, pads, steps: int = 4) -> dict:
+    """:func:`profile_decode` with every step replayed from the CUDA
+    graph, as ``L._decode`` runs it (captured before the window)."""
+    import functools
+
+    from sparkdl_tpu_torch.core.runtime import CompileCache
+
+    cache = L.init_cache(model, ids.shape[0], ids.shape[1] + steps + 2)
+    tok = [L._prefill(model, ids, cache, pads).argmax(-1)]
+    graphs = CompileCache()
+    fn = functools.partial(L._decode_step, model, cache)
+
+    def step():
+        n = cache.idx
+        logits = graphs.get("decode_step", "profile", fn, (tok[0], pads),
+                            L.LAUNCH_COUNTED)
+        cache.idx = n + 1
+        tok[0] = logits.argmax(-1)
+    step()  # the warm-up step and the capture
+    rec = device_profile(torch, step, steps,
+                         f"{steps} decode steps from the graph, small bf16")
+    assert graphs.snapshot()["replays"] == steps
+    assert int(cache.idx_dev) == cache.idx
+    return rec
 
 
 def phase_parity(torch) -> dict:
@@ -896,6 +1014,7 @@ def serve_leg(torch, model, kernels, *, leg, prompts, **kw) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*kernels)
+    since = time.time()
     t0 = time.perf_counter()
     hs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
     eng.run_until_idle()
@@ -926,24 +1045,102 @@ def serve_leg(torch, model, kernels, *, leg, prompts, **kw) -> tuple:
                spec_verifies=st["spec_verifies"],
                spec_tokens_accepted=st["spec_tokens_accepted"],
                prefix=eng.backend.prefix_stats(), launches=launches,
+               graphs=eng.backend.graphs.snapshot(),
+               capture_ms=graph_captures(since),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     assert st["completed"] == len(prompts), rec
+    # every S = 1 step came from the graph: one capture (whose warm-up
+    # is the first step), then replays; verify windows run eagerly
+    s1 = st["steps"] - st["spec_verifies"]
+    assert rec["graphs"]["captures"] == min(s1, 1) == len(
+        rec["capture_ms"]), rec
+    assert rec["graphs"]["replays"] == max(s1 - 1, 0), rec
     return rec, eng
 
 
-def profile_serve(torch, eng, cfg, steps: int = 4) -> dict:
+def eager_backend_step(L, be):
+    """The backend's S = 1 step with the model called eagerly
+    (``L.slot_decode_step`` / ``L.paged_slot_decode_step``, no graph):
+    the eager arm of the paged profile."""
+    def step(active_slots):
+        tok, cur, pads = be._step_operands()
+        if getattr(be, "paged", False):
+            nxt = L.paged_slot_decode_step(be.model, be.cache, be._tables(),
+                                           tok, cur, pads, be._gen,
+                                           **be._sampling())
+        else:
+            nxt = L.slot_decode_step(be.model, be.cache, tok, cur, pads,
+                                     be._gen, **be._sampling())
+        return be._advance(active_slots, nxt)
+    return step
+
+
+def iteration_split(torch, eng, steps: int) -> dict:
+    """What an engine iteration spends around the replay, host clock,
+    mean ms over ``steps`` iterations: the whole iteration, the
+    backend's step, the step's operands and tables (host arrays to the
+    device), the replay (copies into the static buffers, then the
+    launch), and ``_advance`` (which waits for the device at the
+    ``nxt.cpu()`` sync); the scheduler is the iteration less the
+    backend's step."""
+    be = eng.backend
+    acc = {}
+
+    def wrap(obj, attr, name):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(obj, attr, timed)
+        return fn
+
+    real = {(be, "step"): wrap(be, "step", "backend_step"),
+            (be, "_step_operands"): wrap(be, "_step_operands", "operands"),
+            (be, "_tables"): wrap(be, "_tables", "tables"),
+            (be.graphs, "get"): wrap(be.graphs, "get", "replay"),
+            (be, "_advance"): wrap(be, "_advance", "advance_and_sync")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    acc["iteration"] = time.perf_counter() - t0
+    for (obj, attr), fn in real.items():
+        setattr(obj, attr, fn)
+    ms = {k: v * 1e3 / steps for k, v in acc.items()}
+    ms["scheduler"] = ms["iteration"] - ms["backend_step"]
+    return ms
+
+
+def profile_serve(torch, L, eng, cfg, steps: int = 4) -> list:
     """Where a paged engine iteration spends its time once all 8 slots
     decode: 8 requests of 64-token prompts are prefilled (one chunk an
-    iteration), then ``steps`` decode-only iterations are profiled."""
+    iteration), then ``steps`` decode-only iterations are profiled with
+    the step from the graph (the shipped path), the same number split by
+    the host clock (:func:`iteration_split`), and ``steps`` more with the
+    step eager."""
     for p in serve_prompts(torch, cfg, [64] * 8, 9):
         eng.submit(p, max_new_tokens=SERVE_NEW)
     for _ in range(10):  # 8 one-chunk prefills, then decoding
         eng.step()
-    rec = device_profile(torch, eng.step, steps,
-                         f"{steps} paged engine iterations, 8 slots "
-                         f"decoding, small bf16")
+    replays = eng.backend.graphs.snapshot()["replays"]
+    graph = device_profile(torch, eng.step, steps,
+                           f"{steps} paged engine iterations from the "
+                           f"graph, 8 slots decoding, small bf16")
+    assert eng.backend.graphs.snapshot()["replays"] == replays + steps
+    graph["host_split_ms"] = iteration_split(torch, eng, steps)
+    real = eng.backend.step
+    eng.backend.step = eager_backend_step(L, eng.backend)
+    try:
+        eager = device_profile(torch, eng.step, steps,
+                               f"{steps} paged engine iterations, eager "
+                               f"step, 8 slots decoding, small bf16")
+    finally:
+        eng.backend.step = real
     eng.run_until_idle()
-    return rec
+    return [graph, eager]
 
 
 def phase_serve(torch, kernels) -> dict:
@@ -974,7 +1171,8 @@ def phase_serve(torch, kernels) -> dict:
     assert hits >= 1, f"no radix graft in the paged leg: {rec['prefix']}"
     emit(rec)
     legs["paged"] = rec
-    emit(profile_serve(torch, eng, cfg))
+    for rec in profile_serve(torch, L, eng, cfg):
+        emit(rec)
     del eng
 
     rec, eng = serve_leg(

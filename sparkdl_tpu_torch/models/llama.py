@@ -28,11 +28,21 @@ buffers and returned new ones from every step); the running ``idx`` and
 a quantized pool's ``kv_scale`` planes are plain attributes. Sampling
 draws from an explicit ``torch.Generator``; greedy decoding is
 deterministic and matches the JAX package token for token.
+
+The compiled decode step: where the JAX package jits the decode loop and
+each slot step, the port replays every S = 1 step of :func:`_decode` and
+of the serving backends from a captured CUDA graph
+(``core.runtime.CompileCache.get``). A step reads nothing from the host:
+the generate() step writes at the cache's device fill index
+(``KVCache.idx_dev``), the slot steps at their ``slot_cur`` operand.
+Sampling runs after the step, eagerly, so a sampled stream draws from its
+generator exactly as an eager step does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 import math
 from collections.abc import Mapping
@@ -42,9 +52,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.runtime import CompileCache
 from ..ops import flash_decode as fd
 from ..ops import paged_flash_decode as pfd
-from ..ops.flash_attention import resolve_attn_fn
+from ..ops.flash_attention import flash_attention_fwd, resolve_attn_fn
 from ..parallel.ring_attention import NEG_INF
 from ..utils.platform import resolve_device
 
@@ -274,7 +285,9 @@ def _quant_insert_rows(codes, plane, ch, blk, off, rows):
     blk = blk.long()
     off = off.long()
     col = plane[:, :, ch]                       # [P, Hkv] view
-    col[torch.where(off == 0, blk, 0)] = 0.0
+    # index_fill_, not an indexed assignment of 0.0: that copies a CPU
+    # scalar tensor, which a CUDA graph capture refuses
+    col.index_fill_(0, torch.where(off == 0, blk, 0), 0.0)
     amax = rows.abs().amax(-1)                  # [N, Hkv]
     old_s = col[blk]
     col.scatter_reduce_(0, blk[:, None].expand_as(amax), amax / qmax,
@@ -447,18 +460,15 @@ class LlamaAttention(nn.Module):
                                      c, q.dtype)
 
     def _cached(self, q, k, v, kv, attn_fn, cur, pad_lens, first_chunk):
+        """``cur``: the host fill index, or for the S = 1 step the
+        cache's device fill index (a 0-d tensor), which a captured graph
+        reads at every replay."""
         c = self.cfg
         B, hq, S, hd = q.shape
         hkv = c.num_kv_heads
         rep = hq // hkv
         k_cache, v_cache = kv
         max_len = k_cache.shape[2]
-        if cur + S > max_len:
-            raise ValueError(f"cache overflow: writing {S} tokens at slot "
-                             f"{cur} of a {max_len}-slot cache")
-        if first_chunk and cur != 0:
-            raise ValueError(f"first_chunk writes at cache slot 0, but the "
-                             f"cache is filled to {cur}")
         steps = cur + torch.arange(S, device=q.device)
         if pad_lens is None:
             pos = steps  # [S], shared across rows
@@ -467,8 +477,12 @@ class LlamaAttention(nn.Module):
         q = rope(q, pos, c.rope_theta)
         k = rope(k, pos, c.rope_theta)
         # In place: the step's K/V land in the caller's cache tensors.
-        k_cache[:, :, cur:cur + S] = k
-        v_cache[:, :, cur:cur + S] = v
+        if torch.is_tensor(cur):
+            k_cache.index_copy_(2, steps, k.to(k_cache.dtype))
+            v_cache.index_copy_(2, steps, v.to(v_cache.dtype))
+        else:
+            k_cache[:, :, cur:cur + S] = k
+            v_cache[:, :, cur:cur + S] = v
 
         # Prefill through attn_fn over the square S-slice: only at cache
         # slot 0 (first_chunk, which _prefill passes), where every slot past
@@ -551,11 +565,18 @@ class KVCache:
     slot cache holds ``[B, Hkv, max_len, head_dim]`` per layer; a paged
     pool holds ``[pool_blocks, Hkv, block_size, head_dim]`` blocks, and a
     quantized pool the codes plus one ``[pool_blocks, Hkv, 2]`` f32 scale
-    plane per layer (``kv_scale``; None for a float cache)."""
+    plane per layer (``kv_scale``; None for a float cache).
+
+    ``idx_dev`` (an :func:`init_cache` cache): the fill index again, as a
+    0-d int64 tensor on the cache's device. The S = 1 step writes at it
+    and advances it on the device, so a captured step reads no host
+    value; ``idx`` serves the bounds checks and the prefill, and the two
+    agree after every call."""
     k: list
     v: list
     idx: int = 0
     kv_scale: list | None = None
+    idx_dev: torch.Tensor | None = None
 
     def layer(self, i: int) -> tuple:
         """Layer ``i``'s ``(k, v)``, plus its scale plane when quantized."""
@@ -621,7 +642,10 @@ class LlamaModel(nn.Module):
                 first_chunk: bool = False, last_only: bool = False,
                 slot_cur=None, block_tables=None):
         """``cache`` None: the training forward. With a :class:`KVCache`:
-        the serving forward — writes at ``cache.idx`` and advances it.
+        the serving forward — writes at ``cache.idx`` and advances it (an
+        S = 1 call on a cache with ``idx_dev`` writes at that device
+        index; while a CUDA graph captures the call, the host index is
+        left to the caller, which advances it at each replay).
         ``first_chunk`` (serving, True only when writing at slot 0 —
         :func:`_prefill` passes it) enables the square flash prefill.
         ``last_only``: logits of the last position only, ``[B, 1, V]``.
@@ -640,19 +664,45 @@ class LlamaModel(nn.Module):
         S = input_ids.shape[1]
         positions = torch.arange(S, device=input_ids.device)
         attn_fn = resolve_attn_fn(self.attn_fn)
-        cur = 0 if cache is None else cache.idx
         slots = None if slot_cur is None else _slot_step(
             slot_cur, pad_lens, S, cache, block_tables)
+        cached = cache is not None and slots is None
+        host = not (input_ids.is_cuda
+                    and torch.cuda.is_current_stream_capturing())
+        cur = 0
+        if cached:
+            if host:
+                check_fill(cache, S, first_chunk)
+            cur = cache.idx_dev if S == 1 and cache.idx_dev is not None \
+                else cache.idx
         x = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
             kv = None if cache is None else cache.layer(i)
             x = layer(x, positions, attn_fn, kv, cur, pad_lens, first_chunk,
                       slots)
-        if cache is not None and slots is None:
-            cache.idx = cur + S
+        if cached:
+            if torch.is_tensor(cur):
+                cur.add_(1)
+            if host:
+                cache.idx += S
+                if S > 1 and cache.idx_dev is not None:
+                    cache.idx_dev.fill_(cache.idx)
         if last_only:
             x = x[:, -1:]
         return self.lm_head(self.final_norm(x).float())
+
+
+def check_fill(cache: KVCache, s: int, first_chunk: bool = False) -> None:
+    """Raise unless ``s`` tokens fit at ``cache.idx`` (and, for a first
+    chunk, the cache is empty): the host-side bounds checks of a cached
+    call, which a replayed step runs before its replay."""
+    max_len = cache.k[0].shape[2]
+    if cache.idx + s > max_len:
+        raise ValueError(f"cache overflow: writing {s} tokens at slot "
+                         f"{cache.idx} of a {max_len}-slot cache")
+    if first_chunk and cache.idx != 0:
+        raise ValueError(f"first_chunk writes at cache slot 0, but the "
+                         f"cache is filled to {cache.idx}")
 
 
 # ---------------------------------------------------------------------------
@@ -740,7 +790,8 @@ def flax_params(model: LlamaModel) -> dict:
 
 def init_cache(model: LlamaModel, batch_size: int, max_len: int) -> KVCache:
     """Zeroed KV cache, ``[batch, kv_heads, max_len, head_dim]`` per layer,
-    in the model's dtype on the model's device."""
+    in the model's dtype on the model's device, with its fill index on
+    the host and on the device (``idx_dev``)."""
     c = model.cfg
     shape = (batch_size, c.num_kv_heads, max_len, c.head_dim)
 
@@ -748,7 +799,15 @@ def init_cache(model: LlamaModel, batch_size: int, max_len: int) -> KVCache:
         return torch.zeros(shape, dtype=model.dtype, device=model.device)
 
     return KVCache([zeros() for _ in range(c.num_layers)],
-                   [zeros() for _ in range(c.num_layers)])
+                   [zeros() for _ in range(c.num_layers)],
+                   idx_dev=torch.zeros((), dtype=torch.int64,
+                                       device=model.device))
+
+
+#: the kernel wrappers whose ``launches`` count CUDA launches; a replayed
+#: step adds what its capture counted (``core.runtime.StepGraph``)
+LAUNCH_COUNTED = (flash_attention_fwd, fd.flash_decode,
+                  pfd.paged_flash_decode)
 
 
 def _sample(logits, generator, temperature: float, top_k: int = 0,
@@ -789,7 +848,9 @@ def _prefill(model: LlamaModel, prompt_ids, cache: KVCache, pad_lens=None):
 
 @torch.no_grad()
 def _decode_step(model: LlamaModel, cache: KVCache, tok, pad_lens=None):
-    """One token per row at ``cache.idx`` → its logits ``[B, V]`` f32."""
+    """One token per row at ``cache.idx`` → its logits ``[B, V]`` f32: the
+    step that :func:`_decode` replays from a CUDA graph on the card, and
+    the eager step."""
     return model(tok[:, None], cache=cache, pad_lens=pad_lens)[:, -1]
 
 
@@ -801,32 +862,49 @@ def _decode(model, cache, last_logits, generator, pad_lens=None, *,
     Each step emits the token already sampled and runs the model on it to
     sample the next, as the JAX loop does, so ``n_steps`` model steps run.
     Without ``eos_id`` that is exactly ``max_new_tokens``. With it the loop
-    stops as soon as every row has emitted eos (one host sync a step);
-    unwritten slots hold eos_id."""
+    stops as soon as every row has emitted eos (one host sync a step,
+    outside the step); unwritten slots hold eos_id.
+
+    Every step is :func:`_decode_step` through a
+    ``core.runtime.CompileCache`` of this call, keyed by the cache's
+    (batch, max_len, dtype): on the card the first step is captured into
+    a CUDA graph and the rest replay it; on the CPU each runs eagerly
+    through the same static buffers. The graph is released on return."""
+    graphs = CompileCache()
+    key = (tuple(cache.k[0].shape), str(cache.k[0].dtype), id(cache))
+    step_fn = functools.partial(_decode_step, model, cache)
+
     def step(tok):
-        return _sample(_decode_step(model, cache, tok, pad_lens), generator,
-                       temperature, top_k, top_p)
+        check_fill(cache, 1)
+        n = cache.idx
+        logits = graphs.get("decode_step", key, step_fn, (tok, pad_lens),
+                            LAUNCH_COUNTED)
+        cache.idx = n + 1  # a replay leaves the host index to its caller
+        return _sample(logits, generator, temperature, top_k, top_p)
 
     tok = _sample(last_logits, generator, temperature, top_k, top_p)
-    if eos_id is None:
-        out = []
-        for _ in range(max_new_tokens):
-            out.append(tok)
-            tok = step(tok)
-        if not out:
-            return tok.new_empty((tok.shape[0], 0)), 0
-        return torch.stack(out, dim=1), max_new_tokens
-    out = torch.full((tok.shape[0], max_new_tokens), eos_id,
-                     dtype=tok.dtype, device=tok.device)
-    done = tok == eos_id
-    i = 0
-    while i < max_new_tokens and not bool(done.all()):
-        out[:, i] = tok
-        nxt = torch.where(done, eos_id, step(tok))
-        done = done | (nxt == eos_id)
-        tok = nxt
-        i += 1
-    return out, i
+    try:
+        if eos_id is None:
+            out = []
+            for _ in range(max_new_tokens):
+                out.append(tok)
+                tok = step(tok)
+            if not out:
+                return tok.new_empty((tok.shape[0], 0)), 0
+            return torch.stack(out, dim=1), max_new_tokens
+        out = torch.full((tok.shape[0], max_new_tokens), eos_id,
+                         dtype=tok.dtype, device=tok.device)
+        done = tok == eos_id
+        i = 0
+        while i < max_new_tokens and not bool(done.all()):
+            out[:, i] = tok
+            nxt = torch.where(done, eos_id, step(tok))
+            done = done | (nxt == eos_id)
+            tok = nxt
+            i += 1
+        return out, i
+    finally:
+        graphs.drop()
 
 
 def left_pad_prompts(prompts, pad_id: int = 0, pad_to: int | None = None):
@@ -976,6 +1054,15 @@ def prefill_chunk_into_slot(model: LlamaModel, chunk_ids, cache: KVCache,
 
 
 @torch.no_grad()
+def slot_decode_logits(model: LlamaModel, cache: KVCache, tokens, slot_cur,
+                       pad_lens):
+    """The model half of :func:`slot_decode_step`, ``[num_slots, V]``
+    f32: the step the serving backend replays from a CUDA graph."""
+    return model(tokens[:, None], cache=cache, pad_lens=pad_lens,
+                 slot_cur=slot_cur)[:, -1].float()
+
+
+@torch.no_grad()
 def slot_decode_step(model: LlamaModel, cache: KVCache, tokens, slot_cur,
                      pad_lens, generator=None, *, temperature: float = 0.0,
                      top_k: int = 0, top_p: float = 1.0):
@@ -985,10 +1072,9 @@ def slot_decode_step(model: LlamaModel, cache: KVCache, tokens, slot_cur,
     ``[num_slots]`` per-slot fill indices (the token writes there and
     attends ``[pad_lens[r], slot_cur[r]]``). Returns the next tokens,
     ``[num_slots]``."""
-    logits = model(tokens[:, None], cache=cache, pad_lens=pad_lens,
-                   slot_cur=slot_cur)
-    return _sample(logits[:, -1].float(), generator, temperature, top_k,
-                   top_p)
+    return _sample(slot_decode_logits(model, cache, tokens, slot_cur,
+                                      pad_lens),
+                   generator, temperature, top_k, top_p)
 
 
 @torch.no_grad()
@@ -1097,10 +1183,18 @@ def paged_slot_decode_step(model: LlamaModel, pool: KVCache, tables, tokens,
     paged flash-decode kernel (no gathered view exists), or over the
     gathered view where the caller turned the kernel off. Returns the
     next tokens, ``[num_slots]``."""
-    logits = model(tokens[:, None], cache=pool, pad_lens=pad_lens,
-                   slot_cur=slot_cur, block_tables=tables)
-    return _sample(logits[:, -1].float(), generator, temperature, top_k,
-                   top_p)
+    return _sample(paged_slot_decode_logits(model, pool, tables, tokens,
+                                            slot_cur, pad_lens),
+                   generator, temperature, top_k, top_p)
+
+
+@torch.no_grad()
+def paged_slot_decode_logits(model: LlamaModel, pool: KVCache, tables,
+                             tokens, slot_cur, pad_lens):
+    """The model half of :func:`paged_slot_decode_step`, ``[num_slots,
+    V]`` f32: the step the paged backend replays from a CUDA graph."""
+    return model(tokens[:, None], cache=pool, pad_lens=pad_lens,
+                 slot_cur=slot_cur, block_tables=tables)[:, -1].float()
 
 
 @torch.no_grad()

@@ -24,6 +24,10 @@ into ``LlamaModel(attn_fn=...)``.
 - Forward only. The JAX package's backward (``_flash_bwd``) is plain JAX
   under a ``custom_vjp``; its port, a ``torch.autograd.Function`` whose
   backward is a kernel too, belongs to the training slice (ROADMAP.md).
+  Until then the kernel refuses inputs that need a gradient
+  (:func:`gradient_reason`): its O, written through a raw pointer, would
+  carry no ``grad_fn`` and q, k and v would silently get none. The plain
+  version on CPU tensors is differentiable.
 
 The TPU's tuning does not carry over: no 128-lane padding, no pre-blocked
 lse/mask layouts, no block-size cost model. ``SPARKDL_FLASH_MIN_SEQ``
@@ -109,11 +113,27 @@ def tc_bf16_tolerance(o_plain, pv):
     return atol + rtol * o_plain.float().abs() + pv_rtol * pv
 
 
+def gradient_reason(grad_enabled: bool, inputs) -> str | None:
+    """The kernel's gradient rule, on plain values so that a CPU test can
+    hold it: ``inputs`` is one ``(device type, requires_grad)`` pair for
+    each of q, k and v. With grad mode on, an input that would reach the
+    kernel (any device but the CPU) and requires grad is refused: the
+    kernel has no backward yet, and its output would carry no
+    ``grad_fn``. None when the rule lets the inputs through."""
+    if grad_enabled and any(dev != "cpu" and rg for dev, rg in inputs):
+        return ("q, k or v requires grad, and the kernel has no backward "
+                "yet (its output would carry no gradient); run under "
+                "torch.no_grad() or give the model attn_fn=None for "
+                "gradients")
+    return None
+
+
 def support_reason(q, k, v) -> str | None:
     """None when :func:`flash_attention` takes these inputs, else why not.
-    CPU tensors take the plain version, which covers every shape; CUDA
-    tensors need what the kernel needs: head dim 64 or 128, f32 or bf16,
-    one dtype for q, k and v."""
+    CPU tensors take the plain version, which covers every shape and is
+    differentiable; other tensors need what the kernel needs: head dim 64
+    or 128, f32 or bf16, one dtype for q, k and v, and no gradient
+    (:func:`gradient_reason`)."""
     if q.device.type == "cpu":
         return None
     d = q.shape[-1]
@@ -124,7 +144,9 @@ def support_reason(q, k, v) -> str | None:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         return (f"q, k, v dtypes differ ({q.dtype}, {k.dtype}, "
                 f"{v.dtype})")
-    return None
+    return gradient_reason(torch.is_grad_enabled(),
+                           [(t.device.type, t.requires_grad)
+                            for t in (q, k, v)])
 
 
 def _check(q, k, v, kv_mask) -> None:

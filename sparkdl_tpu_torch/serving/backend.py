@@ -17,9 +17,18 @@ primitives of ``models.llama``:
   ``cur``; ``slot_verify_step``: the speculative verify window.
 
 Every call's operand shapes are noted in ``core.runtime
-.GLOBAL_COMPILE_CACHE``: the port compiles nothing per shape, but "the
-decode step keeps ONE signature for the engine's lifetime" stays an
-observable, as in the JAX package.
+.GLOBAL_COMPILE_CACHE``: "the decode step keeps ONE signature for the
+engine's lifetime" stays an observable, as in the JAX package.
+
+**The compiled decode step.** Where the JAX backends call a jitted step,
+:meth:`LlamaSlotBackend.step` runs the model half of the S = 1 step
+(``models.llama.slot_decode_logits`` / ``paged_slot_decode_logits``)
+through the backend's own ``core.runtime.CompileCache`` (``graphs``): on
+the card it is captured into a CUDA graph at the first step and replayed
+at every later one, its operands copied into the graph's static buffers
+first (on the CPU the same buffers feed an eager call). Sampling runs
+after it, eagerly. A new cache (``_make_cache``: construction and
+:meth:`rebuild`) drops the graphs, which point into the old one.
 
 **Fill-state invariant (chunked mode).** ``_cur[slot]`` is always the
 slot's *write frontier* — the next cache position a real write will
@@ -70,7 +79,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.runtime import GLOBAL_COMPILE_CACHE
+from ..core.runtime import GLOBAL_COMPILE_CACHE, CompileCache
 from ..models import llama as L
 from ..ops import flash_decode as fd
 from ..ops import paged_flash_decode as pfd
@@ -186,6 +195,8 @@ class LlamaSlotBackend:
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         _check_kernels(model)
+        self.graphs = CompileCache()
+        self._cache_gen = 0  # which cache the graphs' keys name
         self.cache = self._make_cache()
         self._tokens = np.zeros(self.num_slots, np.int32)
         # Idle slots park at fill index 0 — their write frontier: the
@@ -200,6 +211,8 @@ class LlamaSlotBackend:
         self._warned_commit = False
 
     def _make_cache(self):
+        self.graphs.drop()  # they point into the cache being replaced
+        self._cache_gen += 1
         return L.init_cache(self.model, self.num_slots, self.max_len)
 
     def _dev(self, arr, dtype=torch.int32) -> torch.Tensor:
@@ -344,19 +357,29 @@ class LlamaSlotBackend:
         self._tokens[active] = nxt[active]
         return nxt.tolist()
 
+    def _decode_logits(self, tok, cur, pads):
+        return L.slot_decode_logits(self.model, self.cache, tok, cur, pads)
+
+    def _replay(self, sig: tuple, fn, operands) -> list[int]:
+        """The S = 1 step ``fn(*operands)`` through :attr:`graphs`, keyed
+        by its signature and this cache; then the eager sample."""
+        logits = self._guarded(self.graphs.get, "serve_decode_step",
+                               (sig, self._cache_gen), fn, operands,
+                               L.LAUNCH_COUNTED)
+        return L._sample(logits, self._gen, **self._sampling())
+
     def step(self, active_slots) -> list[int]:
         """Advance every slot one token at its own fill index; returns
         the per-slot token list (idle slots' entries are garbage — the
         engine only reads ``active_slots``)."""
         tok, cur, pads = self._step_operands()
+        sig = (_sig(tok, cur, pads), _sig(*self.cache.tensors()))
         # after warmup this must stay ONE signature for the engine's
         # lifetime — the observable for "refills never change the step"
         GLOBAL_COMPILE_CACHE.note(
             "serve_decode_step",
-            (_sig(tok, cur, pads), _sig(*self.cache.tensors()),
-             self.temperature, self.top_k, self.top_p))
-        nxt = self._guarded(L.slot_decode_step, self.model, self.cache, tok,
-                            cur, pads, self._gen, **self._sampling())
+            (*sig, self.temperature, self.top_k, self.top_p))
+        nxt = self._replay(sig, self._decode_logits, (tok, cur, pads))
         return self._advance(active_slots, nxt)
 
     # -- speculative verify protocol --------------------------------------
@@ -536,6 +559,8 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
             "kv_scale_bytes_per_block": scale_per_blk,
             "effective_blocks": self.pool_blocks,
         }
+        self.graphs = CompileCache()
+        self._cache_gen = 0  # which cache the graphs' keys name
         self.cache = self._make_cache()
         self.allocator = self.mgr.allocator
         self.radix = self.mgr.radix
@@ -547,6 +572,8 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
         self._warned_commit = False
 
     def _make_cache(self):
+        self.graphs.drop()  # they point into the pool being replaced
+        self._cache_gen += 1
         return L.init_paged_pool(self.model, self.pool_blocks,
                                  self.block_size, kv_quant=self.kv_dtype)
 
@@ -670,16 +697,19 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
                                 type(e).__name__, e)
         return int(last_tok)
 
+    def _decode_logits(self, tok, cur, pads, tables):
+        return L.paged_slot_decode_logits(self.model, self.cache, tables,
+                                          tok, cur, pads)
+
     def step(self, active_slots) -> list[int]:
         tok, cur, pads = self._step_operands()
         tables = self._tables()
+        sig = (_sig(tok, cur, pads, tables), _sig(*self.cache.tensors()))
         GLOBAL_COMPILE_CACHE.note(
             "serve_decode_step",
-            (_sig(tok, cur, pads, tables), _sig(*self.cache.tensors()),
-             self.temperature, self.top_k, self.top_p))
-        nxt = self._guarded(L.paged_slot_decode_step, self.model, self.cache,
-                            tables, tok, cur, pads, self._gen,
-                            **self._sampling())
+            (*sig, self.temperature, self.top_k, self.top_p))
+        nxt = self._replay(sig, self._decode_logits,
+                           (tok, cur, pads, tables))
         return self._advance(active_slots, nxt)
 
     def verify(self, active_slots, drafts, k: int) -> list[list[int]]:

@@ -669,3 +669,166 @@ def test_split_kv_graph_capture_and_replay(dev):
             pfd.paged_flash_decode_plain(qp, kp, vp, tables, curp, padp,
                                          kv_scales=sc).float().cpu(),
             atol=1e-4, rtol=rtol)
+
+
+# --- the flash kernel's gradient rule, and the compiled decode step -------
+
+HD64 = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+            num_kv_heads=2, intermediate_size=512, rope_theta=10000.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_refuses_gradients_instead_of_dropping_them(dev, dtype):
+    """The training forward with ``attn_fn="auto"`` reaches the flash
+    kernel, which has no backward yet: it raises the gradient rule
+    instead of returning an O without a ``grad_fn`` (q/k/v would get no
+    gradient). With ``attn_fn=None`` the gradients flow."""
+    import dataclasses
+
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = dataclasses.replace(L.LlamaConfig.tiny(), num_heads=2,
+                              num_kv_heads=2)
+    assert cfg.head_dim == 64
+    model = L.LlamaModel(cfg, dtype=dtype, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    ids = torch.randint(1, 512, (2, 16), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    assert L.resolve_attn_fn(model.attn_fn) is fa.adaptive_attention
+    with pytest.raises(ValueError, match="no backward"):
+        model(ids).sum().backward()
+    model.attn_fn = None
+    model.zero_grad()
+    model(ids).float().sum().backward()
+    g = model.layers[0].attn.q_proj.base.weight.grad
+    assert g is not None and g.float().abs().sum().item() > 0
+
+
+def _eager_decode(L, model, ids, pads, new, eos_id=None):
+    """generate()'s loop with every step eager (``_decode_step`` called
+    directly, no runner): greedy tokens and the step count."""
+    cache = L.init_cache(model, ids.shape[0], ids.shape[1] + new)
+    tok = L._prefill(model, ids, cache, pads).argmax(-1)
+    out = torch.full((ids.shape[0], new), -1 if eos_id is None else eos_id,
+                     dtype=tok.dtype, device=tok.device)
+    done = torch.zeros_like(tok, dtype=torch.bool) if eos_id is None \
+        else tok == eos_id
+    steps = 0
+    while steps < new and not bool(done.all()):
+        out[:, steps] = tok
+        nxt = L._decode_step(model, cache, tok, pads).argmax(-1)
+        if eos_id is not None:
+            nxt = torch.where(done, eos_id, nxt)
+            done = done | (nxt == eos_id)
+        tok = nxt
+        steps += 1
+    assert cache.idx == int(cache.idx_dev) == ids.shape[1] + steps
+    return out, steps
+
+
+def _counts():
+    return (fa.flash_attention_fwd.launches, fd.flash_decode.launches,
+            pfd.paged_flash_decode.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eos", [False, True])
+def test_generate_graph_equals_eager_step(dev, dtype, eos):
+    """generate() replays its S = 1 step from a CUDA graph: the greedy
+    stream equals the eager step's bit for bit (left pads, with and
+    without eos), with the same launch counts, and the host and device
+    fill indices agree."""
+    from sparkdl_tpu_torch.models import llama as L
+
+    model = L.LlamaModel(L.LlamaConfig(**HD64), dtype=dtype, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    ids, pads = L.left_pad_prompts([[5, 6, 7], [9, 3, 2, 8, 1, 4, 4, 7] * 4,
+                                    [11] * 70])
+    ids, pads = ids.to(dev), pads.to(dev)
+    new = 12
+    eos_id = None
+    if eos:
+        free, _ = _eager_decode(L, model, ids, pads, new)
+        eos_id = int(free[0, 2])
+    c0 = _counts()
+    want, want_steps = _eager_decode(L, model, ids, pads, new, eos_id)
+    c1 = _counts()
+    got, steps = L.generate(model, ids, new, pad_lens=pads, eos_id=eos_id,
+                            return_steps=True)
+    c2 = _counts()
+    assert steps == want_steps
+    assert torch.equal(got[:, ids.shape[1]:ids.shape[1] + steps],
+                       want[:, :steps])
+    eager = [b - a for a, b in zip(c0, c1)]
+    graph = [b - a for a, b in zip(c1, c2)]
+    assert graph == eager, (graph, eager)
+    assert graph[1] == 2 * steps
+
+
+def _eager_step(L, be):
+    """The backend's S = 1 step with the model called eagerly: the eager
+    arm the graph is held to."""
+    def step(active_slots):
+        tok, cur, pads = be._step_operands()
+        if getattr(be, "paged", False):
+            nxt = L.paged_slot_decode_step(be.model, be.cache, be._tables(),
+                                           tok, cur, pads, be._gen,
+                                           **be._sampling())
+        else:
+            nxt = L.slot_decode_step(be.model, be.cache, tok, cur, pads,
+                                     be._gen, **be._sampling())
+        return be._advance(active_slots, nxt)
+    return step
+
+
+@pytest.mark.parametrize("kw", [
+    dict(block_size=16, prefill_chunk=32),
+    dict(block_size=16, prefill_chunk=32, kv_dtype="int8"),
+    dict(stall_free=False, min_bucket=8),
+    dict(block_size=16, prefill_chunk=32, temperature=0.8, seed=5),
+], ids=["paged_bf16", "paged_int8", "unpaged", "paged_sampled"])
+def test_engine_graph_equals_eager_step(dev, kw):
+    """Both engines replay every S = 1 step from a CUDA graph: with cur,
+    tables and pads changing between replays (requests of different
+    lengths refilling 2 slots) and one cache_lost failover (``rebuild()``
+    drops the graphs and the next step captures anew), the streams equal
+    the eager step's bit for bit, sampled ones included, with the same
+    launch counts."""
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.serving import GenerationEngine
+    from sparkdl_tpu_torch.serving.backend import SlotCacheLost
+
+    model = L.LlamaModel(L.LlamaConfig(**HD64), dtype=torch.bfloat16,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    prompts = [[5, 6, 7], [9, 3, 2, 8, 1, 4, 4, 7] * 5, [11] * 70,
+               [4, 8] * 9]
+
+    def serve(eager):
+        eng = GenerationEngine.from_model(model, num_slots=2, max_len=160,
+                                          device=dev, **kw)
+        be = eng.backend
+        inner = _eager_step(L, be) if eager else be.step
+        calls = [0]
+
+        def step(active_slots):  # the 4th step loses the cache
+            calls[0] += 1
+            if calls[0] == 4:
+                raise SlotCacheLost("planted: the cache is lost")
+            return inner(active_slots)
+        be.step = step
+        c0 = _counts()
+        hs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        eng.run_until_idle()
+        c1 = _counts()
+        assert eng.snapshot()["failovers"] == 1
+        return ([h.result(1) for h in hs],
+                [b - a for a, b in zip(c0, c1)], eng)
+
+    want, eager_counts, _ = serve(True)
+    got, graph_counts, eng = serve(False)
+    assert got == want
+    assert graph_counts == eager_counts
+    snap = eng.backend.graphs.snapshot()
+    # one capture before the failover, one after it on the new cache
+    assert snap["captures"] == 2 and snap["replays"] >= 1, snap
