@@ -8,11 +8,12 @@ Run from the root of a checkout, with one CUDA device::
 Phases, each printing one JSON line; any failed check raises, so the exit
 code is not 0:
 
-a. build — every ``sparkdl_tpu_torch/csrc/*.cu`` through one ``nvcc`` for
-   ``sm_90a``, timed; registers and spills from ptxas (the most of any
-   kernel, every spilling kernel, each tensor-core flash-attention
-   kernel by head dim, and the split-KV decode variants, none of which
-   may spill); the card's name and power limit from ``nvidia-smi``.
+a. build — every ``sparkdl_tpu_torch/csrc/*.cu`` through its own ``nvcc``
+   for ``sm_90a``, all started together, then one link; timed; registers
+   and spills from ptxas (the most of any kernel, every spilling kernel,
+   each tensor-core flash-attention kernel by head dim, the split-KV
+   decode variants and the twelve backward kernels, none of which may
+   spill); the card's name and power limit from ``nvidia-smi``.
 b. kernels — each kernel against its plain PyTorch version on the same
    inputs on the card, in f32 and bf16 (tolerances at ``TOL``), at the
    main path's shapes:
@@ -31,6 +32,12 @@ b. kernels — each kernel against its plain PyTorch version on the same
    layout. Each prints the kernel's time, its bound, the plain version's
    time and, as a yardstick the port never calls,
    ``F.scaled_dot_product_attention``'s.
+   flash_attention_bwd at phase g's shape (B=2, H=32, S=2048, D=128,
+   causal, no mask) and at a ragged S=1000 with a left pad and an
+   all-masked row (its dq, dk, dv exactly 0), in bf16 and f32, O and lse
+   from the forward kernel: (dq, dk, dv) held to ``fa.bwd_tolerance``
+   against ``fa.attention_bwd_plain``; the yardstick is the backward
+   alone of SDPA under autograd on the same inputs.
    paged_flash_decode at ``LlamaConfig.small()``'s serving shapes (8
    slots, 16/8 heads, D 128, block 16, 132 blocks a table), ragged fills
    [2047, 1500, 900, 513, 300, 64, 17, 0] (the last slot parked on the
@@ -100,15 +107,33 @@ f. serve parity — f32, TF32 off, full depth: the paged engine (kernel)
    whose top-2 logit gap (from one dense forward over each finished
    sequence) exceeds 10 × ``LOGIT_TOL``; a flip below that is printed as
    a near tie with its gap.
+g. train — ``XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
+   ``causal_lm_loss_fn()`` and ``lora_optimizer(1e-3)`` on
+   ``LlamaConfig.llama3_8b(lora_rank=16)`` at full width and depth (32
+   layers, 4096 hidden, 32/8 heads, head_dim 128, FFN 14336, vocab
+   128256), bf16, seeded random weights on the card, 6 steps of one
+   seeded 2 x 2048 batch, ``log_every=1``. One ``train`` line: step ms
+   (median after the first step), tokens/s, MFU from ``train_flops``
+   against the bf16 peak, peak device memory, the losses; the launch
+   counters, set to 0 just before the fit and read just after, must show
+   32 flash_attention and 32 flash_attention_bwd launches a step; the
+   losses finite and falling; a checksum of five base weights unchanged
+   and every adapter moved. Then a ``profile`` line of one more step and
+   a ``train_parity`` line: the same widths at depth 2, f32, TF32 off,
+   the kernel arm's loss and adapter gradients against the dense arm's
+   (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_SHARE``).
 
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or without the package beside this file,
-it prints no result and exits 2. Imports nothing of JAX.
+Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
+flash_decode, paged_flash_decode, flash_attention_bwd) and, last,
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package beside this file, it prints no result and exits 2. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -140,6 +165,14 @@ PAGED_CUR = [2047, 1500, 900, 513, 300, 64, 17, 0]  # slot 7 parked on trash
 PAGED_PADS = [0, 0, 37, 0, 0, 0, 0, 0]
 PAGED_BS, PAGED_MB = 16, 132
 SERVE_NEW = 32
+# phase g: llama3_8b(lora_rank=16), bf16, 2 x 2048 tokens a step
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 6, 1e-3
+# phase g parity (f32, TF32 off): |loss_kernel - loss_dense| and each
+# adapter's max |grad_kernel - grad_dense| as a share of its max
+# |grad_dense|. The two arms differ in summation order only (f32 FMA
+# kernels against cuBLAS): the share read 8.4e-6 here and 1.45e-6 on the
+# card tests' 2-layer D 64 model (NVIDIA H100 80GB HBM3, 700 W).
+TRAIN_LOSS_TOL, TRAIN_GRAD_SHARE = 1e-4, 1e-4
 
 
 def emit(obj) -> None:
@@ -272,10 +305,17 @@ def ptxas_summary(log: str | None) -> dict | str:
             tc[f"D{m.group(1)}"] = dict(registers=n,
                                         spill_bytes=spills.get(fn))
     skv = [f for f in regs if "splitkv_kernel" in f]
+    bwd = {}
+    for fn, n in regs.items():
+        m = re.search(r"fa_bwd_(delta|dkdv|dq)_kernelI(\w+?)Li(\d+)E", fn)
+        if m:
+            kind = "bf16" if "bfloat16" in m.group(2) else "f32"
+            bwd[f"{m.group(1)}_{kind}_D{m.group(3)}"] = dict(
+                registers=n, spill_bytes=spills.get(fn))
     return dict(kernels=len(regs), max_registers=max(regs.values(),
                                                      default=None),
                 spilling={f[:90]: n for f, n in spills.items() if n},
-                flash_attention_tc=tc,
+                flash_attention_tc=tc, flash_attention_bwd=bwd,
                 decode_splitkv=dict(
                     variants=len(skv),
                     max_registers=max((regs[f] for f in skv), default=None),
@@ -295,8 +335,11 @@ def phase_build(_build) -> dict:
                 nvidia_smi=smi())
     print(info["nvidia_smi"], flush=True)
     emit(info)
-    if isinstance(info["ptxas"], dict):  # no decode variant spills
+    if isinstance(info["ptxas"], dict):  # no decode or backward kernel spills
         assert info["ptxas"]["decode_splitkv"]["spill_bytes"] == 0, info
+        bwd = info["ptxas"]["flash_attention_bwd"]
+        assert len(bwd) == 12 and not any(
+            r["spill_bytes"] for r in bwd.values()), bwd
     return info
 
 
@@ -371,6 +414,71 @@ def attention_case(torch, fa, flush, *, name, b, h, s, d, causal, pads,
             q, k, v, attn_mask=sdpa_mask), flush=flush),
         bound_ms=bms, bound_by=by, flops=4.0 * d * pairs, bytes=nbytes)
     rec["live_tflops"] = rec["flops"] / rec["ms"] / 1e9
+    emit(rec)
+    return rec
+
+
+def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
+    """flash_attention_bwd kernel vs plain on one seeded input (O and lse
+    from the forward kernel, dO seeded), then the kernel's, the plain
+    version's and SDPA's backward times; returns the phase-b record.
+    ``pads`` None: no kv_mask, as phase g trains."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(s + d + 1)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=g, device="cuda",
+                               dtype=torch.float32).to(dt) for _ in range(4))
+    mask = None
+    if pads is not None:
+        col = torch.arange(s, device="cuda")
+        mask = (col[None, :] >= torch.tensor(pads, device="cuda")[:, None]
+                ).float()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
+    args = (q, k, v, o, lse, do, causal, mask)
+    got = fa.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    want = fa.attention_bwd_plain(*args)
+    err = max(check_close(gt, w, dtype, f"{name} {gn}", fa.bwd_tolerance(w, a))
+              for gn, gt, w, a in zip(("dq", "dk", "dv"), got, want,
+                                      fa.attention_bwd_abs_plain(*args)))
+    dead_rows = [r for r, p in enumerate(pads or []) if p >= s]
+    for r in dead_rows:  # a row that sees no key: every gradient exactly 0
+        assert all(torch.all(gt[r] == 0) for gt in got), (
+            f"{name}: the all-masked row {r} has a gradient")
+    del want
+    live_cols = (torch.ones((b, s), dtype=torch.bool, device="cuda")
+                 if mask is None else mask > 0)
+    if causal:
+        per_row = torch.cumsum(live_cols.long(), dim=1)
+    else:
+        per_row = live_cols.long().sum(1, keepdim=True).expand(b, s)
+    pairs = float(per_row.sum().item()) * h
+    flops = 5 * 2.0 * d * pairs  # q·kᵀ again, dV, dP, dK, dQ
+    elt = q.element_size()
+    # read q, k, v, O, dO and lse, write dq, dk and dv (and the mask)
+    nbytes = (8 * b * h * s * d * elt + b * h * s * 4
+              + (0 if mask is None else b * s * 4))
+    bms, by = bound(flops, nbytes, dtype)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_mask = None if mask is None else live_cols[:, None, None, :]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
+                                         is_causal=causal and mask is None)
+    rec = dict(phase="kernels", kernel="flash_attention_bwd", case=name,
+               dtype=dtype, shape=[b, h, s, d], causal=causal, pads=pads,
+               max_abs_err=err, tol=fa.BWD_RULE[dt][0],
+               rtol=fa.BWD_RULE[dt][1],
+               tol_rule="tol·grad_abs + rtol·|plain| (fa.bwd_tolerance)",
+               dead_rows_exactly_zero=dead_rows,
+               ms=time_ms(torch, lambda: fa.flash_attention_bwd(*args),
+                          flush=flush),
+               plain_ms=time_ms(torch, lambda: fa.attention_bwd_plain(*args),
+                                flush=flush),
+               library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                   out, leaves, do, retain_graph=True), flush=flush),
+               library="F.scaled_dot_product_attention backward",
+               bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+    rec["tflops"] = flops / rec["ms"] / 1e9
     emit(rec)
     return rec
 
@@ -674,6 +782,14 @@ def phase_kernels(torch, fa, fd, pfd) -> dict:
                                  kv=kv, s_q=s_q, profile=main_case)
                 if main_case:
                     main["paged_flash_decode"] = rec
+    for dtype in ("bfloat16", "float32"):  # phase g's shape, and ragged
+        rec = bwd_case(torch, fa, flush, name="train", b=TRAIN_BATCH, h=32,
+                       s=TRAIN_SEQ, d=128, causal=True, pads=None,
+                       dtype=dtype)
+        main["flash_attention_bwd" if dtype == "bfloat16"
+             else "flash_attention_bwd_f32"] = rec
+        bwd_case(torch, fa, flush, name="ragged_all_masked", b=2, h=32,
+                 s=1000, d=128, causal=False, pads=[300, 1000], dtype=dtype)
     main["flash_sweep"] = flash_sweep(torch, fa, flush)
     # what the events read around an empty kernel: the floor under every
     # time of this phase
@@ -983,12 +1099,14 @@ def serve_prompts(torch, cfg, lens, seed, shared=(), head_len=512,
 
 def reset_counts(fa, fd, pfd) -> None:
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
     fd.flash_decode.launches = 0
     pfd.paged_flash_decode.launches = 0
 
 
 def read_counts(fa, fd, pfd) -> dict:
     return {"flash_attention": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "flash_decode": fd.flash_decode.launches,
             "paged_flash_decode": pfd.paged_flash_decode.launches}
 
@@ -1269,6 +1387,173 @@ def phase_serve_parity(torch, kernels) -> dict:
     return rec
 
 
+def train_flops(model, b: int, s: int) -> float:
+    """The FLOPs of one LoRA train step, for MFU: 4·N·T for the frozen
+    projections (N their weights, ``lm_head`` included, the embedding
+    not; T = b·s tokens; the forward and the gradient with respect to
+    their inputs, no weight gradient), 6·N_lora·T for the adapters
+    (forward, input and weight gradients), and attention's seven products
+    of 2·D a live causal (row, col) pair a head and layer: q·kᵀ and P·V
+    forward, q·kᵀ again, dV, dP, dK and dQ backward."""
+    cfg = model.cfg
+    n_proj = sum(p.numel() for n, p in model.named_parameters()
+                 if n.endswith("base.weight") or n == "lm_head.weight")
+    n_lora = sum(p.numel() for n, p in model.named_parameters()
+                 if "lora_" in n)
+    pairs = b * s * (s + 1) / 2 * cfg.num_heads * cfg.num_layers
+    t = b * s
+    return 4.0 * n_proj * t + 6.0 * n_lora * t + 7 * 2.0 * cfg.head_dim * pairs
+
+
+def train_ids(torch, cfg):
+    g = torch.Generator().manual_seed(11)
+    return torch.randint(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=g).numpy()
+
+
+def phase_train(torch, kernels) -> dict:
+    """Phase g: the LoRA fine-tune of llama3_8b(lora_rank=16) at full
+    width and depth through the runner, ``XlaRunner(np=1).run(ctx.fit)``,
+    one seeded batch repeated for ``TRAIN_STEPS`` steps; then one more
+    step profiled."""
+    import gc
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.runner import XlaRunner
+    from sparkdl_tpu_torch.runner.train_state import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = L.LlamaConfig.llama3_8b(lora_rank=16)
+    t0 = time.perf_counter()
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = train_ids(torch, cfg)
+    mask = L.lora_mask(model)
+    probe = ("layers.0.attn.q_proj.base.weight",
+             "layers.31.mlp.down_proj.base.weight", "lm_head.weight",
+             "embed_tokens.weight", "layers.17.attn_norm.scale")
+    params = dict(model.named_parameters())
+    checksum = {n: params[n].double().sum().item() for n in probe}
+    adapters = {n: p.detach().clone() for n, p in params.items() if mask[n]}
+    flops = train_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+        loss_fn=L.causal_lm_loss_fn(), model=model,
+        tx=L.lora_optimizer(TRAIN_LR),
+        data=[{"input_ids": ids}] * TRAIN_STEPS, num_steps=TRAIN_STEPS,
+        log_every=1, flops_per_step=flops))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts(*kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in res["history"]]
+    nl = cfg.num_layers
+    assert len(losses) == TRAIN_STEPS, losses
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    assert launches["flash_attention"] == nl * TRAIN_STEPS, launches
+    assert launches["flash_attention_bwd"] == nl * TRAIN_STEPS, launches
+    assert launches["flash_decode"] == launches["paged_flash_decode"] == 0
+    after = {n: params[n].double().sum().item() for n in probe}
+    assert after == checksum, f"base weights moved: {checksum} -> {after}"
+    assert all(p.requires_grad == mask[n] for n, p in params.items())
+    moved = sum(not torch.equal(params[n], a) for n, a in adapters.items())
+    assert moved == len(adapters), f"{moved} of {len(adapters)} adapters"
+    summ = res["meter"].summary()
+    st = summ["step_time"]
+    step_s = st["p50_s"]
+    rec = dict(phase="train", config="LlamaConfig.llama3_8b(lora_rank=16)",
+               dtype="bfloat16", layers=nl, hidden=cfg.hidden_size,
+               heads=[cfg.num_heads, cfg.num_kv_heads],
+               head_dim=cfg.head_dim, ffn=cfg.intermediate_size,
+               vocab=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=TRAIN_STEPS, lr=TRAIN_LR, attn="flash kernels (auto)",
+               adapters=len(adapters),
+               adapter_params=sum(a.numel() for a in adapters.values()),
+               losses=losses, step_ms_median=step_s * 1e3,
+               step_time=st, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+               flops_per_step=flops,
+               mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+               meter_mfu=summ["mfu"], peak_mem_gb=peak_gb,
+               launches=launches, base_checksum_unchanged=True,
+               adapters_moved=moved, init_s=init_s, fit_s=fit_s,
+               nvidia_smi=smi())
+    emit(rec)
+    step_fn = make_train_step(L.causal_lm_loss_fn())
+    batch = {"input_ids": torch.as_tensor(ids).cuda()}
+    emit(device_profile(torch, lambda: step_fn(res["state"], batch), 1,
+                        "1 LoRA train step, llama3_8b bf16"))
+    del res, model, params, adapters, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_parity(torch) -> dict:
+    """Phase g, parity: llama3_8b(lora_rank=16)'s widths at depth 2, f32,
+    TF32 off, the seeded adapters' B made non-zero: the causal LM loss and
+    every adapter gradient of the kernel arm (``attn_fn="auto"``, both
+    flash kernels) against the dense arm (``attn_fn=None``) on phase g's
+    batch. At full depth the dense arm's S×S scores would not fit."""
+    import dataclasses
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(L.LlamaConfig.llama3_8b(lora_rank=16),
+                              num_layers=2)
+    model = L.LlamaModel(cfg, dtype=torch.float32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    L.lora_optimizer(TRAIN_LR)(model)  # freezes the base weights
+    g = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if "lora_b" in n:
+                p.normal_(0.0, 0.02, generator=g)
+    batch = {"input_ids": torch.as_tensor(train_ids(torch, cfg)).cuda()}
+
+    def arm():
+        model.zero_grad(set_to_none=True)
+        loss, _ = L.causal_lm_loss_fn()(model, batch)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    loss_k, grads_k = arm()
+    assert fa.flash_attention_fwd.launches - f0 == cfg.num_layers
+    assert fa.flash_attention_bwd.launches - b0 == cfg.num_layers
+    model.attn_fn = None
+    loss_d, grads_d = arm()
+    assert sorted(grads_k) == sorted(grads_d) == sorted(
+        n for n in grads_d if "lora_" in n)
+    shares = {}
+    for n, want in grads_d.items():
+        scale = want.abs().max().item()
+        assert scale > 0, n
+        shares[n] = (grads_k[n] - want).abs().max().item() / scale
+    worst = max(shares, key=shares.get)
+    rec = dict(phase="train_parity",
+               config="LlamaConfig.llama3_8b(lora_rank=16), 2 layers",
+               dtype="float32", tf32=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               loss_kernel=loss_k, loss_dense=loss_d,
+               loss_abs_err=abs(loss_k - loss_d), loss_tol=TRAIN_LOSS_TOL,
+               adapters=len(shares), max_grad_share=shares[worst],
+               worst_adapter=worst, grad_share_tol=TRAIN_GRAD_SHARE)
+    emit(rec)
+    assert rec["loss_abs_err"] <= TRAIN_LOSS_TOL, rec
+    assert shares[worst] <= TRAIN_GRAD_SHARE, rec
+    del model, grads_k, grads_d
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1294,6 +1579,8 @@ def main() -> int:
     phase_parity(torch)
     legs = phase_serve(torch, (fa, fd, pfd))
     phase_serve_parity(torch, (fa, fd, pfd))
+    train = phase_train(torch, (fa, fd, pfd))
+    phase_train_parity(torch)
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -1339,6 +1626,23 @@ def main() -> int:
                                  ms=f32["ms"], bound_ms=f32["bound_ms"],
                                  library_ms=f32["library_ms"],
                                  max_abs_err=f32["max_abs_err"]))
+    r, f32 = (main_recs["flash_attention_bwd"],
+              main_recs["flash_attention_bwd_f32"])
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="sparkdl_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="sparkdl_tpu/ops/flash_attention.py:186 (_bwd_one_head; "
+                 "plain JAX under custom_vjp, not a pl.pallas_call)",
+        launches=train["launches"]["flash_attention_bwd"],
+        max_abs_err=r["max_abs_err"], tol=r["tol"], rtol=r["rtol"],
+        tol_rule=r["tol_rule"], case=r["case"], dtype=r["dtype"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        tflops=r["tflops"],
+        f32_variant=dict(ms=f32["ms"], bound_ms=f32["bound_ms"],
+                         bound_by=f32["bound_by"], plain_ms=f32["plain_ms"],
+                         library_ms=f32["library_ms"],
+                         max_abs_err=f32["max_abs_err"])))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

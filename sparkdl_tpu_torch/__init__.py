@@ -12,12 +12,15 @@ CPU tensors take.
 This package imports ``torch`` and never ``jax``, ``flax`` or anything of
 ``sparkdl_tpu``. Importing it builds nothing and touches no device.
 
-Ported so far: Llama generation (``models.llama.generate``) and the
+Ported so far: Llama generation (``models.llama.generate``), the
 continuous-batching serving engine (``GenerationEngine.from_model``,
-unpaged and paged, speculative verify, int8 / fp8 KV pool) with the
-three kernels they run: ``ops.flash_attention`` (prefill),
-``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
-(block-table decode and verify). ROADMAP.md lists what is still to port.
+unpaged and paged, speculative verify, int8 / fp8 KV pool) and the LoRA
+fine-tune (``runner.XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
+``models.llama.causal_lm_loss_fn`` and ``lora_optimizer``), with the
+kernels they run: ``ops.flash_attention`` (prefill and the training
+forward, and its backward), ``ops.flash_decode`` (per-token decode) and
+``ops.paged_flash_decode`` (block-table decode and verify). ROADMAP.md
+lists what is still to port.
 """
 
 __version__ = "0.2.0"

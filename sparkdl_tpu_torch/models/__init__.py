@@ -1,5 +1,5 @@
-"""Model families of the port. Only Llama (generation and the serving
-engine's slot primitives) so far."""
+"""Model families of the port. Only Llama (generation, the serving
+engine's slot primitives and the LoRA fine-tune) so far."""
 
 from .llama import LlamaConfig, LlamaModel, generate
 

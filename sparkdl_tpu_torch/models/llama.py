@@ -4,9 +4,11 @@ The counterpart of ``sparkdl_tpu/models/llama.py``'s single-device,
 float-weight part: config, RMSNorm, LoRADense, rope, the attention with
 its training path, its static-cache decode path and its per-slot
 (``slot_cur``) serving branches, MLP, layer, model, ``generate``, the
-continuous-batching slot primitives, the paged block-table primitives
-and the block-quantized (int8 / fp8) KV pool. Weight quantization and
-the tensor-parallel kernel mesh are not ported yet (ROADMAP.md).
+continuous-batching slot primitives, the paged block-table primitives,
+the block-quantized (int8 / fp8) KV pool and the LoRA training utilities
+(:func:`lora_mask`, :func:`lora_optimizer`, :func:`causal_lm_loss_fn`).
+Weight quantization and the tensor-parallel kernel mesh are not ported
+yet (ROADMAP.md).
 
 Hazards the port keeps, each from the JAX module:
 
@@ -1302,3 +1304,54 @@ def copy_pool_block(pool: KVCache, src: int, dst: int) -> None:
     to the original."""
     for t in pool.tensors():
         t[dst] = t[src]
+
+
+# ---------------------------------------------------------------------------
+# LoRA training utilities
+# ---------------------------------------------------------------------------
+
+def lora_mask(model: nn.Module) -> dict:
+    """Parameter name → True for the LoRA adapters (``lora_a`` /
+    ``lora_b``, trainable), False for every base weight (frozen)."""
+    return {name: ("lora_a" in name or "lora_b" in name)
+            for name, _ in model.named_parameters()}
+
+
+def lora_optimizer(learning_rate: float = 1e-4):
+    """Adam on the LoRA adapters only; the base weights are frozen.
+
+    Returns the optimizer's factory, ``model → torch.optim.Adam``, which
+    :class:`runner.train_state.TrainState` calls: it sets
+    ``requires_grad=False`` on every base weight (so no gradient is even
+    computed for them, and they stay bit-identical through training, as
+    the JAX package's ``set_to_zero`` keeps them) and builds Adam over the
+    adapters with optax's defaults, betas (0.9, 0.999) and eps 1e-8."""
+    def make(model: nn.Module) -> torch.optim.Optimizer:
+        mask = lora_mask(model)
+        train = []
+        for name, p in model.named_parameters():
+            p.requires_grad_(mask[name])
+            if mask[name]:
+                train.append(p)
+        if not train:
+            raise ValueError("lora_optimizer: the model has no LoRA adapters "
+                             "(LlamaConfig(lora_rank=0))")
+        return torch.optim.Adam(train, lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8)
+
+    return make
+
+
+def causal_lm_loss_fn():
+    """Next-token loss for ``RunnerContext.fit``: ``loss_fn(model, batch)``
+    with batch = ``{"input_ids": [B, S]}`` (labels = input_ids shifted
+    left; the last position dropped). Logits in f32; returns ``(loss,
+    {"perplexity": exp(loss)})``."""
+    def loss_fn(model, batch):
+        ids = batch["input_ids"]
+        logits = model(ids)[:, :-1].float()
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               ids[:, 1:].reshape(-1))
+        return loss, {"perplexity": torch.exp(loss)}
+
+    return loss_fn

@@ -1,14 +1,17 @@
 """Builds the package's CUDA kernels at first use and loads them.
 
-Every ``sparkdl_tpu_torch/csrc/*.cu`` goes through ONE ``nvcc`` call into
-a shared library with a plain C interface::
+Every ``sparkdl_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one
+shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v \\
-         -o _build/libsparkdl_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu  # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libsparkdl_kernels_<hash>.so *.o
 
 (``-Xptxas -v``: each kernel's registers, shared memory and spills land
-in ``_build/libsparkdl_kernels_<hash>.log``.)
+in ``_build/libsparkdl_kernels_<hash>.log``.) The build takes as long as
+its slowest source, not the sum of them.
 
 No PyTorch header is compiled, so the build takes seconds. The library
 lands in ``sparkdl_tpu_torch/_build/`` (listed in ``.gitignore``) under a
@@ -35,8 +38,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -48,6 +52,10 @@ SIGNATURES = {
     # q, k, v, kv_mask|NULL, o, lse, B, H, S, D, causal, variant,
     # tiles|NULL, stream
     "sdl_flash_attention_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
+    # q, k, v, o, lse, do, kv_mask|NULL, dq, dk, dv, delta, B, H, S, D,
+    # causal, is_bf16, stream
+    "sdl_flash_attention_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                I, I, P],
     # q, k, v, o, cur|NULL, cur_scalar, pad|NULL, B, Hkv, rep, L, D,
     # is_bf16, rt, chunk, ws, ws_floats, counters, blocks|NULL, stream
     "sdl_flash_decode": [P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P, LL,
@@ -89,19 +97,42 @@ def _digest() -> str:
 
 
 def _compile(out: Path) -> None:
-    cu = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
+    nvcc = _nvcc()
+    objs = out.with_suffix(f".{os.getpid()}.objs")
+    objs.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_info.update(seconds=time.perf_counter() - t0, command=cmd,
-                      log=res.stdout + res.stderr)
-    out.with_suffix(".log").write_text(build_info["log"])
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent process sees all or none
+    jobs = []
+    try:
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj, log = objs / f"{src.stem}.o", objs / f"{src.stem}.log"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            with open(log, "w") as f:  # a file, so no pipe can fill up
+                jobs.append((src, obj, log, subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT)))
+        failed = [src.name for src, _, _, p in jobs if p.wait() != 0]
+        logs = "".join(log.read_text() for _, _, log, _ in jobs)
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _, _ in jobs)]
+        res = None if failed else subprocess.run(cmd, capture_output=True,
+                                                 text=True)
+        build_info.update(seconds=time.perf_counter() - t0, command=cmd,
+                          log=logs + ("" if res is None
+                                      else res.stdout + res.stderr))
+        out.with_suffix(".log").write_text(build_info["log"])
+        if failed or res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            what = (f"compiling {', '.join(failed)}" if failed
+                    else f"linking ({res.returncode})")
+            raise RuntimeError(f"nvcc failed {what}:\n"
+                               f"{build_info['log'][-4000:]}")
+        os.replace(tmp, out)  # atomic: a concurrent process sees all or none
+    finally:
+        for _, _, _, p in jobs:  # a raise above must leave no nvcc running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(objs, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:

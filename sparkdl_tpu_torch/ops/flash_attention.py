@@ -1,4 +1,5 @@
-"""Flash attention forward: a hand-written CUDA kernel and its policy.
+"""Flash attention, forward and backward: hand-written CUDA kernels and
+their policy.
 
 The counterpart of ``sparkdl_tpu/ops/flash_attention.py``. Layout
 ``[B, H, S, D]``; the same ``(q, k, v, causal=..., kv_mask=...)``
@@ -21,13 +22,15 @@ into ``LlamaModel(attn_fn=...)``.
   ``sparkdl_tpu/ops/flash_attention.py:78-98``): a score is live when
   ``col < S``, ``kv_mask[col] > 0`` and, causal, ``col <= row``; a
   fully-masked row gives O = 0 and lse = ``NEG_INF`` (finite).
-- Forward only. The JAX package's backward (``_flash_bwd``) is plain JAX
-  under a ``custom_vjp``; its port, a ``torch.autograd.Function`` whose
-  backward is a kernel too, belongs to the training slice (ROADMAP.md).
-  Until then the kernel refuses inputs that need a gradient
-  (:func:`gradient_reason`): its O, written through a raw pointer, would
-  carry no ``grad_fn`` and q, k and v would silently get none. The plain
-  version on CPU tensors is differentiable.
+- The backward: :func:`flash_attention_bwd` returns ``(dq, dk, dv)`` from
+  the saved ``(q, k, v, O, lse)`` and dO — ``csrc/flash_attention_bwd.cu``
+  for CUDA tensors, :func:`attention_bwd_plain` for CPU tensors — the port
+  of the JAX package's ``_bwd_one_head`` / ``_flash_bwd`` (plain JAX under
+  a ``custom_vjp`` there). :func:`flash_attention` goes through
+  :class:`_FlashAttention`, a ``torch.autograd.Function`` over the two,
+  whenever grad mode is on and q, k or v requires grad; otherwise it
+  launches the forward alone, as the no-grad prefill and the captured
+  decode graphs do.
 
 The TPU's tuning does not carry over: no 128-lane padding, no pre-blocked
 lse/mask layouts, no block-size cost model. ``SPARKDL_FLASH_MIN_SEQ``
@@ -52,6 +55,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _VARIANT_IDS = {"fma_f32": 0, "tc_mma_bf16": 1}  # the C entry's `variant`
 # The tensor-core variant's rule: atol, ·|O_plain|, ·(P|V|)_plain
 TC_BF16_RULE = (1e-5, 2.0 ** -7, 2.0 ** -8)
+# The backward's rule, by dtype: ·grad_abs, ·|grad_plain| (bwd_tolerance)
+BWD_RULE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
 
 
 def kernel_variant(dtype) -> str:
@@ -65,9 +70,10 @@ def kernel_variant(dtype) -> str:
     raise ValueError(f"flash_attention has no kernel for {dtype}")
 
 
-def _plain_probs(q, k, causal, kv_mask):
-    """Unnormalized f32 probabilities ``p``, row max ``m`` and ``safe_l``
-    of :func:`attention_plain`, with the kernel's mask semantics."""
+def _plain_scores(q, k, causal, kv_mask):
+    """f32 ``scale·q·kᵀ`` and the live-score mask (the kernels' rule: a
+    score is live when ``kv_mask[col] > 0`` and, causal, ``col <= row``),
+    broadcastable to ``[B, H, S, S]``."""
     _, _, s, d = q.shape
     scores = (q.float() * (1.0 / math.sqrt(d))) @ k.float().transpose(-1, -2)
     live = torch.ones((1, 1, 1, s), dtype=torch.bool, device=q.device)
@@ -76,6 +82,13 @@ def _plain_probs(q, k, causal, kv_mask):
     if causal:
         live = live & torch.ones((s, s), dtype=torch.bool,
                                  device=q.device).tril()
+    return scores, live
+
+
+def _plain_probs(q, k, causal, kv_mask):
+    """Unnormalized f32 probabilities ``p``, row max ``m`` and ``safe_l``
+    of :func:`attention_plain`, with the kernel's mask semantics."""
+    scores, live = _plain_scores(q, k, causal, kv_mask)
     scores = torch.where(live, scores, NEG_INF)
     m = scores.amax(-1)
     p = torch.exp(scores - m[..., None])
@@ -113,27 +126,69 @@ def tc_bf16_tolerance(o_plain, pv):
     return atol + rtol * o_plain.float().abs() + pv_rtol * pv
 
 
-def gradient_reason(grad_enabled: bool, inputs) -> str | None:
-    """The kernel's gradient rule, on plain values so that a CPU test can
-    hold it: ``inputs`` is one ``(device type, requires_grad)`` pair for
-    each of q, k and v. With grad mode on, an input that would reach the
-    kernel (any device but the CPU) and requires grad is refused: the
-    kernel has no backward yet, and its output would carry no
-    ``grad_fn``. None when the rule lets the inputs through."""
-    if grad_enabled and any(dev != "cpu" and rg for dev, rg in inputs):
-        return ("q, k or v requires grad, and the kernel has no backward "
-                "yet (its output would carry no gradient); run under "
-                "torch.no_grad() or give the model attn_fn=None for "
-                "gradients")
-    return None
+def attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
+                        kv_mask=None):
+    """Plain PyTorch version of the backward kernel, written from the JAX
+    package's ``_bwd_one_head`` on whole matrices, in f32: ``(dq, dk,
+    dv)``, each in its input's dtype. P = ``exp(scale·q·kᵀ - lse)`` where
+    the score is live and 0 elsewhere (taken from the mask, never from the
+    exp: a fully-masked row has lse = ``NEG_INF``); ``delta`` =
+    ``rowsum(dO·O)``; dV = Pᵀ·dO; dS = P·(dO·Vᵀ - delta)·scale; dK =
+    dSᵀ·q; dQ = dS·K."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores, live = _plain_scores(q, k, causal, kv_mask)
+    p = torch.where(live, torch.exp(scores - lse.float()[..., None]), 0.0)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ v.float().transpose(-1, -2) - delta) * scale
+    dk = ds.transpose(-1, -2) @ q.float()
+    dq = ds @ k.float()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_abs_plain(q, k, v, o, lse, do, causal: bool = False,
+                            kv_mask=None):
+    """:func:`attention_bwd_plain` with every product taken over absolute
+    values, in f32: ``(A_dq, A_dk, A_dv)``, each entry the sum of the
+    magnitudes of the terms its gradient sums (``|dS|`` from ``P·(|dO|·
+    |V|ᵀ + rowsum|dO·O|)·scale``). Checks of the backward kernel scale
+    their tolerance by it (:func:`bwd_tolerance`). Used only by checks."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores, live = _plain_scores(q, k, causal, kv_mask)
+    p = torch.where(live, torch.exp(scores - lse.float()[..., None]), 0.0)
+    dof = do.float().abs()
+    delta = (dof * o.float().abs()).sum(-1, keepdim=True)
+    ds = p * (dof @ v.float().abs().transpose(-1, -2) + delta) * scale
+    return (ds @ k.float().abs(), ds.transpose(-1, -2) @ q.float().abs(),
+            p.transpose(-1, -2) @ dof)
+
+
+def bwd_tolerance(grad_plain, grad_abs):
+    """Elementwise bound on ``|grad_kernel - grad_plain|`` for one of the
+    backward's outputs: ``a·grad_abs + r·|grad_plain|``, ``grad_abs`` its
+    entry of :func:`attention_bwd_abs_plain` and ``(a, r)`` from
+    :data:`BWD_RULE` by dtype — (1e-5, 1e-5) in f32, (1e-5, 2**-7) in
+    bf16. The kernel and :func:`attention_bwd_plain` compute in f32 from
+    the same inputs (bf16 ones widened) and differ in summation order
+    only. An entry sums at most n = D + S terms (dP's and delta's D, then
+    the S rows or columns) whose magnitudes add up to ``grad_abs``; two
+    f32 orderings of such a sum differ by about sqrt(n)·2**-24·grad_abs,
+    below 3e-6·grad_abs for n <= 2**13, which a·grad_abs covers (and dS =
+    P·(dP - delta) can cancel to rounding noise, so a bound relative to
+    the result alone would not). In bf16 each side rounds its f32 value
+    once and the two may land one bf16 step, at most 2**-7 of the value,
+    apart. A fully-masked row has grad_abs = 0: its dq must be exactly 0.
+    Used only by checks."""
+    a, r = BWD_RULE[grad_plain.dtype]
+    return a * grad_abs + r * grad_plain.float().abs()
 
 
 def support_reason(q, k, v) -> str | None:
     """None when :func:`flash_attention` takes these inputs, else why not.
-    CPU tensors take the plain version, which covers every shape and is
-    differentiable; other tensors need what the kernel needs: head dim 64
-    or 128, f32 or bf16, one dtype for q, k and v, and no gradient
-    (:func:`gradient_reason`)."""
+    CPU tensors take the plain versions, which cover every shape; other
+    tensors need what the kernels (forward and backward) need: head dim
+    64 or 128, f32 or bf16, one dtype for q, k and v."""
     if q.device.type == "cpu":
         return None
     d = q.shape[-1]
@@ -144,9 +199,7 @@ def support_reason(q, k, v) -> str | None:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         return (f"q, k, v dtypes differ ({q.dtype}, {k.dtype}, "
                 f"{v.dtype})")
-    return gradient_reason(torch.is_grad_enabled(),
-                           [(t.device.type, t.requires_grad)
-                            for t in (q, k, v)])
+    return None
 
 
 def _check(q, k, v, kv_mask) -> None:
@@ -219,12 +272,89 @@ def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None,
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        kv_mask=None):
+    """``(dq, dk, dv)`` of flash attention, each in its input's dtype, from
+    the forward's ``(q, k, v, O, lse)`` (:func:`flash_attention_fwd`) and
+    the gradient ``do`` of O. CPU tensors → :func:`attention_bwd_plain`;
+    CUDA tensors → the kernel (``csrc/flash_attention_bwd.cu``), after the
+    forward's checks, which raise on what it does not take. Counts its
+    launches in ``flash_attention_bwd.launches``."""
+    _check(q, k, v, kv_mask)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's shape, dtype and device "
+                             f"({tuple(q.shape)}, {q.dtype}, {q.device}), got "
+                             f"{tuple(t.shape)}, {t.dtype}, {t.device}")
+    if (tuple(lse.shape) != tuple(q.shape[:3]) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be f32 {tuple(q.shape[:3])} on q's "
+                         f"device, got {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}")
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, causal, kv_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    reason = support_reason(q, k, v)
+    if reason is not None:
+        raise ValueError(f"flash_attention_bwd kernel: {reason}")
+    for t in (q, k, v, o, do, lse):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention_bwd kernel needs contiguous, "
+                             "16-byte aligned q, k, v, o, do, lse")
+    from . import _build
+
+    b, h, s, d = q.shape
+    mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.sdl_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(),
+            None if mask is None else mask.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, s, d,
+            int(bool(causal)), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """O = flash attention of (q, k, v), with :func:`flash_attention_bwd`
+    as its backward (the JAX package's ``custom_vjp`` ``_flash_core``).
+    Saves ``(q, k, v, kv_mask, O, lse)``; ``kv_mask`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal, kv_mask=kv_mask)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal, kv_mask)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False, *, kv_mask=None):
     """Flash attention. q/k/v: ``[B, H, S, D]`` → ``[B, H, S, D]``.
 
     ``kv_mask``: optional ``[B, S]`` 0/1 tensor — key positions with 0 are
     excluded from every query's softmax (the BERT attention-mask
-    contract)."""
+    contract). With grad mode on and q, k or v requiring grad, O carries
+    the backward kernel (:class:`_FlashAttention`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, kv_mask, bool(causal))
     return flash_attention_fwd(q, k, v, causal, kv_mask=kv_mask)[0]
 
 

@@ -306,29 +306,26 @@ def test_sampled_backend_step_draws_as_the_eager_step(models):
         assert [got[0], got[2]] == [int(want[0]), int(want[2])]
 
 
-def test_gradient_rule_is_reported_by_support_reason():
-    """The kernel refuses inputs that need a gradient while grad mode is
-    on (it has no backward yet): the pure rule over every case, and
-    ``support_reason`` reporting it for tensors that would reach the
-    kernel (meta tensors stand in for CUDA ones here). CPU tensors that
-    require grad take the plain version, which is differentiable."""
-    rule = fa.gradient_reason
-    assert "no backward" in rule(True, [("cuda", True), ("cuda", False),
-                                        ("cuda", False)])
-    assert "attn_fn=None" in rule(True, [("cuda", False)] * 2
-                                  + [("cuda", True)])
-    assert rule(False, [("cuda", True)] * 3) is None
-    assert rule(True, [("cuda", False)] * 3) is None
-    assert rule(True, [("cpu", True)] * 3) is None
-
-    def qkv(device, grad):
-        return [torch.empty((1, 2, 8, 64), device=device,
+def test_support_reason_lets_gradients_through():
+    """The kernels have a backward now: ``support_reason`` lets tensors
+    that would reach them (meta tensors stand in for CUDA ones here)
+    through whether or not they require grad, in or out of grad mode, and
+    still refuses a head dim or dtype the kernels do not take. CPU
+    tensors that require grad train through the plain versions."""
+    def qkv(device, grad, d=64, dtype=torch.float32):
+        return [torch.empty((1, 2, 8, d), device=device, dtype=dtype,
                             requires_grad=grad) for _ in range(3)]
 
-    assert "no backward" in fa.support_reason(*qkv("meta", True))
-    assert fa.support_reason(*qkv("meta", False)) is None
+    for grad in (False, True):
+        assert fa.support_reason(*qkv("meta", grad)) is None
+        assert fa.support_reason(*qkv("meta", grad, d=128,
+                                      dtype=torch.bfloat16)) is None
+        assert "head_dim 32" in fa.support_reason(*qkv("meta", grad, d=32))
+        assert "float16" in fa.support_reason(
+            *qkv("meta", grad, dtype=torch.float16))
     with torch.no_grad():
         assert fa.support_reason(*qkv("meta", True)) is None
+    assert not hasattr(fa, "gradient_reason")
     q, k, v = (torch.randn((1, 2, 8, 64), requires_grad=True)
                for _ in range(3))
     assert fa.support_reason(q, k, v) is None
