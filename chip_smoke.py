@@ -12,8 +12,10 @@ a. build — every ``sparkdl_tpu_torch/csrc/*.cu`` through its own ``nvcc``
    for ``sm_90a``, all started together, then one link; timed; registers
    and spills from ptxas (the most of any kernel, every spilling kernel,
    each tensor-core flash-attention kernel by head dim, the split-KV
-   decode variants and the twelve backward kernels, none of which may
-   spill); the card's name and power limit from ``nvidia-smi``.
+   decode variants and the twelve backward kernels — delta in bf16 and
+   f32, the f32 CUDA-core pair and the bf16 tensor-core pair, each at D
+   64 and 128 — none of which may spill); the card's name and power
+   limit from ``nvidia-smi``.
 b. kernels — each kernel against its plain PyTorch version on the same
    inputs on the card, in f32 and bf16 (tolerances at ``TOL``), at the
    main path's shapes:
@@ -34,10 +36,13 @@ b. kernels — each kernel against its plain PyTorch version on the same
    ``F.scaled_dot_product_attention``'s.
    flash_attention_bwd at phase g's shape (B=2, H=32, S=2048, D=128,
    causal, no mask) and at a ragged S=1000 with a left pad and an
-   all-masked row (its dq, dk, dv exactly 0), in bf16 and f32, O and lse
-   from the forward kernel: (dq, dk, dv) held to ``fa.bwd_tolerance``
-   against ``fa.attention_bwd_plain``; the yardstick is the backward
-   alone of SDPA under autograd on the same inputs.
+   all-masked row (its dq, dk, dv exactly 0), in bf16 (the tensor-core
+   variant, ``tc_mma_bf16``) and f32 (``fma_f32``), O and lse from the
+   forward kernel: (dq, dk, dv) held to ``fa.bwd_tolerance`` of the
+   record's variant against ``fa.attention_bwd_plain``, and a second call
+   bitwise equal to the first; each record gives TFLOP/s on the bound's
+   five products and on the seven the two stages issue; the yardstick is
+   the backward alone of SDPA under autograd on the same inputs.
    paged_flash_decode at ``LlamaConfig.small()``'s serving shapes (8
    slots, 16/8 heads, D 128, block 16, 132 blocks a table), ragged fills
    [2047, 1500, 900, 513, 300, 64, 17, 0] (the last slot parked on the
@@ -116,12 +121,14 @@ g. train — ``XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
    (median after the first step), tokens/s, MFU from ``train_flops``
    against the bf16 peak, peak device memory, the losses; the launch
    counters, set to 0 just before the fit and read just after, must show
-   32 flash_attention and 32 flash_attention_bwd launches a step; the
-   losses finite and falling; a checksum of five base weights unchanged
-   and every adapter moved. Then a ``profile`` line of one more step and
-   a ``train_parity`` line: the same widths at depth 2, f32, TF32 off,
-   the kernel arm's loss and adapter gradients against the dense arm's
-   (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_SHARE``).
+   32 flash_attention and 32 flash_attention_bwd launches a step, all of
+   the backward's of the ``tc_mma_bf16`` variant; the losses finite and
+   falling; a checksum of five base weights unchanged and every adapter
+   moved. Then a ``profile`` line of one more step, which lists the
+   backward's kernels by name (the tensor-core dK/dV and dQ kernels must
+   be there), and a ``train_parity`` line: the same widths at depth 2,
+   f32, TF32 off, the kernel arm's loss and adapter gradients against
+   the dense arm's (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_SHARE``).
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd) and, last,
@@ -307,10 +314,12 @@ def ptxas_summary(log: str | None) -> dict | str:
     skv = [f for f in regs if "splitkv_kernel" in f]
     bwd = {}
     for fn, n in regs.items():
-        m = re.search(r"fa_bwd_(delta|dkdv|dq)_kernelI(\w+?)Li(\d+)E", fn)
+        m = re.search(r"fa_bwd_(delta|dkdv|dq)(_tc)?_kernelI(\w*?)Li(\d+)E",
+                      fn)
         if m:
-            kind = "bf16" if "bfloat16" in m.group(2) else "f32"
-            bwd[f"{m.group(1)}_{kind}_D{m.group(3)}"] = dict(
+            kind = ("tc_bf16" if m.group(2) else
+                    "bf16" if "bfloat16" in m.group(3) else "f32")
+            bwd[f"{m.group(1)}_{kind}_D{m.group(4)}"] = dict(
                 registers=n, spill_bytes=spills.get(fn))
     return dict(kernels=len(regs), max_registers=max(regs.values(),
                                                      default=None),
@@ -436,10 +445,15 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
                 ).float()
     o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
     args = (q, k, v, o, lse, do, causal, mask)
+    variant = fa.kernel_variant(dt)
     got = fa.flash_attention_bwd(*args)
     torch.cuda.synchronize()
+    again = fa.flash_attention_bwd(*args)  # no atomics: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+    del again
     want = fa.attention_bwd_plain(*args)
-    err = max(check_close(gt, w, dtype, f"{name} {gn}", fa.bwd_tolerance(w, a))
+    err = max(check_close(gt, w, dtype, f"{name} {gn}",
+                          fa.bwd_tolerance(w, a))
               for gn, gt, w, a in zip(("dq", "dk", "dv"), got, want,
                                       fa.attention_bwd_abs_plain(*args)))
     dead_rows = [r for r, p in enumerate(pads or []) if p >= s]
@@ -455,6 +469,11 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
         per_row = live_cols.long().sum(1, keepdim=True).expand(b, s)
     pairs = float(per_row.sum().item()) * h
     flops = 5 * 2.0 * d * pairs  # q·kᵀ again, dV, dP, dK, dQ
+    # what the two stages issue: q·kᵀ and dP in both, the five above on
+    # every computed 64x64 tile pair (the causal diagonal tile whole)
+    n_t = -(-s // 64)
+    tiles = n_t * (n_t + 1) // 2 if causal else n_t * n_t
+    issued = 7 * 2.0 * d * 64 * 64 * tiles * b * h
     elt = q.element_size()
     # read q, k, v, O, dO and lse, write dq, dk and dv (and the mask)
     nbytes = (8 * b * h * s * d * elt + b * h * s * 4
@@ -464,12 +483,13 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
     sdpa_mask = None if mask is None else live_cols[:, None, None, :]
     out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
                                          is_causal=causal and mask is None)
+    tol, rtol = (fa.TC_BWD_RULE if variant == "tc_mma_bf16"
+                 else fa.BWD_RULE[dt])
     rec = dict(phase="kernels", kernel="flash_attention_bwd", case=name,
-               dtype=dtype, shape=[b, h, s, d], causal=causal, pads=pads,
-               max_abs_err=err, tol=fa.BWD_RULE[dt][0],
-               rtol=fa.BWD_RULE[dt][1],
+               variant=variant, dtype=dtype, shape=[b, h, s, d],
+               causal=causal, pads=pads, max_abs_err=err, tol=tol, rtol=rtol,
                tol_rule="tol·grad_abs + rtol·|plain| (fa.bwd_tolerance)",
-               dead_rows_exactly_zero=dead_rows,
+               dead_rows_exactly_zero=dead_rows, repeat_bitwise_equal=True,
                ms=time_ms(torch, lambda: fa.flash_attention_bwd(*args),
                           flush=flush),
                plain_ms=time_ms(torch, lambda: fa.attention_bwd_plain(*args),
@@ -477,8 +497,11 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
                library_ms=time_ms(torch, lambda: torch.autograd.grad(
                    out, leaves, do, retain_graph=True), flush=flush),
                library="F.scaled_dot_product_attention backward",
-               bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
-    rec["tflops"] = flops / rec["ms"] / 1e9
+               bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+               flops_issued=issued)
+    rec["tflops"] = flops / rec["ms"] / 1e9           # the bound's five
+    rec["tflops_issued"] = issued / rec["ms"] / 1e9   # the seven issued
+    rec["bound_share"] = bms / rec["ms"]
     emit(rec)
     return rec
 
@@ -943,12 +966,14 @@ def phase_main(torch, fa, fd) -> dict:
     return dict(by_arm["graph"][0], init_s=init_s)
 
 
-def device_profile(torch, step, steps: int, window: str) -> dict:
+def device_profile(torch, step, steps: int, window: str,
+                   match: str | None = None) -> dict:
     """Where ``steps`` calls of ``step`` spend their time:
     ``torch.profiler`` device busy share of the wall time and the kernels
     that take it, beside the wall time and the CUDA-event time of the
-    same window. Reports "not measured" when the profiler sees no device
-    activity."""
+    same window; with ``match``, also every kernel whose name holds it
+    (``matched_kernels``), in the top eight or not. Reports "not
+    measured" when the profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -972,6 +997,9 @@ def device_profile(torch, step, steps: int, window: str) -> dict:
                 if hasattr(ev, "device_time_total") else ev.cuda_time_total
     busy_us = sum(t for _, t in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    matched = {} if match is None else dict(matched_kernels=[
+        dict(name=n[:80], launches=c, us=t)
+        for n, (c, t) in kernels.items() if match in n])
     return dict(
         phase="profile", window=window,
         wall_ms_per_step=wall_us / steps / 1e3,
@@ -982,7 +1010,7 @@ def device_profile(torch, step, steps: int, window: str) -> dict:
         else "not measured",
         device_launches_per_step=sum(n for n, _ in kernels.values()) / steps,
         top_kernels=[dict(name=n[:80], launches=c, us=t)
-                     for n, (c, t) in top])
+                     for n, (c, t) in top], **matched)
 
 
 def profile_prefill(torch, L, model, ids, pads, steps: int = 2) -> dict:
@@ -1100,6 +1128,8 @@ def serve_prompts(torch, cfg, lens, seed, shared=(), head_len=512,
 def reset_counts(fa, fd, pfd) -> None:
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches = 0
+    for variant in fa.flash_attention_bwd.variant_launches:
+        fa.flash_attention_bwd.variant_launches[variant] = 0
     fd.flash_decode.launches = 0
     pfd.paged_flash_decode.launches = 0
 
@@ -1451,6 +1481,7 @@ def phase_train(torch, kernels) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = read_counts(*kernels)
+    bwd_variants = dict(kernels[0].flash_attention_bwd.variant_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in res["history"]]
     nl = cfg.num_layers
@@ -1459,6 +1490,8 @@ def phase_train(torch, kernels) -> dict:
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
     assert launches["flash_attention"] == nl * TRAIN_STEPS, launches
     assert launches["flash_attention_bwd"] == nl * TRAIN_STEPS, launches
+    assert bwd_variants == {"fma_f32": 0, "tc_mma_bf16": nl * TRAIN_STEPS}, (
+        bwd_variants)
     assert launches["flash_decode"] == launches["paged_flash_decode"] == 0
     after = {n: params[n].double().sum().item() for n in probe}
     assert after == checksum, f"base weights moved: {checksum} -> {after}"
@@ -1481,14 +1514,21 @@ def phase_train(torch, kernels) -> dict:
                flops_per_step=flops,
                mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
                meter_mfu=summ["mfu"], peak_mem_gb=peak_gb,
-               launches=launches, base_checksum_unchanged=True,
+               launches=launches, bwd_variant_launches=bwd_variants,
+               base_checksum_unchanged=True,
                adapters_moved=moved, init_s=init_s, fit_s=fit_s,
                nvidia_smi=smi())
     emit(rec)
     step_fn = make_train_step(L.causal_lm_loss_fn())
     batch = {"input_ids": torch.as_tensor(ids).cuda()}
-    emit(device_profile(torch, lambda: step_fn(res["state"], batch), 1,
-                        "1 LoRA train step, llama3_8b bf16"))
+    prof = device_profile(torch, lambda: step_fn(res["state"], batch), 1,
+                          "1 LoRA train step, llama3_8b bf16", match="fa_bwd")
+    emit(prof)
+    if isinstance(prof["device_busy_ms_per_step"], float):
+        # the backward's kernels by name: delta, then the tensor-core pair
+        names = " ".join(k["name"] for k in prof["matched_kernels"])
+        assert "fa_bwd_dkdv_tc_kernel" in names and \
+            "fa_bwd_dq_tc_kernel" in names, prof["matched_kernels"]
     del res, model, params, adapters, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -1630,7 +1670,7 @@ def main() -> int:
               main_recs["flash_attention_bwd_f32"])
     kernels.append(dict(
         name="flash_attention_bwd", route="cuda",
-        source="sparkdl_tpu_torch/csrc/flash_attention_bwd.cu",
+        source="sparkdl_tpu_torch/csrc/flash_attention_bwd_tc.cu",
         replaces="sparkdl_tpu/ops/flash_attention.py:186 (_bwd_one_head; "
                  "plain JAX under custom_vjp, not a pl.pallas_call)",
         launches=train["launches"]["flash_attention_bwd"],
@@ -1638,8 +1678,13 @@ def main() -> int:
         tol_rule=r["tol_rule"], case=r["case"], dtype=r["dtype"],
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
-        tflops=r["tflops"],
-        f32_variant=dict(ms=f32["ms"], bound_ms=f32["bound_ms"],
+        variant=r["variant"], tflops=r["tflops"],
+        tflops_issued=r["tflops_issued"],
+        bwd_variant_launches=train["bwd_variant_launches"],
+        f32_variant=dict(variant=f32["variant"], route="cuda",
+                         source="sparkdl_tpu_torch/csrc/"
+                                "flash_attention_bwd.cu",
+                         ms=f32["ms"], bound_ms=f32["bound_ms"],
                          bound_by=f32["bound_by"], plain_ms=f32["plain_ms"],
                          library_ms=f32["library_ms"],
                          max_abs_err=f32["max_abs_err"])))

@@ -1,12 +1,14 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv from the saved
-// forward (q, k, v, O, lse) and the incoming dO, f32 FMAs on the CUDA cores
-// for f32 and bf16 tensors alike.
+// forward (q, k, v, O, lse) and the incoming dO. This file holds the C entry
+// point, which launches the variant the wrapper's kernel_variant picked:
+// "fma_f32" (f32 tensors), f32 FMAs on the CUDA cores, below; "tc_mma_bf16"
+// (bf16 tensors), the tensor-core kernels of flash_attention_bwd_tc.cu. The
+// delta kernel below runs first for both.
 //
 // Replaces: sparkdl_tpu/ops/flash_attention.py:_bwd_one_head / _flash_bwd,
 // the JAX package's backward (plain JAX under jax.custom_vjp: a lax.scan
 // over K tiles under two vmaps, not a Pallas kernel). Same arithmetic, in
-// f32 from inputs widened to f32, each gradient rounded once to its input's
-// dtype at the end:
+// f32 (the tensor-core variant's roundings are in its own file):
 //   delta = rowsum(dO * O)
 //   P  = live ? exp(scale * q.k - lse) : 0     (never exp of a dead score)
 //   dV = P^T dO;  dP = dO V^T;  dS = P * (dP - delta) * scale
@@ -19,12 +21,11 @@
 // What bounds it on this card: five products of 2*S*S*D a (b, h) (the
 // recomputed q.k, dV, dP, dK, dQ), halved when causal, against reading q,
 // k, v, O, dO, lse and writing dq, dk, dv; at S = 2048, D = 128 that is
-// ~340 operations a byte, so operations bound it. This first version runs
-// them as f32 FMAs on the CUDA cores (67 TFLOP/s at most), which keeps the
-// reference's f32 arithmetic and is right before it is fast; it also
-// recomputes q.k and dP once more than the bound counts (in both the dK/dV
-// and the dQ stage). The tensor-core version (mma.sync, then wgmma) is a
-// later step.
+// ~340 operations a byte, so operations bound it. The f32 variant runs
+// them as f32 FMAs on the CUDA cores (67 TFLOP/s at most: the tensor cores
+// have no full-precision f32 product), which keeps the reference's f32
+// arithmetic; it also recomputes q.k and dP once more than the bound
+// counts (in both the dK/dV and the dQ stage).
 //
 // Design: three launches on the caller's stream, no atomics, so the
 // gradients are the same bits run to run.
@@ -446,7 +447,18 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+cudaError_t launch_delta(const void* o, const void* d_o, void* delta,
+                         long long rows, cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((rows + NT / 32 - 1) / (NT / 32));
+  fa_bwd_delta_kernel<T, D><<<blocks, NT, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(d_o),
+      static_cast<float*>(delta), rows);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lse, const void* d_o, const void* kv_mask,
                    void* dq, void* dk, void* dv, void* delta, int B, int H,
                    int S, int causal, cudaStream_t stream) {
@@ -469,14 +481,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const auto* fmask = static_cast<const float*>(kv_mask);
   auto* fdelta = static_cast<float*>(delta);
 
-  const long long rows = static_cast<long long>(B) * H * S;
-  const unsigned delta_blocks =
-      static_cast<unsigned>((rows + NT / 32 - 1) / (NT / 32));
-  fa_bwd_delta_kernel<T, D><<<delta_blocks, NT, 0, stream>>>(
-      static_cast<const T*>(o), tdo, fdelta, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
   const int tiles = (S + BQ - 1) / BQ;
   kv_kern<<<dim3(tiles, B * H), NT, KVSmem<D>::bytes, stream>>>(
       tq, tk, tv, tdo, flse, fdelta, fmask, static_cast<T*>(dk),
@@ -492,29 +496,52 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q, k, v, o, d_o, dq, dk, dv: [B, H, S, D] contiguous, all f32 (is_bf16 0)
-// or all bf16 (is_bf16 1); lse: [B, H, S] f32 from the forward; kv_mask:
-// [B, S] f32 or NULL; delta: [B, H, S] f32 scratch. D must be 64 or 128.
+namespace sdl {
+cudaError_t flash_attention_bwd_tc_bf16(const void* q, const void* k,
+                                        const void* v, const void* lse,
+                                        const void* d_o, const void* kv_mask,
+                                        void* dq, void* dk, void* dv,
+                                        const void* delta, int B, int H,
+                                        int S, int D, int causal,
+                                        cudaStream_t stream);
+}  // namespace sdl
+
+// q, k, v, o, d_o, dq, dk, dv: [B, H, S, D] contiguous, 16-byte aligned;
+// lse: [B, H, S] f32 from the forward; kv_mask: [B, S] f32 or NULL; delta:
+// [B, H, S] f32 scratch. D must be 64 or 128. variant (the wrapper's
+// kernel_variant picks it): 0 "fma_f32", f32 tensors, the CUDA-core kernels
+// above; 1 "tc_mma_bf16", bf16 tensors, the tensor-core kernels of
+// flash_attention_bwd_tc.cu. Either way delta = rowsum(dO * O) runs first.
 extern "C" int sdl_flash_attention_bwd(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* lse, const void* d_o,
                                        const void* kv_mask, void* dq,
                                        void* dk, void* dv, void* delta,
                                        int B, int H, int S, int D, int causal,
-                                       int is_bf16, void* stream) {
+                                       int variant, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
-  if (B * H > 65535) return cudaErrorInvalidValue;
+  if (B * H > 65535 || (D != 64 && D != 128)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-#define SDL_BWD(T, DIM)                                                     \
-  return launch<T, DIM>(q, k, v, o, lse, d_o, kv_mask, dq, dk, dv, delta, B, \
-                        H, S, causal, st)
-  if (is_bf16) {
-    if (D == 64) SDL_BWD(__nv_bfloat16, 64);
-    if (D == 128) SDL_BWD(__nv_bfloat16, 128);
-  } else {
-    if (D == 64) SDL_BWD(float, 64);
-    if (D == 128) SDL_BWD(float, 128);
+  const long long rows = static_cast<long long>(B) * H * S;
+  cudaError_t err;
+  if (variant == 0) {
+    err = D == 64 ? launch_delta<float, 64>(o, d_o, delta, rows, st)
+                  : launch_delta<float, 128>(o, d_o, delta, rows, st);
+    if (err != cudaSuccess) return err;
+    if (D == 64)
+      return launch<float, 64>(q, k, v, lse, d_o, kv_mask, dq, dk, dv, delta,
+                               B, H, S, causal, st);
+    return launch<float, 128>(q, k, v, lse, d_o, kv_mask, dq, dk, dv, delta,
+                              B, H, S, causal, st);
   }
-#undef SDL_BWD
+  if (variant == 1) {
+    err = D == 64
+              ? launch_delta<__nv_bfloat16, 64>(o, d_o, delta, rows, st)
+              : launch_delta<__nv_bfloat16, 128>(o, d_o, delta, rows, st);
+    if (err != cudaSuccess) return err;
+    return sdl::flash_attention_bwd_tc_bf16(q, k, v, lse, d_o, kv_mask, dq,
+                                            dk, dv, delta, B, H, S, D, causal,
+                                            st);
+  }
   return cudaErrorInvalidValue;
 }

@@ -53,7 +53,7 @@ SIGNATURES = {
     # tiles|NULL, stream
     "sdl_flash_attention_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
     # q, k, v, o, lse, do, kv_mask|NULL, dq, dk, dv, delta, B, H, S, D,
-    # causal, is_bf16, stream
+    # causal, variant, stream
     "sdl_flash_attention_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                                 I, I, P],
     # q, k, v, o, cur|NULL, cur_scalar, pad|NULL, B, Hkv, rep, L, D,

@@ -23,14 +23,18 @@ into ``LlamaModel(attn_fn=...)``.
   ``col < S``, ``kv_mask[col] > 0`` and, causal, ``col <= row``; a
   fully-masked row gives O = 0 and lse = ``NEG_INF`` (finite).
 - The backward: :func:`flash_attention_bwd` returns ``(dq, dk, dv)`` from
-  the saved ``(q, k, v, O, lse)`` and dO — ``csrc/flash_attention_bwd.cu``
-  for CUDA tensors, :func:`attention_bwd_plain` for CPU tensors — the port
-  of the JAX package's ``_bwd_one_head`` / ``_flash_bwd`` (plain JAX under
-  a ``custom_vjp`` there). :func:`flash_attention` goes through
-  :class:`_FlashAttention`, a ``torch.autograd.Function`` over the two,
-  whenever grad mode is on and q, k or v requires grad; otherwise it
-  launches the forward alone, as the no-grad prefill and the captured
-  decode graphs do.
+  the saved ``(q, k, v, O, lse)`` and dO — the port of the JAX package's
+  ``_bwd_one_head`` / ``_flash_bwd`` (plain JAX under a ``custom_vjp``
+  there). CPU tensors take :func:`attention_bwd_plain`; CUDA tensors the
+  kernel :func:`kernel_variant` picks, as for the forward: bf16
+  ``"tc_mma_bf16"`` (``csrc/flash_attention_bwd_tc.cu``, all five products
+  on the tensor cores, P and dS rounded to bf16 on the way, held to the
+  wider rule of :func:`bwd_tolerance`), f32 ``"fma_f32"``
+  (``csrc/flash_attention_bwd.cu``, f32 FMAs). :func:`flash_attention` goes
+  through :class:`_FlashAttention`, a ``torch.autograd.Function`` over the
+  two, whenever grad mode is on and q, k or v requires grad; otherwise it
+  launches the forward alone, as the no-grad prefill and the captured decode
+  graphs do.
 
 The TPU's tuning does not carry over: no 128-lane padding, no pre-blocked
 lse/mask layouts, no block-size cost model. ``SPARKDL_FLASH_MIN_SEQ``
@@ -55,14 +59,18 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _VARIANT_IDS = {"fma_f32": 0, "tc_mma_bf16": 1}  # the C entry's `variant`
 # The tensor-core variant's rule: atol, ·|O_plain|, ·(P|V|)_plain
 TC_BF16_RULE = (1e-5, 2.0 ** -7, 2.0 ** -8)
-# The backward's rule, by dtype: ·grad_abs, ·|grad_plain| (bwd_tolerance)
-BWD_RULE = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
+# The backward's rule (bwd_tolerance), ·grad_abs, ·|grad_plain|: f32
+# ("fma_f32") by dtype, and the tensor-core variant's, which rounds P and
+# dS to bf16
+BWD_RULE = {torch.float32: (1e-5, 1e-5)}
+TC_BWD_RULE = (2.0 ** -8, 2.0 ** -7)
 
 
 def kernel_variant(dtype) -> str:
-    """Which CUDA kernel :func:`flash_attention_fwd` launches for ``dtype``:
-    ``"tc_mma_bf16"`` (tensor cores) for bf16, ``"fma_f32"`` (CUDA cores)
-    for f32. Other dtypes have no kernel (see :func:`support_reason`)."""
+    """Which CUDA kernels :func:`flash_attention_fwd` and
+    :func:`flash_attention_bwd` launch for ``dtype``: ``"tc_mma_bf16"``
+    (tensor cores) for bf16, ``"fma_f32"`` (CUDA cores) for f32. Other
+    dtypes have no kernel (see :func:`support_reason`)."""
     if dtype == torch.bfloat16:
         return "tc_mma_bf16"
     if dtype == torch.float32:
@@ -164,23 +172,51 @@ def attention_bwd_abs_plain(q, k, v, o, lse, do, causal: bool = False,
             p.transpose(-1, -2) @ dof)
 
 
+def attention_bwd_tc_plain(q, k, v, o, lse, do, causal: bool = False,
+                           kv_mask=None):
+    """:func:`attention_bwd_plain` with the tensor-core variant's two
+    roundings: P to bf16 before dV = Pᵀ·dO, and dS/scale to bf16 before
+    dK = (dS/scale)ᵀ·q·scale and dQ = (dS/scale)·K·scale (the scale
+    applied in f32 after the product, as the kernel's epilogue does); dS
+    itself from the unrounded P. Used only by checks of the rule
+    :data:`TC_BWD_RULE`."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores, live = _plain_scores(q, k, causal, kv_mask)
+    p = torch.where(live, torch.exp(scores - lse.float()[..., None]), 0.0)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dof @ v.float().transpose(-1, -2) - delta)  # dS / scale
+    p, ds = (t.bfloat16().float() for t in (p, ds))
+    dv = p.transpose(-1, -2) @ dof
+    dk = (ds.transpose(-1, -2) @ q.float()) * scale
+    dq = (ds @ k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def bwd_tolerance(grad_plain, grad_abs):
     """Elementwise bound on ``|grad_kernel - grad_plain|`` for one of the
     backward's outputs: ``a·grad_abs + r·|grad_plain|``, ``grad_abs`` its
-    entry of :func:`attention_bwd_abs_plain` and ``(a, r)`` from
-    :data:`BWD_RULE` by dtype — (1e-5, 1e-5) in f32, (1e-5, 2**-7) in
-    bf16. The kernel and :func:`attention_bwd_plain` compute in f32 from
-    the same inputs (bf16 ones widened) and differ in summation order
-    only. An entry sums at most n = D + S terms (dP's and delta's D, then
-    the S rows or columns) whose magnitudes add up to ``grad_abs``; two
-    f32 orderings of such a sum differ by about sqrt(n)·2**-24·grad_abs,
-    below 3e-6·grad_abs for n <= 2**13, which a·grad_abs covers (and dS =
-    P·(dP - delta) can cancel to rounding noise, so a bound relative to
-    the result alone would not). In bf16 each side rounds its f32 value
-    once and the two may land one bf16 step, at most 2**-7 of the value,
-    apart. A fully-masked row has grad_abs = 0: its dq must be exactly 0.
-    Used only by checks."""
-    a, r = BWD_RULE[grad_plain.dtype]
+    entry of :func:`attention_bwd_abs_plain` and ``(a, r)`` picked by the
+    kernel variant of ``grad_plain``'s dtype (:func:`kernel_variant`):
+    :data:`BWD_RULE` (1e-5, 1e-5) for f32 (``"fma_f32"``),
+    :data:`TC_BWD_RULE` (2**-8, 2**-7) for bf16 (``"tc_mma_bf16"``). The f32
+    kernel and :func:`attention_bwd_plain` compute in f32 from the same
+    inputs and differ in summation order only. An entry sums at most
+    n = D + S terms (dP's and delta's D, then the S rows or columns) whose
+    magnitudes add up to ``grad_abs``; two f32 orderings of such a sum
+    differ by about sqrt(n)·2**-24·grad_abs, below 3e-6·grad_abs for
+    n <= 2**13, which a·grad_abs covers (and dS = P·(dP - delta) can
+    cancel to rounding noise, so a bound relative to the result alone would
+    not). The bf16 outputs round their f32 value once and may land one
+    bf16 step, at most 2**-7 of the value, from the plain version's. The
+    tensor-core variant also rounds P (before dV) and dS/scale (before dK
+    and dQ) to bf16, which :func:`attention_bwd_tc_plain` emulates: each
+    rounding moves a term by at most 2**-9 of its magnitude, so the entry
+    by at most 2**-9·grad_abs; a = 2**-8 doubles that for the f32 order
+    and ``ex2`` differences ahead of the rounding. A fully-masked row has
+    grad_abs = 0: its dq must be exactly 0. Used only by checks."""
+    tc = kernel_variant(grad_plain.dtype) == "tc_mma_bf16"
+    a, r = TC_BWD_RULE if tc else BWD_RULE[grad_plain.dtype]
     return a * grad_abs + r * grad_plain.float().abs()
 
 
@@ -277,9 +313,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     """``(dq, dk, dv)`` of flash attention, each in its input's dtype, from
     the forward's ``(q, k, v, O, lse)`` (:func:`flash_attention_fwd`) and
     the gradient ``do`` of O. CPU tensors → :func:`attention_bwd_plain`;
-    CUDA tensors → the kernel (``csrc/flash_attention_bwd.cu``), after the
+    CUDA tensors → the kernel :func:`kernel_variant` picks, after the
     forward's checks, which raise on what it does not take. Counts its
-    launches in ``flash_attention_bwd.launches``."""
+    launches in ``flash_attention_bwd.launches``, and by variant in
+    ``flash_attention_bwd.variant_launches``."""
     _check(q, k, v, kv_mask)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -306,6 +343,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     from . import _build
 
     b, h, s, d = q.shape
+    variant = kernel_variant(q.dtype)
     mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -316,14 +354,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
             lse.data_ptr(), do.data_ptr(),
             None if mask is None else mask.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, s, d,
-            int(bool(causal)), int(q.dtype == torch.bfloat16),
+            int(bool(causal)), _VARIANT_IDS[variant],
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[variant] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.variant_launches = dict.fromkeys(_VARIANT_IDS, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

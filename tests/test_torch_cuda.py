@@ -18,10 +18,12 @@ round P to bf16 before P·V (the plain version keeps p in f32). It is held
 to ``fa.tc_bf16_tolerance``, the rule above plus 2**-8·(P|V|)_plain with
 (P|V|) = sum_j p_j·|v_j| / l; that function gives the reason.
 
-The flash backward's dq, dk and dv are held to ``fa.bwd_tolerance``:
-1e-5·A + r·|plain|, A each entry's sum of the magnitudes of its terms
-(``fa.attention_bwd_abs_plain``) and r 1e-5 in f32, 2**-7 in bf16; that
-function gives the reason.
+The flash backward's dq, dk and dv are held to ``fa.bwd_tolerance`` by
+kernel variant: a·A + r·|plain|, A each entry's sum of the magnitudes of
+its terms (``fa.attention_bwd_abs_plain``). f32 runs on the CUDA cores
+("fma_f32"): a = r = 1e-5. bf16 runs on the tensor cores ("tc_mma_bf16"),
+which round P to bf16 before dV and dS/scale before dK and dQ: a = 2**-8,
+r = 2**-7. That function gives the reasons.
 """
 
 import math
@@ -751,8 +753,9 @@ def test_flash_kernel_gradients_match_dense_arm(dev, dtype):
 def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, d, s, causal):
     """(dq, dk, dv) of the backward kernel against
     ``fa.attention_bwd_plain`` on the same (q, k, v, O, lse, dO), held to
-    ``fa.bwd_tolerance``; batch row 2 is all padding, so its dq, dk and dv
-    are exactly 0, and row 1 has a left pad."""
+    ``fa.bwd_tolerance`` of the dtype's variant; batch row 2 is all
+    padding, so its dq, dk and dv are exactly 0, and row 1 has a left
+    pad."""
     rng = np.random.default_rng(s * 11 + d)
     b, h = 3, 2
     q, k, v, do = (_randn(rng, (b, h, s, d), dtype, dev) for _ in range(4))
@@ -799,6 +802,34 @@ def test_flash_attention_bwd_wrapper_checks(dev):
     q32 = _randn(rng, (2, 4, 130, 32), torch.float32, dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_bwd(q32, q32, q32, q32, lse, q32, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_launches_its_variant(dev, dtype):
+    """bf16 gradients come from the tensor-core kernels ("tc_mma_bf16"),
+    f32 ones from the CUDA-core kernels ("fma_f32"): the wrapper counts
+    each launch under the variant it handed the C entry. The bf16 kernel
+    also lies within its rule around ``fa.attention_bwd_tc_plain``, the
+    emulation of its roundings."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (_randn(rng, (2, 4, 300, 128), dtype, dev)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    before = dict(fa.flash_attention_bwd.variant_launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    after = fa.flash_attention_bwd.variant_launches
+    variant = fa.kernel_variant(dtype)
+    assert variant == ("tc_mma_bf16" if dtype == torch.bfloat16
+                       else "fma_f32")
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == variant) for n in after}
+    if dtype == torch.bfloat16:
+        args = (q, k, v, o, lse, do, True)
+        for g, w, a in zip(got, fa.attention_bwd_tc_plain(*args),
+                           fa.attention_bwd_abs_plain(*args)):
+            assert ((g.float() - w.float()).abs()
+                    - fa.bwd_tolerance(w, a)).max() <= 0
 
 
 def test_fit_on_card(dev):

@@ -132,8 +132,8 @@ def test_bwd_matches_autograd_of_the_dense_forward():
 
 def test_bwd_tolerance_rule():
     """``bwd_tolerance``: zero where a row sees no key (the kernel must
-    write exactly 0 there), and the bf16 rule wider than the f32 one by
-    one bf16 step of the value."""
+    write exactly 0 there), and the bf16 (tensor-core) rule wider than
+    the f32 one."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(50, seed=6))
     mask = torch.from_numpy(_mask(50, True))
     o, lse = fa.flash_attention_fwd(q, k, v, True, kv_mask=mask)
@@ -169,3 +169,113 @@ def test_bwd_wrapper_checks_on_cpu():
                                                       device="meta"),
                                meta[4], True)
     assert fa.flash_attention_bwd.launches == 0  # CPU runs launch nothing
+
+
+# The tensor-core variant ("tc_mma_bf16") rounds P to bf16 before dV and
+# dS/scale before dK and dQ; ``fa.attention_bwd_tc_plain`` emulates those
+# roundings and ``fa.bwd_tolerance`` on bf16 gradients (the variant's
+# rule: a = 2**-8 of the sum of the terms' magnitudes, r = 2**-7 of
+# |plain|) must hold it around ``fa.attention_bwd_plain`` while still
+# catching a real fault.
+
+
+def _bf16_case(s, d, seed, masked):
+    """bf16 q, k, v, dO and the plain forward's O and lse; at S = 2048
+    one head (the score matrices are S x S a head). The mask as
+    :func:`_mask`."""
+    h = 1 if s >= 1024 else H
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, h, s, d)).astype(np.float32)).bfloat16() for _ in range(4))
+    mask = _mask(s, masked)
+    mask = None if mask is None else torch.from_numpy(mask)
+    return q, k, v, do, mask
+
+
+def _tc_excess(got, want, grad_abs):
+    """max(|got - want| - rule) of one gradient, ``want`` in bf16 so that
+    the tensor-core rule applies: > 0 means outside."""
+    assert fa.kernel_variant(want.dtype) == "tc_mma_bf16"
+    tol = fa.bwd_tolerance(want, grad_abs)
+    return ((got.float() - want.float()).abs() - tol).max().item()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 37, 200, 2048])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tc_emulation_inside_its_rule(seed, d, s, causal, masked):
+    q, k, v, do, mask = _bf16_case(s, d, seed + 10 * s + d, masked)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
+    args = (q, k, v, o, lse, do, causal, mask)
+    got = fa.attention_bwd_tc_plain(*args)
+    want = fa.attention_bwd_plain(*args)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want,
+                             fa.attention_bwd_abs_plain(*args)):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert _tc_excess(g, w, a) <= 0, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 37, 200, 2048])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tc_rule_catches_a_dropped_tile_pair(d, s, causal):
+    """The emulation with the contribution of one 64x64 (Q tile, K tile)
+    pair taken out — the last diagonal pair, whose rows and columns are
+    the same positions — lies outside the rule: dv always, dq and dk
+    where S > 1 (at S = 1 dS is 0 up to rounding: O = V). Masked as
+    :func:`_mask` where S > 1 (at S = 1 that mask leaves no live key)."""
+    q, k, v, do, mask = _bf16_case(s, d, 3 * s + d, s > 1)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
+    args = (q, k, v, o, lse, do, causal, mask)
+    want = fa.attention_bwd_plain(*args)
+    f32 = [t.float() for t in (q, k, v, o)]
+    full = fa.attention_bwd_tc_plain(*f32, lse, do.float(), causal, mask)
+    r = slice((s - 1) // 64 * 64, s)  # the last tile's positions
+    pair = fa.attention_bwd_tc_plain(
+        *(t[:, :, r] for t in f32), lse[:, :, r], do.float()[:, :, r],
+        causal, None if mask is None else mask[:, r])
+    dropped = [g.clone() for g in full]
+    for g, c in zip(dropped, pair):
+        g[:, :, r] -= c
+    for name, g, w, a in zip(("dq", "dk", "dv"), dropped, want,
+                             fa.attention_bwd_abs_plain(*args)):
+        if name == "dv" or s > 1:
+            assert _tc_excess(g.bfloat16(), w, a) > 0, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 37, 200, 2048])
+def test_tc_emulation_masked_rows_are_zero(s, causal):
+    """A batch row whose keys are all masked gets exactly 0 in dq, dk and
+    dv from the emulation, as from the plain backward; causal, row 0's
+    first 7 queries see only padding, so their dq is 0 too."""
+    q, k, v, do, mask = _bf16_case(s, 64, s + causal, True)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
+    got = fa.attention_bwd_tc_plain(q, k, v, o, lse, do, causal, mask)
+    for g in got:
+        assert torch.all(g[1] == 0)
+    if causal:
+        assert torch.all(got[0][0, :, :7] == 0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_emulation_matches_jax_grad_within_rule(causal, masked):
+    """The JAX package's gradients (``jax.vjp`` of its flash attention,
+    interpret mode) on bf16-valued inputs, against the port's emulation of
+    the tensor-core backward, within the "tc_mma_bf16" rule."""
+    s = 50
+    q, k, v, do = (a.astype(np.float32) for a in (
+        t.float().numpy() for t in _bf16_case(s, D, 7, False)[:4]))
+    mask = _mask(s, masked)
+    want = _jax_grads(q, k, v, do, causal, mask)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    mt = None if mask is None else torch.from_numpy(mask)
+    o, lse = fa.flash_attention_fwd(qt, kt, vt, causal, kv_mask=mt)
+    args = (qt, kt, vt, o, lse, dot, causal, mt)
+    got = fa.attention_bwd_tc_plain(*args)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want,
+                             fa.attention_bwd_abs_plain(*args)):
+        assert _tc_excess(g, torch.tensor(w).bfloat16(), a) <= 0, name
