@@ -43,6 +43,12 @@ b. kernels — each kernel against its plain PyTorch version on the same
    bitwise equal to the first; each record gives TFLOP/s on the bound's
    five products and on the seven the two stages issue; the yardstick is
    the backward alone of SDPA under autograd on the same inputs.
+   At phase h's shapes (B=32, H=12, D=64, not causal, right pads from its
+   length draw with one row of 128 and one of 1): flash_attention and
+   flash_attention_bwd at S=128 and at a ragged S=77, bf16; every masked
+   column's dK and dV (the wholly dead K tiles among them) exactly 0;
+   each backward record adds the forward plus backward time of the
+   kernels and of SDPA (``fwd_bwd_ms``, ``library_fwd_bwd_ms``).
    paged_flash_decode at ``LlamaConfig.small()``'s serving shapes (8
    slots, 16/8 heads, D 128, block 16, 132 blocks a table), ragged fills
    [2047, 1500, 900, 513, 300, 64, 17, 0] (the last slot parked on the
@@ -130,11 +136,41 @@ g. train — ``XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
    f32, TF32 off, the kernel arm's loss and adapter gradients against
    the dense arm's (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_SHARE``).
 
+h. glue — BASELINE configuration 4, the BERT-base GLUE fine-tune:
+   ``BertConfig.base()`` at full width and depth (12 layers, 768 hidden,
+   12 heads, head_dim 64, FFN 3072, vocab 30522, dropout 0.1, 2 classes),
+   f32 parameters computed in bf16, seeded random weights, TF32 off;
+   ``XlaRunner(np=1).run(lambda ctx: ctx.fit(bert_finetune_loss(model),
+   ..., with_rng=True))`` with Adam for ``GLUE_STEPS`` steps of the BERT
+   paper's GLUE recipe (batch 32, max length 128): seeded numpy batches
+   through a ``FactoryDataset``, row lengths in 8-128, right padded,
+   labels from a learnable rule on the first token. One ``glue`` line:
+   step ms (median after the first step), examples/s, live tokens/s, MFU
+   (``glue_flops``; its formula printed beside it), peak memory, the
+   losses (finite, the last five's mean below the first five's), and the
+   launch counters, set to 0 just before the fit and read just after:
+   12 flash_attention and 12 flash_attention_bwd (all ``tc_mma_bf16``)
+   launches a step, so no layer attended densely. Then a ``profile`` line
+   of one more step (the forward and both backward kernels by name), and
+   ``glue_parity``: depth 2, f32, TF32 off, no dropout, the kernel arm's
+   loss and every parameter gradient against the dense arm's (the key
+   biases, whose gradient is rounding noise, held near 0 in both), and
+   ``with_rng`` on a CUDA generator (one seed repeats two steps' losses
+   to the bit, another changes them).
+i. classify — ``udf.classify_rows`` (the sequence-classification UDF's
+   device step, no DataFrame) on phase h's model: 4096 seeded rows of
+   lengths 8-128 in chunks of 256, rows/s and the flash launches (12 a
+   chunk); predictions equal to the f32 dense arm's (same weights) on
+   every row whose top-2 logit gap allows it: the f32 kernel arm's beyond
+   10 x the f32 parity tolerance, the bf16 arm's beyond 10 x 2^-6·(1 +
+   |logit|).
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
-flash_decode, paged_flash_decode, flash_attention_bwd) and, last,
+flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
+entries add their BERT case and phase h's launches) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
-nothing of JAX.
+nothing of JAX, and no pyarrow or pandas.
 """
 
 from __future__ import annotations
@@ -180,6 +216,25 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 6, 1e-3
 # kernels against cuBLAS): the share read 8.4e-6 here and 1.45e-6 on the
 # card tests' 2-layer D 64 model (NVIDIA H100 80GB HBM3, 700 W).
 TRAIN_LOSS_TOL, TRAIN_GRAD_SHARE = 1e-4, 1e-4
+# phase h: BertConfig.base(), the GLUE recipe of Devlin et al. 2019, §4.1
+# (batch 32, max length 128, Adam at 3e-5, one of the paper's rates);
+# row lengths drawn in 8-128, right padded; the first token one of
+# GLUE_IDS ids, the label its upper half
+GLUE_BATCH, GLUE_SEQ, GLUE_STEPS, GLUE_LR = 32, 128, 30, 3e-5
+GLUE_MIN_LEN, GLUE_IDS = 8, 10
+# phase h parity (f32, TF32 off, depth 2): the loss and each gradient's
+# share of its largest, as phase g's; the key biases' gradient is zero up
+# to rounding (a bias on every key shifts a query's scores by one
+# constant), so they are held below GLUE_KEY_BIAS_SHARE of the model's
+# largest gradient in both arms instead
+GLUE_KEY_BIAS_SHARE = 1e-6
+# phase i: 4096 rows of lengths 8-128 in chunks of 256
+CLASSIFY_ROWS, CLASSIFY_CHUNK = 4096, 256
+# phase i holds predictions to the f32 dense arm where the top-2 logit gap
+# exceeds 10 x the f32 parity tolerance (the f32 kernel arm), or 10 x the
+# bf16 logit rule of tests/test_torch_bert.py, 2**-6·(1 + |logit|) (the
+# bf16 kernel arm, phase h's model)
+BF16_LOGIT_RTOL = 2.0 ** -6
 
 
 def emit(obj) -> None:
@@ -352,20 +407,36 @@ def phase_build(_build) -> dict:
     return info
 
 
+def kv_mask(torch, s, pads=None, lens=None):
+    """[B, S] f32 0/1 key mask: left pads (a row's first ``pads[r]``
+    columns masked, as ``generate()`` pads) or, with ``lens``, right pads
+    (a row's columns from ``lens[r]`` on masked, as BERT pads)."""
+    col = torch.arange(s, device="cuda")[None, :]
+    if lens is not None:
+        return (col < torch.tensor(lens, device="cuda")[:, None]).float()
+    return (col >= torch.tensor(pads, device="cuda")[:, None]).float()
+
+
+def dead_key_rows(s, pads=None, lens=None) -> list:
+    """The batch rows with no live key."""
+    if lens is not None:
+        return [r for r, n in enumerate(lens) if n <= 0]
+    return [r for r, p in enumerate(pads or []) if p >= s]
+
+
 def attention_case(torch, fa, flush, *, name, b, h, s, d, causal, pads,
-                   dtype):
+                   dtype, lens=None):
     """flash_attention kernel vs plain on one seeded input, then the
     kernel's, the plain version's and SDPA's times; returns the phase-b
-    record."""
+    record. ``pads``: left pads; ``lens`` (with ``pads`` None): right
+    pads, BERT's."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(s + d)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda",
                            dtype=torch.float32).to(dt) for _ in range(3))
-    col = torch.arange(s, device="cuda")
-    mask = (col[None, :] >= torch.tensor(pads, device="cuda")[:, None]
-            ).float()
+    mask = kv_mask(torch, s, pads, lens)
     variant = fa.kernel_variant(dt)
     walked = torch.zeros(1, dtype=torch.int32, device="cuda")
     o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask,
@@ -380,7 +451,7 @@ def attention_case(torch, fa, flush, *, name, b, h, s, d, causal, pads,
     assert (walked > 0) == tc, f"{name}: {variant} counted {walked} tiles"
     live = lse_ref > -1e29
     lse_err = (lse[live] - lse_ref[live]).abs().max().item()
-    dead_rows = [r for r, p in enumerate(pads) if p >= s]
+    dead_rows = dead_key_rows(s, pads, lens)
     for r in dead_rows:  # an all-masked row outputs exactly 0
         assert torch.all(o[r] == 0), f"{name}: masked row {r} is not 0"
         assert torch.all(lse[r] == lse_ref[r]), f"{name}: lse row {r}"
@@ -392,8 +463,8 @@ def attention_case(torch, fa, flush, *, name, b, h, s, d, causal, pads,
         assert walked == h * model["computed"], (name, walked, model)
     rec = dict(phase="kernels", kernel="flash_attention", case=name,
                variant=variant, dtype=dtype, shape=[b, h, s, d],
-               causal=causal, pads=pads, max_abs_err=err, tol=tol,
-               rtol=rtol, pv_rtol=pv_rtol, lse_max_abs_err=lse_err,
+               causal=causal, pads=pads, lens=lens, max_abs_err=err,
+               tol=tol, rtol=rtol, pv_rtol=pv_rtol, lse_max_abs_err=lse_err,
                tile_pairs_walked=walked if tc else "not measured",
                tile_pairs_computed_model=h * model["computed"],
                tile_pairs_live_model=h * model["live"])
@@ -427,22 +498,22 @@ def attention_case(torch, fa, flush, *, name, b, h, s, d, causal, pads,
     return rec
 
 
-def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
+def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype,
+             lens=None):
     """flash_attention_bwd kernel vs plain on one seeded input (O and lse
     from the forward kernel, dO seeded), then the kernel's, the plain
-    version's and SDPA's backward times; returns the phase-b record.
-    ``pads`` None: no kv_mask, as phase g trains."""
+    version's and SDPA's backward times, and forward plus backward of
+    both; returns the phase-b record. ``pads`` None and ``lens`` None: no
+    kv_mask, as phase g trains; ``lens``: right pads, as phase h trains,
+    where every masked column's dK and dV must be exactly 0."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(s + d + 1)
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.randn((b, h, s, d), generator=g, device="cuda",
                                dtype=torch.float32).to(dt) for _ in range(4))
-    mask = None
-    if pads is not None:
-        col = torch.arange(s, device="cuda")
-        mask = (col[None, :] >= torch.tensor(pads, device="cuda")[:, None]
-                ).float()
+    mask = (None if pads is None and lens is None
+            else kv_mask(torch, s, pads, lens))
     o, lse = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
     args = (q, k, v, o, lse, do, causal, mask)
     variant = fa.kernel_variant(dt)
@@ -456,10 +527,19 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
                           fa.bwd_tolerance(w, a))
               for gn, gt, w, a in zip(("dq", "dk", "dv"), got, want,
                                       fa.attention_bwd_abs_plain(*args)))
-    dead_rows = [r for r, p in enumerate(pads or []) if p >= s]
+    dead_rows = dead_key_rows(s, pads, lens)
     for r in dead_rows:  # a row that sees no key: every gradient exactly 0
         assert all(torch.all(gt[r] == 0) for gt in got), (
             f"{name}: the all-masked row {r} has a gradient")
+    dead_tiles = 0
+    if mask is not None:  # a masked column's dK and dV: exactly 0
+        dead = (mask == 0)[:, None, :, None]
+        for gn, gt in (("dk", got[1]), ("dv", got[2])):
+            assert not torch.any(torch.where(dead, gt, 0) != 0), (
+                f"{name}: {gn} of a masked column is not 0")
+        n_t = -(-s // 64)
+        cols = torch.nn.functional.pad(mask > 0, (0, n_t * 64 - s))
+        dead_tiles = int((~cols.view(b, n_t, 64).any(-1)).sum().item())
     del want
     live_cols = (torch.ones((b, s), dtype=torch.bool, device="cuda")
                  if mask is None else mask > 0)
@@ -481,15 +561,32 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
     bms, by = bound(flops, nbytes, dtype)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     sdpa_mask = None if mask is None else live_cols[:, None, None, :]
-    out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
-                                         is_causal=causal and mask is None)
+    if causal and mask is not None:
+        sdpa_mask = sdpa_mask & torch.ones(
+            (s, s), dtype=torch.bool, device="cuda").tril()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            *leaves, attn_mask=sdpa_mask, is_causal=causal and mask is None)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), leaves, do)
+
+    def kernel_fwd_bwd():
+        o_, lse_ = fa.flash_attention_fwd(q, k, v, causal, kv_mask=mask)
+        fa.flash_attention_bwd(q, k, v, o_, lse_, do, causal, mask)
+
+    out = sdpa()
     tol, rtol = (fa.TC_BWD_RULE if variant == "tc_mma_bf16"
                  else fa.BWD_RULE[dt])
     rec = dict(phase="kernels", kernel="flash_attention_bwd", case=name,
                variant=variant, dtype=dtype, shape=[b, h, s, d],
-               causal=causal, pads=pads, max_abs_err=err, tol=tol, rtol=rtol,
+               causal=causal, pads=pads, lens=lens, max_abs_err=err,
+               tol=tol, rtol=rtol,
                tol_rule="tol·grad_abs + rtol·|plain| (fa.bwd_tolerance)",
-               dead_rows_exactly_zero=dead_rows, repeat_bitwise_equal=True,
+               dead_rows_exactly_zero=dead_rows,
+               dead_k_tiles_dk_dv_exactly_zero=dead_tiles,
+               repeat_bitwise_equal=True,
                ms=time_ms(torch, lambda: fa.flash_attention_bwd(*args),
                           flush=flush),
                plain_ms=time_ms(torch, lambda: fa.attention_bwd_plain(*args),
@@ -497,6 +594,8 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype):
                library_ms=time_ms(torch, lambda: torch.autograd.grad(
                    out, leaves, do, retain_graph=True), flush=flush),
                library="F.scaled_dot_product_attention backward",
+               fwd_bwd_ms=time_ms(torch, kernel_fwd_bwd, flush=flush),
+               library_fwd_bwd_ms=time_ms(torch, sdpa_fwd_bwd, flush=flush),
                bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
                flops_issued=issued)
     rec["tflops"] = flops / rec["ms"] / 1e9           # the bound's five
@@ -813,6 +912,22 @@ def phase_kernels(torch, fa, fd, pfd) -> dict:
              else "flash_attention_bwd_f32"] = rec
         bwd_case(torch, fa, flush, name="ragged_all_masked", b=2, h=32,
                  s=1000, d=128, causal=False, pads=[300, 1000], dtype=dtype)
+    # phase h's shapes: BERT-base (H 12, D 64), not causal, right pads
+    # from its length draw with one full row and one of length 1; then a
+    # ragged S 77
+    lens = glue_lengths(0)
+    lens[:2] = [GLUE_SEQ, 1]
+    for name, s_case, ls in (("bert_glue", GLUE_SEQ, lens),
+                             ("bert_ragged_s77", 77,
+                              [77, 1] + [min(n, 77) for n in lens[2:]])):
+        kw = dict(name=name, b=GLUE_BATCH, h=12, s=s_case, d=64,
+                  causal=False, pads=None, lens=ls, dtype="bfloat16")
+        rec = attention_case(torch, fa, flush, **kw)
+        rec_bwd = bwd_case(torch, fa, flush, **kw)
+        assert rec_bwd["dead_k_tiles_dk_dv_exactly_zero"] > 0, rec_bwd
+        if name == "bert_glue":
+            main["flash_attention_bert"] = rec
+            main["flash_attention_bwd_bert"] = rec_bwd
     main["flash_sweep"] = flash_sweep(torch, fa, flush)
     # what the events read around an empty kernel: the floor under every
     # time of this phase
@@ -990,6 +1105,10 @@ def device_profile(torch, step, steps: int, window: str,
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
     for ev in prof.events():
+        # a user annotation's device range (e.g. "Optimizer.step#Adam.step")
+        # spans kernels already counted: not device work of its own
+        if getattr(ev, "is_user_annotation", False):
+            continue
         if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
             kernels.setdefault(ev.name, [0, 0.0])
             kernels[ev.name][0] += 1
@@ -1594,6 +1713,330 @@ def phase_train_parity(torch) -> dict:
     return rec
 
 
+def glue_lengths(step: int) -> list:
+    """Phase h's row lengths for batch ``step``: GLUE_BATCH draws in
+    [GLUE_MIN_LEN, GLUE_SEQ]."""
+    import numpy as np
+
+    rng = np.random.RandomState(1000 + step)
+    return rng.randint(GLUE_MIN_LEN, GLUE_SEQ + 1, GLUE_BATCH).tolist()
+
+
+def glue_batch(step: int, vocab: int) -> dict:
+    """Phase h's batch ``step``, numpy: right-padded ids and mask, the
+    first token one of GLUE_IDS ids and the label whether it lies in their
+    upper half (the rule of tests/test_transformer_models.py's config-4
+    test)."""
+    import numpy as np
+
+    rng = np.random.RandomState(2000 + step)
+    lens = np.asarray(glue_lengths(step))
+    mask = (np.arange(GLUE_SEQ)[None] < lens[:, None]).astype(np.int32)
+    ids = rng.randint(1, vocab, (GLUE_BATCH, GLUE_SEQ)) * mask
+    ids[:, 0] = 2 + rng.randint(0, GLUE_IDS, GLUE_BATCH)
+    return {"input_ids": ids, "attention_mask": mask,
+            "label": (ids[:, 0] >= 2 + GLUE_IDS // 2).astype(np.int64)}
+
+
+def glue_flops(model, batch) -> float:
+    """The FLOPs of one BERT train step, for MFU: 6·N·T for the Dense
+    weights (N their weights, all trainable, the embeddings not; T = B·S
+    tokens, pads in), and 7 products of 2·D a live (row, col) pair a head
+    and layer (q·kᵀ and P·V forward; q·kᵀ again, dV, dP, dK, dQ backward),
+    live pairs = sum over rows b of S·L_b (every query row, pads
+    included, attends its row's L_b keys)."""
+    cfg = model.cfg
+    n_dense = sum(p.numel() for n, p in model.named_parameters()
+                  if n.endswith("weight"))
+    b, s = batch["input_ids"].shape
+    pairs = s * float(batch["attention_mask"].sum())
+    return (6.0 * n_dense * b * s
+            + 7 * 2.0 * cfg.head_dim * pairs * cfg.num_heads
+            * cfg.num_layers)
+
+
+GLUE_MFU_FORMULA = ("6·N·T (N Dense weights, all trainable, embeddings "
+                    "out; T = B·S, pads in) + 7·2·D·H·layers·Σ_b S·L_b")
+
+
+def phase_glue(torch, kernels) -> tuple:
+    """Phase h: BASELINE configuration 4, the BERT-base GLUE fine-tune at
+    full width and depth through the runner with dropout,
+    ``XlaRunner(np=1).run(ctx.fit(bert_finetune_loss(model),
+    with_rng=True))``, GLUE_STEPS seeded batches from a
+    ``FactoryDataset``; then one more step profiled. Returns the record
+    and the trained model (phase i classifies with it)."""
+    import gc
+
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.runner import XlaRunner
+    from sparkdl_tpu_torch.runner.data import FactoryDataset
+    from sparkdl_tpu_torch.runner.train_state import adam, make_train_step
+
+    fa = kernels[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = B.BertConfig.base()
+    t0 = time.perf_counter()
+    model = B.BertForSequenceClassification(
+        cfg, num_classes=2, dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert fa.resolve_attn_fn(model.attn_fn) is fa.adaptive_attention
+    batches = [glue_batch(i, cfg.vocab_size) for i in range(GLUE_STEPS)]
+    flops = [glue_flops(model, b) for b in batches]
+    mean_flops = sum(flops[1:]) / (GLUE_STEPS - 1)  # the steps timed
+    live = [int(b["attention_mask"].sum()) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+        loss_fn=B.bert_finetune_loss(model), model=model,
+        tx=adam(GLUE_LR), data=FactoryDataset(lambda: iter(batches)),
+        num_steps=GLUE_STEPS, log_every=1, with_rng=True,
+        flops_per_step=mean_flops))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts(*kernels)
+    bwd_variants = dict(fa.flash_attention_bwd.variant_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in res["history"]]
+    nl = cfg.num_layers
+    assert len(losses) == GLUE_STEPS, losses
+    assert all(math.isfinite(x) for x in losses), losses
+    first, last = (sum(losses[:5]) / 5, sum(losses[-5:]) / 5)
+    # learned: the last five steps' mean below the first step's loss
+    assert last < losses[0], f"the loss did not fall: {losses}"
+    # one forward and one backward kernel launch a layer a step: every
+    # layer's attention went through the kernels, none through dense
+    assert launches["flash_attention"] == nl * GLUE_STEPS, launches
+    assert launches["flash_attention_bwd"] == nl * GLUE_STEPS, launches
+    assert bwd_variants == {"fma_f32": 0, "tc_mma_bf16": nl * GLUE_STEPS}, (
+        bwd_variants)
+    assert launches["flash_decode"] == launches["paged_flash_decode"] == 0
+    st = res["meter"].summary()["step_time"]
+    step_s = st["p50_s"]
+    rec = dict(phase="glue", config="BertConfig.base()", num_classes=2,
+               dtype="bfloat16", params="float32", tf32=False,
+               layers=nl, hidden=cfg.hidden_size, heads=cfg.num_heads,
+               head_dim=cfg.head_dim, ffn=cfg.intermediate_size,
+               vocab=cfg.vocab_size, dropout=cfg.dropout_rate,
+               batch=GLUE_BATCH, seq=GLUE_SEQ, lengths=[GLUE_MIN_LEN,
+                                                        GLUE_SEQ],
+               steps=GLUE_STEPS, lr=GLUE_LR, optimizer="adam",
+               attn="flash kernels (auto)", with_rng=True,
+               step_ms_median=step_s * 1e3, step_time=st,
+               examples_per_s=GLUE_BATCH / step_s,
+               live_tokens_per_s=sum(live[1:]) / (GLUE_STEPS - 1) / step_s,
+               flops_per_step=mean_flops, mfu=mean_flops / step_s
+               / PEAK_FLOPS["bfloat16"], mfu_formula=GLUE_MFU_FORMULA,
+               peak_mem_gb=peak_gb, loss_first=losses[0],
+               loss_last=losses[-1], loss_first5_mean=first,
+               loss_last5_mean=last, losses=losses,
+               launches=launches, bwd_variant_launches=bwd_variants,
+               fwd_variant_launches={fa.kernel_variant(model.dtype):
+                                     launches["flash_attention"]},
+               launches_per_step={k: v / GLUE_STEPS
+                                  for k, v in launches.items()},
+               init_s=init_s, fit_s=fit_s,
+               nvidia_smi=smi())
+    emit(rec)
+    step_fn = make_train_step(B.bert_finetune_loss(model), with_rng=True)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+    prof = device_profile(torch, lambda: step_fn(res["state"], batch), 1,
+                          "1 BERT-base GLUE train step, bf16", match="fa_")
+    emit(prof)
+    if isinstance(prof["device_busy_ms_per_step"], float):
+        names = " ".join(k["name"] for k in prof["matched_kernels"])
+        assert "fa_fwd_tc_kernel" in names and \
+            "fa_bwd_dkdv_tc_kernel" in names and \
+            "fa_bwd_dq_tc_kernel" in names, prof["matched_kernels"]
+    del res, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, model
+
+
+def phase_glue_parity(torch, kernels) -> dict:
+    """Phase h, parity: BertConfig.base()'s widths at depth 2, f32, TF32
+    off, deterministic, on phase h's first batch (right pads): the GLUE
+    loss and every parameter gradient of the kernel arm
+    (``attn_fn=fa.flash_attention``) against the dense arm
+    (``attn_fn=None``); then ``with_rng`` on a CUDA generator: the same
+    seed repeats two steps' losses to the bit, another seed changes
+    them."""
+    import copy
+    import dataclasses
+
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.runner import TrainState
+    from sparkdl_tpu_torch.runner.train_state import adam, make_train_step
+
+    fa = kernels[0]
+    cfg = dataclasses.replace(B.BertConfig.base(), num_layers=2)
+    model = B.BertForSequenceClassification(
+        cfg, num_classes=2, dtype=torch.float32, attn_fn=fa.flash_attention,
+        device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in glue_batch(0, cfg.vocab_size).items()}
+
+    def arm():
+        model.zero_grad(set_to_none=True)
+        loss, _ = B.glue_loss_fn()(model, batch)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    f0 = fa.flash_attention_fwd.launches
+    b0 = fa.flash_attention_bwd.variant_launches["fma_f32"]
+    loss_k, grads_k = arm()
+    assert fa.flash_attention_fwd.launches - f0 == cfg.num_layers
+    assert (fa.flash_attention_bwd.variant_launches["fma_f32"] - b0
+            == cfg.num_layers)
+    model.attn_fn = None
+    loss_d, grads_d = arm()
+    top = max(g.abs().max().item() for g in grads_d.values())
+    shares, key_bias = {}, 0.0
+    for n, want in grads_d.items():
+        if n.endswith("key.bias"):
+            key_bias = max(key_bias, grads_k[n].abs().max().item() / top,
+                           want.abs().max().item() / top)
+            continue
+        scale = want.abs().max().item()
+        assert scale > 0, n
+        shares[n] = (grads_k[n] - want).abs().max().item() / scale
+    worst = max(shares, key=shares.get)
+
+    model.attn_fn = fa.flash_attention
+    start = copy.deepcopy(model.state_dict())
+
+    def rng_losses(seed):
+        model.load_state_dict(start)
+        state = TrainState.create(model, adam(GLUE_LR))
+        step = make_train_step(B.bert_finetune_loss(model), with_rng=True,
+                               rng_seed=seed)
+        out = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            out.append(float(m["loss"]))
+        return out
+
+    a, again, other = rng_losses(0), rng_losses(0), rng_losses(1)
+    rec = dict(phase="glue_parity",
+               config="BertConfig.base(), 2 layers", dtype="float32",
+               tf32=False, batch=GLUE_BATCH, seq=GLUE_SEQ,
+               loss_kernel=loss_k, loss_dense=loss_d,
+               loss_abs_err=abs(loss_k - loss_d), loss_tol=TRAIN_LOSS_TOL,
+               params=len(shares), max_grad_share=shares[worst],
+               worst_param=worst, grad_share_tol=TRAIN_GRAD_SHARE,
+               key_bias_grad_share=key_bias,
+               key_bias_share_tol=GLUE_KEY_BIAS_SHARE,
+               with_rng_losses=a, with_rng_repeat=again,
+               with_rng_other_seed=other)
+    emit(rec)
+    assert rec["loss_abs_err"] <= TRAIN_LOSS_TOL, rec
+    assert shares[worst] <= TRAIN_GRAD_SHARE, rec
+    assert key_bias <= GLUE_KEY_BIAS_SHARE, rec
+    assert a == again and a != other, rec
+    del model, grads_k, grads_d, start
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_classify(torch, kernels, model) -> dict:
+    """Phase i: ``udf.classify_rows``, the sequence-classification UDF's
+    device step, on phase h's trained model (bf16), CLASSIFY_ROWS seeded
+    rows of lengths 8-128 in chunks of CLASSIFY_CHUNK: rows/s and the
+    flash launches (one a layer a chunk). The predictions are held to the
+    f32 dense arm's (same weights, ``attn_fn=None``) where the top-2
+    logit gap allows: the f32 kernel arm's beyond 10 x the f32 parity
+    tolerance, the bf16 kernel arm's beyond 10 x the bf16 logit rule."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.udf import classify_rows, right_pad_rows
+
+    fa = kernels[0]
+    cfg = model.cfg
+    rng = np.random.RandomState(7)
+    lens = rng.randint(GLUE_MIN_LEN, GLUE_SEQ + 1, CLASSIFY_ROWS)
+    rows = [[2 + int(rng.randint(0, GLUE_IDS))]
+            + rng.randint(1, cfg.vocab_size, n - 1).tolist() for n in lens]
+    max_len = int(lens.max())
+    chunks = [rows[i:i + CLASSIFY_CHUNK]
+              for i in range(0, CLASSIFY_ROWS, CLASSIFY_CHUNK)]
+
+    def classify(m):
+        return np.concatenate([classify_rows(m, c, max_len) for c in chunks])
+
+    classify(model)  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    pred = classify(model)  # numpy out: waits for the device
+    secs = time.perf_counter() - t0
+    launches = read_counts(*kernels)
+    assert launches["flash_attention"] == cfg.num_layers * len(chunks), (
+        launches)
+    assert launches["flash_attention_bwd"] == 0, launches
+
+    f32 = B.BertForSequenceClassification(
+        cfg, num_classes=model.num_classes, dtype=torch.float32,
+        attn_fn=fa.flash_attention, device="cuda")
+    f32.load_state_dict(model.state_dict())  # f32 parameters in both
+    pred_f32 = classify(f32)
+    f32.attn_fn = None
+    logits = []
+    with torch.no_grad():
+        for c in chunks:
+            ids, mask = right_pad_rows(c, max_len)
+            logits.append(f32(torch.from_numpy(ids).cuda(),
+                              torch.from_numpy(mask).cuda()).cpu())
+    logits = torch.cat(logits)
+    top2 = logits.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).numpy()
+    dense = logits.argmax(-1).numpy()
+    bf16_rule = 10 * BF16_LOGIT_RTOL * (1 + logits.abs().amax(-1).numpy())
+
+    def flips(p, rule):
+        bad = (p != dense)
+        return (int((bad & (gap > rule)).sum()),
+                sorted(float(g) for g in gap[bad & (gap <= rule)])[:8])
+
+    f32_held, f32_ties = flips(pred_f32, 10 * TRAIN_LOSS_TOL)
+    bf16_held, bf16_ties = flips(pred, bf16_rule)
+    rec = dict(phase="classify", config="BertConfig.base()", dtype="bfloat16",
+               rows=CLASSIFY_ROWS, chunk=CLASSIFY_CHUNK, max_len=max_len,
+               lengths=[GLUE_MIN_LEN, GLUE_SEQ], seconds=secs,
+               rows_per_s=CLASSIFY_ROWS / secs,
+               live_tokens_per_s=float(lens.sum()) / secs,
+               launches=launches, chunks=len(chunks),
+               class_share=float(pred.mean()),
+               f32_kernel_flips_above_rule=f32_held,
+               f32_near_ties=f32_ties, f32_rule=10 * TRAIN_LOSS_TOL,
+               bf16_flips_above_rule=bf16_held, bf16_near_ties=bf16_ties,
+               bf16_rule="10·2^-6·(1 + max|logit|)",
+               rows_agreeing_bf16=int((pred == dense).sum()),
+               min_gap=float(gap.min()), nvidia_smi=smi())
+    emit(rec)
+    assert f32_held == 0 and bf16_held == 0, rec
+    del f32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bert_case(r: dict) -> dict:
+    """The ``kernels`` line's summary of a phase-b BERT case."""
+    keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "fwd_bwd_ms", "library_fwd_bwd_ms",
+            "dead_k_tiles_dk_dv_exactly_zero")
+    return {k: r[k] for k in keys if k in r}
+
+
 def main() -> int:
     import torch
 
@@ -1621,6 +2064,10 @@ def main() -> int:
     phase_serve_parity(torch, (fa, fd, pfd))
     train = phase_train(torch, (fa, fd, pfd))
     phase_train_parity(torch)
+    glue, bert = phase_glue(torch, (fa, fd, pfd))
+    phase_glue_parity(torch, (fa, fd, pfd))
+    phase_classify(torch, (fa, fd, pfd), bert)
+    del bert
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -1657,6 +2104,11 @@ def main() -> int:
         if name == "flash_attention":  # bf16 on the main path; f32 beside
             f32 = main_recs["flash_attention_f32"]
             kernels[-1].update(
+                bert_case=bert_case(main_recs["flash_attention_bert"]),
+                bert_launches=glue["launches"]["flash_attention"],
+                bert_launches_per_step=glue["launches_per_step"][
+                    "flash_attention"])
+            kernels[-1].update(
                 variant=r["variant"], pv_rtol=r["pv_rtol"],
                 live_tflops=r["live_tflops"],
                 tile_pairs_walked=r["tile_pairs_walked"],
@@ -1681,6 +2133,11 @@ def main() -> int:
         variant=r["variant"], tflops=r["tflops"],
         tflops_issued=r["tflops_issued"],
         bwd_variant_launches=train["bwd_variant_launches"],
+        bert_case=bert_case(main_recs["flash_attention_bwd_bert"]),
+        bert_launches=glue["launches"]["flash_attention_bwd"],
+        bert_launches_per_step=glue["launches_per_step"][
+            "flash_attention_bwd"],
+        bert_variant_launches=glue["bwd_variant_launches"],
         f32_variant=dict(variant=f32["variant"], route="cuda",
                          source="sparkdl_tpu_torch/csrc/"
                                 "flash_attention_bwd.cu",
@@ -1688,6 +2145,9 @@ def main() -> int:
                          bound_by=f32["bound_by"], plain_ms=f32["plain_ms"],
                          library_ms=f32["library_ms"],
                          max_abs_err=f32["max_abs_err"])))
+    # the card path reads no DataFrame: nothing imported pyarrow or pandas
+    assert not [m for m in sys.modules
+                if m.split(".")[0] in ("pyarrow", "pandas")]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,17 +14,35 @@ This package imports ``torch`` and never ``jax``, ``flax`` or anything of
 
 Ported so far: Llama generation (``models.llama.generate``), the
 continuous-batching serving engine (``GenerationEngine.from_model``,
-unpaged and paged, speculative verify, int8 / fp8 KV pool) and the LoRA
+unpaged and paged, speculative verify, int8 / fp8 KV pool), the LoRA
 fine-tune (``runner.XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
-``models.llama.causal_lm_loss_fn`` and ``lora_optimizer``), with the
-kernels they run: ``ops.flash_attention`` (prefill and the training
-forward, and its backward), ``ops.flash_decode`` (per-token decode) and
-``ops.paged_flash_decode`` (block-table decode and verify). ROADMAP.md
-lists what is still to port.
+``models.llama.causal_lm_loss_fn`` and ``lora_optimizer``), the BERT GLUE
+fine-tune (``models.bert``, ``fit(..., with_rng=True)`` for dropout), the
+Arrow DataFrame (``DataFrame``, ``Row``; ``runner.data.ArrowDataset``) and
+the token-column UDFs (``udf``: generation, text generation, sequence
+classification), with the kernels they run: ``ops.flash_attention``
+(prefill, the training forward and its backward, causal or padded),
+``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
+(block-table decode and verify). ROADMAP.md lists what is still to port.
+
+``DataFrame`` and ``Row`` need pyarrow and pandas; they load on first
+access, so ``import sparkdl_tpu_torch`` works without them.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from .serving import GenerationEngine  # noqa: E402 — as sparkdl_tpu does
+from .udf import (applyUDF, listUDFs, registerGenerationUDF,  # noqa: E402
+                  registerSequenceClassificationUDF,
+                  registerTextGenerationUDF, unregisterUDF)
 
-__all__ = ["GenerationEngine"]
+__all__ = ["GenerationEngine", "DataFrame", "Row", "applyUDF", "listUDFs",
+           "registerGenerationUDF", "registerSequenceClassificationUDF",
+           "registerTextGenerationUDF", "unregisterUDF"]
+
+
+def __getattr__(name):
+    if name in ("DataFrame", "Row"):
+        from .core import frame
+        return getattr(frame, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

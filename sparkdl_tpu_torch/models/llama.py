@@ -116,12 +116,15 @@ class RMSNorm(nn.Module):
 
 
 class LoRADense(nn.Module):
-    """Linear with optional LoRA: y = xW + (alpha/r)·(xA)B, no bias."""
+    """Linear with optional LoRA: y = xW + (alpha/r)·(xA)B, no bias,
+    computed in ``dtype``: the input and the weights are cast to it at use
+    (a no-op for weights stored in it; ``models.pretrained.
+    cast_float_leaves`` may store them in another)."""
 
     def __init__(self, in_features: int, features: int, rank: int = 0,
                  alpha: float = 16.0, dtype=torch.float32, device=None):
         super().__init__()
-        self.rank, self.alpha = rank, alpha
+        self.rank, self.alpha, self.dtype = rank, alpha, dtype
         kw = dict(bias=False, dtype=dtype, device=device)
         self.base = nn.Linear(in_features, features, **kw)
         if rank > 0:
@@ -129,10 +132,13 @@ class LoRADense(nn.Module):
             self.lora_b = nn.Linear(rank, features, **kw)
 
     def forward(self, x):
-        x = x.to(self.base.weight.dtype)
-        y = self.base(x)
+        d = self.dtype
+        x = x.to(d)
+        y = F.linear(x, self.base.weight.to(d))
         if self.rank > 0:
-            y = y + (self.alpha / self.rank) * self.lora_b(self.lora_a(x))
+            a = F.linear(x, self.lora_a.weight.to(d))
+            y = y + (self.alpha / self.rank) * F.linear(
+                a, self.lora_b.weight.to(d))
         return y
 
 
@@ -677,7 +683,7 @@ class LlamaModel(nn.Module):
                 check_fill(cache, S, first_chunk)
             cur = cache.idx_dev if S == 1 and cache.idx_dev is not None \
                 else cache.idx
-        x = self.embed_tokens(input_ids)
+        x = self.embed_tokens(input_ids).to(self.dtype)
         for i, layer in enumerate(self.layers):
             kv = None if cache is None else cache.layer(i)
             x = layer(x, positions, attn_fn, kv, cur, pad_lens, first_chunk,
@@ -691,7 +697,8 @@ class LlamaModel(nn.Module):
                     cache.idx_dev.fill_(cache.idx)
         if last_only:
             x = x[:, -1:]
-        return self.lm_head(self.final_norm(x).float())
+        return F.linear(self.final_norm(x).float(),
+                        self.lm_head.weight.float())
 
 
 def check_fill(cache: KVCache, s: int, first_chunk: bool = False) -> None:

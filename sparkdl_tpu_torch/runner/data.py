@@ -3,19 +3,20 @@ cursor.
 
 The port's copy of ``sparkdl_tpu/runner/data.py`` (see its docstring for
 the exactly-once design), cut to one process: :class:`CheckpointableDataset`,
-:class:`ListDataset`, :class:`FactoryDataset`, :func:`as_dataset` and
-:func:`env_skip_list`. A dataset yields ``(cursor_after, batch)`` pairs
-from :meth:`CheckpointableDataset.indexed`; ``fit`` streams them. What the
-cursor is for — saving it with a checkpoint and resuming there — comes
-with ``runner/checkpoint.py``; the per-rank row sharding (``shard=``), the
-batch ledger and the ``data_fetch`` chaos site come with the
-multi-process launcher; ``ArrowDataset`` with ``core/frame.py`` (ROADMAP.md,
-Queue A 3 and A 4).
+:class:`ListDataset`, :class:`FactoryDataset`, :class:`ArrowDataset` (over
+``core.frame.DataFrame.iterBatches``, with :func:`record_batch_to_numpy`),
+:func:`as_dataset` and :func:`env_skip_list`. A dataset yields
+``(cursor_after, batch)`` pairs from :meth:`CheckpointableDataset.indexed`;
+``fit`` streams them. What the cursor is for — saving it with a checkpoint
+and resuming there — comes with ``runner/checkpoint.py``; the per-rank row
+sharding (``shard=``), the batch ledger and the ``data_fetch`` chaos site
+come with the multi-process launcher (ROADMAP.md, Queue A 3 and A 7).
 
 A **skip-list** (``SPARKDL_SKIP_BATCHES``, a JSON list of batch indices)
 names batches that are consumed but never yielded, nor examined.
 
-Import surface: stdlib + numpy.
+Import surface: stdlib + numpy; :class:`ArrowDataset` reads a DataFrame
+(pyarrow), which its caller brings.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from typing import Any, Callable, Iterable, Iterator
 from . import events
 
 __all__ = ["CheckpointableDataset", "ListDataset", "FactoryDataset",
-           "as_dataset", "env_skip_list", "SKIP_ENV"]
+           "ArrowDataset", "record_batch_to_numpy", "as_dataset",
+           "env_skip_list", "SKIP_ENV"]
 
 log = logging.getLogger("sparkdl_tpu_torch.runner")
 
@@ -205,6 +207,46 @@ class FactoryDataset(CheckpointableDataset):
     def _epoch_iter(self, epoch: int) -> Iterator[Any]:
         it = self._factory(epoch) if self._epoch_aware else self._factory()
         return iter(it)
+
+
+def record_batch_to_numpy(rb) -> dict:
+    """Arrow RecordBatch → ``{column: numpy array}`` (the host-batch shape
+    ``fit()`` consumes). Numeric columns convert zero-copy where Arrow
+    allows; nested list columns fall back through ``to_pylist`` (2-D when
+    rectangular)."""
+    import numpy as np
+    out = {}
+    for name, col in zip(rb.schema.names, rb.columns):
+        try:
+            arr = col.to_numpy(zero_copy_only=False)
+        except Exception:
+            arr = np.asarray(col.to_pylist())
+        if getattr(arr, "dtype", None) is not None and arr.dtype == object:
+            arr = np.asarray(col.to_pylist())
+        out[name] = arr
+    return out
+
+
+class ArrowDataset(CheckpointableDataset):
+    """Adapter over ``DataFrame.iterBatches(batch_size)`` — a DataFrame
+    becomes a checkpointable trainer input. ``convert`` (default
+    :func:`record_batch_to_numpy`) maps each RecordBatch to the host-numpy
+    batch dict the step function expects."""
+
+    def __init__(self, df, batch_size: int, convert: Callable | None = None,
+                 epochs: int | None = 1, **kw):
+        super().__init__(epochs=epochs, **kw)
+        self._df = df
+        self._batch_size = int(batch_size)
+        self._convert = convert or record_batch_to_numpy
+
+    def _epoch_iter(self, epoch: int) -> Iterator[Any]:
+        # Skip-listed indices yield the RAW RecordBatch, never converted:
+        # indexed() discards skipped values unexamined, so a record whose
+        # decode is the poison is skippable without touching it.
+        return (rb if i in self.skip_list else self._convert(rb)
+                for i, rb in enumerate(
+                    self._df.iterBatches(self._batch_size)))
 
 
 def as_dataset(data) -> CheckpointableDataset | None:

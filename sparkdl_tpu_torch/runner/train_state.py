@@ -14,10 +14,14 @@ runs it eagerly; nothing is compiled.
   (``models.llama.lora_optimizer`` returns one): like an optax
   transformation it is made before the model it will update.
 - The loss is taken in f32 whatever the model's dtype.
+- ``with_rng=True`` hands the loss ``rng=``, a ``torch.Generator`` on the
+  model's device seeded from ``(rng_seed, step)`` (:func:`step_generator`,
+  the counterpart of ``fold_in(PRNGKey(rng_seed), step)``): the same seed
+  and step give the same dropout masks, so a replayed step repeats them.
+- :func:`adam` is ``optax.adam`` as an optimizer factory.
 
 Not ported yet (ROADMAP.md, Queue A 3): ``mutable`` (BatchNorm statistics,
-for ResNet) and ``with_rng`` (dropout, for BERT) raise
-``NotImplementedError``. The explicit-collective twin
+for ResNet) raises ``NotImplementedError``. The explicit-collective twin
 ``make_shard_map_step`` comes with data parallelism (Queue A 8).
 """
 
@@ -26,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -57,6 +62,35 @@ class TrainState:
         return self
 
 
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8):
+    """``optax.adam`` as the optimizer factory :class:`TrainState` calls:
+    ``model → torch.optim.Adam`` over every parameter that requires a
+    gradient (the same update: bias-corrected moments, ``eps`` added to
+    the square root)."""
+    def make(model: nn.Module) -> torch.optim.Optimizer:
+        return torch.optim.Adam(
+            [p for p in model.parameters() if p.requires_grad],
+            lr=learning_rate, betas=(b1, b2), eps=eps)
+
+    return make
+
+
+def step_generator(rng_seed: int, step: int, device,
+                   micro: int | None = None) -> torch.Generator:
+    """The ``rng=`` of train step ``step``: a ``torch.Generator`` on
+    ``device`` seeded from ``(rng_seed, step)``, or from ``(rng_seed,
+    step, micro)`` for microbatch ``micro`` under ``accum_steps`` (the
+    reference folds the microbatch index into the step's key). A pure
+    function of its arguments."""
+    # micro + 1: SeedSequence does not tell a trailing 0 word from none
+    words = [rng_seed, step] if micro is None else [rng_seed, step,
+                                                    micro + 1]
+    seed = int(np.random.SeedSequence(words).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _split(batch, k: int) -> list:
     """``k`` contiguous microbatches of equal size along dim 0 of every
     leaf (a dict of tensors)."""
@@ -69,8 +103,8 @@ def _split(batch, k: int) -> list:
 
 
 def make_train_step(loss_fn: Callable, mutable: bool = False,
-                    with_rng: bool = False, remat: bool = False,
-                    accum_steps: int = 1) -> Callable:
+                    with_rng: bool = False, rng_seed: int = 0,
+                    remat: bool = False, accum_steps: int = 1) -> Callable:
     """A train step: ``step(state, batch) -> (state, metrics)``, metrics
     ``{"loss": ..., **aux}`` as 0-d tensors on the model's device (read
     them with ``float()``, which waits for the device). The step's
@@ -87,31 +121,43 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
     by k, casts to each parameter's dtype and makes ONE optimizer step;
     the loss and aux are the microbatches' means. For a mean-reduced loss
     this is the full-batch gradient. The batch's leading dim must divide
-    by k."""
+    by k.
+
+    ``with_rng=True`` calls ``loss_fn(model, batch, rng=g)``, ``g`` =
+    :func:`step_generator` of ``(rng_seed, state.step)`` on the model's
+    device, and under ``accum_steps`` of ``(rng_seed, state.step, i)`` for
+    microbatch i. The generator is made inside the (rematerialised)
+    forward, so a recomputation draws the same masks."""
     if mutable:
         raise NotImplementedError(f"mutable=True (BatchNorm) {_NOT_PORTED}")
-    if with_rng:
-        raise NotImplementedError(f"with_rng=True (dropout) {_NOT_PORTED}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
-    def forward(model, batch):
+    def run(model, batch, n_step, micro):
+        if not with_rng:
+            return loss_fn(model, batch)
+        device = next(model.parameters()).device
+        return loss_fn(model, batch,
+                       rng=step_generator(rng_seed, n_step, device, micro))
+
+    def forward(model, batch, n_step, micro=None):
         if remat:
-            loss, aux = checkpoint(loss_fn, model, batch, use_reentrant=False)
+            loss, aux = checkpoint(run, model, batch, n_step, micro,
+                                   use_reentrant=False)
         else:
-            loss, aux = loss_fn(model, batch)
+            loss, aux = run(model, batch, n_step, micro)
         return loss.float(), aux
 
     def step(state: TrainState, batch):
         params = state.trainable()
         if accum_steps == 1:
-            loss, aux = forward(state.model, batch)
+            loss, aux = forward(state.model, batch, state.step)
             grads = torch.autograd.grad(loss, params)
         else:
             gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
             losses, auxs = [], []
-            for mb in _split(batch, accum_steps):
-                loss, aux = forward(state.model, mb)
+            for i, mb in enumerate(_split(batch, accum_steps)):
+                loss, aux = forward(state.model, mb, state.step, i)
                 # summed in f32 whatever the parameter dtype: k bf16
                 # additions would round small contributions away
                 for s, g in zip(gsum, torch.autograd.grad(loss, params)):

@@ -115,7 +115,8 @@ class RunnerContext:
             data: Iterable, num_steps: int, log_every: int = 10,
             eval_fn: Callable | None = None,
             eval_data: Iterable | None = None, eval_every: int = 0,
-            remat: bool = False, accum_steps: int = 1,
+            with_rng: bool = False, remat: bool = False,
+            accum_steps: int = 1,
             flops_per_step: float | None = None,
             checkpoint_every: int = 0, resume: bool = False,
             profile_dir: str | None = None,
@@ -130,7 +131,9 @@ class RunnerContext:
         which ``data.as_dataset`` turns into a dataset with a cursor and
         the ``SPARKDL_SKIP_BATCHES`` skip-list — moves each batch to the
         device, runs the step (:func:`~.train_state.make_train_step`
-        with ``remat`` and ``accum_steps``; a tail batch that does not
+        with ``with_rng``, ``remat`` and ``accum_steps``; with
+        ``with_rng=True`` the loss gets ``rng=``, a generator seeded from
+        the step count, for dropout; a tail batch that does not
         divide by ``accum_steps`` is cropped, or skipped when smaller,
         without burning a step) and meters examples/s.
 
@@ -161,8 +164,8 @@ class RunnerContext:
             data_it = dataset.indexed()
         else:
             data_it = ((None, b) for b in iter(data))
-        step_fn = self.make_train_step(loss_fn, remat=remat,
-                                       accum_steps=accum_steps)
+        step_fn = self.make_train_step(loss_fn, with_rng=with_rng,
+                                       remat=remat, accum_steps=accum_steps)
         eval_step = self.make_eval_step(eval_fn) if eval_fn else None
         meter = self.meter()
         meter.flops_per_step = flops_per_step

@@ -1,0 +1,16 @@
+"""Named column functions over DataFrames (``registry``): the token-column
+UDFs of the JAX package's ``sparkdl_tpu/udf``. Importing this package
+imports no pyarrow; applying a UDF reads a DataFrame, which does."""
+
+from .registry import (applyUDF, classify_rows, listUDFs,
+                       registerGenerationUDF, registerImageUDF,
+                       registerKerasImageUDF,
+                       registerSequenceClassificationUDF,
+                       registerTextGenerationUDF, registerUDF,
+                       right_pad_rows, unregisterUDF)
+
+__all__ = ["registerUDF", "registerImageUDF", "registerKerasImageUDF",
+           "registerGenerationUDF", "registerTextGenerationUDF",
+           "registerSequenceClassificationUDF", "classify_rows",
+           "right_pad_rows",
+           "applyUDF", "listUDFs", "unregisterUDF"]

@@ -993,3 +993,150 @@ def test_engine_graph_equals_eager_step(dev, kw):
     snap = eng.backend.graphs.snapshot()
     # one capture before the failover, one after it on the new cache
     assert snap["captures"] == 2 and snap["replays"] >= 1, snap
+
+
+# --- BERT's shapes: D 64, not causal, right pads (BASELINE config 4) ------
+
+def _right_pad_mask(s, dev):
+    """[4, S] right pads: one full row, one of length 1, one a third long,
+    one S - 70 long (at S 512 its last K tile is dead)."""
+    lens = [s, 1, max(1, s // 3), max(1, s - 70)]
+    return torch.tensor([[float(c < n) for c in range(s)] for n in lens],
+                        device=dev), lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 33, 77, 128, 512])
+def test_flash_kernels_at_bert_shapes(dev, dtype, s):
+    """Forward and backward kernels against their plain versions at
+    BERT's shapes. A padded query row is not a dead row: it attends its
+    row's live keys, so its O and lse are finite and its dq real; every
+    masked column — a wholly dead K tile included — has dK = dV = 0
+    exactly."""
+    rng = np.random.default_rng(s * 13 + 1)
+    b, h, d = 4, 2, 64
+    q, k, v, do = (_randn(rng, (b, h, s, d), dtype, dev) for _ in range(4))
+    mask, lens = _right_pad_mask(s, dev)
+    walked = torch.zeros(1, dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, False, kv_mask=mask,
+                                    tile_counter=walked)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.attention_plain(q.cpu(), k.cpu(), v.cpu(), False,
+                                        mask.cpu())
+    if dtype == torch.bfloat16:
+        assert walked.item() == _tiles_walked(mask, h, False)
+        _assert_tc_bf16_close(o, q, k, v, False, mask)
+    else:
+        np.testing.assert_allclose(o.cpu(), o_ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse.cpu(), lse_ref, atol=1e-4, rtol=1e-5)
+    assert torch.isfinite(lse).all() and (lse > -1e29).all()
+    for r, n in enumerate(lens):  # padded query rows attend live keys
+        if n < s:
+            assert (o[r, :, n:].float().abs().sum(-1) > 0).all()
+    args = (q, k, v, o, lse, do, False, mask)
+    got = fa.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    want = fa.attention_bwd_plain(*args)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want,
+                             fa.attention_bwd_abs_plain(*args)):
+        excess = ((g.float() - w.float()).abs()
+                  - fa.bwd_tolerance(w, a)).max().item()
+        assert excess <= 0, (name, excess)
+    dq, dk, dv = got
+    for r, n in enumerate(lens):
+        assert torch.all(dk[r, :, n:] == 0) and torch.all(dv[r, :, n:] == 0)
+        if 1 < n < s:  # a padded query row has a real gradient (with one
+            # live key P is 1 and dS = P·(dP - δ) is 0: dq is 0 up to
+            # rounding)
+            assert (dq[r, :, n:].float().abs().sum(-1) > 0).all()
+        # a wholly dead 64-column K tile
+        for kt in range(-(-n // 64), -(-s // 64)):
+            cols = slice(kt * 64, min(s, kt * 64 + 64))
+            assert torch.all(dk[r, :, cols] == 0), (r, kt)
+            assert torch.all(dv[r, :, cols] == 0), (r, kt)
+
+
+# BERT parameter gradients, kernel arm against the dense arm, as a share
+# of each parameter's largest |dense gradient|: f32, TF32 off, the arms
+# differ in summation order only (the bound is the one chip_smoke's
+# phase h parity keeps). The key biases' gradient is zero up to rounding
+# in both arms (a bias on every key shifts a query's scores by one
+# constant, which softmax ignores): they are held below 1e-6 of the
+# model's largest gradient instead
+BERT_GRAD_SHARE, BERT_KEY_BIAS_SHARE = 1e-4, 1e-6
+
+
+def _bert_d64(dev, dtype=torch.float32):
+    from sparkdl_tpu_torch.models import bert as B
+
+    cfg = B.BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                       num_heads=2, intermediate_size=256,
+                       max_position_embeddings=256)
+    assert cfg.head_dim == 64
+    model = B.BertForSequenceClassification(
+        cfg, num_classes=2, dtype=dtype, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(3)
+    lens = torch.tensor([77, 1, 40, 64], device=dev)
+    mask = (torch.arange(77, device=dev)[None] < lens[:, None]).int()
+    batch = {"input_ids": torch.randint(1, 512, (4, 77), device=dev,
+                                        generator=g) * mask,
+             "attention_mask": mask,
+             "label": torch.tensor([0, 1, 1, 0], device=dev)}
+    return B, model, batch
+
+
+def test_bert_kernel_gradients_match_dense_arm(dev):
+    B, model, batch = _bert_d64(dev)
+    assert fa.resolve_attn_fn(model.attn_fn) is fa.adaptive_attention
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = B.glue_loss_fn()(model, batch)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    loss_k, g_k = grads()
+    assert fa.flash_attention_fwd.launches - f0 == 2
+    assert fa.flash_attention_bwd.launches - b0 == 2
+    model.attn_fn = None
+    loss_d, g_d = grads()
+    assert abs(loss_k - loss_d) <= 1e-4
+    top = max(g.abs().max().item() for g in g_d.values())
+    for name, want in g_d.items():
+        if name.endswith("key.bias"):
+            for g in (g_k[name], want):
+                assert g.abs().max().item() <= BERT_KEY_BIAS_SHARE * top
+            continue
+        scale = want.abs().max().item()
+        assert scale > 0, name
+        share = (g_k[name] - want).abs().max().item() / scale
+        assert share <= BERT_GRAD_SHARE, (name, share)
+
+
+def test_bert_with_rng_repeats_on_the_card(dev):
+    """with_rng draws the dropout masks from a CUDA generator seeded by
+    (rng_seed, step): the same seed repeats the losses to the bit, another
+    seed changes them; both flash kernels run every step."""
+    from sparkdl_tpu_torch.runner import TrainState
+    from sparkdl_tpu_torch.runner.train_state import adam, make_train_step
+
+    def losses(seed):
+        B, model, batch = _bert_d64(dev, torch.bfloat16)
+        state = TrainState.create(model, adam(1e-3))
+        step = make_train_step(B.bert_finetune_loss(model), with_rng=True,
+                               rng_seed=seed)
+        out = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            out.append(float(m["loss"]))
+        return out
+
+    b0 = fa.flash_attention_bwd.variant_launches["tc_mma_bf16"]
+    a, again, other = losses(0), losses(0), losses(1)
+    assert fa.flash_attention_bwd.variant_launches["tc_mma_bf16"] - b0 \
+        == 3 * 2 * 3
+    assert a == again and a != other
+    assert all(math.isfinite(x) for x in a + other)

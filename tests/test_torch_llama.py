@@ -361,7 +361,7 @@ def _imports(path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax") or top == "sparkdl_tpu"
+    return top in ("jax", "jaxlib", "flax", "optax") or top == "sparkdl_tpu"
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -369,6 +369,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    if "_build" not in f.parts)
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 8
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"sparkdl_tpu_torch/models/bert.py",
+            "sparkdl_tpu_torch/models/pretrained.py",
+            "sparkdl_tpu_torch/core/frame.py",
+            "sparkdl_tpu_torch/udf/registry.py",
+            "sparkdl_tpu_torch/runner/data.py"} <= names
     bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
            if _forbidden(n)]
     assert bad == []
@@ -387,7 +393,9 @@ def test_importing_the_port_loads_no_jax():
             ".__init__")
         for f in (ROOT / "sparkdl_tpu_torch").rglob("*.py")
         if "_build" not in f.parts)
-    assert "sparkdl_tpu_torch.serving.backend" in mods
+    assert {"sparkdl_tpu_torch.serving.backend",
+            "sparkdl_tpu_torch.models.bert", "sparkdl_tpu_torch.core.frame",
+            "sparkdl_tpu_torch.udf.registry"} <= set(mods)
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"from sparkdl_tpu_torch import GenerationEngine\n"
@@ -402,6 +410,11 @@ def test_importing_the_port_loads_no_jax():
             f"    h = e.submit([5, 6, 7, 5, 6], max_new_tokens=4)\n"
             f"    e.run_until_idle()\n"
             f"    assert len(h.result(1)) == 4\n"
+            f"from sparkdl_tpu_torch.models import bert as B\n"
+            f"from sparkdl_tpu_torch.udf import classify_rows\n"
+            f"c = B.BertForSequenceClassification(B.BertConfig.tiny(), "
+            f"attn_fn=fa.flash_attention, device='cpu')\n"
+            f"assert len(classify_rows(c, [[1, 2], [3]], 2)) == 2\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"('jax', 'jaxlib', 'flax', 'sparkdl_tpu')]\n"
             f"print(len({mods!r}), bad)")
@@ -409,3 +422,39 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split(None, 1)[1].strip() == "[]", res.stdout
+
+
+def test_port_imports_without_pyarrow():
+    """With pyarrow and pandas blocked, the package, BERT, the runner, the
+    kernels' wrappers and the UDF registry import, and a BERT fit and
+    ``classify_rows`` run on the CPU: the card path needs no DataFrame.
+    ``sparkdl_tpu_torch.DataFrame`` is what raises."""
+    code = (
+        "import sys\n"
+        "sys.modules['pyarrow'] = None\n"
+        "sys.modules['pandas'] = None\n"
+        "import numpy as np\n"
+        "import sparkdl_tpu_torch\n"
+        "from sparkdl_tpu_torch.models import bert as B\n"
+        "from sparkdl_tpu_torch import runner, ops, udf\n"
+        "from sparkdl_tpu_torch.ops import flash_attention as fa\n"
+        "from sparkdl_tpu_torch.runner.train_state import adam\n"
+        "m = B.BertForSequenceClassification(B.BertConfig.tiny(), "
+        "attn_fn=fa.flash_attention, device='cpu')\n"
+        "batch = {'input_ids': np.ones((2, 8), np.int64), "
+        "'attention_mask': np.ones((2, 8), np.int32), "
+        "'label': np.array([0, 1])}\n"
+        "runner.XlaRunner(np=1, device='cpu').run(lambda ctx: ctx.fit("
+        "loss_fn=B.bert_finetune_loss(m), model=m, tx=adam(1e-3), "
+        "data=[batch] * 2, num_steps=2, with_rng=True))\n"
+        "assert len(udf.classify_rows(m, [[1, 2, 3], [4]], 3)) == 2\n"
+        "try:\n"
+        "    sparkdl_tpu_torch.DataFrame\n"
+        "except ImportError:\n"
+        "    print('lazy')\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('pyarrow', 'pandas') and sys.modules[n] is not None))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["lazy", "[]"], res.stdout
