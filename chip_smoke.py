@@ -165,6 +165,37 @@ i. classify — ``udf.classify_rows`` (the sequence-classification UDF's
    10 x the f32 parity tolerance, the bf16 arm's beyond 10 x 2^-6·(1 +
    |logit|).
 
+j. image scoring — BASELINE configurations 1 and 2 on the card, with no
+   DataFrame: the device step is ``DeepImageFeaturizer(...)._get_runner()``
+   (the runner ``_transform`` uses; seeded random weights at full width
+   and depth) over uint8 BGR NHWC wire batches made from a numpy seed,
+   half at the model's input size (the prologue skips the resize) and
+   half at a larger native size (320x320 for 299, 256x256 for 224; the
+   prologue downscales). Image convolutions are cuDNN and the dense
+   layers cuBLAS (no Pallas kernel on this path, so no ``kernels`` entry):
+   - ``featurize``: 4096 rows an arm: InceptionV3 bf16 and f32 (TF32 off,
+     then on, the flag in each line), ResNet50 bf16, all at 256 a batch,
+     and InceptionV3 bf16 at the transformer's default 32 a batch. Each
+     line: rows/s, ms a batch (median interval between outputs), peak
+     device memory, FLOPs a row from the model's own conv and dense
+     shapes (``image_flops``), achieved TFLOP/s and its share of 989,
+     the bytes the host copies to the device and their DMA time (CUDA
+     events around one pinned copy of each wire shape), and the host
+     time of the runner's stages (flight-recorder spans);
+   - a ``profile`` line over 4 batches of the InceptionV3 bf16 arm
+     (``device_profile``): busy, idle share, launches a batch, top kernels;
+   - ``transfer``: ``LogisticRegression._fit_arrays`` on the card on the
+     4096 InceptionV3 bf16 features, the labels two image classes of
+     different mean colour; fit seconds and train accuracy (> 0.9), and
+     predictions equal to a CPU fit's on the same features wherever the
+     CPU model's top-2 probability margin exceeds ``TRANSFER_MARGIN``;
+   - ``image_parity`` (TF32 off): each of the nine registry models, f32,
+     features on the card against the port's CPU forward with the same
+     weights on 2 full-size images (``IMAGE_F32_RULE``), bf16 features
+     on the card against the card's f32 (``IMAGE_BF16_RULE``), and the
+     prologue's resize on the card against the CPU's, up and down
+     (``RESIZE_ATOL``), the same-size skip bit-exact.
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
 entries add their BERT case and phase h's launches) and, last,
@@ -235,6 +266,22 @@ CLASSIFY_ROWS, CLASSIFY_CHUNK = 4096, 256
 # bf16 logit rule of tests/test_torch_bert.py, 2**-6·(1 + |logit|) (the
 # bf16 kernel arm, phase h's model)
 BF16_LOGIT_RTOL = 2.0 ** -6
+# phase j: 4096 rows an arm, wire batches half at the model's input size,
+# half at NATIVE_SIZE (the prologue downscales those)
+IMAGE_ROWS, IMAGE_BATCH = 4096, 256
+NATIVE_SIZE = {299: 320, 224: 256}
+# phase j parity. f32 card vs CPU: cuDNN and the CPU's convolutions sum in
+# other orders (and cuDNN may pick Winograd / FFT algorithms), so the rule
+# is the CPU tests' f32 rule widened tenfold: |Δ| ≤ 1e-4·max(1, max|ref|)
+# + 1e-3·|ref|. bf16 vs f32: |Δ| ≤ 2^-5·max|f32| (the tests' bf16 rule).
+# The resize, card vs CPU, on the 0-255 scale: |Δ| ≤ 1e-2 (the tests'
+# rule against jax.image.resize), the same-size skip exact.
+IMAGE_F32_RULE = (1e-4, 1e-3)
+IMAGE_BF16_RULE = 2.0 ** -5
+RESIZE_ATOL = 1e-2
+# phase j transfer: predictions of the card's fit equal the CPU fit's
+# wherever the CPU model's top-2 probability margin exceeds this
+TRANSFER_MARGIN = 1e-3
 
 
 def emit(obj) -> None:
@@ -2028,6 +2075,272 @@ def phase_classify(torch, kernels, model) -> dict:
     return rec
 
 
+def image_flops(torch, model, h: int, w: int) -> int:
+    """FLOPs a row of ``model``'s features from its own conv and dense
+    shapes (2 per multiply-add; BatchNorm, pools and the prologue are not
+    counted), read by forward hooks on one row at ``h`` x ``w``."""
+    from sparkdl_tpu_torch.models.image_layers import Conv, Dense
+
+    total = [0]
+
+    def conv(m, inp, out):
+        total[0] += 2 * out[0].numel() * m.weight.shape[1] * m.kernel[0] \
+            * m.kernel[1]
+
+    def dense(m, inp, out):
+        total[0] += 2 * out[0].numel() * m.weight.shape[1]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv) else dense)
+             for m in model.modules() if isinstance(m, (Conv, Dense))]
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        model(torch.zeros(1, h, w, 3, device=dev), features_only=True)
+    for hk in hooks:
+        hk.remove()
+    return total[0]
+
+
+def wire_batches(name: str, labels, seed: int) -> list:
+    """uint8 BGR NHWC wire batches of IMAGE_BATCH rows for ``name``: the
+    first half at the model's input size, the second at NATIVE_SIZE. A
+    row of label 1 is brighter (pixels drawn in [64, 256) against [0,
+    192)): two classes of different mean colour."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.models.registry import get_model
+
+    h = get_model(name).input_size[0]
+    rng = np.random.default_rng(seed)
+    out = []
+    n_batches = len(labels) // IMAGE_BATCH
+    for i in range(n_batches):
+        e = h if i < n_batches // 2 else NATIVE_SIZE[h]
+        y = labels[i * IMAGE_BATCH:(i + 1) * IMAGE_BATCH]
+        b = rng.integers(0, 192, (IMAGE_BATCH, e, e, 3), dtype=np.uint8)
+        b += (64 * y).astype(np.uint8)[:, None, None, None]
+        out.append(b)
+    return out
+
+
+def h2d_ms(torch, batch) -> float:
+    """Device time of one pinned host → device copy of ``batch`` (CUDA
+    events, mean of 5)."""
+    pinned = torch.from_numpy(batch).pin_memory()
+    return time_ms(torch, lambda: pinned.to("cuda", non_blocking=True),
+                   iters=5)
+
+
+def featurize_arm(torch, name: str, dtype: str, batch_size: int, wire,
+                  tf32: bool) -> tuple:
+    """One ``featurize`` line: the featurizer's own runner over ``wire``
+    (re-cut to ``batch_size`` rows a batch), timed end to end after a
+    warm-up of one batch of each wire shape. Returns (record, features,
+    featurizer)."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.runner import events
+    from sparkdl_tpu_torch.transformers import DeepImageFeaturizer
+
+    torch.backends.cudnn.allow_tf32 = tf32
+    f = DeepImageFeaturizer(modelName=name, computeDtype=dtype,
+                            batchSize=batch_size, seed=0)
+    runner = f._get_runner()
+    batches = [b[i:i + batch_size] for b in wire
+               for i in range(0, len(b), batch_size)]
+    list(runner.run([batches[0], batches[-1]]))  # each wire shape once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = events.get_recorder()
+    rec.ring.clear()
+    stamps = []
+    t0 = time.perf_counter()
+    feats = []
+    for out in runner.run(batches):
+        feats.append(out)
+        stamps.append(time.perf_counter())
+    secs = time.perf_counter() - t0
+    feats = np.concatenate(feats)
+    stage_ms = {}
+    for e in rec.ring:
+        if e.get("ph") == "E" and e["name"] in ("pad", "put", "dispatch",
+                                               "fetch"):
+            stage_ms[e["name"]] = stage_ms.get(e["name"], 0.0) \
+                + e.get("dur_s", 0.0) * 1e3
+    h = f._model().input_size[0]
+    flops_row = image_flops(torch, _served(f), h, h)
+    rows = len(feats)
+    tflops = flops_row * rows / secs / 1e12
+    shapes = sorted({b.shape[1] for b in wire})
+    h2d = {f"{e}x{e}": h2d_ms(torch, next(b for b in wire
+                                          if b.shape[1] == e)[:batch_size])
+           for e in shapes}
+    assert feats.shape == (IMAGE_ROWS, f.featureDim()), feats.shape
+    assert np.isfinite(feats).all(), name
+    out = dict(
+        phase="featurize", model=name, compute_dtype=dtype,
+        tf32=bool(tf32), batch_size=batch_size, rows=rows,
+        wire_sizes=[f"{e}x{e}" for e in shapes],
+        input_size=f._model().input_size, seconds=secs,
+        rows_per_s=rows / secs,
+        ms_per_batch_median=float(np.median(np.diff(stamps))) * 1e3,
+        batches=len(batches), peak_mem_gb=torch.cuda.max_memory_allocated()
+        / 1e9, flops_per_row=flops_row, tflops=tflops,
+        share_of_989=tflops / (PEAK_FLOPS["bfloat16"] / 1e12),
+        h2d_bytes=int(sum(b.nbytes for b in wire)),
+        h2d_ms_per_batch=h2d,
+        host_stage_ms=stage_ms, nvidia_smi=smi())
+    emit(out)
+    return out, feats, f
+
+
+def _served(f):
+    """The model the featurizer's runner serves (compute dtype, on the
+    card), for ``image_flops``."""
+    import copy
+
+    m = copy.deepcopy(f._load_module()).to("cuda")
+    m.dtype = f._compute_dtype()
+    return m
+
+
+def transfer_fit(torch, feats, labels) -> dict:
+    """``transfer``: the logistic regression on the card on the featurizer's
+    output, against the same fit on the CPU."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.estimators import LogisticRegression
+
+    kw = dict(maxIter=100, stepSize=0.1)
+    LogisticRegression(**kw)._fit_arrays(feats[:512], labels[:512])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = LogisticRegression(**kw)._fit_arrays(feats, labels)
+    secs = time.perf_counter() - t0
+    pred, _ = card.predict_arrays(feats)
+    t0 = time.perf_counter()
+    cpu = LogisticRegression(device="cpu", **kw)._fit_arrays(feats, labels)
+    cpu_secs = time.perf_counter() - t0
+    cpu_pred, prob = cpu.predict_arrays(feats)
+    top2 = np.sort(prob, axis=-1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    held = margin > TRANSFER_MARGIN
+    flips = int(((pred != cpu_pred) & held).sum())
+    rec = dict(phase="transfer", model="InceptionV3", compute_dtype="bfloat16",
+               rows=len(feats), feature_dim=feats.shape[1], max_iter=100,
+               fit_s=secs, cpu_fit_s=cpu_secs,
+               train_accuracy=float((pred == labels).mean()),
+               cpu_train_accuracy=float((cpu_pred == labels).mean()),
+               rows_held=int(held.sum()), flips_above_margin=flips,
+               margin=TRANSFER_MARGIN,
+               max_coef_diff=float(np.abs(card.weights - cpu.weights).max()),
+               nvidia_smi=smi())
+    emit(rec)
+    assert rec["train_accuracy"] > 0.9 and flips == 0, rec
+    return rec
+
+
+def image_parity(torch) -> dict:
+    """``image_parity`` (TF32 off): every registry model, f32 card vs the
+    port's CPU forward (same weights, 2 full-size images), bf16 card vs
+    f32 card; then the prologue's resize, card vs CPU."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.core.runtime import resize_nhwc
+    from sparkdl_tpu_torch.models.pretrained import cast_float_leaves
+    from sparkdl_tpu_torch.models.registry import SUPPORTED_MODELS
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    atol_share, rtol = IMAGE_F32_RULE
+    models = {}
+    for name, m in SUPPORTED_MODELS.items():
+        h, w = m.input_size
+        x = torch.from_numpy(np.random.default_rng(11).integers(
+            0, 256, (2, h, w, 3), dtype=np.uint8))
+        model = m.build(seed=1)
+        ref = m.apply_fn(model)(x).numpy()  # logits run the whole model
+        ref_f = m.apply_fn(model, features_only=True)(x).numpy()
+        card = model.to("cuda")
+        got_f = m.apply_fn(card, features_only=True)(x.cuda()).cpu().numpy()
+        got = m.apply_fn(card)(x.cuda()).cpu().numpy()
+        card.dtype = torch.bfloat16
+        bf = m.apply_fn(cast_float_leaves(card, "bfloat16"),
+                        features_only=True)(x.cuda()).cpu().numpy()
+        errs = {}
+        for what, g, r in (("features", got_f, ref_f), ("logits", got, ref)):
+            atol = atol_share * max(1.0, float(np.abs(r).max()))
+            over = np.abs(g - r) - (atol + rtol * np.abs(r))
+            errs[what] = dict(max_abs_err=float(np.abs(g - r).max()),
+                              max_abs_ref=float(np.abs(r).max()),
+                              worst_over_rule=float(over.max()))
+            assert over.max() <= 0, (name, what, errs[what])
+        bf_err = float(np.abs(bf - got_f).max())
+        assert bf_err <= IMAGE_BF16_RULE * np.abs(got_f).max(), (name, bf_err)
+        models[name] = dict(**errs, bf16_max_abs_err=bf_err,
+                            bf16_share=bf_err / float(np.abs(got_f).max()))
+        del card, model
+        torch.cuda.empty_cache()
+    resize = {}
+    rng = np.random.default_rng(12)
+    for src, dst in ((320, 299), (256, 224), (224, 299), (299, 299)):
+        x = torch.from_numpy(rng.integers(0, 256, (4, src, src, 3),
+                                          dtype=np.uint8)).float()
+        cpu = resize_nhwc(x, dst, dst)
+        card = resize_nhwc(x.cuda(), dst, dst).cpu()
+        err = float((cpu - card).abs().max())
+        resize[f"{src}->{dst}"] = err
+        if src == dst:
+            assert torch.equal(card, x), "the same-size skip is not exact"
+        assert err <= RESIZE_ATOL, (src, dst, err)
+    rec = dict(phase="image_parity", tf32=False, images=2,
+               f32_rule="|d| <= 1e-4·max(1, max|ref|) + 1e-3·|ref|",
+               bf16_rule="|d| <= 2^-5·max|f32|", models=models,
+               resize_max_abs_err=resize, resize_atol=RESIZE_ATOL,
+               nvidia_smi=smi())
+    emit(rec)
+    return rec
+
+
+def phase_images(torch) -> dict:
+    """Phase j: image scoring (module docstring)."""
+    import numpy as np
+
+    tf32_was = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    labels = np.random.default_rng(20).permutation(
+        np.arange(IMAGE_ROWS) % 2).astype(np.int64)
+    try:
+        inc = wire_batches("InceptionV3", labels, seed=21)
+        arms = {}
+        arms["inception_bf16"], feats, f = featurize_arm(
+            torch, "InceptionV3", "bfloat16", IMAGE_BATCH, inc, tf32=False)
+        runner = f._get_runner()
+        prof = device_profile(
+            torch, lambda: list(runner.run(inc[:4])), 1,
+            "4 batches of 256, InceptionV3 bf16 featurize")
+        prof["launches_per_batch"] = prof["device_launches_per_step"] / 4
+        emit(prof)
+        del f, runner
+        arms["inception_f32"], _, _ = featurize_arm(
+            torch, "InceptionV3", "float32", IMAGE_BATCH, inc, tf32=False)
+        arms["inception_f32_tf32"], _, _ = featurize_arm(
+            torch, "InceptionV3", "float32", IMAGE_BATCH, inc, tf32=True)
+        arms["inception_bf16_b32"], _, _ = featurize_arm(
+            torch, "InceptionV3", "bfloat16", 32, inc, tf32=False)
+        del inc
+        rn = wire_batches("ResNet50", labels, seed=22)
+        arms["resnet50_bf16"], _, _ = featurize_arm(
+            torch, "ResNet50", "bfloat16", IMAGE_BATCH, rn, tf32=False)
+        del rn
+        torch.cuda.empty_cache()
+        transfer = transfer_fit(torch, feats, labels)
+        parity = image_parity(torch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32_was
+    return dict(arms=arms, profile=prof, transfer=transfer, parity=parity)
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -2068,6 +2381,8 @@ def main() -> int:
     phase_glue_parity(torch, (fa, fd, pfd))
     phase_classify(torch, (fa, fd, pfd), bert)
     del bert
+    torch.cuda.empty_cache()
+    phase_images(torch)
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3

@@ -20,7 +20,10 @@ fine-tune (``runner.XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
 fine-tune (``models.bert``, ``fit(..., with_rng=True)`` for dropout), the
 Arrow DataFrame (``DataFrame``, ``Row``; ``runner.data.ArrowDataset``) and
 the token-column UDFs (``udf``: generation, text generation, sequence
-classification), with the kernels they run: ``ops.flash_attention``
+classification), and image scoring — the image model zoo
+(``models.registry``), ``core.runtime.BatchRunner``, the Params / Pipeline
+API and ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` — with the
+kernels they run: ``ops.flash_attention``
 (prefill, the training forward and its backward, causal or padded),
 ``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
 (block-table decode and verify). ROADMAP.md lists what is still to port.
@@ -29,20 +32,46 @@ classification), with the kernels they run: ``ops.flash_attention``
 access, so ``import sparkdl_tpu_torch`` works without them.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
+from .core.params import (HasBatchSize, HasDevice, HasInputCol,  # noqa: E402
+                          HasLabelCol, HasOutputCol, HasPredictionCol,
+                          HasSeed, Param, Params, TypeConverters,
+                          keyword_only)
+from .core.pipeline import (Estimator, MLWritable, Model,  # noqa: E402
+                            Pipeline, PipelineModel, Transformer, load)
+from .estimators import (LogisticRegression,  # noqa: E402
+                         LogisticRegressionModel)
+from .image.imageIO import (createResizeImageUDF,  # noqa: E402
+                            nhwcToImageColumn, readImages,
+                            readImagesWithCustomFn)
 from .serving import GenerationEngine  # noqa: E402 — as sparkdl_tpu does
+from .transformers import (DeepImageFeaturizer,  # noqa: E402
+                           DeepImagePredictor, TFImageTransformer,
+                           XlaImageTransformer)
 from .udf import (applyUDF, listUDFs, registerGenerationUDF,  # noqa: E402
                   registerSequenceClassificationUDF,
                   registerTextGenerationUDF, unregisterUDF)
 
 __all__ = ["GenerationEngine", "DataFrame", "Row", "applyUDF", "listUDFs",
            "registerGenerationUDF", "registerSequenceClassificationUDF",
-           "registerTextGenerationUDF", "unregisterUDF"]
+           "registerTextGenerationUDF", "unregisterUDF",
+           "Param", "Params", "TypeConverters", "keyword_only",
+           "HasInputCol", "HasOutputCol", "HasLabelCol", "HasPredictionCol",
+           "HasBatchSize", "HasSeed", "HasDevice",
+           "Transformer", "Estimator", "Model", "Pipeline", "PipelineModel",
+           "MLWritable", "load", "imageSchema", "readImages",
+           "readImagesWithCustomFn", "createResizeImageUDF",
+           "nhwcToImageColumn", "XlaImageTransformer", "TFImageTransformer",
+           "DeepImageFeaturizer", "DeepImagePredictor",
+           "LogisticRegression", "LogisticRegressionModel"]
 
 
 def __getattr__(name):
     if name in ("DataFrame", "Row"):
         from .core import frame
         return getattr(frame, name)
+    if name == "imageSchema":
+        from .image.imageIO import _image_schema
+        return _image_schema()
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

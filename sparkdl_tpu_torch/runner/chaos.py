@@ -1,17 +1,23 @@
-"""Deterministic fault injection at the serving engine's sites.
+"""Deterministic fault injection at the serving engine's and the image
+scorer's sites.
 
 The port's copy of ``sparkdl_tpu/runner/chaos.py``, cut to what the
-serving engine reaches: its four sites and the kinds that make sense
-there. The training, scoring and fleet sites (and their kinds: ``nan``,
-``poison``, ``sigkill``, ``decimate``, ``corrupt``, ``replica_dead``)
-return with the slices that port their callers (ROADMAP.md), and so does
-the JAX package's ``runner.metrics`` fault count.
+serving engine and the image scorer reach: their six sites and the kinds
+that make sense there. The training and fleet sites (and their kinds:
+``nan``, ``poison``, ``sigkill``, ``decimate``, ``corrupt``,
+``replica_dead``) return with the slices that port their callers
+(ROADMAP.md). Every fired fault counts into ``runner.metrics.run_stats``.
 
 A seeded :class:`FaultPlan` injects faults at named **sites**; plans
 serialize to one env var (``SPARKDL_CHAOS``), so a serving process picks a
 plan up with no change to its code.
 
-Sites (where the engine consults the plan):
+Sites (where the engine and the scorer consult the plan):
+
+- ``decode``           — one host decode attempt of the image scorer's
+  chunk (or of one row in the quarantine fallback; ``core/ingest.py``)
+- ``dispatch``         — one batch's dispatch in ``BatchRunner.run_stream``
+  (exercises the dispatch retry path, ``core/runtime.py``)
 
 - ``serve_prefill``    — a serving backend's prefill / prefill-chunk call
   (``serving/backend.py``; exercises prefill retry → quarantine and, for
@@ -57,7 +63,8 @@ __all__ = ["Fault", "FaultPlan", "InjectedFault", "InjectedPreemption",
 
 CHAOS_ENV = "SPARKDL_CHAOS"
 
-SITES = ("serve_prefill", "serve_decode", "serve_alloc", "serve_commit")
+SITES = ("decode", "dispatch", "serve_prefill", "serve_decode",
+         "serve_alloc", "serve_commit")
 KINDS = ("preempt", "fatal", "hang", "cache_lost")
 
 
@@ -212,13 +219,16 @@ class FaultPlan:
 
 
 def _record_fault(site: str, kind: str, step=None):
-    """Emit a flight-recorder event (lazy import keeps the fire() hot
-    path import-free)."""
+    """Emit a flight-recorder event, then count into
+    ``metrics.run_stats`` (lazy imports keep the fire() hot path
+    import-free)."""
     try:
         from . import events
         events.event("chaos", site=site, kind=kind, step=step)
     except Exception:
         pass
+    from .metrics import run_stats
+    run_stats.record_fault(site, kind)
 
 
 def _execute(f: Fault, site: str, step):

@@ -4,9 +4,10 @@ logger.
 The counterpart of ``sparkdl_tpu/runner/metrics.py``, cut to what
 ``RunnerContext.fit`` reaches on one device: :class:`StepTimeStats`,
 :class:`ThroughputMeter`, :class:`MetricsLogger` (the text log; the
-TensorBoard sink is not ported) and :func:`peak_flops_per_chip`. The
-failure counters (``run_stats``), heartbeats and profiler hooks come with
-the slices that port the launcher and checkpoints (ROADMAP.md).
+TensorBoard sink is not ported) and :func:`peak_flops_per_chip`, and the process-wide failure counters
+:class:`RunStats` / ``run_stats`` that the scoring runner's retries and the
+streaming scorer's quarantine record into. Heartbeats and profiler hooks
+come with the slices that port the launcher and checkpoints (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,6 +23,116 @@ from dataclasses import dataclass, field
 from . import sentinel
 
 log = logging.getLogger("sparkdl_tpu_torch.runner")
+
+@dataclass
+class RunStats:
+    """Process-wide failure/recovery counters (the JAX package's
+    ``RunStats``): the restart machinery, the chaos subsystem and the
+    scoring runner record here so the emitted metrics carry ``restarts``,
+    ``faults_injected``, quarantined rows and dispatch retries next to the
+    throughput numbers. In the port the scoring runner
+    (``record_retry``) and the streaming scorer (``record_quarantine``)
+    record; the restart and checkpoint fields wait for the launcher.
+    Cumulative per process — tests isolate with ``reset()``.
+    """
+    restarts: int = 0
+    faults_injected: int = 0
+    last_failure_kind: str | None = None
+    last_failure: str | None = None
+    fault_sites: list = field(default_factory=list)
+    # Data-plane fault tolerance: the streaming scorer and the
+    # verified-checkpoint machinery count their degradations here so
+    # meter.summary() / bench records carry them next to throughput.
+    rows_quarantined: int = 0
+    dispatch_retries: int = 0
+    dispatch_giveups: int = 0
+    checkpoint_rollbacks: int = 0
+    last_rollback: str | None = None
+    # Training data plane: poison batches the supervisor
+    # quarantined onto the dataset skip-list.
+    train_batches_quarantined: int = 0
+    # Elastic gang supervision: world-size changes the
+    # supervisor made around permanently dead ranks.
+    resizes: int = 0
+    last_resize: str | None = None
+
+    def record_restart(self):
+        self.restarts += 1
+
+    def record_resize(self, from_np: int, to_np: int,
+                      rank: int | None = None):
+        self.resizes += 1
+        self.last_resize = (f"np {from_np} -> {to_np}"
+                            + (f" (rank {rank} dead)"
+                               if rank is not None else ""))[:300]
+
+    def record_failure(self, kind: str, detail: str | None = None):
+        self.last_failure_kind = kind
+        self.last_failure = (detail or "")[:500] or None
+
+    def record_fault(self, site: str, kind: str):
+        self.faults_injected += 1
+        self.fault_sites.append(f"{site}:{kind}")
+
+    def record_quarantine(self, rows: int = 1):
+        self.rows_quarantined += int(rows)
+
+    def record_retry(self, giveup: bool = False):
+        if giveup:
+            self.dispatch_giveups += 1
+        else:
+            self.dispatch_retries += 1
+
+    def record_batch_quarantine(self, n: int = 1):
+        self.train_batches_quarantined += int(n)
+
+    def record_rollback(self, from_step, to_step, reason: str | None = None):
+        self.checkpoint_rollbacks += 1
+        self.last_rollback = (f"step {from_step} -> {to_step}"
+                              + (f" ({reason})" if reason else ""))[:300]
+
+    def snapshot(self) -> dict:
+        return {"restarts": self.restarts,
+                "faults_injected": self.faults_injected,
+                "last_failure_kind": self.last_failure_kind,
+                "last_failure": self.last_failure,
+                "fault_sites": list(self.fault_sites),
+                "rows_quarantined": self.rows_quarantined,
+                "dispatch_retries": self.dispatch_retries,
+                "dispatch_giveups": self.dispatch_giveups,
+                "checkpoint_rollbacks": self.checkpoint_rollbacks,
+                "last_rollback": self.last_rollback,
+                "train_batches_quarantined": self.train_batches_quarantined,
+                "resizes": self.resizes,
+                "last_resize": self.last_resize}
+
+    def degraded(self) -> bool:
+        """True when any fault-tolerance machinery actually engaged —
+        the gate bench/summaries use to keep all-zero ledgers out of
+        every record."""
+        return bool(self.restarts or self.faults_injected
+                    or self.rows_quarantined or self.dispatch_retries
+                    or self.dispatch_giveups or self.checkpoint_rollbacks
+                    or self.train_batches_quarantined or self.resizes)
+
+    def reset(self):
+        self.restarts = 0
+        self.faults_injected = 0
+        self.last_failure_kind = None
+        self.last_failure = None
+        self.fault_sites = []
+        self.rows_quarantined = 0
+        self.dispatch_retries = 0
+        self.dispatch_giveups = 0
+        self.checkpoint_rollbacks = 0
+        self.last_rollback = None
+        self.train_batches_quarantined = 0
+        self.resizes = 0
+        self.last_resize = None
+
+
+run_stats = RunStats()
+
 
 # Dense bf16 tensor-core peak FLOP/s per card by device-name substring:
 # NVIDIA H100 SXM data sheet (989 TFLOP/s bf16 dense, at the 700 W power

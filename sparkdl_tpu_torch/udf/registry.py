@@ -38,8 +38,8 @@ _UDF_REGISTRY: dict[str, Callable] = {}
 
 def _image_tier(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} rides the image / tensor transformer tier, which is not "
-        f"ported to sparkdl_tpu_torch yet (ROADMAP.md, Queue A 6)")
+        f"{what}: the image UDFs are not ported to sparkdl_tpu_torch yet "
+        f"(ROADMAP.md, Queue A 6)")
 
 
 def registerUDF(name: str, fn: Callable, batchSize: int = 64,

@@ -1140,3 +1140,125 @@ def test_bert_with_rng_repeats_on_the_card(dev):
         == 3 * 2 * 3
     assert a == again and a != other
     assert all(math.isfinite(x) for x in a + other)
+
+
+# --- image scoring on the card ------------------------------------------------
+# f32 features, card (cuDNN, TF32 off) against the port's CPU forward with
+# the same weights: |Δ| ≤ 1e-4·max(1, max|ref|) + 1e-3·|ref| — the CPU
+# twins' f32 rule widened tenfold, because cuDNN may sum through other
+# algorithms (Winograd, FFT) than the CPU's convolutions. The prologue's
+# resize, card against CPU, on the 0-255 scale: |Δ| ≤ 1e-2.
+
+IMAGE_CASES = [("ResNet18", 64), ("ResNet50", 64), ("InceptionV3", 75),
+               ("Xception", 74), ("VGG16", 64)]
+
+
+@pytest.mark.parametrize("name,size", IMAGE_CASES,
+                         ids=[n for n, _ in IMAGE_CASES])
+def test_image_model_card_matches_cpu(dev, name, size):
+    from sparkdl_tpu_torch.models import registry as R
+
+    m = R.get_model(name)
+    kw = {"input_size": (size, size)} if name.startswith("VGG") else {}
+    model = m.build(seed=5, **kw)
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (3, size, size, 3), dtype=np.uint8))
+    ref = m.apply_fn(model, features_only=True)(x).numpy()
+    got = m.apply_fn(model.to(dev), features_only=True)(x.to(dev))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    atol = 1e-4 * max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-3, atol=atol)
+
+
+def test_batch_runner_pinned_side_stream_matches_cpu(dev):
+    """The card's feed (pinned staging, a non_blocking copy on a side
+    stream, the step after an event, outputs copied back through pinned
+    buffers started at dispatch) gives the CPU runner's outputs, for a
+    stream longer than the window, with a ragged tail; no output is
+    overwritten by a later batch."""
+    from sparkdl_tpu_torch.core import runtime
+
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, 256, (8, 9, 9, 3), dtype=np.uint8)
+               for _ in range(6)] + [
+        rng.integers(0, 256, (5, 9, 9, 3), dtype=np.uint8)]
+
+    def fn(b):
+        return {"s": (b * 0.5).sum(dim=(1, 2)), "m": b.amax(dim=(1, 2, 3))}
+
+    outs = {}
+    for d in ("cpu", "cuda"):
+        r = runtime.BatchRunner(fn, 8, device=d, input_cast=torch.float32,
+                                prefetch=2)
+        outs[d] = list(r.run(iter(batches)))
+    assert [o["s"].shape for o in outs["cuda"]] == \
+        [(8, 3)] * 6 + [(5, 3)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert isinstance(a["s"], np.ndarray)
+        np.testing.assert_array_equal(a["m"], b["m"])
+        np.testing.assert_allclose(a["s"], b["s"], rtol=1e-6)
+
+
+def test_runner_stages_each_batch_in_one_pinned_buffer(dev):
+    """On the card a batch, full or short, is padded in one write into
+    pinned memory (pad rows replicate row 0), the source of the put."""
+    from sparkdl_tpu_torch.core import runtime
+
+    r = runtime.BatchRunner(lambda b: b, 4, device="cuda")
+    a = np.arange(6, dtype=np.uint8).reshape(3, 2)
+    staged, n, copied = r._stage({"a": a, "b": np.ones(3, np.float32)})
+    assert n == 3 and copied == 4 * 2 + 4 * 4
+    assert all(t.is_pinned() for t in staged.values())
+    np.testing.assert_array_equal(staged["a"].numpy(),
+                                  np.concatenate([a, a[:1]]))
+    full, n, copied = r._stage(np.ones((4, 2), np.float32))
+    assert full.is_pinned() and n == 4 and copied == full.nbytes
+    with pytest.raises(ValueError, match="exceeds"):
+        r._stage(np.zeros((5, 2), np.float32))
+
+
+def test_image_prologue_on_card_matches_cpu(dev):
+    import sparkdl_tpu_torch as tdl
+
+    t = tdl.XlaImageTransformer(fn=lambda b: b, inputSize=(29, 29),
+                                device="cuda")
+    t._set(inputCol="image", outputCol="o")
+    pro = t._make_preprocess()
+    rng = np.random.default_rng(8)
+    for e in (40, 17, 29):  # down, up, the same size
+        x = torch.from_numpy(rng.integers(0, 256, (2, e, e, 3),
+                                          dtype=np.uint8)).float()
+        cpu, card = pro(x), pro(x.to(dev)).cpu()
+        assert card.shape == (2, 29, 29, 3)
+        if e == 29:
+            assert torch.equal(card, x.flip(-1))
+        np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0,
+                                   atol=1e-2)
+
+
+def test_featurizer_runner_and_logistic_regression_on_card(dev):
+    """The card's device step of config 1 without a DataFrame: the
+    featurizer's own runner over uint8 BGR batches, then
+    ``LogisticRegression._fit_arrays`` on the card, against the CPU."""
+    from sparkdl_tpu_torch.estimators import LogisticRegression
+    from sparkdl_tpu_torch.transformers import DeepImageFeaturizer
+
+    rng = np.random.default_rng(9)
+    y = np.arange(16) % 2
+    wire = (rng.integers(0, 192, (16, 40, 40, 3), dtype=np.uint8)
+            + (64 * y).astype(np.uint8)[:, None, None, None])
+    feats = {}
+    for d in ("cpu", "cuda"):
+        f = DeepImageFeaturizer(modelName="ResNet18", batchSize=8, seed=2,
+                                device=d)
+        feats[d] = np.concatenate(list(f._get_runner().run([wire[:8],
+                                                             wire[8:]])))
+    ref = feats["cpu"]
+    np.testing.assert_allclose(feats["cuda"], ref, rtol=1e-3,
+                               atol=1e-4 * max(1.0, np.abs(ref).max()))
+    kw = dict(maxIter=50, stepSize=0.1)
+    card = LogisticRegression(**kw)._fit_arrays(feats["cuda"], y)
+    cpu = LogisticRegression(device="cpu", **kw)._fit_arrays(feats["cuda"], y)
+    np.testing.assert_allclose(card.weights, cpu.weights, rtol=0,
+                               atol=1e-3 * np.abs(cpu.weights).max() + 1e-4)
+    assert (card.predict_arrays(feats["cuda"])[0] == y).mean() > 0.9

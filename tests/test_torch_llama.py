@@ -374,7 +374,24 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "sparkdl_tpu_torch/models/pretrained.py",
             "sparkdl_tpu_torch/core/frame.py",
             "sparkdl_tpu_torch/udf/registry.py",
-            "sparkdl_tpu_torch/runner/data.py"} <= names
+            "sparkdl_tpu_torch/runner/data.py",
+            "sparkdl_tpu_torch/runner/failures.py",
+            "sparkdl_tpu_torch/core/params.py",
+            "sparkdl_tpu_torch/core/pipeline.py",
+            "sparkdl_tpu_torch/core/ingest.py",
+            "sparkdl_tpu_torch/native.py",
+            "sparkdl_tpu_torch/image/imageIO.py",
+            "sparkdl_tpu_torch/models/image_layers.py",
+            "sparkdl_tpu_torch/models/resnet.py",
+            "sparkdl_tpu_torch/models/inception.py",
+            "sparkdl_tpu_torch/models/vgg.py",
+            "sparkdl_tpu_torch/models/xception.py",
+            "sparkdl_tpu_torch/models/registry.py",
+            "sparkdl_tpu_torch/transformers/payloads.py",
+            "sparkdl_tpu_torch/transformers/streaming.py",
+            "sparkdl_tpu_torch/transformers/xla_image.py",
+            "sparkdl_tpu_torch/transformers/named_image.py",
+            "sparkdl_tpu_torch/estimators/logistic_regression.py"} <= names
     bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
            if _forbidden(n)]
     assert bad == []
@@ -395,7 +412,13 @@ def test_importing_the_port_loads_no_jax():
         if "_build" not in f.parts)
     assert {"sparkdl_tpu_torch.serving.backend",
             "sparkdl_tpu_torch.models.bert", "sparkdl_tpu_torch.core.frame",
-            "sparkdl_tpu_torch.udf.registry"} <= set(mods)
+            "sparkdl_tpu_torch.udf.registry",
+            "sparkdl_tpu_torch.runner.failures",
+            "sparkdl_tpu_torch.core.pipeline",
+            "sparkdl_tpu_torch.image.imageIO",
+            "sparkdl_tpu_torch.models.registry",
+            "sparkdl_tpu_torch.transformers.named_image",
+            "sparkdl_tpu_torch.estimators.logistic_regression"} <= set(mods)
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"from sparkdl_tpu_torch import GenerationEngine\n"
@@ -415,6 +438,16 @@ def test_importing_the_port_loads_no_jax():
             f"c = B.BertForSequenceClassification(B.BertConfig.tiny(), "
             f"attn_fn=fa.flash_attention, device='cpu')\n"
             f"assert len(classify_rows(c, [[1, 2], [3]], 2)) == 2\n"
+            f"import numpy as np, sparkdl_tpu_torch as tdl\n"
+            f"from sparkdl_tpu_torch.image import imageIO\n"
+            f"import pyarrow as pa\n"
+            f"df = tdl.DataFrame.fromArrow(pa.table({{'image': pa.array("
+            f"[imageIO.imageArrayToStruct(np.full((8, 8, 3), i, np.uint8)) "
+            f"for i in range(3)], type=imageIO.imageSchema)}}))\n"
+            f"f = tdl.DeepImageFeaturizer(inputCol='image', "
+            f"outputCol='f', modelName='ResNet18', batchSize=2, "
+            f"device='cpu')\n"
+            f"assert len(f.transform(df).collect()) == 3\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"('jax', 'jaxlib', 'flax', 'sparkdl_tpu')]\n"
             f"print(len({mods!r}), bad)")
@@ -426,8 +459,10 @@ def test_importing_the_port_loads_no_jax():
 
 def test_port_imports_without_pyarrow():
     """With pyarrow and pandas blocked, the package, BERT, the runner, the
-    kernels' wrappers and the UDF registry import, and a BERT fit and
-    ``classify_rows`` run on the CPU: the card path needs no DataFrame.
+    kernels' wrappers, the UDF registry, the image featurizer and the
+    logistic regression import, and a BERT fit, ``classify_rows``, a CPU
+    featurizer runner over uint8 BGR batches and ``_fit_arrays`` run on
+    the CPU: the card path needs no DataFrame.
     ``sparkdl_tpu_torch.DataFrame`` is what raises."""
     code = (
         "import sys\n"
@@ -448,6 +483,20 @@ def test_port_imports_without_pyarrow():
         "loss_fn=B.bert_finetune_loss(m), model=m, tx=adam(1e-3), "
         "data=[batch] * 2, num_steps=2, with_rng=True))\n"
         "assert len(udf.classify_rows(m, [[1, 2, 3], [4]], 3)) == 2\n"
+        "from sparkdl_tpu_torch.transformers import named_image\n"
+        "from sparkdl_tpu_torch.estimators import logistic_regression\n"
+        "f = named_image.DeepImageFeaturizer(modelName='ResNet18', "
+        "batchSize=4, device='cpu')\n"
+        "wire = np.random.RandomState(0).randint(0, 256, (6, 40, 40, 3))"
+        ".astype(np.uint8)\n"
+        "feats = np.concatenate(list(f._get_runner().run([wire[:4], "
+        "wire[4:]])))\n"
+        "assert feats.shape == (6, 512)\n"
+        "lr = logistic_regression.LogisticRegression(maxIter=5, "
+        "device='cpu')\n"
+        "pred, _ = lr._fit_arrays(feats, np.arange(6) % 2)"
+        ".predict_arrays(feats)\n"
+        "assert pred.shape == (6,)\n"
         "try:\n"
         "    sparkdl_tpu_torch.DataFrame\n"
         "except ImportError:\n"
