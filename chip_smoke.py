@@ -196,6 +196,44 @@ j. image scoring — BASELINE configurations 1 and 2 on the card, with no
      prologue's resize on the card against the CPU's, up and down
      (``RESIZE_ATOL``), the same-size skip bit-exact.
 
+k. ResNet-50 training — BASELINE configuration 3 at ``np=1``:
+   ``get_model("ResNet50")`` at full width and depth, 224², 1000 classes,
+   seeded random weights on the card, through ``XlaRunner(np=1).run(
+   lambda ctx: ctx.fit(bn_classifier_loss(preprocess=...), sgd(0.1,
+   momentum=0.9), mutable=True, log_every=1, flops_per_step=...))`` over
+   uint8 NHWC wire batches of 256 (config 3's per-card batch) made from a
+   numpy seed, whose label (10 of the 1000 classes) sets their mean
+   brightness. Convolutions on cuDNN, the head on cuBLAS, BatchNorm in
+   train mode on PyTorch's native kernel (no Pallas kernel on this path,
+   so no ``kernels`` entry; the launch counters must read 0):
+   - ``resnet_train``: f32 parameters computed in bf16, 3 warm-up steps
+     then 20 timed ones (from a step's loss call to the next's, each
+     step ending in the loss's read): img/s (BASELINE's metric), step ms
+     (median, p10/p90, min/max), MFU against 989 TFLOP/s with forward +
+     backward = 3 × ``image_flops`` a row, peak memory; the losses finite
+     and the last five's mean below the first five's; every BatchNorm
+     statistic moved. Four such arms, inline and with
+     ``feed_lookahead=2`` (each batch pinned and copied on a side stream
+     ahead of its step) in turn, ``arm`` and ``feed_lookahead`` in each
+     line. Then a ``profile`` line of 3 bf16 steps (busy, idle share,
+     launches a step, top kernels). Then the same at f32 compute, TF32
+     off (the flag in the line), 4 steps;
+   - ``resnet_train_parity`` (f32, TF32 off): ResNet18 at 10 classes,
+     32², batch 8 (``__graft_entry__.py``'s ResNet18 step); two mutable
+     steps on the card against the same steps on the CPU, each from the
+     card's state before it, parameters and statistics within
+     ``RESNET_PARITY_*_SHARE`` of the step's change; the first step again
+     with TF32 on, ``tf32_control``, which must fall outside both; one
+     step with ``remat=True`` must leave the statistics as
+     ``remat=False`` does (updated once);
+   - ``checkpoint``: ResNet-50 at 64 a batch, ``fit(checkpoint_every=2)``
+     for 4 steps, then a second fit with the same ``checkpoint_dir`` to 6
+     (resumed at 4); the restored model and momentum buffers bit-identical
+     to the saved ones; the newest step's file corrupted, and the restore
+     rolls back to step 4 (``run_stats`` records it); the bytes of a step
+     and the seconds of a waiting save, an asynchronous one (return and
+     landing) and a restore. The directory is a temporary one.
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
 entries add their BERT case and phase h's launches) and, last,
@@ -282,6 +320,28 @@ RESIZE_ATOL = 1e-2
 # phase j transfer: predictions of the card's fit equal the CPU fit's
 # wherever the CPU model's top-2 probability margin exceeds this
 TRANSFER_MARGIN = 1e-3
+# phase k: BASELINE configuration 3's per-card batch, ResNet-50 at 224,
+# 1000 classes, sgd(0.1, momentum=0.9); uint8 wire batches whose label
+# (one of RESNET_COLOURS classes) sets their mean brightness
+RESNET_BATCH, RESNET_SIZE, RESNET_LR = 256, 224, 0.1
+RESNET_WARMUP, RESNET_TIMED, RESNET_F32_STEPS = 3, 20, 4
+# the bf16 arm again with fit(feed_lookahead=) at this depth: the batch's
+# copy on a side stream, ahead of the step
+RESNET_LOOKAHEAD = 2
+RESNET_COLOURS, RESNET_DISTINCT = 10, 8
+# phase k parity (f32, TF32 off): ResNet18 at 10 classes, 32², batch 8
+# (the shape of __graft_entry__.py's ResNet18 step), each step on the card
+# and on the CPU from the same state. Parameters: the largest |card − CPU|
+# as a share of the largest change the step made; each statistic the
+# same against its own change. Set from the card's readings (parameters
+# 1.5e-5, the worst statistic 8.4e-6) with room, and far below what the
+# same step gives with TF32 on (0.29 and 5.6e-3, the line's
+# ``tf32_control``), so a convolution that ran in TF32, or a fault of that
+# size in BatchNorm, fails.
+RESNET_PARITY_PARAM_SHARE, RESNET_PARITY_STAT_SHARE = 1e-3, 1e-4
+RESNET_PARITY_BATCH = 8
+# phase k checkpoint: ResNet-50 at 64 a batch, saves every 2 steps
+CKPT_BATCH = 64
 
 
 def emit(obj) -> None:
@@ -2341,6 +2401,398 @@ def phase_images(torch) -> dict:
     return dict(arms=arms, profile=prof, transfer=transfer, parity=parity)
 
 
+def resnet_wire(n: int, rows: int, size: int, seed: int) -> list:
+    """``n`` uint8 NHWC wire batches of ``rows`` images with labels in
+    [0, RESNET_COLOURS): pixels drawn in [0, 156) plus 10 × the label, so
+    the classes differ in mean brightness (a rule a few steps can learn)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        y = rng.integers(0, RESNET_COLOURS, rows)
+        x = rng.integers(0, 156, (rows, size, size, 3), dtype=np.uint8)
+        x += (10 * y).astype(np.uint8)[:, None, None, None]
+        out.append({"image": x, "label": y})
+    return out
+
+
+def resnet_preprocess(spec):
+    """The registry model's preprocess (ImageNet mean and std) on the
+    wire's uint8 images, on the card."""
+    return lambda x: spec.preprocess(x.float())
+
+
+def pageable_copy_ms(torch, batch) -> float:
+    """Wall ms of the inline feed's copy of one wire batch (``.to`` from
+    pageable host memory, which returns once the copy is done), median
+    of 5."""
+    import numpy as np
+
+    t = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+        t.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(t))
+
+
+def resnet_fit(torch, spec, model, batches, steps: int,
+               lookahead: int = 0) -> tuple:
+    """``XlaRunner(np=1).run(ctx.fit(bn_classifier_loss, sgd,
+    mutable=True, log_every=1, feed_lookahead=lookahead))`` over
+    ``steps`` batches cycled from ``batches``: (result, step seconds, fit
+    seconds). A step's time runs from its loss call to the next step's
+    (the last to the end of the fit): with ``log_every=1`` a step ends in
+    a wait, so that is one step as the user sees it, device work, the
+    host's launches and whatever of the batch's copy is not hidden. (The
+    time between two draws is not: a lookahead draws ahead.)"""
+    from sparkdl_tpu_torch.runner import XlaRunner, bn_classifier_loss, sgd
+
+    flops = 3 * image_flops(torch, model, RESNET_SIZE, RESNET_SIZE) \
+        * len(batches[0]["label"])
+    stamps: list = []
+    loss_fn = bn_classifier_loss(preprocess=resnet_preprocess(spec))
+
+    def stamped(m, batch):
+        stamps.append(time.perf_counter())
+        return loss_fn(m, batch)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+        loss_fn=stamped, model=model, tx=sgd(RESNET_LR, momentum=0.9),
+        data=(batches[i % len(batches)] for i in range(steps)),
+        num_steps=steps, log_every=1, mutable=True, flops_per_step=flops,
+        feed_lookahead=lookahead))
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    stamps.append(end)
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    return res, step_s, end - t0, flops
+
+
+def step_line(step_s: list, warmup: int) -> dict:
+    """Median and spread of the steps after ``warmup``."""
+    import numpy as np
+
+    t = np.asarray(step_s[warmup:]) * 1e3
+    return dict(timed_steps=len(t), step_ms_median=float(np.median(t)),
+                step_ms_min=float(t.min()), step_ms_max=float(t.max()),
+                step_ms_p10=float(np.percentile(t, 10)),
+                step_ms_p90=float(np.percentile(t, 90)))
+
+
+def resnet_train(torch, kernels) -> list:
+    """Phase k, ``resnet_train``: ResNet-50 at full width and depth, f32
+    parameters computed in bf16, RESNET_WARMUP + RESNET_TIMED steps
+    through the runner, four times, inline and with
+    ``feed_lookahead=RESNET_LOOKAHEAD`` in turn (the comparison within one
+    call, neither always first); then a ``profile`` line of 3 bf16 steps
+    (after the timed arms, so no timed step runs in a process that has
+    been profiled); then an f32 arm with TF32 off."""
+    import gc
+
+    import numpy as np
+
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.runner import bn_classifier_loss
+    from sparkdl_tpu_torch.runner.train_state import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = get_model("ResNet50")
+    wire = resnet_wire(RESNET_DISTINCT, RESNET_BATCH, RESNET_SIZE, seed=40)
+    steps = RESNET_WARMUP + RESNET_TIMED
+    arms = [("bfloat16", steps, ahead)
+            for ahead in (0, RESNET_LOOKAHEAD, 0, RESNET_LOOKAHEAD)]
+    out = []
+    for arm, (dtype, n, ahead) in enumerate(
+            arms + [("float32", RESNET_F32_STEPS, 0)]):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = spec.build(dtype=getattr(torch, dtype), num_classes=1000,
+                           seed=0, device="cuda")
+        stats0 = {k: b.clone() for k, b in model.named_buffers()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        res, step_s, fit_s, flops = resnet_fit(torch, spec, model, wire, n,
+                                               ahead)
+        launches = read_counts(*kernels)
+        losses = [h["loss"] for h in res["history"]]
+        assert len(losses) == n and all(math.isfinite(x) for x in losses), \
+            losses
+        moved = sum(not torch.equal(b, stats0[k])
+                    for k, b in model.named_buffers())
+        assert moved == len(stats0), f"{moved} of {len(stats0)} statistics"
+        warm = RESNET_WARMUP if dtype == "bfloat16" else 1
+        line = step_line(step_s, warm)
+        ms = line["step_ms_median"]
+        rec = dict(
+            phase="resnet_train", arm=arm, config="BASELINE config 3, np=1",
+            model="ResNet50", compute_dtype=dtype, param_dtype="float32",
+            tf32=False, image_size=RESNET_SIZE, classes=1000,
+            batch=RESNET_BATCH, feed_lookahead=ahead, steps=n,
+            warmup_steps=warm,
+            optimizer=f"sgd({RESNET_LR}, momentum=0.9)", **line,
+            images_per_s=RESNET_BATCH / ms * 1e3,
+            flops_per_image_fwd=flops / 3 / RESNET_BATCH,
+            flops_per_step=flops,
+            mfu=flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
+            mfu_peak="989 TFLOP/s (dense bf16)",
+            meter_mfu=res["meter"].summary()["mfu"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            losses=losses, statistics_moved=moved, fit_s=fit_s,
+            launches=launches, nvidia_smi=smi())
+        if ahead:
+            rec["inline_copy_ms"] = pageable_copy_ms(torch, wire[0])
+        emit(rec)
+        assert not any(launches.values()), launches  # no Pallas kernel here
+        if dtype == "bfloat16":
+            assert np.mean(losses[-5:]) < np.mean(losses[:5]), \
+                f"the loss did not fall: {losses}"
+        if arm == len(arms) - 1:
+            step_fn = make_train_step(
+                bn_classifier_loss(preprocess=resnet_preprocess(spec)),
+                mutable=True)
+            st = res["state"]
+            batch = {k: torch.as_tensor(v).cuda() for k, v in
+                     wire[0].items()}
+            prof = device_profile(
+                torch, lambda: step_fn(st, batch), 3,
+                "3 ResNet-50 train steps, bf16, 256 a batch")
+            prof["images_per_s_busy"] = (
+                RESNET_BATCH / prof["device_busy_ms_per_step"] * 1e3
+                if isinstance(prof["device_busy_ms_per_step"], float)
+                else "not measured")
+            emit(prof)
+            out.append(prof)
+        out.append(rec)
+        del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_shares(got: dict, want: dict, before: dict) -> tuple:
+    """(parameters, statistics). Parameters: the largest |got − want| as
+    a share of the largest |want − before|. Statistics: the same share
+    taken for each statistic against its own change, the largest of
+    them (their scales differ by orders of magnitude between layers, and
+    one share over all would let the largest hide the rest)."""
+    def share(keys):
+        return (max((got[k] - want[k]).abs().max().item() for k in keys)
+                / max((want[k] - before[k]).abs().max().item()
+                      for k in keys))
+
+    params = share([k for k in want if "running" not in k])
+    stats = max(share([k]) for k in want if "running" in k)
+    return params, stats
+
+
+def _parity_steps(torch, spec, loss_fn, wire, tf32: bool) -> list:
+    """Mutable SGD steps of ResNet18 (10 classes) over ``wire``, each on
+    the card and on the CPU from the card's state before it, with the
+    card's TF32 switches set to ``tf32``: each step's shares
+    (:func:`_update_shares`)."""
+    import copy
+
+    from sparkdl_tpu_torch.runner import TrainState, sgd
+    from sparkdl_tpu_torch.runner.train_state import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = spec.build(num_classes=10, seed=0)
+    card = copy.deepcopy(cpu).to("cuda")
+    s_card = TrainState.create(card, sgd(0.01, momentum=0.9))
+    s_cpu = TrainState.create(cpu, sgd(0.01, momentum=0.9))
+    step = make_train_step(loss_fn, mutable=True)
+    steps = []
+    for i, b in enumerate(wire):
+        before = {k: v.detach().cpu().clone()
+                  for k, v in card.state_dict().items()}
+        cpu.load_state_dict(before)
+        s_cpu.optimizer.load_state_dict(s_card.optimizer.state_dict())
+        s_cpu.step = s_card.step
+        step(s_card, {k: torch.as_tensor(v).cuda() for k, v in b.items()})
+        step(s_cpu, {k: torch.as_tensor(v) for k, v in b.items()})
+        got = {k: v.detach().cpu() for k, v in card.state_dict().items()}
+        p, st = _update_shares(got, cpu.state_dict(), before)
+        steps.append(dict(step=i + 1, param_share=p, stat_share=st))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return steps
+
+
+def resnet_train_parity(torch) -> dict:
+    """Phase k, ``resnet_train_parity`` (f32, TF32 off): two mutable SGD
+    steps of ResNet18 (10 classes, 32², batch RESNET_PARITY_BATCH) on the
+    card against the same steps on the CPU, each from the card's state
+    before it; the first step again with TF32 on (the control, which
+    must fall outside both limits: the check can see a convolution that
+    ran in TF32); then one step with
+    ``remat=True`` against ``remat=False`` from the same weights, whose
+    statistics must agree (updated once)."""
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.runner import TrainState, bn_classifier_loss, sgd
+    from sparkdl_tpu_torch.runner.train_state import make_train_step
+
+    spec = get_model("ResNet18")
+    wire = resnet_wire(2, RESNET_PARITY_BATCH, 32, seed=41)
+    loss_fn = bn_classifier_loss(preprocess=resnet_preprocess(spec))
+    steps = _parity_steps(torch, spec, loss_fn, wire, tf32=False)
+    control = _parity_steps(torch, spec, loss_fn, wire[:1], tf32=True)[0]
+    remat = []
+    for flag in (False, True):
+        m = spec.build(num_classes=10, seed=0, device="cuda")
+        make_train_step(loss_fn, mutable=True, remat=flag)(
+            TrainState.create(m, sgd(0.01, momentum=0.9)),
+            {k: torch.as_tensor(v).cuda() for k, v in wire[0].items()})
+        remat.append({k: b.detach().cpu() for k, b in m.named_buffers()})
+    remat_err = max((remat[0][k] - remat[1][k]).abs().max().item()
+                    for k in remat[0])
+    stat_scale = max(v.abs().max().item() for v in remat[0].values())
+    rec = dict(phase="resnet_train_parity", model="ResNet18", classes=10,
+               image_size=32, batch=RESNET_PARITY_BATCH, dtype="float32",
+               tf32=False, optimizer="sgd(0.01, momentum=0.9)",
+               steps=steps, param_share_tol=RESNET_PARITY_PARAM_SHARE,
+               stat_share_tol=RESNET_PARITY_STAT_SHARE,
+               tf32_control=dict(
+                   control, param_over_tol=control["param_share"]
+                   > RESNET_PARITY_PARAM_SHARE,
+                   stat_over_tol=control["stat_share"]
+                   > RESNET_PARITY_STAT_SHARE),
+               remat_stats_max_abs_diff=remat_err,
+               remat_stats_bitwise_equal=remat_err == 0.0,
+               nvidia_smi=smi())
+    emit(rec)
+    for s_ in steps:
+        assert s_["param_share"] <= RESNET_PARITY_PARAM_SHARE, rec
+        assert s_["stat_share"] <= RESNET_PARITY_STAT_SHARE, rec
+    assert rec["tf32_control"]["param_over_tol"], rec
+    assert rec["tf32_control"]["stat_over_tol"], rec
+    # a second update would move each statistic by (1 − m)·batch again
+    assert remat_err <= 1e-6 * max(1.0, stat_scale), rec
+    return rec
+
+
+def checkpoint_phase(torch) -> dict:
+    """Phase k, ``checkpoint``: ResNet-50 (bf16 compute) on the card,
+    ``fit(checkpoint_every=2)`` for 4 steps, then a second fit with the
+    same directory to 6 steps (it must resume at 4); the restored model
+    and optimizer bit-identical to what was saved; then the newest step's
+    file corrupted, and the restore must roll back to the verified step.
+    Save and restore seconds and bytes."""
+    import gc
+    import os
+    import tempfile
+
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.runner import (CheckpointManager, TrainState,
+                                          XlaRunner, bn_classifier_loss,
+                                          events, metrics, sgd)
+    from sparkdl_tpu_torch.runner.checkpoint import corrupt_latest_checkpoint
+
+    spec = get_model("ResNet50")
+    wire = resnet_wire(6, CKPT_BATCH, RESNET_SIZE, seed=42)
+
+    def fit(model, d, steps):
+        return XlaRunner(np=1, checkpoint_dir=d).run(lambda ctx: ctx.fit(
+            loss_fn=bn_classifier_loss(preprocess=resnet_preprocess(spec)),
+            model=model, tx=sgd(RESNET_LR, momentum=0.9), data=list(wire),
+            num_steps=steps, log_every=1, mutable=True,
+            checkpoint_every=2))
+
+    def build():
+        return spec.build(dtype=torch.bfloat16, num_classes=1000, seed=0,
+                          device="cuda")
+
+    metrics.run_stats.reset()
+    rec_ring = events.get_recorder()
+    with tempfile.TemporaryDirectory(prefix="sparkdl_ckpt_") as d:
+        rec_ring.ring.clear()
+        r1 = fit(build(), d, 4)
+        saves = [e for e in rec_ring.ring
+                 if e["name"] == "checkpoint_save" and e.get("ph") == "E"]
+        saved = {k: v.detach().cpu().clone()
+                 for k, v in r1["state"].model.state_dict().items()}
+        saved_opt = [r1["state"].optimizer.state[p]["momentum_buffer"]
+                     .cpu().clone() for p in r1["state"].trainable()]
+        m = CheckpointManager(d)
+        nbytes = sum(os.path.getsize(os.path.join(d, "4", f))
+                     for f in os.listdir(os.path.join(d, "4")))
+        # timed saves of the same state, beside the run's: waiting, and
+        # asynchronous (returns once the tensors are on the host)
+        timing = CheckpointManager(os.path.join(d, "timing"))
+        t0 = time.perf_counter()
+        timing.save(4, r1["state"], wait=True)
+        save_wait_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        timing.save(5, r1["state"])
+        save_async_return_s = time.perf_counter() - t0
+        timing.wait()
+        save_async_landed_s = time.perf_counter() - t0
+        timing.close()
+        fresh = TrainState.create(build(), sgd(RESNET_LR, momentum=0.9))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert fresh.step == 4, fresh.step
+        got = fresh.model.state_dict()
+        assert all(torch.equal(got[k].cpu(), v) for k, v in saved.items())
+        got_opt = [fresh.optimizer.state[p]["momentum_buffer"].cpu()
+                   for p in fresh.trainable()]
+        assert all(torch.equal(a, b) for a, b in zip(got_opt, saved_opt))
+        del fresh, r1
+        r2 = fit(build(), d, 6)
+        resumed = [e for e in rec_ring.ring if e["name"] == "train_resume"]
+        assert resumed and resumed[-1]["step"] == 4, resumed
+        assert r2["state"].step == 6 and r2["meter"].steps == 2
+        assert m.latest_step() == 6
+        damaged = corrupt_latest_checkpoint(d)
+        assert damaged and not m.verify_step(6)[0]
+        back = TrainState.create(build(), sgd(RESNET_LR, momentum=0.9))
+        m.restore(back)
+        assert back.step == 4, back.step
+        assert metrics.run_stats.checkpoint_rollbacks == 1
+        rolled = metrics.run_stats.last_rollback
+        m.close()
+        del r2, back
+    rec = dict(phase="checkpoint", model="ResNet50", batch=CKPT_BATCH,
+               checkpoint_every=2, first_fit_steps=4, resumed_at=4,
+               second_fit_steps_run=2, bytes_per_step=nbytes,
+               fit_save_s=[e.get("dur_s") for e in saves],
+               save_wait_s=save_wait_s,
+               save_async_return_s=save_async_return_s,
+               save_async_landed_s=save_async_landed_s,
+               restore_s=restore_s,
+               save_mb_per_s=nbytes / save_wait_s / 1e6,
+               restore_bit_identical=True, rollback=rolled,
+               nvidia_smi=smi())
+    emit(rec)
+    metrics.run_stats.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_resnet(torch, kernels) -> dict:
+    """Phase k: ResNet-50 training (module docstring)."""
+    tf32_was = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    try:
+        train = resnet_train(torch, kernels)
+        parity = resnet_train_parity(torch)
+        ckpt = checkpoint_phase(torch)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32_was
+    return dict(train=train, parity=parity, checkpoint=ckpt)
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -2383,6 +2835,7 @@ def main() -> int:
     del bert
     torch.cuda.empty_cache()
     phase_images(torch)
+    phase_resnet(torch, (fa, fd, pfd))
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3

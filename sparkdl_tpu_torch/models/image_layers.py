@@ -14,7 +14,9 @@ computes what the flax model computes:
 - :class:`BatchNorm` runs inference normalisation in f32 on f32 statistics
   and casts its output to the input's dtype, as flax's ``BatchNorm`` does
   under ``dtype=bfloat16`` (``F.batch_norm`` with f32 parameters on a bf16
-  input). It is never folded into the convolution.
+  input). It is never folded into the convolution. In train mode it
+  normalises with the batch's statistics and returns the new running
+  statistics beside its output (:func:`batch_norm` files them by name).
 - :func:`max_pool` pads ``"SAME"`` with −inf by the same rule;
   :func:`avg_pool_same` leaves the padding out of the count
   (``count_include_pad=False``).
@@ -91,20 +93,63 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True)``: f32 normalisation
-    from f32 statistics, output in the input's dtype."""
+    """flax ``nn.BatchNorm``, in both of its modes.
 
-    def __init__(self, features: int, eps: float):
+    ``forward(x)`` is ``use_running_average=True``: f32 normalisation from
+    the f32 running statistics, output in the input's dtype.
+
+    ``forward(x, train=True)`` is ``use_running_average=False``: it
+    normalises with the batch's mean and biased variance over (N, H, W),
+    computed in f32 whatever the input's dtype, output in the input's
+    dtype, and gradients flow through the batch statistics. It returns
+    ``(y, (new_mean, new_var))``, the new running statistics as values,
+    ``momentum·old + (1 − momentum)·batch`` with the biased variance
+    (flax's ``momentum``; PyTorch's ``momentum`` is its complement). It
+    writes no buffer: the train step copies the values in once, after the
+    optimizer step, so a forward that ``torch.utils.checkpoint`` runs
+    again in the backward does not update them twice.
+
+    The batch statistics come from ``aten._native_batch_norm_legit``
+    (``save_mean`` and ``save_invstd``, no second pass over the
+    activations); the variance is ``invstd^-2 − eps``, taken in f64.
+    flax computes it as E[x²] − E[x]², so the two agree to f32 rounding,
+    not bit for bit."""
+
+    def __init__(self, features: int, eps: float, momentum: float = 0.9):
         super().__init__()
         self.eps = float(eps)
+        self.momentum = float(momentum)
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y, mean, invstd = torch.ops.aten._native_batch_norm_legit.no_stats(
+            x, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            var = invstd.double().pow(-2).sub_(self.eps).clamp_(min=0)
+            new_mean = self.running_mean * m \
+                + mean.to(self.running_mean.dtype) * (1 - m)
+            new_var = self.running_var * m \
+                + var.to(self.running_var.dtype) * (1 - m)
+        return y, (new_mean, new_var)
+
+
+def batch_norm(layer: BatchNorm, name: str, x, stats: dict | None):
+    """``layer(x)``; in train mode (``stats`` a dict) also files its new
+    running statistics in ``stats`` under the buffers' names relative to
+    the caller, ``<name>.running_mean`` and ``<name>.running_var``."""
+    if stats is None:
+        return layer(x)
+    y, (mean, var) = layer(x, train=True)
+    stats[f"{name}.running_mean"] = mean
+    stats[f"{name}.running_var"] = var
+    return y
 
 
 class Dense(nn.Module):

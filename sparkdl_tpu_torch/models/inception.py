@@ -31,7 +31,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = Conv(in_features, filters, kernel, strides, padding,
                          use_bias=False)
-        self.bn = BatchNorm(filters, 1e-3)
+        self.bn = BatchNorm(filters, 1e-3, momentum=0.9997)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)), inplace=True)

@@ -18,8 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .image_layers import (BatchNorm, Conv, Dense, global_mean_f32,
-                           init_flax_defaults, max_pool, nhwc_to_model)
+from .image_layers import (BatchNorm, Conv, Dense, batch_norm,
+                           global_mean_f32, init_flax_defaults, max_pool,
+                           nhwc_to_model)
 
 _EPS = 1e-5
 
@@ -50,12 +51,19 @@ class BottleneckBlock(nn.Module):
                                   use_bias=False)
             self.proj_bn = BatchNorm(out, _EPS)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)), inplace=True)
-        y = F.relu(self.bn2(self.conv2(y)), inplace=True)
-        y = self.bn3(self.conv3(y))
-        residual = self.proj_bn(self.proj_conv(x)) if self.has_proj else x
-        return F.relu(y + residual, inplace=True)
+    def forward(self, x, train: bool = False):
+        """``train=True`` returns ``(y, new BatchNorm statistics)``, keyed
+        by buffer name (``bn1.running_mean``, ...)."""
+        st = {} if train else None
+        y = F.relu(batch_norm(self.bn1, "bn1", self.conv1(x), st),
+                   inplace=True)
+        y = F.relu(batch_norm(self.bn2, "bn2", self.conv2(y), st),
+                   inplace=True)
+        y = batch_norm(self.bn3, "bn3", self.conv3(y), st)
+        residual = batch_norm(self.proj_bn, "proj_bn", self.proj_conv(x),
+                              st) if self.has_proj else x
+        y = F.relu(y + residual, inplace=True)
+        return (y, st) if train else y
 
 
 class BasicBlock(nn.Module):
@@ -74,17 +82,31 @@ class BasicBlock(nn.Module):
                                   use_bias=False)
             self.proj_bn = BatchNorm(filters, _EPS)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)), inplace=True)
-        y = self.bn2(self.conv2(y))
-        residual = self.proj_bn(self.proj_conv(x)) if self.has_proj else x
-        return F.relu(y + residual, inplace=True)
+    def forward(self, x, train: bool = False):
+        """``train=True`` returns ``(y, new BatchNorm statistics)``, keyed
+        by buffer name."""
+        st = {} if train else None
+        y = F.relu(batch_norm(self.bn1, "bn1", self.conv1(x), st),
+                   inplace=True)
+        y = batch_norm(self.bn2, "bn2", self.conv2(y), st)
+        residual = batch_norm(self.proj_bn, "proj_bn", self.proj_conv(x),
+                              st) if self.has_proj else x
+        y = F.relu(y + residual, inplace=True)
+        return (y, st) if train else y
 
 
 class ResNet(nn.Module):
     """ResNet v1. ``forward(x, features_only=True)`` yields the pooled
     bottleneck features — the featurizer output of DeepImageFeaturizer.
-    ``x`` is NHWC; weights are drawn from ``seed`` (flax defaults)."""
+    ``x`` is NHWC; weights are drawn from ``seed`` (flax defaults).
+
+    ``forward(x, train=True)`` runs every BatchNorm in train mode (batch
+    statistics, momentum 0.9) and returns ``(logits or features,
+    new_stats)``: the new running statistics keyed by the model's buffer
+    names (``stem_bn.running_mean``, ``stage2_block1.bn2.running_var``,
+    ...), the counterpart of ``model.apply(..., train=True,
+    mutable=["batch_stats"])``. No buffer changes inside the forward;
+    ``train_state.make_train_step(mutable=True)`` copies them in."""
 
     def __init__(self, stage_sizes: Sequence[int], block,
                  num_classes: int = 1000, width: int = 64,
@@ -110,16 +132,21 @@ class ResNet(nn.Module):
         self.head = Dense(ch, num_classes, dtype=torch.float32)
         init_flax_defaults(self, seed)
 
-    def forward(self, x, features_only: bool = False):
+    def forward(self, x, train: bool = False, features_only: bool = False):
+        stats = {} if train else None
         x = nhwc_to_model(x, self.dtype)
-        x = F.relu(self.stem_bn(self.stem_conv(x)), inplace=True)
+        x = F.relu(batch_norm(self.stem_bn, "stem_bn", self.stem_conv(x),
+                              stats), inplace=True)
         x = max_pool(x, 3, 2, padding=((1, 1), (1, 1)))
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train=train)
+            if train:
+                x, st = x
+                stats.update({f"{name}.{k}": v for k, v in st.items()})
         x = global_mean_f32(x)  # global average pool → (N, C), f32
-        if features_only:
-            return x
-        return self.head(x)
+        if not features_only:
+            x = self.head(x)
+        return (x, stats) if train else x
 
 
 ResNet18 = partial(ResNet, stage_sizes=[2, 2, 2, 2], block=BasicBlock)

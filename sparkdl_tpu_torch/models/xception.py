@@ -19,6 +19,7 @@ from .image_layers import (BatchNorm, Conv, Dense, global_mean_f32,
                            init_flax_defaults, max_pool, nhwc_to_model)
 
 _EPS = 1e-3
+_MOMENTUM = 0.99  # flax's: the share of the old statistics kept
 
 
 class SeparableConvBN(nn.Module):
@@ -27,7 +28,7 @@ class SeparableConvBN(nn.Module):
         self.depthwise = Conv(in_features, in_features, 3, use_bias=False,
                               groups=in_features)
         self.pointwise = Conv(in_features, filters, 1, use_bias=False)
-        self.bn = BatchNorm(filters, _EPS)
+        self.bn = BatchNorm(filters, _EPS, momentum=_MOMENTUM)
 
     def forward(self, x):
         return self.bn(self.pointwise(self.depthwise(x)))
@@ -47,7 +48,7 @@ class XceptionBlock(nn.Module):
         if self.has_proj:
             self.proj_conv = Conv(in_features, filters, 1, strides,
                                   use_bias=False)
-            self.proj_bn = BatchNorm(filters, _EPS)
+            self.proj_bn = BatchNorm(filters, _EPS, momentum=_MOMENTUM)
 
     def forward(self, x):
         y = F.relu(x) if self.relu_first else x
@@ -69,9 +70,9 @@ class Xception(nn.Module):
         # Entry flow; VALID stem padding (the paper's and keras-
         # applications' convention).
         self.stem_conv1 = Conv(3, 32, 3, 2, "VALID", use_bias=False)
-        self.stem_bn1 = BatchNorm(32, _EPS)
+        self.stem_bn1 = BatchNorm(32, _EPS, momentum=_MOMENTUM)
         self.stem_conv2 = Conv(32, 64, 3, 1, "VALID", use_bias=False)
-        self.stem_bn2 = BatchNorm(64, _EPS)
+        self.stem_bn2 = BatchNorm(64, _EPS, momentum=_MOMENTUM)
         self.entry1 = XceptionBlock(64, 128, 2, relu_first=False)
         self.entry2 = XceptionBlock(128, 256, 2)
         self.entry3 = XceptionBlock(256, 728, 2)
@@ -82,7 +83,7 @@ class Xception(nn.Module):
                                 SeparableConvBN(728, 728))
         # Exit flow
         self.exit_proj_conv = Conv(728, 1024, 1, 2, use_bias=False)
-        self.exit_proj_bn = BatchNorm(1024, _EPS)
+        self.exit_proj_bn = BatchNorm(1024, _EPS, momentum=_MOMENTUM)
         self.exit_sep1 = SeparableConvBN(728, 728)
         self.exit_sep2 = SeparableConvBN(728, 1024)
         self.exit_sep3 = SeparableConvBN(1024, 1536)

@@ -1,12 +1,15 @@
-"""Deterministic fault injection at the serving engine's and the image
-scorer's sites.
+"""Deterministic fault injection at the serving engine's, the image
+scorer's and the train loop's sites.
 
 The port's copy of ``sparkdl_tpu/runner/chaos.py``, cut to what the
-serving engine and the image scorer reach: their six sites and the kinds
-that make sense there. The training and fleet sites (and their kinds:
-``nan``, ``poison``, ``sigkill``, ``decimate``, ``corrupt``,
-``replica_dead``) return with the slices that port their callers
-(ROADMAP.md). Every fired fault counts into ``runner.metrics.run_stats``.
+serving engine, the image scorer and the one-process train loop reach:
+their sites and the kinds that make sense there. The data-plane and fleet
+sites (and their kinds: ``nan``, ``poison``, ``sigkill``, ``decimate``,
+``corrupt``, ``replica_dead``), ``worker`` and the checkpoint sites
+return with the slices that port their callers (ROADMAP.md, Queue A 7
+and A 2); the checkpoint damage itself is
+``checkpoint.corrupt_latest_checkpoint``. Every fired fault counts into
+``runner.metrics.run_stats``.
 
 A seeded :class:`FaultPlan` injects faults at named **sites**; plans
 serialize to one env var (``SPARKDL_CHAOS``), so a serving process picks a
@@ -29,6 +32,8 @@ Sites (where the engine and the scorer consult the plan):
   routing)
 - ``serve_commit``     — a prefix-cache / radix commit at prefill end
   (commit failures must degrade, never kill the request)
+- ``step_start``       — the top of each step of ``RunnerContext.fit``
+  (exercises ``run_with_restarts`` and checkpoint resume)
 
 Kinds (what happens when a fault fires):
 
@@ -64,7 +69,7 @@ __all__ = ["Fault", "FaultPlan", "InjectedFault", "InjectedPreemption",
 CHAOS_ENV = "SPARKDL_CHAOS"
 
 SITES = ("decode", "dispatch", "serve_prefill", "serve_decode",
-         "serve_alloc", "serve_commit")
+         "serve_alloc", "serve_commit", "step_start")
 KINDS = ("preempt", "fatal", "hang", "cache_lost")
 
 

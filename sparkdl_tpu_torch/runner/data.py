@@ -7,10 +7,11 @@ the exactly-once design), cut to one process: :class:`CheckpointableDataset`,
 ``core.frame.DataFrame.iterBatches``, with :func:`record_batch_to_numpy`),
 :func:`as_dataset` and :func:`env_skip_list`. A dataset yields
 ``(cursor_after, batch)`` pairs from :meth:`CheckpointableDataset.indexed`;
-``fit`` streams them. What the cursor is for — saving it with a checkpoint
-and resuming there — comes with ``runner/checkpoint.py``; the per-rank row
-sharding (``shard=``), the batch ledger and the ``data_fetch`` chaos site
-come with the multi-process launcher (ROADMAP.md, Queue A 3 and A 7).
+``fit`` streams them, saves the cursor of the last completed step with
+each checkpoint (``runner/checkpoint.py``) and, on resume, restores the
+dataset there. The per-rank row sharding (``shard=``) comes with data
+parallelism (ROADMAP.md, Queue A 3 (c)); the batch ledger and the
+``data_fetch`` chaos site with the multi-process launcher (Queue A 7).
 
 A **skip-list** (``SPARKDL_SKIP_BATCHES``, a JSON list of batch indices)
 names batches that are consumed but never yielded, nor examined.

@@ -18,11 +18,17 @@ runs it eagerly; nothing is compiled.
   model's device seeded from ``(rng_seed, step)`` (:func:`step_generator`,
   the counterpart of ``fold_in(PRNGKey(rng_seed), step)``): the same seed
   and step give the same dropout masks, so a replayed step repeats them.
-- :func:`adam` is ``optax.adam`` as an optimizer factory.
+- ``mutable=True`` (BatchNorm models):
+  ``loss_fn(model, batch) -> (loss, aux, new_model_state)``, the new
+  state a dict of buffer name → tensor (``ResNet.forward(train=True)``'s
+  second output); the step copies it into the model's buffers after the
+  optimizer step (:func:`bn_classifier_loss`).
+- :func:`adam` and :func:`sgd` are ``optax.adam`` and ``optax.sgd`` as
+  optimizer factories; :func:`softmax_cross_entropy_loss` is the
+  reference's classification loss.
 
-Not ported yet (ROADMAP.md, Queue A 3): ``mutable`` (BatchNorm statistics,
-for ResNet) raises ``NotImplementedError``. The explicit-collective twin
-``make_shard_map_step`` comes with data parallelism (Queue A 8).
+The explicit-collective twin ``make_shard_map_step`` comes with data
+parallelism (ROADMAP.md, Queue A 3 (c) and A 8).
 """
 
 from __future__ import annotations
@@ -34,8 +40,6 @@ import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A 3)"
 
 
 @dataclasses.dataclass
@@ -72,6 +76,22 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         return torch.optim.Adam(
             [p for p in model.parameters() if p.requires_grad],
             lr=learning_rate, betas=(b1, b2), eps=eps)
+
+    return make
+
+
+def sgd(learning_rate: float, momentum: float | None = None,
+        nesterov: bool = False):
+    """``optax.sgd`` as an optimizer factory: ``torch.optim.SGD`` with
+    ``dampening=0`` over every parameter that requires a gradient. The
+    same update: the trace ``t = g + momentum·t`` (``t`` starts at 0, so
+    the first step's trace is ``g``, as torch's first buffer), then ``p −=
+    lr·t``, or ``lr·(g + momentum·t)`` with ``nesterov``."""
+    def make(model: nn.Module) -> torch.optim.Optimizer:
+        return torch.optim.SGD(
+            [p for p in model.parameters() if p.requires_grad],
+            lr=learning_rate, momentum=momentum or 0.0, dampening=0.0,
+            nesterov=nesterov)
 
     return make
 
@@ -127,9 +147,21 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
     :func:`step_generator` of ``(rng_seed, state.step)`` on the model's
     device, and under ``accum_steps`` of ``(rng_seed, state.step, i)`` for
     microbatch i. The generator is made inside the (rematerialised)
-    forward, so a recomputation draws the same masks."""
-    if mutable:
-        raise NotImplementedError(f"mutable=True (BatchNorm) {_NOT_PORTED}")
+    forward, so a recomputation draws the same masks.
+
+    ``mutable=True`` calls ``loss_fn(model, batch) -> (loss, aux,
+    new_model_state)`` (the reference's mutable branch): the forward (under
+    ``remat`` too) runs once in the step, the new state is taken from its
+    primal outputs, and after the optimizer step it is copied into the
+    model's buffers of the same names under ``no_grad``, once. A forward
+    that ``checkpoint`` recomputes in the backward leaves no trace in the
+    buffers, because the model writes none itself
+    (``image_layers.BatchNorm``)."""
+    if accum_steps > 1 and mutable:
+        raise ValueError(
+            "accum_steps > 1 with mutable=True is not supported: BatchNorm "
+            "statistics would come from single microbatches, silently "
+            "changing the model's normalization semantics")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
@@ -142,16 +174,19 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
 
     def forward(model, batch, n_step, micro=None):
         if remat:
-            loss, aux = checkpoint(run, model, batch, n_step, micro,
-                                   use_reentrant=False)
+            loss, *rest = checkpoint(run, model, batch, n_step, micro,
+                                     use_reentrant=False)
         else:
-            loss, aux = run(model, batch, n_step, micro)
-        return loss.float(), aux
+            loss, *rest = run(model, batch, n_step, micro)
+        return (loss.float(), *rest)
 
     def step(state: TrainState, batch):
         params = state.trainable()
-        if accum_steps == 1:
-            loss, aux = forward(state.model, batch, state.step)
+        new_ms = None
+        if accum_steps == 1:  # always, when mutable
+            loss, aux, *rest = forward(state.model, batch, state.step)
+            if mutable:
+                new_ms = rest[0]
             grads = torch.autograd.grad(loss, params)
         else:
             gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
@@ -173,10 +208,27 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
         for p, g in zip(params, grads):
             p.grad = g
         state.apply_gradients()
+        if new_ms:
+            assign_buffers(state.model, new_ms)
         return state, {"loss": loss.detach(),
                        **{key: val.detach() for key, val in aux.items()}}
 
     return step
+
+
+@torch.no_grad()
+def assign_buffers(model: nn.Module, values: dict) -> None:
+    """Copy ``values`` (buffer name → tensor) into ``model``'s buffers of
+    those names, in one multi-tensor copy. A name the model does not hold
+    raises ``KeyError``."""
+    own = dict(model.named_buffers())
+    unknown = sorted(set(values) - set(own))
+    if unknown:
+        raise KeyError(f"new model state names buffers the model does not "
+                       f"hold: {unknown[:8]}")
+    names = list(values)
+    torch._foreach_copy_([own[k] for k in names],
+                         [values[k].detach() for k in names])
 
 
 def make_eval_step(eval_fn: Callable) -> Callable:
@@ -187,3 +239,56 @@ def make_eval_step(eval_fn: Callable) -> Callable:
             return eval_fn(state.model, batch)
 
     return step
+
+
+def bn_classifier_loss(model: nn.Module | None = None,
+                       preprocess: Callable | None = None,
+                       label_key: str = "label",
+                       input_key: str = "image") -> Callable:
+    """The classification loss of a BatchNorm model, for ``mutable=True``
+    steps: ``loss_fn(model, batch) -> (loss, {"accuracy"}, new_stats)``,
+    the model run with ``train=True`` on ``preprocess(batch[input_key])``,
+    mean softmax cross-entropy of its logits taken in f32. ``model`` is
+    the reference's argument; the loss runs the model the step hands it,
+    so it may be left out."""
+    del model
+
+    def loss_fn(m: nn.Module, batch):
+        x = batch[input_key]
+        if preprocess is not None:
+            x = preprocess(x)
+        logits, new_stats = m(x, train=True)
+        logits = logits.float()
+        labels = batch[label_key]
+        loss = torch.nn.functional.cross_entropy(logits, labels.long())
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, {"accuracy": acc}, new_stats
+
+    return loss_fn
+
+
+def softmax_cross_entropy_loss(num_classes: int | None = None,
+                               label_key: str = "label",
+                               input_key: str = "image") -> Callable:
+    """The reference's classification loss: ``loss_fn(model, batch) ->
+    (loss, {"accuracy"})``, the mean softmax cross-entropy of
+    ``model(batch[input_key])`` taken in f32 (bf16-friendly). Labels are
+    class indices, or one-hot (or soft) rows when they have the logits'
+    rank. ``num_classes`` is the reference's argument; the logits give
+    it."""
+    del num_classes
+
+    def loss_fn(model: nn.Module, batch):
+        logits = model(batch[input_key]).float()
+        labels = batch[label_key]
+        logp = torch.log_softmax(logits, dim=-1)
+        if labels.ndim == logits.ndim:  # one-hot
+            loss = -(labels.float() * logp).sum(-1).mean()
+            target = labels.argmax(-1)
+        else:
+            loss = -logp.gather(-1, labels.long()[:, None]).mean()
+            target = labels
+        acc = (logits.argmax(-1) == target).float().mean()
+        return loss, {"accuracy": acc}
+
+    return loss_fn

@@ -36,7 +36,8 @@ Built-in providers:
   driven, not hardcoded: :func:`models.registry.draft_for` names the
   draft config for a target family and
   :meth:`DraftModelProvider.from_registry` builds it (not in the port
-  yet: it needs ``models.registry``, ROADMAP Queue A 4).
+  yet: it needs the LLM half of ``models.registry`` — ``draft_for``,
+  ``llm_config`` — ROADMAP Queue A 2; the port has the image half).
 
 A provider may return FEWER than k tokens (or none): the engine pads
 the verify window and still always commits >= 1 token per iteration —
@@ -221,11 +222,14 @@ class DraftModelProvider:
     def from_registry(cls, target_name: str, *, variables=None, **kw
                       ) -> "DraftModelProvider":
         """Build the registry-paired draft model for ``target_name``.
-        Not ported yet: it needs ``models.registry`` (ROADMAP.md Queue
-        A 4); construct the provider from a model instead."""
+        Not ported yet: it needs the LLM half of ``models.registry``
+        (``draft_for``, ``llm_config``; ROADMAP.md Queue A 2), where the
+        port has only the image half; construct the provider from a model
+        instead."""
         raise NotImplementedError(
-            "DraftModelProvider.from_registry needs models.registry, which "
-            "the port does not have yet (ROADMAP.md Queue A 4); build "
+            "DraftModelProvider.from_registry needs the LLM half of "
+            "models.registry (draft_for, llm_config), which the port does "
+            "not have yet (ROADMAP.md Queue A 2); build "
             "DraftModelProvider(model) from a LlamaModel instead")
 
     def propose(self, history: Sequence[int], k: int) -> list[int]:

@@ -948,8 +948,8 @@ class GenerationEngine:
 
         Not ported yet, and refused rather than dropped: ``tp`` > 1 /
         ``mesh`` / ``SPARKDL_SERVE_TP`` (tensor-parallel serving, ROADMAP
-        Queue A 7) and ``weight_dtype`` / ``SPARKDL_SERVE_WEIGHT_DTYPE``
-        (int8 projection weights, ROADMAP Queue A 1) raise
+        Queue A 8) and ``weight_dtype`` / ``SPARKDL_SERVE_WEIGHT_DTYPE``
+        (int8 projection weights, ROADMAP Queue A 2) raise
         ``NotImplementedError``."""
         from ..models.llama import load_flax_params
         from ..utils.platform import resolve_device
@@ -972,7 +972,7 @@ class GenerationEngine:
         if mesh is not None or (tp is not None and int(tp) > 1):
             raise NotImplementedError(
                 f"tensor-parallel serving (tp={tp}, mesh={mesh!r}, "
-                f"{TP_ENV}) is not ported yet (ROADMAP.md Queue A 7); "
+                f"{TP_ENV}) is not ported yet (ROADMAP.md Queue A 8); "
                 "the port serves on one device")
         if weight_dtype is None:
             weight_dtype = os.environ.get(WEIGHT_DTYPE_ENV) or None
@@ -980,7 +980,7 @@ class GenerationEngine:
             raise NotImplementedError(
                 f"weight_dtype={weight_dtype!r} ({WEIGHT_DTYPE_ENV}: "
                 "QuantDense / quantize_params) is not ported yet "
-                "(ROADMAP.md Queue A 1)")
+                "(ROADMAP.md Queue A 2)")
         pbytes = None if prefix_cache_mb is None \
             else int(prefix_cache_mb * 2 ** 20)
         if kv_dtype is None:

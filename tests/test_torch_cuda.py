@@ -1262,3 +1262,133 @@ def test_featurizer_runner_and_logistic_regression_on_card(dev):
     np.testing.assert_allclose(card.weights, cpu.weights, rtol=0,
                                atol=1e-3 * np.abs(cpu.weights).max() + 1e-4)
     assert (card.predict_arrays(feats["cuda"])[0] == y).mean() > 0.9
+
+
+# --- ResNet training on the card ---------------------------------------------
+# BatchNorm in train mode, card against the CPU, f32 (TF32 off): the
+# output, the input's gradient and the new statistics within 1e-5·max(1,
+# max|ref|) + 1e-5·|ref|, the scale and bias gradients (sums over every
+# position) within 1e-4·max(1, max|ref|); bf16 compute, the output and
+# the input's gradient within 2^-6·max(1, max|ref|), and the scale and
+# bias gradients within 2^-7·A, A each channel's sum of the magnitudes of
+# its terms (Σ|dy·x̂|, Σ|dy|): PyTorch's channels-last bf16 backward on the
+# card rounds each term (measured 0.27 of a gradient of 53 at 784 terms,
+# where the CPU's is within 4e-5 of an f64 sum). A mutable ResNet18 step
+# (10 classes, 32², batch 8) from the same weights: the largest parameter
+# error as a share of the largest change the step made ≤ 1e-3, each
+# statistic's as a share of its own change ≤ 1e-4 (chip_smoke.py's
+# RESNET_PARITY_*_SHARE, set from the card's readings and far below what
+# the same step gives with TF32 on).
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_train_mode_card_matches_cpu(dev, dtype):
+    from sparkdl_tpu_torch.models.image_layers import BatchNorm
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal((16, 32, 7, 7)) * 2 + 0.5)
+                         .astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal((16, 32, 7, 7))
+                         .astype(np.float32))
+    cpu = BatchNorm(32, 1e-5, momentum=0.9)
+    with torch.no_grad():
+        cpu.weight.uniform_(0.5, 1.5, generator=torch.Generator()
+                            .manual_seed(0))
+        cpu.running_mean.normal_(generator=torch.Generator().manual_seed(1))
+    card = BatchNorm(32, 1e-5, momentum=0.9).to("cuda")
+    card.load_state_dict(cpu.state_dict())
+    out = {"cpu": cpu, "cuda": card}
+    res = {}
+    for d, layer in out.items():
+        xi = x.to(d).contiguous(memory_format=torch.channels_last)
+        xi.requires_grad_()
+        y, (mean, var) = layer(xi, train=True)
+        assert y.dtype == dtype and mean.dtype == torch.float32
+        (y.float() * g.to(d)).sum().backward()
+        res[d] = [t.detach().float().cpu().numpy() for t in
+                  (y, xi.grad, layer.weight.grad, layer.bias.grad, mean,
+                   var)]
+
+    def close(got, ref, atol_share, rtol):
+        np.testing.assert_allclose(
+            got, ref, rtol=rtol,
+            atol=atol_share * max(1.0, float(np.abs(ref).max())))
+
+    y, gx, gw, gb, mean, var = res["cuda"]
+    ry, rgx, rgw, rgb, rmean, rvar = res["cpu"]
+    if dtype == torch.float32:
+        close(y, ry, 1e-5, 1e-5)
+        close(gx, rgx, 1e-5, 1e-5)
+        close(gw, rgw, 1e-4, 1e-5)
+        close(gb, rgb, 1e-4, 1e-5)
+    else:
+        close(y, ry, 2.0 ** -6, 0)
+        close(gx, rgx, 2.0 ** -6, 0)
+        xf = x.float().numpy()
+        xhat = (xf - rmean[:, None, None]) / np.sqrt(
+            xf.var(axis=(0, 2, 3))[:, None, None] + 1e-5)
+        dy = g.to(dtype).float().numpy()
+        for got, ref, terms in ((gw, rgw, dy * xhat), (gb, rgb, dy)):
+            a = np.abs(terms).sum(axis=(0, 2, 3))
+            assert (np.abs(got - ref) <= 2.0 ** -7 * a).all(), (
+                np.abs(got - ref).max(), a.min())
+    close(mean, rmean, 1e-5, 1e-5)
+    close(var, rvar, 1e-5, 1e-5)
+
+
+def test_mutable_resnet_step_card_matches_cpu(dev):
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.runner import (TrainState, bn_classifier_loss,
+                                          make_train_step, sgd)
+
+    rng = np.random.default_rng(5)
+    batch = {"image": torch.from_numpy(rng.uniform(
+                 0, 1, (8, 32, 32, 3)).astype(np.float32)),
+             "label": torch.from_numpy(rng.integers(0, 10, 8))}
+    out = {}
+    before = get_model("ResNet18").build(num_classes=10, seed=3).state_dict()
+    for d in ("cpu", "cuda"):
+        model = get_model("ResNet18").build(num_classes=10, seed=3,
+                                            device=d)
+        state = TrainState.create(model, sgd(0.01, momentum=0.9))
+        state, m = make_train_step(bn_classifier_loss(), mutable=True)(
+            state, {k: v.to(d) for k, v in batch.items()})
+        assert state.step == 1 and math.isfinite(float(m["loss"]))
+        out[d] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    def share(keys):
+        err = max((out["cuda"][k] - out["cpu"][k]).abs().max().item()
+                  for k in keys)
+        return err / max((out["cpu"][k] - before[k]).abs().max().item()
+                         for k in keys)
+
+    assert share([k for k in before if "running" not in k]) <= 1e-3
+    for k in before:  # each statistic against its own change
+        if "running" in k:
+            assert share([k]) <= 1e-4, k
+
+
+def test_fit_feed_lookahead_on_card_matches_inline(dev):
+    """``feed_lookahead=2`` on the card copies each batch on a side stream
+    ahead of the step: the same batches in the same order, parameters bit
+    for bit those of the inline feed."""
+    from sparkdl_tpu_torch.runner import (XlaRunner,
+                                          softmax_cross_entropy_loss, sgd)
+
+    rng = np.random.default_rng(6)
+    w0 = rng.standard_normal((1024, 10)).astype(np.float32) * 0.03
+    data = [{"image": rng.standard_normal((4096, 1024)).astype(np.float32),
+             "label": rng.integers(0, 10, 4096)} for _ in range(6)]
+    out = []
+    for ahead in (0, 2):
+        model = torch.nn.Linear(1024, 10, bias=False).to(dev)
+        with torch.no_grad():
+            model.weight.copy_(torch.from_numpy(w0.T))
+        res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+            loss_fn=softmax_cross_entropy_loss(), model=model,
+            tx=sgd(0.1, momentum=0.9), data=iter(data), num_steps=6,
+            log_every=1, feed_lookahead=ahead))
+        assert res["state"].step == 6
+        out.append((model.weight.detach().cpu(),
+                    [h["loss"] for h in res["history"]]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert out[0][1] == out[1][1]

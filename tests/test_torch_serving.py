@@ -160,8 +160,10 @@ def test_stub_backend_scenario_matches_jax_engine():
 
 def test_from_model_refuses_what_is_not_ported(models, monkeypatch):
     _, _, tm = models
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    with pytest.raises(NotImplementedError, match="Queue A 8"):
         GenerationEngine.from_model(tm, device="cpu", tp=2)
+    with pytest.raises(NotImplementedError, match="Queue A 2"):
+        GenerationEngine.from_model(tm, device="cpu", weight_dtype="int8")
     with pytest.raises(NotImplementedError, match="weight_dtype"):
         GenerationEngine.from_model(tm, device="cpu", weight_dtype="int8")
     monkeypatch.setenv("SPARKDL_SERVE_TP", "2")
@@ -174,7 +176,7 @@ def test_from_model_refuses_what_is_not_ported(models, monkeypatch):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             GenerationEngine.from_model(tm)
     from sparkdl_tpu_torch.serving import DraftModelProvider
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
+    with pytest.raises(NotImplementedError, match="Queue A 2"):
         DraftModelProvider.from_registry("llama3_8b")
 
 

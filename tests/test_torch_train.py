@@ -217,17 +217,15 @@ def test_remat_is_exact_on_cpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        make_train_step(L.causal_lm_loss_fn(), mutable=True)
-    # with_rng is ported (dropout for BERT): it builds a step
+    """What still raises: several cards (Queue A 8), and the reference's
+    own refusal of BatchNorm statistics under gradient accumulation."""
+    with pytest.raises(ValueError, match="mutable"):
+        make_train_step(L.causal_lm_loss_fn(), mutable=True, accum_steps=2)
+    # with_rng (dropout for BERT) and mutable (BatchNorm) are ported
     assert callable(make_train_step(L.causal_lm_loss_fn(), with_rng=True))
+    assert callable(make_train_step(L.causal_lm_loss_fn(), mutable=True))
     with pytest.raises(NotImplementedError, match="Queue A 8"):
         XlaRunner(np=2, device="cpu")
-    model, ids = _model(), _ids()
-    for kw in (dict(checkpoint_every=1), dict(resume=True),
-               dict(profile_dir="p"), dict(feed_lookahead=1)):
-        with pytest.raises(NotImplementedError, match="Queue A 3"):
-            _fit(model, ids, 1, **kw)
     with pytest.raises(ValueError, match="no LoRA adapters"):
         L.lora_optimizer()(_model(lora_rank=0))
 
