@@ -233,6 +233,31 @@ k. ResNet-50 training — BASELINE configuration 3 at ``np=1``:
      rolls back to step 4 (``run_stats`` records it); the bytes of a step
      and the seconds of a waiting save, an asynchronous one (return and
      landing) and a restore. The directory is a temporary one.
+l. data parallelism (BASELINE config 3's gang) and the other train modes:
+   - ``dp_gang``: ``launcher.launch(np=1)`` starts this script again as
+     the worker (``chip_smoke.py --dp-worker <dir>``), once the parent
+     has freed its cached memory; the worker joins a one-rank NCCL gang
+     through ``XlaRunner()`` (rank 0 on ``cuda:0``) and runs phase k's
+     ResNet-50 bf16 arm (256 a batch, 3 warm-up and 20 timed steps,
+     ``resnet_fit``) through the gang's implicit step: synchronised
+     BatchNorm (two all-reduces a layer) and one gradient all-reduce.
+     The line: img/s/chip, step ms (median, p10/p90), MFU
+     (``image_flops``), peak memory, the meter's per-chip rate, launches
+     a step and the NCCL kernels' device ms a step and share of busy
+     from a profile of 3 steps, beside phase k's inline bf16 arms from
+     the same call. Losses finite and falling, every statistic moved,
+     the four kernels' counters 0 (no Pallas kernel on this path);
+   - ``dp_parity`` (f32, TF32 off): one gang step of phase k's parity
+     model (ResNet18, 32², batch 8) from its seed, written by the
+     worker, against the same step in this process, within phase k's
+     limits (``RESNET_PARITY_*_SHARE``; the two BatchNorms take the
+     variance differently, so not bitwise); the gang's statistics with
+     ``remat`` bitwise as without;
+   - ``dp_refuses``: ``XlaRunner(np=cards + 1)`` raises ``ValueError``
+     before any process group is made (NCCL runs one rank a card);
+   - ``inception_train`` and ``xception_train``: InceptionV3 and
+     Xception at 299, bf16, 4 mutable SGD steps of 64 through
+     ``XlaRunner(np=1).fit``; losses finite, every statistic moved.
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
@@ -342,6 +367,11 @@ RESNET_PARITY_PARAM_SHARE, RESNET_PARITY_STAT_SHARE = 1e-3, 1e-4
 RESNET_PARITY_BATCH = 8
 # phase k checkpoint: ResNet-50 at 64 a batch, saves every 2 steps
 CKPT_BATCH = 64
+# phase l: the one-rank NCCL gang (phase k's batch, wire and steps; its
+# parity at phase k's parity shape and limits); InceptionV3 and Xception
+# train steps at 299, bf16
+DP_TIMEOUT_S = 600.0
+IMAGE_TRAIN_BATCH, IMAGE_TRAIN_STEPS, IMAGE_TRAIN_LR = 64, 4, 0.01
 
 
 def emit(obj) -> None:
@@ -2793,6 +2823,258 @@ def phase_resnet(torch, kernels) -> dict:
     return dict(train=train, parity=parity, checkpoint=ckpt)
 
 
+def dp_worker(out_dir: str) -> int:
+    """Phase l's gang worker (``chip_smoke.py --dp-worker <out_dir>``,
+    started by ``launcher.launch``): joins the launcher's gang through
+    ``XlaRunner`` (NCCL, rank r on ``cuda:r``) and writes to ``out_dir``
+    ``dp_worker.json`` (the ``dp_gang`` arm: phase k's ResNet-50 run
+    through the gang's implicit step, with synchronised BatchNorm, and a
+    profile of 3 of its steps) and ``dp_parity.pt`` (one f32 gang step of
+    phase k's parity model from its seed, and the same with ``remat``)."""
+    import torch
+
+    from sparkdl_tpu_torch.models.image_layers import BatchNorm
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.ops import flash_decode as fd
+    from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
+    from sparkdl_tpu_torch.runner import (TrainState, XlaRunner,
+                                          bn_classifier_loss, sgd)
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runner = XlaRunner()
+    ctx = runner.make_context()
+    assert ctx.gang is not None and ctx.gang.backend == "nccl", ctx.gang
+    assert ctx.device == torch.device("cuda", ctx.rank), ctx.device
+    spec = get_model("ResNet50")
+    local = RESNET_BATCH // ctx.size
+    wire = resnet_wire(RESNET_DISTINCT, local, RESNET_SIZE,
+                       seed=40 + ctx.rank)
+    model = spec.build(dtype=torch.bfloat16, num_classes=1000, seed=0,
+                       device=ctx.device)
+    stats0 = {k: b.clone() for k, b in model.named_buffers()}
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, fd, pfd)
+    res, step_s, fit_s, flops_local = resnet_fit(
+        torch, spec, model, wire, RESNET_WARMUP + RESNET_TIMED)
+    launches = read_counts(fa, fd, pfd)
+    summary = res["meter"].summary()  # its rates run to this call
+    losses = [h["loss"] for h in res["history"]]
+    moved = sum(not torch.equal(b, stats0[k])
+                for k, b in model.named_buffers())
+    line = step_line(step_s, RESNET_WARMUP)
+    ms = line["step_ms_median"]
+    flops = flops_local * ctx.size  # the gang's step
+    step_fn = ctx.make_train_step(
+        bn_classifier_loss(preprocess=resnet_preprocess(spec)),
+        mutable=True)
+    st = res["state"]
+    batch = {k: torch.as_tensor(v).to(ctx.device)
+             for k, v in wire[0].items()}
+    prof = device_profile(
+        torch, lambda: step_fn(st, batch), 3,
+        f"3 ResNet-50 gang train steps, bf16, {local} a rank", match="nccl")
+    nccl_us = sum(k["us"] for k in prof.get("matched_kernels", []))
+    busy = prof["device_busy_ms_per_step"]
+    rec = dict(
+        world_size=ctx.size, rank=ctx.rank, backend=ctx.gang.backend,
+        device=str(ctx.device), batch_global=local * ctx.size,
+        batch_per_rank=local, steps=len(losses),
+        warmup_steps=RESNET_WARMUP, **line,
+        images_per_s_per_chip=local / ms * 1e3,
+        images_per_s=local * ctx.size / ms * 1e3,
+        flops_per_step=flops,
+        mfu=flops / (ms / 1e3) / (PEAK_FLOPS["bfloat16"] * ctx.size),
+        meter_mfu=summary["mfu"],
+        meter_images_per_s_per_chip=summary["examples_per_sec_per_chip"],
+        meter_n_chips=summary["n_chips"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        losses=losses, statistics_moved=moved, statistics=len(stats0),
+        batchnorm_layers=n_bn,
+        collectives_issued_per_step=2 * n_bn + 1,
+        launches=launches, fit_s=fit_s, profile=prof,
+        nccl_kernels_seen=len(prof.get("matched_kernels", [])),
+        nccl_device_ms_per_step=nccl_us / 3 / 1e3,
+        nccl_share_of_busy=(nccl_us / 3 / 1e3 / busy
+                            if isinstance(busy, float) else "not measured"))
+    del res, st, model, step_fn, batch
+    torch.cuda.empty_cache()
+    # dp_parity: phase k's parity model and shape, f32, from its seed
+    pspec = get_model("ResNet18")
+    pwire = resnet_wire(1, RESNET_PARITY_BATCH, 32, seed=41)[0]
+    ploss = bn_classifier_loss(preprocess=resnet_preprocess(pspec))
+    parity = {}
+    for arm, kw in (("gang", {}), ("gang_remat", {"remat": True})):
+        m = pspec.build(num_classes=10, seed=0, device=ctx.device)
+        ctx.put_replicated(m)
+        ctx.make_train_step(ploss, mutable=True, **kw)(
+            TrainState.create(m, sgd(0.01, momentum=0.9)),
+            ctx.shard_batch(pwire))
+        parity[arm] = {k: v.detach().cpu() for k, v in
+                       m.state_dict().items()}
+    torch.save(parity, Path(out_dir) / "dp_parity.pt")
+    (Path(out_dir) / "dp_worker.json").write_text(json.dumps(rec))
+    leave_gang()
+    return 0
+
+
+def image_train(torch, kernels, name: str) -> dict:
+    """Phase l, ``inception_train`` / ``xception_train``: ``name`` at
+    299, bf16 compute, IMAGE_TRAIN_STEPS mutable SGD steps of
+    IMAGE_TRAIN_BATCH through ``XlaRunner(np=1).fit(mutable=True)``; the
+    losses finite, every BatchNorm statistic moved, no Pallas kernel's
+    port launched."""
+    import gc
+
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.runner import XlaRunner, bn_classifier_loss, sgd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = get_model(name)
+    model = spec.build(dtype=torch.bfloat16, num_classes=1000, seed=0,
+                       device="cuda")
+    stats0 = {k: b.clone() for k, b in model.named_buffers()}
+    wire = resnet_wire(IMAGE_TRAIN_STEPS, IMAGE_TRAIN_BATCH, 299, seed=44)
+    flops = 3 * image_flops(torch, model, 299, 299) * IMAGE_TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+        loss_fn=bn_classifier_loss(preprocess=resnet_preprocess(spec)),
+        model=model, tx=sgd(IMAGE_TRAIN_LR, momentum=0.9), data=wire,
+        num_steps=IMAGE_TRAIN_STEPS, log_every=1, mutable=True,
+        flops_per_step=flops))
+    launches = read_counts(*kernels)
+    losses = [h["loss"] for h in res["history"]]
+    moved = sum(not torch.equal(b, stats0[k])
+                for k, b in model.named_buffers())
+    summary = res["meter"].summary()
+    ms = summary["step_time"]["p50_s"] * 1e3
+    momenta = sorted({m.momentum for m in model.modules()
+                      if hasattr(m, "running_var")})
+    rec = dict(phase=f"{name.lower().removesuffix('v3')}_train", model=name,
+               compute_dtype="bfloat16", param_dtype="float32",
+               image_size=299, classes=1000, batch=IMAGE_TRAIN_BATCH,
+               steps=len(losses), warmup_steps=1,
+               optimizer=f"sgd({IMAGE_TRAIN_LR}, momentum=0.9)",
+               bn_momentum=momenta, step_ms_p50=ms,
+               images_per_s=IMAGE_TRAIN_BATCH / ms * 1e3,
+               flops_per_step=flops, meter_mfu=summary["mfu"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, statistics_moved=moved,
+               statistics=len(stats0), launches=launches, nvidia_smi=smi())
+    emit(rec)
+    assert not any(launches.values()), launches
+    assert len(losses) == IMAGE_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), rec
+    assert moved == len(stats0), rec
+    del res, model
+    return rec
+
+
+def phase_dp(torch, kernels, resnet_arms: list) -> dict:
+    """Phase l (module docstring): the one-rank NCCL gang against phase
+    k's in-process arms, its parity, the refusal of a second rank on one
+    card, and InceptionV3 / Xception in train mode."""
+    import gc
+    import tempfile
+
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.runner import (TrainState, XlaRunner,
+                                          bn_classifier_loss, launcher, sgd)
+    from sparkdl_tpu_torch.runner.train_state import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the parent hands the card to its worker: nothing cached held back
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sparkdl_dp_") as d:
+        t0 = time.perf_counter()
+        launcher.launch(str(ROOT / "chip_smoke.py"), np=1,
+                        args=["--dp-worker", d], timeout_s=DP_TIMEOUT_S,
+                        capture=True)
+        gang_wall_s = time.perf_counter() - t0
+        w = json.loads((Path(d) / "dp_worker.json").read_text())
+        parity = torch.load(Path(d) / "dp_parity.pt")
+    inline = [r for r in resnet_arms if r.get("phase") == "resnet_train"
+              and r["compute_dtype"] == "bfloat16"
+              and not r["feed_lookahead"]]
+    rec = dict(phase="dp_gang", config="BASELINE config 3, np=1 gang",
+               model="ResNet50", compute_dtype="bfloat16",
+               param_dtype="float32", tf32=False, image_size=RESNET_SIZE,
+               classes=1000, optimizer=f"sgd({RESNET_LR}, momentum=0.9)",
+               step="implicit (synchronised BatchNorm, one gradient "
+                    "all-reduce)",
+               **w, gang_wall_s=gang_wall_s,
+               in_process_arms=[dict(arm=r["arm"],
+                                     step_ms_median=r["step_ms_median"],
+                                     step_ms_p10=r["step_ms_p10"],
+                                     step_ms_p90=r["step_ms_p90"],
+                                     images_per_s=r["images_per_s"],
+                                     mfu=r["mfu"]) for r in inline],
+               nvidia_smi=smi())
+    emit(rec)
+    assert w["backend"] == "nccl" and w["world_size"] == 1, w
+    assert all(math.isfinite(x) for x in w["losses"]), w["losses"]
+    assert sum(w["losses"][-5:]) < sum(w["losses"][:5]), w["losses"]
+    assert w["statistics_moved"] == w["statistics"], w
+    assert not any(w["launches"].values()), w["launches"]  # no Pallas here
+
+    # dp_parity: the same model, seed and batch, in this process
+    spec = get_model("ResNet18")
+    wire = resnet_wire(1, RESNET_PARITY_BATCH, 32, seed=41)[0]
+    m = spec.build(num_classes=10, seed=0, device="cuda")
+    before = {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+    make_train_step(bn_classifier_loss(preprocess=resnet_preprocess(spec)),
+                    mutable=True)(
+        TrainState.create(m, sgd(0.01, momentum=0.9)),
+        {k: torch.as_tensor(v).cuda() for k, v in wire.items()})
+    want = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    p_share, s_share = _update_shares(parity["gang"], want, before)
+    # the statistics come from the step's one forward, remat or not (the
+    # parameters came out different in the last bits on the card, so
+    # only the statistics are compared here)
+    remat_equal = all(torch.equal(v, parity["gang_remat"][k])
+                      for k, v in parity["gang"].items() if "running" in k)
+    prec = dict(phase="dp_parity", model="ResNet18", classes=10,
+                image_size=32, batch=RESNET_PARITY_BATCH, dtype="float32",
+                tf32=False, optimizer="sgd(0.01, momentum=0.9)",
+                against="phase k's in-process make_train_step(mutable=True)",
+                param_share=p_share, stat_share=s_share,
+                param_share_tol=RESNET_PARITY_PARAM_SHARE,
+                stat_share_tol=RESNET_PARITY_STAT_SHARE,
+                remat_stats_bitwise_equal=remat_equal, nvidia_smi=smi())
+    emit(prec)
+    assert p_share <= RESNET_PARITY_PARAM_SHARE, prec
+    assert s_share <= RESNET_PARITY_STAT_SHARE, prec
+    assert remat_equal, prec
+
+    # dp_refuses: a second rank on this card is refused before NCCL
+    visible = torch.cuda.device_count()
+    try:
+        XlaRunner(np=visible + 1, coordinator=f"127.0.0.1:"
+                  f"{launcher.free_port()}", num_processes=visible + 1,
+                  process_id=0)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    import torch.distributed as dist
+    rrec = dict(phase="dp_refuses", np=visible + 1, visible_devices=visible,
+                raised="ValueError" if err else None, message=err,
+                process_group_made=dist.is_initialized(), nvidia_smi=smi())
+    emit(rrec)
+    assert err and "exceeds visible devices" in err, rrec
+    assert not rrec["process_group_made"], rrec
+
+    images = [image_train(torch, kernels, "InceptionV3"),
+              image_train(torch, kernels, "Xception")]
+    return dict(gang=rec, parity=prec, refuses=rrec, images=images)
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -2814,6 +3096,8 @@ def main() -> int:
               f"it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from sparkdl_tpu_torch.ops import _build
@@ -2835,7 +3119,8 @@ def main() -> int:
     del bert
     torch.cuda.empty_cache()
     phase_images(torch)
-    phase_resnet(torch, (fa, fd, pfd))
+    resnet = phase_resnet(torch, (fa, fd, pfd))
+    phase_dp(torch, (fa, fd, pfd), resnet["train"])
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3

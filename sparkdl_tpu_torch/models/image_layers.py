@@ -17,6 +17,8 @@ computes what the flax model computes:
   input). It is never folded into the convolution. In train mode it
   normalises with the batch's statistics and returns the new running
   statistics beside its output (:func:`batch_norm` files them by name).
+  Inside :func:`sync_batch_stats` (the data-parallel train step) the
+  batch statistics are those of the gang's global batch.
 - :func:`max_pool` pads ``"SAME"`` with −inf by the same rule;
   :func:`avg_pool_same` leaves the padding out of the count
   (``count_include_pad=False``).
@@ -35,9 +37,11 @@ NHWC convolutions read.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -99,21 +103,25 @@ class BatchNorm(nn.Module):
     the f32 running statistics, output in the input's dtype.
 
     ``forward(x, train=True)`` is ``use_running_average=False``: it
-    normalises with the batch's mean and biased variance over (N, H, W),
-    computed in f32 whatever the input's dtype, output in the input's
-    dtype, and gradients flow through the batch statistics. It returns
-    ``(y, (new_mean, new_var))``, the new running statistics as values,
-    ``momentum·old + (1 − momentum)·batch`` with the biased variance
-    (flax's ``momentum``; PyTorch's ``momentum`` is its complement). It
-    writes no buffer: the train step copies the values in once, after the
-    optimizer step, so a forward that ``torch.utils.checkpoint`` runs
-    again in the backward does not update them twice.
+    normalises with the batch's mean and biased variance over every dim
+    but the channels', computed in f32 whatever the input's dtype, output
+    in the input's dtype, and gradients flow through the batch
+    statistics. It returns ``(y, (new_mean, new_var))``, the new running
+    statistics as values, ``momentum·old + (1 − momentum)·batch`` with the
+    biased variance (flax's ``momentum``; PyTorch's ``momentum`` is its
+    complement). It writes no buffer: the train step copies the values in
+    once, after the optimizer step, so a forward that
+    ``torch.utils.checkpoint`` runs again in the backward does not update
+    them twice.
 
-    The batch statistics come from ``aten._native_batch_norm_legit``
-    (``save_mean`` and ``save_invstd``, no second pass over the
-    activations); the variance is ``invstd^-2 − eps``, taken in f64.
-    flax computes it as E[x²] − E[x]², so the two agree to f32 rounding,
-    not bit for bit."""
+    In one process the batch statistics come from
+    ``aten._native_batch_norm_legit`` (``save_mean`` and ``save_invstd``,
+    no second pass over the activations); the variance is ``invstd^-2 −
+    eps``, taken in f64. flax computes it as E[x²] − E[x]², so the two
+    agree to f32 rounding, not bit for bit. With ``sync_group`` set (by
+    :func:`sync_batch_stats`) they are the gang's: :class:`_SyncBatchNorm`
+    over the process group, flax's E[x²] − E[x]² over the global
+    batch."""
 
     def __init__(self, features: int, eps: float, momentum: float = 0.9):
         super().__init__()
@@ -123,21 +131,110 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.sync_group = None  # a process group while sync_batch_stats
 
     def forward(self, x, train: bool = False):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.ops.aten._native_batch_norm_legit.no_stats(
-            x, self.weight, self.bias, True, 0.0, self.eps)
+        if self.sync_group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps, self.sync_group)
+        else:
+            y, mean, invstd = \
+                torch.ops.aten._native_batch_norm_legit.no_stats(
+                    x, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var = invstd.double().pow(-2).sub_(self.eps).clamp_(min=0)
         with torch.no_grad():
             m = self.momentum
-            var = invstd.double().pow(-2).sub_(self.eps).clamp_(min=0)
             new_mean = self.running_mean * m \
                 + mean.to(self.running_mean.dtype) * (1 - m)
             new_var = self.running_var * m \
                 + var.to(self.running_var.dtype) * (1 - m)
         return y, (new_mean, new_var)
+
+
+def _channel_dims(x) -> tuple[list, list]:
+    """(the dims a channel's statistics reduce over, the shape that
+    broadcasts a per-channel vector against ``x``)."""
+    return ([0] + list(range(2, x.ndim)),
+            [1, x.shape[1]] + [1] * (x.ndim - 2))
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """BatchNorm in train mode over the global batch of a process group.
+
+    Forward: each rank's per-channel ``[Σx, Σx², n]`` in f32, one
+    all-reduce (sum), then ``mean = Σx/N`` and ``var = max(Σx²/N − mean²,
+    0)``: flax's fast variance over the global batch, what the
+    reference's GSPMD step computes. ``y = (x − mean)·(rsqrt(var + eps)·w)
+    + b`` in f32, cast to the input's dtype, as flax's ``_normalize``.
+
+    Backward: each rank's ``[Σdy, Σdy·x̂]``, one all-reduce (sum), then
+    ``dx = (dy − Σdy/N − x̂·Σdy·x̂/N)·rsqrt(var + eps)·w``. The scale and
+    bias gradients are the rank's own sums: the step's gradient mean over
+    the ranks makes them the global batch's. Each rank's ``dy`` is the
+    gradient of its own mean loss, so ``dx`` is the rank count times the
+    global mean loss's, as every other local gradient is; the step's
+    mean divides that out.
+
+    At world size 1 the all-reduces leave the sums as they are. Each call
+    issues two collectives (forward, backward), so every rank must run the
+    same BatchNorms in the same order; ``torch.utils.checkpoint`` re-runs
+    the forward, and with it the forward's all-reduce, in the backward on
+    every rank alike."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        dims, shape = _channel_dims(x)
+        c = x.shape[1]
+        xf = x.float()
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                          xf.new_full((1,), x.numel() // c)])
+        dist.all_reduce(sums, group=group)
+        count = sums[2 * c:]
+        mean = sums[:c] / count
+        var = (sums[c:2 * c] / count - mean * mean).clamp_(min=0)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean.view(shape)) * (invstd * weight).view(shape) \
+            + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dims, shape = _channel_dims(x)
+        c = x.shape[1]
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dyf = dy.float()
+        sums = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        dbias, dweight = sums[:c].clone(), sums[c:].clone()
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (dyf - (sums[:c] / count).view(shape)
+              - xhat * (sums[c:] / count).view(shape)) \
+            * (invstd * weight).view(shape)
+        return dx.to(x.dtype), dweight, dbias, None, None
+
+
+@contextlib.contextmanager
+def sync_batch_stats(model: nn.Module, group):
+    """Every :class:`BatchNorm` of ``model`` in train mode takes its batch
+    statistics over ``group``'s global batch while the context is open
+    (``group`` a ``torch.distributed`` process group); on leaving it, each
+    goes back to its own batch. The data-parallel train step enters it
+    around its forward and backward."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in layers:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.sync_group = None
 
 
 def batch_norm(layer: BatchNorm, name: str, x, stats: dict | None):

@@ -8,8 +8,13 @@ arXiv:1512.00567): factorized 7x7 branches, grid reductions,
 expanded-filter-bank mixed9/10 blocks. Submodules carry the flax model's
 names (``stem1``, ``mixed4.b7x7_2.conv``, ...). Every strided convolution
 and pool is ``"VALID"``; the ``"SAME"`` ones are stride 1 and pad
-symmetrically. BN epsilon 1e-3; the 3x3 average pool of each mixed block
-leaves the padding out of its count.
+symmetrically. BN epsilon 1e-3, momentum 0.9997; the 3x3 average pool of
+each mixed block leaves the padding out of its count.
+
+Train mode (``forward(x, train=True)``) threads one dict through the
+blocks: each ``ConvBN`` files its BatchNorm's new running statistics in
+it under the buffers' names (``mixed4.b7x7_2.bn.running_mean``, ...),
+``prefix`` carrying the path down.
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .image_layers import (BatchNorm, Conv, Dense, avg_pool_same,
-                           global_mean_f32, init_flax_defaults, max_pool,
-                           nhwc_to_model)
+                           batch_norm, global_mean_f32, init_flax_defaults,
+                           max_pool, nhwc_to_model)
 
 
 class ConvBN(nn.Module):
@@ -33,11 +38,22 @@ class ConvBN(nn.Module):
                          use_bias=False)
         self.bn = BatchNorm(filters, 1e-3, momentum=0.9997)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)), inplace=True)
+    def forward(self, x, st: dict | None = None, prefix: str = ""):
+        return F.relu(batch_norm(self.bn, f"{prefix}bn", self.conv(x), st),
+                      inplace=True)
 
 
-class InceptionA(nn.Module):
+class _Block(nn.Module):
+    """A mixed block: ``forward(x, st, prefix)`` runs its ``ConvBN``s
+    through :meth:`units`."""
+
+    def units(self, st, prefix: str):
+        """``c(name, x)``: this block's ``ConvBN`` ``name`` on ``x``, its
+        statistics filed in ``st`` under ``prefix + name``."""
+        return lambda name, x: getattr(self, name)(x, st, f"{prefix}{name}.")
+
+
+class InceptionA(_Block):
     def __init__(self, in_features: int, pool_features: int):
         super().__init__()
         self.b1x1 = ConvBN(in_features, 64, 1)
@@ -49,15 +65,16 @@ class InceptionA(nn.Module):
         self.bpool = ConvBN(in_features, pool_features, 1)
         self.out_features = 64 + 64 + 96 + pool_features
 
-    def forward(self, x):
-        b1 = self.b1x1(x)
-        b5 = self.b5x5_2(self.b5x5_1(x))
-        b3 = self.b3x3dbl_3(self.b3x3dbl_2(self.b3x3dbl_1(x)))
-        bp = self.bpool(avg_pool_same(x))
+    def forward(self, x, st=None, prefix=""):
+        c = self.units(st, prefix)
+        b1 = c("b1x1", x)
+        b5 = c("b5x5_2", c("b5x5_1", x))
+        b3 = c("b3x3dbl_3", c("b3x3dbl_2", c("b3x3dbl_1", x)))
+        bp = c("bpool", avg_pool_same(x))
         return torch.cat([b1, b5, b3, bp], dim=1)
 
 
-class InceptionB(nn.Module):
+class InceptionB(_Block):
     """Grid reduction 35→17."""
 
     def __init__(self, in_features: int):
@@ -68,14 +85,15 @@ class InceptionB(nn.Module):
         self.b3x3dbl_3 = ConvBN(96, 96, 3, 2, "VALID")
         self.out_features = 384 + 96 + in_features
 
-    def forward(self, x):
-        b3 = self.b3x3(x)
-        bd = self.b3x3dbl_3(self.b3x3dbl_2(self.b3x3dbl_1(x)))
+    def forward(self, x, st=None, prefix=""):
+        c = self.units(st, prefix)
+        b3 = c("b3x3", x)
+        bd = c("b3x3dbl_3", c("b3x3dbl_2", c("b3x3dbl_1", x)))
         bp = max_pool(x, 3, 2)
         return torch.cat([b3, bd, bp], dim=1)
 
 
-class InceptionC(nn.Module):
+class InceptionC(_Block):
     """Factorized 7x7 branches."""
 
     def __init__(self, in_features: int, c7: int):
@@ -92,17 +110,18 @@ class InceptionC(nn.Module):
         self.bpool = ConvBN(in_features, 192, 1)
         self.out_features = 768
 
-    def forward(self, x):
-        b1 = self.b1x1(x)
-        b7 = self.b7x7_3(self.b7x7_2(self.b7x7_1(x)))
-        bd = self.b7x7dbl_1(x)
+    def forward(self, x, st=None, prefix=""):
+        c = self.units(st, prefix)
+        b1 = c("b1x1", x)
+        b7 = c("b7x7_3", c("b7x7_2", c("b7x7_1", x)))
+        bd = c("b7x7dbl_1", x)
         for name in ("b7x7dbl_2", "b7x7dbl_3", "b7x7dbl_4", "b7x7dbl_5"):
-            bd = getattr(self, name)(bd)
-        bp = self.bpool(avg_pool_same(x))
+            bd = c(name, bd)
+        bp = c("bpool", avg_pool_same(x))
         return torch.cat([b1, b7, bd, bp], dim=1)
 
 
-class InceptionD(nn.Module):
+class InceptionD(_Block):
     """Grid reduction 17→8."""
 
     def __init__(self, in_features: int):
@@ -115,16 +134,17 @@ class InceptionD(nn.Module):
         self.b7x7x3_4 = ConvBN(192, 192, 3, 2, "VALID")
         self.out_features = 320 + 192 + in_features
 
-    def forward(self, x):
-        b3 = self.b3x3_2(self.b3x3_1(x))
-        b7 = self.b7x7x3_1(x)
+    def forward(self, x, st=None, prefix=""):
+        c = self.units(st, prefix)
+        b3 = c("b3x3_2", c("b3x3_1", x))
+        b7 = c("b7x7x3_1", x)
         for name in ("b7x7x3_2", "b7x7x3_3", "b7x7x3_4"):
-            b7 = getattr(self, name)(b7)
+            b7 = c(name, b7)
         bp = max_pool(x, 3, 2)
         return torch.cat([b3, b7, bp], dim=1)
 
 
-class InceptionE(nn.Module):
+class InceptionE(_Block):
     """Expanded filter bank (split 3x3 into 1x3 + 3x1)."""
 
     def __init__(self, in_features: int):
@@ -140,19 +160,26 @@ class InceptionE(nn.Module):
         self.bpool = ConvBN(in_features, 192, 1)
         self.out_features = 2048
 
-    def forward(self, x):
-        b1 = self.b1x1(x)
-        b3 = self.b3x3_1(x)
-        b3 = torch.cat([self.b3x3_2a(b3), self.b3x3_2b(b3)], dim=1)
-        bd = self.b3x3dbl_2(self.b3x3dbl_1(x))
-        bd = torch.cat([self.b3x3dbl_3a(bd), self.b3x3dbl_3b(bd)], dim=1)
-        bp = self.bpool(avg_pool_same(x))
+    def forward(self, x, st=None, prefix=""):
+        c = self.units(st, prefix)
+        b1 = c("b1x1", x)
+        b3 = c("b3x3_1", x)
+        b3 = torch.cat([c("b3x3_2a", b3), c("b3x3_2b", b3)], dim=1)
+        bd = c("b3x3dbl_2", c("b3x3dbl_1", x))
+        bd = torch.cat([c("b3x3dbl_3a", bd), c("b3x3dbl_3b", bd)], dim=1)
+        bp = c("bpool", avg_pool_same(x))
         return torch.cat([b1, b3, bd, bp], dim=1)
 
 
 class InceptionV3(nn.Module):
     """``forward(x, features_only=)`` on NHWC input; weights drawn from
-    ``seed`` (flax defaults)."""
+    ``seed`` (flax defaults).
+
+    ``forward(x, train=True)`` runs every BatchNorm in train mode (batch
+    statistics, momentum 0.9997) and returns ``(logits or features,
+    new_stats)``, the new running statistics keyed by the model's buffer
+    names, as ``ResNet.forward(train=True)``; no buffer changes inside
+    the forward."""
 
     def __init__(self, num_classes: int = 1000, dtype=torch.float32,
                  seed: int = 0):
@@ -181,14 +208,19 @@ class InceptionV3(nn.Module):
         self.head = Dense(ch, num_classes, dtype=torch.float32)
         init_flax_defaults(self, seed)
 
-    def forward(self, x, features_only: bool = False):
+    def forward(self, x, train: bool = False, features_only: bool = False):
+        st = {} if train else None
+
+        def c(name, y):
+            return getattr(self, name)(y, st, f"{name}.")
+
         x = nhwc_to_model(x, self.dtype)
-        x = self.stem2(self.stem1(x))
-        x = max_pool(self.stem3(x), 3, 2)
-        x = max_pool(self.stem5(self.stem4(x)), 3, 2)
+        x = c("stem2", c("stem1", x))
+        x = max_pool(c("stem3", x), 3, 2)
+        x = max_pool(c("stem5", c("stem4", x)), 3, 2)
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = c(name, x)
         x = global_mean_f32(x)  # 8x8x2048 → 2048 (the bottleneck)
-        if features_only:
-            return x
-        return self.head(x)
+        if not features_only:
+            x = self.head(x)
+        return (x, st) if train else x

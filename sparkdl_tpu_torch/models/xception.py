@@ -6,7 +6,12 @@ linear residuals. Separable conv = depthwise (``groups=C``; the flax
 kernel ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)``) + 1x1 pointwise. Input
 299x299, bottleneck = 2048-d global-average-pool features, BN epsilon
 1e-3. The stride-2 max pools pad ``"SAME"`` by flax's rule with −inf:
-``(0, 1)`` on an even input (74 → 37 at 299x299).
+``(0, 1)`` on an even input (74 → 37 at 299x299). BN momentum 0.99.
+
+Train mode (``forward(x, train=True)``) threads one dict through the
+blocks, each BatchNorm filing its new running statistics in it under the
+buffers' names (``entry1.sep1.bn.running_mean``, ...), ``prefix``
+carrying the path down.
 """
 
 from __future__ import annotations
@@ -15,8 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .image_layers import (BatchNorm, Conv, Dense, global_mean_f32,
-                           init_flax_defaults, max_pool, nhwc_to_model)
+from .image_layers import (BatchNorm, Conv, Dense, batch_norm,
+                           global_mean_f32, init_flax_defaults, max_pool,
+                           nhwc_to_model)
 
 _EPS = 1e-3
 _MOMENTUM = 0.99  # flax's: the share of the old statistics kept
@@ -30,8 +36,9 @@ class SeparableConvBN(nn.Module):
         self.pointwise = Conv(in_features, filters, 1, use_bias=False)
         self.bn = BatchNorm(filters, _EPS, momentum=_MOMENTUM)
 
-    def forward(self, x):
-        return self.bn(self.pointwise(self.depthwise(x)))
+    def forward(self, x, st: dict | None = None, prefix: str = ""):
+        return batch_norm(self.bn, f"{prefix}bn",
+                          self.pointwise(self.depthwise(x)), st)
 
 
 class XceptionBlock(nn.Module):
@@ -50,18 +57,27 @@ class XceptionBlock(nn.Module):
                                   use_bias=False)
             self.proj_bn = BatchNorm(filters, _EPS, momentum=_MOMENTUM)
 
-    def forward(self, x):
+    def forward(self, x, st: dict | None = None, prefix: str = ""):
         y = F.relu(x) if self.relu_first else x
-        y = self.sep2(F.relu(self.sep1(y), inplace=True))
+        y = self.sep1(y, st, f"{prefix}sep1.")
+        y = self.sep2(F.relu(y, inplace=True), st, f"{prefix}sep2.")
         if self.strides > 1:
             y = max_pool(y, 3, self.strides, "SAME")
-        residual = self.proj_bn(self.proj_conv(x)) if self.has_proj else x
+        residual = batch_norm(self.proj_bn, f"{prefix}proj_bn",
+                              self.proj_conv(x), st) \
+            if self.has_proj else x
         return y + residual
 
 
 class Xception(nn.Module):
     """``forward(x, features_only=)`` on NHWC input; weights drawn from
-    ``seed`` (flax defaults)."""
+    ``seed`` (flax defaults).
+
+    ``forward(x, train=True)`` runs every BatchNorm in train mode (batch
+    statistics, momentum 0.99) and returns ``(logits or features,
+    new_stats)``, the new running statistics keyed by the model's buffer
+    names, as ``ResNet.forward(train=True)``; no buffer changes inside
+    the forward."""
 
     def __init__(self, num_classes: int = 1000, dtype=torch.float32,
                  seed: int = 0):
@@ -92,23 +108,31 @@ class Xception(nn.Module):
         self.head = Dense(2048, num_classes, dtype=torch.float32)
         init_flax_defaults(self, seed)
 
-    def forward(self, x, features_only: bool = False):
+    def forward(self, x, train: bool = False, features_only: bool = False):
+        st = {} if train else None
+
+        def c(name, y):
+            return getattr(self, name)(y, st, f"{name}.")
+
+        def bn(name, y):
+            return batch_norm(getattr(self, name), name, y, st)
+
         x = nhwc_to_model(x, self.dtype)
-        x = F.relu(self.stem_bn1(self.stem_conv1(x)), inplace=True)
-        x = F.relu(self.stem_bn2(self.stem_conv2(x)), inplace=True)
-        x = self.entry3(self.entry2(self.entry1(x)))
+        x = F.relu(bn("stem_bn1", self.stem_conv1(x)), inplace=True)
+        x = F.relu(bn("stem_bn2", self.stem_conv2(x)), inplace=True)
+        x = c("entry3", c("entry2", c("entry1", x)))
         for i in range(8):
             y = x
             for j in range(3):
-                y = getattr(self, f"middle{i + 1}_sep{j + 1}")(F.relu(y))
+                y = c(f"middle{i + 1}_sep{j + 1}", F.relu(y))
             x = y + x
-        residual = self.exit_proj_bn(self.exit_proj_conv(x))
-        y = self.exit_sep1(F.relu(x))
-        y = self.exit_sep2(F.relu(y, inplace=True))
+        residual = bn("exit_proj_bn", self.exit_proj_conv(x))
+        y = c("exit_sep1", F.relu(x))
+        y = c("exit_sep2", F.relu(y, inplace=True))
         x = max_pool(y, 3, 2, "SAME") + residual
-        x = F.relu(self.exit_sep3(x), inplace=True)
-        x = F.relu(self.exit_sep4(x), inplace=True)
+        x = F.relu(c("exit_sep3", x), inplace=True)
+        x = F.relu(c("exit_sep4", x), inplace=True)
         x = global_mean_f32(x)
-        if features_only:
-            return x
-        return self.head(x)
+        if not features_only:
+            x = self.head(x)
+        return (x, st) if train else x

@@ -38,6 +38,13 @@ the ``TrainState`` pytree; here a step is one ``torch.save`` file,
   that has them, and the model keeps its own. Resharding across a
   topology change (``SPARKDL_ELASTIC``) comes with several cards
   (ROADMAP.md, Queue A 8).
+- **In a gang** (``group=``, the gang's host-side process group): the
+  state is the same on every rank, so rank 0 alone writes a step, and
+  waits for it (file, manifest and CRC) whatever ``async_save`` says;
+  every rank then waits at a barrier until the manifest is committed, so
+  no rank runs ahead of a save that has not landed. A restore is chosen
+  by rank 0 (verification, quarantine, rollback) and every rank loads
+  that same step.
 - :func:`save_portable` / :func:`load_portable`: a single-file export of
   a tree of tensors (``torch.save`` of the flat ``a/b/c`` names, where the
   reference uses safetensors).
@@ -54,6 +61,7 @@ import zlib
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from . import events
 from . import metrics as metrics_lib
@@ -131,11 +139,11 @@ def _spec(t: torch.Tensor) -> list:
     return [list(t.shape), str(t.dtype).replace("torch.", "")]
 
 
-def _topology(model_sd: dict) -> dict:
+def _topology(model_sd: dict, world_size: int) -> dict:
     """The save-time fingerprint the manifest keeps: the world size (one
     device a process, so also the devices the run trained on) and each
     tensor's shape and dtype."""
-    return {"world_size": 1,
+    return {"world_size": int(world_size),
             "tensors": {k: _spec(v) for k, v in model_sd.items()}}
 
 
@@ -147,14 +155,21 @@ class CheckpointManager:
     ``async_save=True`` writes each step from a writer thread after the
     tensors have been copied to the host; ``wait()`` blocks until it has
     landed and its manifest is committed. ``wait()`` and ``close()`` are
-    idempotent and safe before the first save."""
+    idempotent and safe before the first save.
+
+    ``group``: the gang's host-side process group (every rank makes a
+    manager over the same directory), or None in one process. In a gang
+    ``save`` and ``restore`` are collective: every rank calls them."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, group=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = int(max_to_keep)
         self.async_save = bool(async_save)
+        self.group = group
+        self.world_size = dist.get_world_size(group) if group else 1
+        self.rank = dist.get_rank(group) if group else 0
         self._writer: threading.Thread | None = None
         self._writer_error: BaseException | None = None
         self._closed = False
@@ -351,22 +366,27 @@ class CheckpointManager:
              data_cursor: dict | None = None) -> None:
         """Save ``state`` (model, optimizer, step) as step ``step``. Every
         tensor is on the host when this returns; with ``async_save`` and
-        not ``wait`` the file is written by a writer thread."""
+        not ``wait`` the file is written by a writer thread. In a gang
+        rank 0 writes and waits, and every rank returns once the step's
+        manifest is committed."""
         with events.span("checkpoint_save", step=step, wait=wait):
             self._join()
-            model_sd = state.model.state_dict()
-            payload = _to_host({"model": model_sd,
-                                "optimizer": state.optimizer.state_dict(),
-                                "step": int(state.step)})
-            topology = _topology(model_sd)
-            args = (int(step), payload, data_cursor, topology)
-            if self.async_save and not wait:
-                self._writer = threading.Thread(
-                    target=self._write_in_thread, args=args,
-                    name=f"sparkdl-ckpt-{step}", daemon=True)
-                self._writer.start()
-            else:
-                self._write(*args)
+            if self.rank == 0:
+                model_sd = state.model.state_dict()
+                payload = _to_host({"model": model_sd,
+                                    "optimizer": state.optimizer.state_dict(),
+                                    "step": int(state.step)})
+                topology = _topology(model_sd, self.world_size)
+                args = (int(step), payload, data_cursor, topology)
+                if self.async_save and not wait and self.group is None:
+                    self._writer = threading.Thread(
+                        target=self._write_in_thread, args=args,
+                        name=f"sparkdl-ckpt-{step}", daemon=True)
+                    self._writer.start()
+                else:
+                    self._write(*args)
+            if self.group is not None:
+                dist.barrier(group=self.group)
 
     # -- restore -------------------------------------------------------------
     def _load(self, step: int) -> dict:
@@ -381,8 +401,9 @@ class CheckpointManager:
         out = []
         topo = (self._read_manifest(step) or {}).get("topology") or {}
         ws = topo.get("world_size")
-        if ws is not None and int(ws) != 1:
-            out.append(f"saved at world size {ws}, restoring at 1")
+        if ws is not None and int(ws) != self.world_size:
+            out.append(f"saved at world size {ws}, restoring at "
+                       f"{self.world_size}")
         own = state.model.state_dict()
         saved = payload["model"]
         buffers = {k for k, _ in state.model.named_buffers()}
@@ -398,14 +419,15 @@ class CheckpointManager:
         return out
 
     def _restore_step(self, step: int, state: Any) -> Any:
-        payload = self._load(step)
-        mism = self._mismatches(step, payload, state)
-        if mism:
-            raise CheckpointTopologyError(step, mism)
-        state.model.load_state_dict(payload["model"], strict=False)
-        state.optimizer.load_state_dict(payload["optimizer"])
-        state.step = int(payload["step"])
-        return state
+        with events.span("checkpoint_restore", step=step):
+            payload = self._load(step)
+            mism = self._mismatches(step, payload, state)
+            if mism:
+                raise CheckpointTopologyError(step, mism)
+            state.model.load_state_dict(payload["model"], strict=False)
+            state.optimizer.load_state_dict(payload["optimizer"])
+            state.step = int(payload["step"])
+            return state
 
     def restore(self, state_template: Any, step: int | None = None) -> Any:
         """Load a step into ``state_template`` (a fresh ``TrainState``: its
@@ -415,15 +437,35 @@ class CheckpointManager:
         uncommitted step is quarantined, and when ``step`` was not named
         the restore falls back to the newest verified step, recording the
         rollback. A named step that fails verification raises
-        :class:`CheckpointCorruptionError`."""
+        :class:`CheckpointCorruptionError`. In a gang rank 0 chooses the
+        step (and raises what it raises on every rank) and every rank
+        loads it."""
         self._join()
+        if self.group is None:
+            return self._restore_step(self._choose(step), state_template)
+        chosen: list = [None]
+        if self.rank == 0:
+            try:
+                chosen[0] = self._choose(step)
+            except Exception as e:  # every rank raises it, not rank 0 alone
+                chosen[0] = e
+        dist.broadcast_object_list(chosen, src=0, group=self.group)
+        if isinstance(chosen[0], Exception):
+            raise chosen[0]
+        return self._restore_step(chosen[0], state_template)
+
+    def _choose(self, step: int | None) -> int:
+        """The step a restore loads: ``step`` (or the newest), verified
+        against its manifest where manifests are on; a corrupt or
+        uncommitted newer step is quarantined and, when ``step`` was not
+        named, the restore rolls back to the newest verified one
+        (recorded)."""
         requested = step
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"No checkpoint in {self.directory}")
         if not self._manifest_mode():
-            with events.span("checkpoint_restore", step=step):
-                return self._restore_step(step, state_template)
+            return step
         first = step
         candidates = [s for s in sorted(self._disk_steps(), reverse=True)
                       if s <= step]
@@ -458,8 +500,6 @@ class CheckpointManager:
                             f"requested checkpoint step {requested} failed "
                             f"verification ({reason}); quarantined")
                     continue
-            with events.span("checkpoint_restore", step=s):
-                restored = self._restore_step(s, state_template)
             if s != first:
                 events.event("checkpoint_rollback", from_step=first,
                               to_step=s)
@@ -467,7 +507,7 @@ class CheckpointManager:
                     first, s, "corrupt checkpoint quarantined")
                 log.warning("checkpoint rollback: step %d corrupt, "
                             "restored verified step %d", first, s)
-            return restored
+            return s
         raise CheckpointCorruptionError(
             f"no verified checkpoint left in {self.directory} (newest "
             f"was step {first}; all candidates quarantined)")

@@ -2,16 +2,16 @@
 cursor.
 
 The port's copy of ``sparkdl_tpu/runner/data.py`` (see its docstring for
-the exactly-once design), cut to one process: :class:`CheckpointableDataset`,
+the exactly-once design): :class:`CheckpointableDataset`,
 :class:`ListDataset`, :class:`FactoryDataset`, :class:`ArrowDataset` (over
 ``core.frame.DataFrame.iterBatches``, with :func:`record_batch_to_numpy`),
 :func:`as_dataset` and :func:`env_skip_list`. A dataset yields
 ``(cursor_after, batch)`` pairs from :meth:`CheckpointableDataset.indexed`;
 ``fit`` streams them, saves the cursor of the last completed step with
 each checkpoint (``runner/checkpoint.py``) and, on resume, restores the
-dataset there. The per-rank row sharding (``shard=``) comes with data
-parallelism (ROADMAP.md, Queue A 3 (c)); the batch ledger and the
-``data_fetch`` chaos site with the multi-process launcher (Queue A 7).
+dataset there. ``shard=True`` cuts each rank's rows from the global
+stream in a data-parallel gang. The batch ledger and the ``data_fetch``
+chaos site come with the gang supervisor (ROADMAP.md, Queue A 7).
 
 A **skip-list** (``SPARKDL_SKIP_BATCHES``, a JSON list of batch indices)
 names batches that are consumed but never yielded, nor examined.
@@ -56,14 +56,25 @@ class CheckpointableDataset:
     epoch's batches, identical on every call with the same ``epoch`` (this
     is what makes replay from a cursor exact). ``epochs=None`` loops
     forever; ``epochs=k`` stops after k passes.
+
+    ``shard=True`` opts into per-rank row sharding: the dataset yields
+    the GLOBAL batch stream and each rank of the launcher's gang
+    (``SPARKDL_NUM_PROCESSES``, ``SPARKDL_PROCESS_ID``) takes its
+    contiguous share of every batch's rows, so one cursor and one
+    skip-list describe the whole gang. The default (``False``) keeps
+    ``fit``'s gang contract: the batches are ALREADY this rank's rows and
+    are never re-sliced. Remainder rows are cropped, so every rank keeps
+    an equal leading dim; leaves that cannot be sliced (scalars, 0-d
+    arrays) are replicated.
     """
 
-    def __init__(self, epochs: int | None = 1,
+    def __init__(self, epochs: int | None = 1, shard: bool = False,
                  skip_list: Iterable[int] | None = None):
         self.epochs = epochs
         self.skip_list: set[int] = {int(i) for i in (skip_list or ())}
         self._epoch = 0
         self._start_index = 0  # next in-epoch batch index to draw
+        self._shard = shard
 
     # -- subclass contract -------------------------------------------------
     def _epoch_iter(self, epoch: int) -> Iterator[Any]:
@@ -113,7 +124,8 @@ class CheckpointableDataset:
                                  batch_index=idx)
                     continue
                 yield ({"epoch": epoch, "batch_index": idx + 1,
-                        "skip_list": sorted(self.skip_list)}, batch)
+                        "skip_list": sorted(self.skip_list)},
+                       self._shard_rows(batch))
             if not drew:
                 return  # empty epoch: a looping source must not spin
             epoch, start = epoch + 1, 0
@@ -121,6 +133,27 @@ class CheckpointableDataset:
 
     def __iter__(self) -> Iterator[Any]:
         return (batch for _, batch in self.indexed())
+
+    def _shard_rows(self, batch):
+        """This rank's contiguous share of ``batch``'s rows (the batch
+        itself without ``shard`` or outside a gang)."""
+        world = int(os.environ.get("SPARKDL_NUM_PROCESSES", "1"))
+        if not self._shard or world <= 1:
+            return batch
+        rank = int(os.environ.get("SPARKDL_PROCESS_ID", "0"))
+
+        def cut(x):
+            if isinstance(x, dict):
+                return {k: cut(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(cut(v) for v in x)
+            try:
+                per = len(x) // world
+            except TypeError:
+                return x  # a scalar or 0-d leaf: replicated
+            return x[rank * per:(rank + 1) * per]
+
+        return cut(batch)
 
 
 class ListDataset(CheckpointableDataset):

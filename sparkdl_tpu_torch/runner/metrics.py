@@ -2,12 +2,15 @@
 logger.
 
 The counterpart of ``sparkdl_tpu/runner/metrics.py``, cut to what
-``RunnerContext.fit`` reaches on one device: :class:`StepTimeStats`,
-:class:`ThroughputMeter`, :class:`MetricsLogger` (the text log; the
-TensorBoard sink is not ported) and :func:`peak_flops_per_chip`, and the process-wide failure counters
-:class:`RunStats` / ``run_stats`` that the scoring runner's retries and the
-streaming scorer's quarantine record into. Heartbeats and profiler hooks
-come with the slices that port the launcher and checkpoints (ROADMAP.md).
+``RunnerContext.fit`` reaches: :class:`StepTimeStats`,
+:class:`ThroughputMeter` (in a data-parallel gang it counts the gang's
+rows, and its per-chip rate divides by the gang's devices, so it reads
+BASELINE's img/s/chip), :class:`MetricsLogger` (the text log; the
+TensorBoard sink is not ported) and :func:`peak_flops_per_chip`, and the
+process-wide failure counters :class:`RunStats` / ``run_stats`` that the
+scoring runner's retries, the streaming scorer's quarantine and the
+checkpoint rollbacks record into. Heartbeats come with the gang
+supervisor (ROADMAP.md, Queue A 7).
 """
 
 from __future__ import annotations
@@ -217,7 +220,10 @@ class StepTimeStats:
 class ThroughputMeter:
     """Tracks examples/s and examples/s/chip over a training run.
 
-    ``update(n)`` once a step. The step time it records is the host wall
+    ``update(n)`` once a step, ``n`` the step's rows over the whole gang
+    (``fit`` passes each rank's rows times the gang's size), so
+    ``examples_per_sec`` is the gang's and ``examples_per_sec_per_chip``
+    divides it by ``n_chips``. The step time it records is the host wall
     time between two ``update`` calls; it is the device's step time only
     when each step ends in a wait for the device (``fit`` with
     ``log_every=1`` reads the loss every step, which waits). The first

@@ -1,4 +1,4 @@
-"""Train state and train steps for one device.
+"""Train state and train steps, for one process or a gang of them.
 
 The counterpart of ``sparkdl_tpu/runner/train_state.py``. There the step
 is a pure function jitted over a mesh, and the state (params, optimizer
@@ -27,19 +27,37 @@ runs it eagerly; nothing is compiled.
   optimizer factories; :func:`softmax_cross_entropy_loss` is the
   reference's classification loss.
 
-The explicit-collective twin ``make_shard_map_step`` comes with data
-parallelism (ROADMAP.md, Queue A 3 (c) and A 8).
+**Data parallelism** (``group=``, a ``torch.distributed`` process group
+of one process a device, each feeding its own rows). The two steps of the
+reference keep their semantics:
+
+- :func:`make_train_step` is the reference's implicit step: the step of
+  the global batch. BatchNorm pools its batch statistics over the gang
+  (``image_layers.sync_batch_stats``), and each rank's gradients, loss
+  and aux are averaged over the ranks.
+- :func:`make_shard_map_step` is the explicit one: BatchNorm uses each
+  rank's own statistics, and the gradients, the loss, the aux and the new
+  running statistics are averaged (``pmean``).
+
+Either way a step makes one all-reduce of one flat f32 buffer
+(:func:`_gang_mean`) after its backward, besides synchronised BatchNorm's
+two a layer. Dropout across ranks (``with_rng`` in a gang) is ROADMAP.md's
+Queue A 3 (e).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..models.image_layers import sync_batch_stats
 
 
 @dataclasses.dataclass
@@ -124,7 +142,8 @@ def _split(batch, k: int) -> list:
 
 def make_train_step(loss_fn: Callable, mutable: bool = False,
                     with_rng: bool = False, rng_seed: int = 0,
-                    remat: bool = False, accum_steps: int = 1) -> Callable:
+                    remat: bool = False, accum_steps: int = 1,
+                    group=None) -> Callable:
     """A train step: ``step(state, batch) -> (state, metrics)``, metrics
     ``{"loss": ..., **aux}`` as 0-d tensors on the model's device (read
     them with ``float()``, which waits for the device). The step's
@@ -156,7 +175,14 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
     model's buffers of the same names under ``no_grad``, once. A forward
     that ``checkpoint`` recomputes in the backward leaves no trace in the
     buffers, because the model writes none itself
-    (``image_layers.BatchNorm``)."""
+    (``image_layers.BatchNorm``).
+
+    ``group`` (a ``torch.distributed`` process group; None: one process)
+    makes it the reference's implicit data-parallel step, the step of the
+    gang's global batch: each rank passes its own rows, BatchNorm pools
+    its statistics over the gang (so the new running statistics come out
+    equal on every rank), and the gradients (after ``accum_steps``), the
+    loss and the aux are averaged over the ranks."""
     if accum_steps > 1 and mutable:
         raise ValueError(
             "accum_steps > 1 with mutable=True is not supported: BatchNorm "
@@ -164,6 +190,54 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
             "changing the model's normalization semantics")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    return _make_step(loss_fn, mutable, with_rng, rng_seed, remat,
+                      accum_steps, group, sync_bn=True)
+
+
+def make_shard_map_step(loss_fn: Callable, group=None,
+                        mutable: bool = False, with_rng: bool = False,
+                        rng_seed: int = 0, remat: bool = False,
+                        accum_steps: int = 1) -> Callable:
+    """The explicit-collective twin of :func:`make_train_step` (the
+    reference's ``shard_map`` step): each rank runs its forward and
+    backward on its own rows, and its gradients, loss and aux are averaged
+    over ``group`` (``pmean``), Horovod's ring all-reduce.
+
+    ``mutable=True``: BatchNorm normalises by each rank's own batch
+    statistics, and only the new running statistics are averaged, which
+    is Horovod's default (not synchronised) BatchNorm. The implicit step
+    pools the statistics over the global batch instead, so the two differ
+    for BatchNorm models at a small batch a rank; pick by the BatchNorm
+    semantics, not by style. ``remat`` composes; ``accum_steps`` is the
+    implicit step's only."""
+    if accum_steps != 1:
+        raise ValueError(
+            "accum_steps is not supported with explicit_collectives / "
+            "make_shard_map_step — use the implicit make_train_step path")
+    return _make_step(loss_fn, mutable, with_rng, rng_seed, remat, 1,
+                      group, sync_bn=False)
+
+
+def _gang_mean(tensors: list, group) -> list:
+    """Each tensor's mean over the ranks of ``group``: one all-reduce of
+    one flat f32 buffer, each tensor back in its own dtype and shape."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
+def _make_step(loss_fn, mutable, with_rng, rng_seed, remat, accum_steps,
+               group, sync_bn: bool) -> Callable:
+    if with_rng and group is not None:
+        raise NotImplementedError(
+            "with_rng=True in a data-parallel gang (dropout across ranks, "
+            "with the reference's per-rank keys) is not ported to "
+            "sparkdl_tpu_torch yet (ROADMAP.md, Queue A 3 (e))")
 
     def run(model, batch, n_step, micro):
         if not with_rng:
@@ -180,38 +254,56 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
             loss, *rest = run(model, batch, n_step, micro)
         return (loss.float(), *rest)
 
-    def step(state: TrainState, batch):
+    def local_step(state: TrainState, batch):
+        """(loss, aux, new model state or None, gradients) of this
+        process's rows."""
         params = state.trainable()
-        new_ms = None
         if accum_steps == 1:  # always, when mutable
             loss, aux, *rest = forward(state.model, batch, state.step)
-            if mutable:
-                new_ms = rest[0]
             grads = torch.autograd.grad(loss, params)
-        else:
-            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-            losses, auxs = [], []
-            for i, mb in enumerate(_split(batch, accum_steps)):
-                loss, aux = forward(state.model, mb, state.step, i)
-                # summed in f32 whatever the parameter dtype: k bf16
-                # additions would round small contributions away
-                for s, g in zip(gsum, torch.autograd.grad(loss, params)):
-                    s.add_(g.float())
-                losses.append(loss.detach())
-                auxs.append(aux)
-            grads = [(s / accum_steps).to(p.dtype)
-                     for s, p in zip(gsum, params)]
-            loss = torch.stack(losses).mean()
-            aux = {key: torch.stack([a[key].detach().float()
-                                     for a in auxs]).mean()
-                   for key in auxs[0]}
-        for p, g in zip(params, grads):
+            return loss, aux, (rest[0] if mutable else None), grads
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        losses, auxs = [], []
+        for i, mb in enumerate(_split(batch, accum_steps)):
+            loss, aux = forward(state.model, mb, state.step, i)
+            # summed in f32 whatever the parameter dtype: k bf16
+            # additions would round small contributions away
+            for s, g in zip(gsum, torch.autograd.grad(loss, params)):
+                s.add_(g.float())
+            losses.append(loss.detach())
+            auxs.append(aux)
+        grads = [(s / accum_steps).to(p.dtype)
+                 for s, p in zip(gsum, params)]
+        loss = torch.stack(losses).mean()
+        aux = {key: torch.stack([a[key].detach().float()
+                                 for a in auxs]).mean()
+               for key in auxs[0]}
+        return loss, aux, None, grads
+
+    def step(state: TrainState, batch):
+        synced = (sync_batch_stats(state.model, group)
+                  if group is not None and sync_bn
+                  else contextlib.nullcontext())
+        with synced:
+            loss, aux, new_ms, grads = local_step(state, batch)
+        loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+        if group is not None:
+            # synchronised statistics are equal on every rank already;
+            # the explicit step's own ones are averaged with the rest
+            own = list(new_ms) if new_ms and not sync_bn else []
+            out = iter(_gang_mean([*grads, loss, *aux.values(),
+                                   *(new_ms[k] for k in own)], group))
+            grads = [next(out) for _ in grads]
+            loss = next(out)
+            aux = {k: next(out) for k in aux}
+            new_ms = {**new_ms, **{k: next(out) for k in own}} \
+                if new_ms else new_ms
+        for p, g in zip(state.trainable(), grads):
             p.grad = g
         state.apply_gradients()
         if new_ms:
             assign_buffers(state.model, new_ms)
-        return state, {"loss": loss.detach(),
-                       **{key: val.detach() for key, val in aux.items()}}
+        return state, {"loss": loss, **aux}
 
     return step
 

@@ -1,5 +1,5 @@
-"""XlaRunner — the training entry point of the port, for one process and one
-device.
+"""XlaRunner — the training entry point of the port, for one process or a
+data-parallel gang of processes, one device each.
 
 The counterpart of ``sparkdl_tpu/runner/xla_runner.py``; the names are
 kept so a reader finds each piece's twin: ``XlaRunner(np=1).run(main_fn)``
@@ -19,9 +19,23 @@ The device is the card unless the caller asks for the CPU (``device=None``
 means ``cuda`` and raises without one). ``XlaRunner(checkpoint_dir=)``
 gives ``fit`` checkpoints and resume (``runner/checkpoint.py``), and
 :meth:`XlaRunner.run_with_restarts` re-runs a failed ``main_fn``, which
-then resumes from the last checkpoint. Not ported yet: ``np > 1`` (data
-parallelism, ROADMAP.md Queue A 3 (c) over A 8's collectives) raises
-``NotImplementedError`` naming Queue A 8.
+then resumes from the last checkpoint.
+
+**Data parallelism** is torch's idiom, one process a device: start N
+copies of a worker script with ``runner.launcher.launch(script, np=N)``
+(the ``mpirun`` role), and each builds ``XlaRunner(...)`` as it would in
+one process. The launcher's ``SPARKDL_COORDINATOR`` /
+``SPARKDL_NUM_PROCESSES`` / ``SPARKDL_PROCESS_ID`` (or the
+``coordinator=``, ``num_processes=``, ``process_id=`` arguments) make
+:func:`_init_gang` join ``torch.distributed`` once a process, over
+``tcp://<coordinator>``: NCCL when the device is the card (rank r takes
+``cuda:r``), gloo when the caller asked for the CPU. Every rank feeds its
+own rows (``shard_batch``); the train step is the gang's
+(``train_state.make_train_step(group=)``, synchronised BatchNorm) or, with
+``explicit_collectives=True``, ``make_shard_map_step``'s. The reference's
+single-controller form (one process driving N devices) is not torch's:
+``np > 1`` without a rendezvous raises ``ValueError`` naming
+``launcher.launch``.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.platform import resolve_device
 from . import chaos
@@ -45,14 +60,94 @@ from . import metrics as metrics_lib
 from . import sentinel as sentinel_lib
 from .checkpoint import CheckpointManager
 from .failures import TrainingDivergedError
-from .train_state import TrainState, make_eval_step, make_train_step
+from .train_state import (TrainState, make_eval_step,
+                          make_shard_map_step, make_train_step)
 
 log = logging.getLogger("sparkdl_tpu_torch.runner")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sparkdl_tpu_torch yet (ROADMAP.md, {item})")
+_CURRENT_CONTEXT: list["RunnerContext"] = []
+
+
+@dataclass(frozen=True)
+class Gang:
+    """This process's place in a data-parallel gang: ``group`` carries
+    the device collectives (NCCL on the card, gloo on the CPU) and
+    ``host_group`` the host-side ones over host values (row counts, the
+    checkpoint step, the hvd-compat module's numpy): the same group under
+    gloo, a gloo group beside NCCL's."""
+    backend: str
+    size: int
+    rank: int
+    group: Any = field(repr=False)
+    host_group: Any = field(repr=False)
+
+
+_GANG: list[Gang] = []  # the process's gang, once joined
+
+
+def _rendezvous(coordinator: str | None, num_processes: int | None,
+                process_id: int | None):
+    """``(coordinator, num_processes, process_id)`` from the arguments or,
+    when ``coordinator`` is None, from the launcher's ``SPARKDL_*`` env;
+    None when neither names one."""
+    if coordinator is None:
+        coordinator = os.environ.get("SPARKDL_COORDINATOR") or None
+        if coordinator:
+            num_processes = int(os.environ["SPARKDL_NUM_PROCESSES"])
+            process_id = int(os.environ["SPARKDL_PROCESS_ID"])
+    if coordinator is None:
+        return None
+    if num_processes is None or process_id is None:
+        raise ValueError("coordinator= needs num_processes= and "
+                         "process_id=")
+    if not 0 <= int(process_id) < int(num_processes):
+        raise ValueError(f"process_id={process_id} is outside a gang of "
+                         f"{num_processes}")
+    return coordinator, int(num_processes), int(process_id)
+
+
+def _init_gang(coordinator: str, size: int, rank: int,
+               backend: str) -> Gang:
+    """Join the gang's ``torch.distributed`` process group, once a
+    process. A second runner in the process reuses it; one that asks for
+    another backend, size or rank raises (a process never switches from
+    NCCL to gloo or back)."""
+    if _GANG:
+        g = _GANG[0]
+        if (g.backend, g.size, g.rank) != (backend, size, rank):
+            raise RuntimeError(
+                f"this process joined a {g.backend} gang as rank {g.rank} "
+                f"of {g.size}; it cannot also be rank {rank} of {size} "
+                f"over {backend}")
+        return g
+    if dist.is_initialized():
+        raise RuntimeError("torch.distributed was initialised outside the "
+                           "runner; XlaRunner joins its gang itself")
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=size, rank=rank)
+    host = (dist.new_group(backend="gloo") if backend == "nccl"
+            else dist.group.WORLD)
+    g = Gang(backend=backend, size=size, rank=rank, group=dist.group.WORLD,
+             host_group=host)
+    _GANG.append(g)
+    log.info("joined a %s gang: rank %d of %d via %s", backend, rank, size,
+             coordinator)
+    return g
+
+
+def leave_gang() -> None:
+    """Destroy this process's process group (no-op outside a gang); a
+    worker calls it before it exits."""
+    if _GANG:
+        _GANG.clear()
+        dist.destroy_process_group()
+
+
+def current_context() -> "RunnerContext | None":
+    """The context of the innermost running ``XlaRunner.run`` (or of
+    ``api.init``), or None."""
+    return _CURRENT_CONTEXT[-1] if _CURRENT_CONTEXT else None
 
 
 def _to_device(tree, device):
@@ -77,34 +172,91 @@ def _nbytes(batch) -> int:
 
 @dataclass
 class RunnerContext:
-    """What ``main_fn`` receives: the hvd-style identity (one process, one
-    device), the device, the checkpoint manager and the training loop."""
+    """What ``main_fn`` receives: the hvd-style identity (a process, one
+    device, in a gang of ``size``), the device, the checkpoint manager and
+    the training loop."""
     device: torch.device
     checkpoint_dir: str | None = None
+    gang: Gang | None = None
     _ckpt: CheckpointManager | None = field(default=None, repr=False)
 
     # -- hvd-compat identity --------------------------------------------
     @property
     def size(self) -> int:
-        return 1
+        """Devices in the gang (one a process): hvd.size."""
+        return self.gang.size if self.gang else 1
 
     @property
     def rank(self) -> int:
-        return 0
+        return self.gang.rank if self.gang else 0
+
+    @property
+    def num_processes(self) -> int:
+        return self.size
+
+    @property
+    def local_device_count(self) -> int:
+        return 1
+
+    def _check_rows(self, n: int) -> None:
+        """In a gang, raise unless every rank's batch has ``n`` rows (one
+        host-side all-reduce of ``[n, −n]`` with MAX)."""
+        if not self.gang:
+            return
+        t = torch.tensor([n, -n], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.gang.host_group)
+        if int(t[0]) != n or -int(t[1]) != n:
+            raise ValueError(
+                f"rank {self.rank}'s batch has {n} rows, but the ranks' "
+                f"batches range over {-int(t[1])}..{int(t[0])}: every rank "
+                f"must pass a local shard of the same leading dim")
 
     def shard_batch(self, batch):
         """Host batch (a dict of numpy arrays or tensors, nested dicts
-        allowed) → the same dict of tensors on the context's device."""
+        allowed) → the same dict of tensors on the context's device. In a
+        gang each rank passes its LOCAL shard (HorovodRunner semantics:
+        every rank loads its own rows); a leading dim that differs
+        between the ranks raises ``ValueError``."""
+        self._check_rows(_rows(batch))
         return _to_device(batch, self.device)
 
+    @torch.no_grad()
+    def put_replicated(self, model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer | None = None):
+        """In a gang, rank 0's parameters, buffers and optimizer state
+        broadcast to every rank, in place, so all start from one state
+        (a no-op in one process). Returns ``model``."""
+        if self.gang:
+            tensors = [*model.parameters(), *model.buffers()]
+            if optimizer is not None:
+                tensors += [v for st in optimizer.state.values()
+                            for v in st.values() if torch.is_tensor(v)]
+            for t in tensors:
+                if t.device == self.device:
+                    dist.broadcast(t, src=0, group=self.gang.group)
+                else:  # e.g. Adam's step count, kept on the host
+                    moved = t.to(self.device)
+                    dist.broadcast(moved, src=0, group=self.gang.group)
+                    t.copy_(moved)
+        return model
+
     # -- steps ------------------------------------------------------------
-    def make_train_step(self, loss_fn, **kw):
-        return make_train_step(loss_fn, **kw)
+    def make_train_step(self, loss_fn, explicit_collectives: bool = False,
+                        **kw):
+        """:func:`~.train_state.make_train_step` over the gang (None in
+        one process), or with ``explicit_collectives``
+        :func:`~.train_state.make_shard_map_step`."""
+        group = self.gang.group if self.gang else None
+        if explicit_collectives:
+            return make_shard_map_step(loss_fn, group=group, **kw)
+        return make_train_step(loss_fn, group=group, **kw)
 
     def make_eval_step(self, eval_fn):
         return make_eval_step(eval_fn)
 
     def meter(self, warmup_steps: int = 1) -> metrics_lib.ThroughputMeter:
+        """Counts global rows over ``n_chips = size``, so its per-chip rate
+        is img/s/chip."""
         return metrics_lib.ThroughputMeter(n_chips=self.size,
                                            warmup_steps=warmup_steps)
 
@@ -114,7 +266,9 @@ class RunnerContext:
         """The context's :class:`~.checkpoint.CheckpointManager` over
         ``checkpoint_dir`` (None without one), opened at first use."""
         if self._ckpt is None and self.checkpoint_dir:
-            self._ckpt = CheckpointManager(self.checkpoint_dir)
+            self._ckpt = CheckpointManager(
+                self.checkpoint_dir,
+                group=self.gang.host_group if self.gang else None)
         return self._ckpt
 
     def _close_checkpoints(self):
@@ -139,7 +293,8 @@ class RunnerContext:
             flops_per_step: float | None = None,
             checkpoint_every: int = 0, resume: bool = True,
             profile_dir: str | None = None,
-            feed_lookahead: int = 0) -> dict:
+            feed_lookahead: int = 0,
+            explicit_collectives: bool = False) -> dict:
         """Run a training loop; returns ``{state, meter, history}``.
 
         ``loss_fn(model, batch) -> (loss, aux)``, or ``(loss, aux,
@@ -153,11 +308,20 @@ class RunnerContext:
         :class:`~.data.CheckpointableDataset`, which ``data.as_dataset``
         turns into a dataset with a cursor and the
         ``SPARKDL_SKIP_BATCHES`` skip-list — moves each batch to the
-        device, runs the step (:func:`~.train_state.make_train_step` with
-        ``mutable``, ``with_rng``, ``remat`` and ``accum_steps``; a tail
-        batch that does not divide by ``accum_steps`` is cropped, or
-        skipped when smaller, without burning a step) and meters
-        examples/s.
+        device, runs the step (:meth:`make_train_step` with ``mutable``,
+        ``with_rng``, ``remat``, ``accum_steps`` and
+        ``explicit_collectives``; a tail batch that does not divide by
+        ``accum_steps`` is cropped, or skipped when smaller, without
+        burning a step) and meters examples/s.
+
+        **In a gang** every rank runs ``fit`` with its own ``data``: the
+        batches it yields are the rank's local rows (a dataset made with
+        ``shard=True`` cuts them from the global stream), of one leading
+        dim on every rank (checked each step). The state starts as rank
+        0's (:meth:`put_replicated`, after a resume too); the meter counts
+        the gang's rows, so ``examples_per_sec_per_chip`` is per device;
+        losses and eval metrics are the gang's means; checkpoints are
+        written by rank 0 (``runner/checkpoint.py``).
 
         Every ``log_every`` steps, and at the last, the step's metrics are
         read (a wait for the device), the loss is checked to be finite
@@ -213,13 +377,15 @@ class RunnerContext:
                          verified_cursor=cursor is not None)
             log.info("resumed from checkpoint at step %d%s", start_step,
                      f" (data cursor {cursor})" if cursor else "")
+        self.put_replicated(state.model, state.optimizer)
         if dataset is not None:
             data_it = dataset.indexed()
         else:
             data_it = ((None, b) for b in iter(data))
-        step_fn = self.make_train_step(loss_fn, mutable=mutable,
-                                       with_rng=with_rng, remat=remat,
-                                       accum_steps=accum_steps)
+        step_fn = self.make_train_step(
+            loss_fn, explicit_collectives=explicit_collectives,
+            mutable=mutable, with_rng=with_rng, remat=remat,
+            accum_steps=accum_steps)
         eval_step = self.make_eval_step(eval_fn) if eval_fn else None
         meter = self.meter()
         meter.flops_per_step = flops_per_step
@@ -255,9 +421,13 @@ class RunnerContext:
             for i in range(start_step, num_steps):
                 chaos.fire("step_start", step=i)
                 try:
-                    n, dev_batch, cur = next(staged_it)
+                    n_local, dev_batch, cur = next(staged_it)
                 except StopIteration:
                     break
+                # checked here, on the loop's thread: a lookahead stages
+                # from worker threads, and collectives must keep one order
+                self._check_rows(n_local)
+                n = n_local * self.size  # the gang's rows this step
                 with events.span("step_compute", step=i):
                     state, m = step_fn(state, dev_batch)
                 if cur is not None:
@@ -283,7 +453,7 @@ class RunnerContext:
                         and eval_data is not None:
                     with events.span("eval", step=i + 1):
                         evm = _run_eval(eval_step, state, eval_data,
-                                        self.shard_batch)
+                                        self)
                     logger.log(i + 1, {f"eval_{k}": v for k, v in evm.items()})
             if ckpt:
                 # the final save waits; a step the loop just saved is not
@@ -316,7 +486,9 @@ def _staged(ctx: RunnerContext, data_it, crop, limit: int, start_step: int,
     ``data_it`` past ``limit``: a reused iterator sits where the inline
     feed leaves it.
 
-    On the card a worker first copies the batch into pinned host memory
+    The rows are not checked against the gang's here (the loop does it
+    on its own thread). On the card a worker first copies the batch into
+    pinned host memory
     (on an H100 a side-stream copy from pageable memory hid none of its
     time behind the steps; from pinned memory it hid most of it), then
     ``shard_batch`` moves it on a side stream, which does not wait for
@@ -332,10 +504,10 @@ def _staged(ctx: RunnerContext, data_it, crop, limit: int, start_step: int,
         n = _rows(batch)
         with events.span("shard_put", rows=n, bytes=_nbytes(batch)):
             if side is None:
-                return n, ctx.shard_batch(batch), cur
+                return n, _to_device(batch, ctx.device), cur
             pinned = _map(lambda x: torch.as_tensor(x).pin_memory(), batch)
             with torch.cuda.stream(side):
-                return n, ctx.shard_batch(pinned), cur
+                return n, _to_device(pinned, ctx.device), cur
 
     def handed(staged):
         if side is not None:
@@ -424,40 +596,101 @@ def _assert_finite_loss(m: dict, step: int):
         raise TrainingDivergedError(step, float(v))
 
 
-def _run_eval(eval_step, state, eval_data, shard):
+def _run_eval(eval_step, state, eval_data, ctx: RunnerContext):
+    """Row-weighted means of ``eval_step``'s metrics over ``eval_data``;
+    in a gang over every rank's rows (one host-side all-reduce)."""
     totals: dict[str, float] = {}
     n = 0
     for batch in eval_data:
-        m = eval_step(state, shard(batch))
+        m = eval_step(state, ctx.shard_batch(batch))
         bs = _rows(batch)
         for k, v in m.items():
             totals[k] = totals.get(k, 0.0) + float(v) * bs
         n += bs
+    if ctx.gang:
+        keys = sorted(totals)
+        t = torch.tensor([totals[k] for k in keys] + [n],
+                         dtype=torch.float64)
+        dist.all_reduce(t, group=ctx.gang.host_group)
+        totals, n = dict(zip(keys, t[:-1].tolist())), int(t[-1])
     return {k: v / max(n, 1) for k, v in totals.items()}
 
 
 class XlaRunner:
-    """``XlaRunner(np=1).run(main_fn, **kwargs)`` — one process, one device.
+    """``XlaRunner(np=1).run(main_fn, **kwargs)``: HorovodRunner's shape,
+    one device a process.
 
     ``device``: where the context trains; None means ``cuda`` (and raises
     without a card), ``"cpu"`` asks for the CPU. ``checkpoint_dir``: where
-    ``fit`` saves and resumes (none without it)."""
+    ``fit`` saves and resumes (none without it).
 
-    def __init__(self, np: int = 1, device=None,
-                 checkpoint_dir: str | None = None):
-        if np != 1:
-            raise _not_ported(f"np={np} (data parallelism over several "
-                              f"cards, DDP)", "Queue A 8")
-        self.device = resolve_device(device)
+    ``np``: the devices to span, one a process; -1 (the default) means
+    the gang's size, or 1 without a gang. A gang comes from
+    ``launcher.launch`` (its ``SPARKDL_*`` env) or from ``coordinator``
+    (``host:port`` of rank 0's rendezvous), ``num_processes`` and
+    ``process_id``, and is joined here (:func:`_init_gang`): NCCL on the
+    card, where rank r takes ``cuda:r`` and a gang larger than
+    ``torch.cuda.device_count()`` raises ``ValueError`` before any
+    rendezvous; gloo on the CPU. ``np > 1`` without a rendezvous raises
+    ``ValueError``: one process drives one device here."""
+
+    def __init__(self, np: int = -1, device=None,
+                 checkpoint_dir: str | None = None,
+                 coordinator: str | None = None,
+                 num_processes: int | None = None,
+                 process_id: int | None = None):
         self.checkpoint_dir = checkpoint_dir
+        want = None if np in (-1, None) else int(np)
+        rdv = _rendezvous(coordinator, num_processes, process_id)
+        if rdv is None:
+            if want not in (None, 1):
+                raise ValueError(
+                    f"np={want} needs a gang of {want} processes, one a "
+                    f"device: start them with sparkdl_tpu_torch.runner."
+                    f"launcher.launch(script, np={want}) (or pass "
+                    f"coordinator=, num_processes=, process_id=). One "
+                    f"process driving several devices (the reference's "
+                    f"single controller) is not torch's form (ROADMAP.md, "
+                    f"Queue C 2)")
+            self.device = resolve_device(device)
+            self.gang = None
+            return
+        coordinator, size, rank = rdv
+        if want not in (None, size):
+            raise ValueError(f"np={want}, but the gang has {size} "
+                             f"processes (one a device)")
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            visible = torch.cuda.device_count()
+            if size > visible:
+                raise ValueError(
+                    f"np={size} exceeds visible devices ({visible}): rank "
+                    f"r of a one-host gang takes cuda:r, and NCCL runs one "
+                    f"rank a card")
+            dev = torch.device("cuda", rank)
+            torch.cuda.set_device(dev)
+            backend = "nccl"
+        elif dev.type == "cpu":
+            backend = "gloo"
+        else:
+            raise ValueError(f"no gang backend for device {dev}")
+        self.device = dev
+        self.gang = _init_gang(coordinator, size, rank, backend)
 
     def make_context(self) -> RunnerContext:
         return RunnerContext(device=self.device,
-                             checkpoint_dir=self.checkpoint_dir)
+                             checkpoint_dir=self.checkpoint_dir,
+                             gang=self.gang)
 
     def run(self, main_fn: Callable, **kwargs) -> Any:
-        """Invoke ``main_fn(ctx, **kwargs)`` with a fresh context."""
-        return main_fn(self.make_context(), **kwargs)
+        """Invoke ``main_fn(ctx, **kwargs)`` with a fresh context (the
+        current one, for ``runner.api``, while it runs)."""
+        ctx = self.make_context()
+        _CURRENT_CONTEXT.append(ctx)
+        try:
+            return main_fn(ctx, **kwargs)
+        finally:
+            _CURRENT_CONTEXT.pop()
 
     def run_with_restarts(self, main_fn: Callable, max_restarts: int = 2,
                           backoff_s: float = 1.0, retry_all: bool = False,

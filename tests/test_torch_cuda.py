@@ -1392,3 +1392,68 @@ def test_fit_feed_lookahead_on_card_matches_inline(dev):
                     [h["loss"] for h in res["history"]]))
     assert torch.equal(out[0][0], out[1][0])
     assert out[0][1] == out[1][1]
+
+
+# --- data parallelism on the card ---------------------------------------------
+
+def test_np_beyond_the_cards_raises_on_the_card(dev):
+    """``XlaRunner(np=N)`` for more processes than the machine has cards
+    raises ``ValueError`` before any rendezvous (NCCL allows one rank a
+    card)."""
+    from sparkdl_tpu_torch.runner import XlaRunner
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="exceeds visible devices"):
+        XlaRunner(np=n, coordinator="127.0.0.1:1", num_processes=n,
+                  process_id=0)
+    assert not torch.distributed.is_initialized()
+
+
+def test_one_rank_nccl_gang_step_matches_in_process_step(dev, tmp_path):
+    """A one-rank NCCL gang (``launcher.launch(np=1)`` on
+    ``tests/test_torch_gang_worker.py``, synchronised BatchNorm and the
+    gradient all-reduce) against ``make_train_step`` in this process, one
+    f32 mutable step of a narrow ResNet18 (width 8, 32², batch 8, TF32
+    off) from one carried state: the parameters within 1e-3 of the step's
+    largest change, each statistic within 1e-4 of its own change
+    (``chip_smoke.py``'s ``dp_parity`` limits; the two BatchNorms take
+    the variance differently, so not bitwise); the statistics with
+    ``remat`` bitwise as without."""
+    import os
+
+    from sparkdl_tpu_torch.models import resnet as R
+    from sparkdl_tpu_torch.runner import (TrainState, bn_classifier_loss,
+                                          launcher, make_train_step, sgd)
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = R.ResNet(stage_sizes=[2, 2, 2, 2], block=R.BasicBlock, width=8,
+                     num_classes=10, seed=0)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save(before, tmp_path / "init.pt")
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.uniform(0, 1, (8, 32, 32, 3)).astype(np.float32),
+             "label": rng.integers(0, 10, 8)}
+    np.savez(tmp_path / "batch.npz", **batch)
+    launcher.launch(os.path.join(root, "tests", "test_torch_gang_worker.py"),
+                    np=1, args=["resnet", str(tmp_path), str(tmp_path),
+                                "cuda"],
+                    env={"PYTHONPATH": root + os.pathsep
+                         + os.environ.get("PYTHONPATH", "")},
+                    timeout_s=300.0, capture=True)
+    gang = torch.load(tmp_path / "rank0.pt", weights_only=False)
+    model = model.to(dev)
+    make_train_step(bn_classifier_loss(), mutable=True)(
+        TrainState.create(model, sgd(0.01, momentum=0.9)),
+        {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    got = gang["implicit"]
+    params = [k for k in want if "running" not in k]
+    p = (max((got[k] - want[k]).abs().max().item() for k in params)
+         / max((want[k] - before[k]).abs().max().item() for k in params))
+    s = max((got[k] - want[k]).abs().max().item()
+            / (want[k] - before[k]).abs().max().item()
+            for k in want if "running" in k)
+    assert p <= 1e-3 and s <= 1e-4, (p, s)
+    assert all(torch.equal(t, gang["remat"][k]) for k, t in got.items()
+               if "running" in k)
+    assert gang["replicated"]

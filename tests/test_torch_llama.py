@@ -376,6 +376,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "sparkdl_tpu_torch/udf/registry.py",
             "sparkdl_tpu_torch/runner/data.py",
             "sparkdl_tpu_torch/runner/failures.py",
+            "sparkdl_tpu_torch/runner/launcher.py",
+            "sparkdl_tpu_torch/runner/api.py",
             "sparkdl_tpu_torch/core/params.py",
             "sparkdl_tpu_torch/core/pipeline.py",
             "sparkdl_tpu_torch/core/ingest.py",
@@ -414,6 +416,8 @@ def test_importing_the_port_loads_no_jax():
             "sparkdl_tpu_torch.models.bert", "sparkdl_tpu_torch.core.frame",
             "sparkdl_tpu_torch.udf.registry",
             "sparkdl_tpu_torch.runner.failures",
+            "sparkdl_tpu_torch.runner.launcher",
+            "sparkdl_tpu_torch.runner.api",
             "sparkdl_tpu_torch.core.pipeline",
             "sparkdl_tpu_torch.image.imageIO",
             "sparkdl_tpu_torch.models.registry",

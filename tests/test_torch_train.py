@@ -217,14 +217,16 @@ def test_remat_is_exact_on_cpu():
 
 
 def test_unported_options_raise():
-    """What still raises: several cards (Queue A 8), and the reference's
-    own refusal of BatchNorm statistics under gradient accumulation."""
+    """What still raises: ``np > 1`` without a gang (data parallelism runs
+    one process a device, started by ``launcher.launch``), and the
+    reference's own refusal of BatchNorm statistics under gradient
+    accumulation."""
     with pytest.raises(ValueError, match="mutable"):
         make_train_step(L.causal_lm_loss_fn(), mutable=True, accum_steps=2)
     # with_rng (dropout for BERT) and mutable (BatchNorm) are ported
     assert callable(make_train_step(L.causal_lm_loss_fn(), with_rng=True))
     assert callable(make_train_step(L.causal_lm_loss_fn(), mutable=True))
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
+    with pytest.raises(ValueError, match="launcher.launch"):
         XlaRunner(np=2, device="cpu")
     with pytest.raises(ValueError, match="no LoRA adapters"):
         L.lora_optimizer()(_model(lora_rank=0))
