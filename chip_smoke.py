@@ -259,9 +259,50 @@ l. data parallelism (BASELINE config 3's gang) and the other train modes:
      Xception at 299, bf16, 4 mutable SGD steps of 64 through
      ``XlaRunner(np=1).fit``; losses finite, every statistic moved.
 
+m. BASELINE configs 4 and 5 over a gang, and the numeric scoring runner:
+   ``launcher.launch(np=1)`` starts this script again as the worker
+   (``chip_smoke.py --dp-m-worker <dir>``), which joins a one-rank NCCL
+   gang through ``XlaRunner()`` and runs, one after the other:
+   - ``dp_bert``: phase h's model and recipe at full width and depth
+     (``BertConfig.base()``, bf16 compute, seeded weights, batch 32,
+     length 128, Adam 3e-5, ``bert_finetune_loss``, the flash kernels by
+     ``"auto"``) through ``fit(with_rng=True)``: the gang's implicit step,
+     whose dropout draws the rank's rows of the global batch's masks
+     (``utils.rng.RowWindow``; at one rank every row), DP_BERT_WARMUP +
+     DP_BERT_TIMED steps over phase h's first batches. The line: step ms
+     (median, p10/p90, each from a loss call to the next), examples/s/chip,
+     MFU (``glue_flops``), peak memory, the gang's wall time, the flash
+     forward and backward launches (set to 0 just before the fit and read
+     just after: 12 and 12 a step), the losses, which must equal phase
+     h's in-process losses of the same steps to the bit (phase h's own
+     ``with_rng`` repeat is bitwise), and the dropout sites of one
+     forward with the random numbers they draw (counted through
+     ``models.bert.uniform``) and what a rank draws a step at np 1, 2, 4
+     and 8 (the global batch's, ``dropout_draw_gb_per_rank``, f32);
+   - ``dp_bert_accum``: the same gang and model with ``accum_steps=2``
+     for 2 steps: losses finite, no refusal, 24 + 24 flash launches;
+   - ``dp_lora``: ``LlamaConfig.llama3_8b(lora_rank=16)`` at full width
+     (4096 hidden, 32/8 heads, head_dim 128, FFN 14336, vocab 128256),
+     **depth cut to DP_LORA_LAYERS layers** (to keep the script's time),
+     bf16, seeded weights, phase g's 2 x 2048 batch, ``lora_optimizer``,
+     DP_LORA_STEPS steps: step ms, tokens/s, MFU (``train_flops``), peak
+     memory, the flash launches (one a layer a step each way), the bytes
+     ``put_replicated`` broadcasts (and at the full 32 layers, from the
+     model's own per-layer bytes) and the seconds of one call at one
+     rank. After the worker exits, the same fit in this process from the
+     same seed: the losses held to DP_LORA_LOSS_RTOL (and reported
+     bitwise or not).
+   Then ``xla_transformer``: ``XlaTransformer(fn=...)._get_runner()`` on
+   the card (no DataFrame, no pyarrow) over XLA_ROWS seeded numeric rows
+   of XLA_WIDTH in batches of XLA_BATCH, ``fn`` a bf16 dense layer and an
+   exact GELU: rows/s, and the output against the same runner on the CPU
+   within 2^-6·(1 + |CPU|) (a bf16 product may round one step apart, and
+   GELU's slope is at most 1.13).
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
-entries add their BERT case and phase h's launches) and, last,
+entries add their BERT case and phase h's launches, and phase m's gang
+launches) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
@@ -372,6 +413,16 @@ CKPT_BATCH = 64
 # train steps at 299, bf16
 DP_TIMEOUT_S = 600.0
 IMAGE_TRAIN_BATCH, IMAGE_TRAIN_STEPS, IMAGE_TRAIN_LR = 64, 4, 0.01
+# phase m: phase h's recipe as a one-rank NCCL gang (3 warm-up steps, 10
+# timed), then 2 steps with accum_steps=2; llama3_8b's widths cut to
+# DP_LORA_LAYERS layers, phase g's batch. The LoRA gang against the same
+# fit in this process: bf16 losses within DP_LORA_LOSS_RTOL relative
+# (at one rank the gang's all-reduce leaves the gradients as they are,
+# so they are expected to be bitwise; the limit allows a bf16 step)
+DP_BERT_WARMUP, DP_BERT_TIMED, DP_BERT_ACCUM_STEPS = 3, 10, 2
+DP_LORA_LAYERS, DP_LORA_STEPS, DP_LORA_LOSS_RTOL = 4, 5, 2.0 ** -8
+# phase m's numeric scoring runner: rows, width, batch
+XLA_ROWS, XLA_WIDTH, XLA_BATCH = 4096, 1024, 256
 
 
 def emit(obj) -> None:
@@ -3075,6 +3126,377 @@ def phase_dp(torch, kernels, resnet_arms: list) -> dict:
     return dict(gang=rec, parity=prec, refuses=rrec, images=images)
 
 
+def stamped_fit(torch, ctx, loss_fn, model, tx, data, steps: int,
+                accum_steps: int = 1, **kw) -> tuple:
+    """``ctx.fit(..., num_steps=steps, log_every=1)``: (result, step
+    seconds, fit seconds), a step from its first loss call to the next
+    step's (the last to the end of the fit), as ``resnet_fit`` times
+    them."""
+    stamps: list = []
+
+    def stamped(m, batch, **k):
+        stamps.append(time.perf_counter())
+        return loss_fn(m, batch, **k)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ctx.fit(loss_fn=stamped, model=model, tx=tx, data=data,
+                  num_steps=steps, log_every=1, accum_steps=accum_steps,
+                  **kw)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    stamps = stamps[::accum_steps] + [end]  # a loss call a microbatch
+    return res, [b - a for a, b in zip(stamps, stamps[1:])], end - t0
+
+
+def dropout_draws(torch, model, batch: dict) -> list:
+    """The elements each dropout site of one forward of ``model`` (a
+    ``BertForSequenceClassification``) with dropout on draws over
+    ``batch``'s rows: ``models.bert.uniform`` is wrapped for the call."""
+    from sparkdl_tpu_torch.models import bert as B
+
+    drawn, real = [], B.uniform
+
+    def counted(shape, rng, device):
+        drawn.append(math.prod(shape))
+        return real(shape, rng, device)
+
+    B.uniform = counted
+    try:
+        with torch.no_grad():
+            model(batch["input_ids"], batch["attention_mask"],
+                  deterministic=False,
+                  generator=torch.Generator(model.device).manual_seed(0))
+    finally:
+        B.uniform = real
+    return drawn
+
+
+def meter_line(meter) -> dict:
+    """The meter's per-chip rate and MFU, for a worker's JSON."""
+    summ = meter.summary()
+    return {"examples_per_sec_per_chip": summ["examples_per_sec_per_chip"],
+            "mfu": summ["mfu"]}
+
+
+def lora_cut_model(torch):
+    """Phase m's LoRA model: llama3_8b(lora_rank=16)'s widths at
+    DP_LORA_LAYERS layers, bf16, weights from seed 0 on the card."""
+    import dataclasses
+
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = dataclasses.replace(L.LlamaConfig.llama3_8b(lora_rank=16),
+                              num_layers=DP_LORA_LAYERS)
+    return L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(0))
+
+
+def dp_m_worker(out_dir: str) -> int:
+    """Phase m's gang worker (``chip_smoke.py --dp-m-worker <out_dir>``,
+    started by ``launcher.launch``): joins the gang through
+    ``XlaRunner()`` (NCCL, rank r on ``cuda:r``), runs ``dp_bert``,
+    ``dp_bert_accum`` and ``dp_lora`` on this rank's rows of each global
+    batch and writes their records to ``out_dir/dp_m.json``."""
+    import gc
+
+    import torch
+
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.ops import flash_decode as fd
+    from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
+    from sparkdl_tpu_torch.runner import XlaRunner, adam
+    from sparkdl_tpu_torch.runner.data import FactoryDataset, ListDataset
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (fa, fd, pfd)
+    ctx = XlaRunner().make_context()
+    assert ctx.gang is not None and ctx.gang.backend == "nccl", ctx.gang
+    assert ctx.device == torch.device("cuda", ctx.rank), ctx.device
+    out = {}
+
+    # dp_bert and dp_bert_accum: phase h's model, batches and recipe
+    cfg = B.BertConfig.base()
+    steps = DP_BERT_WARMUP + DP_BERT_TIMED
+    batches = [glue_batch(i, cfg.vocab_size) for i in range(steps)]
+    local = GLUE_BATCH // ctx.size
+
+    def bert():
+        return B.BertForSequenceClassification(
+            cfg, num_classes=2, dtype=torch.bfloat16, device=ctx.device,
+            generator=torch.Generator(device=ctx.device).manual_seed(0))
+
+    for arm, n_steps, kw in (("dp_bert", steps, {}),
+                             ("dp_bert_accum", DP_BERT_ACCUM_STEPS,
+                              {"accum_steps": 2})):
+        model = bert()
+        flops = [glue_flops(model, b) for b in batches[:n_steps]]
+        # the random numbers a step draws: a rank draws the global
+        # batch's, world x its own rows' (utils.rng.RowWindow)
+        drawn = dropout_draws(torch, model, {
+            k: torch.as_tensor(v[:local]).to(ctx.device)
+            for k, v in batches[0].items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        res, step_s, fit_s = stamped_fit(
+            torch, ctx, B.bert_finetune_loss(model), model, adam(GLUE_LR),
+            FactoryDataset(lambda: iter(batches), shard=True), n_steps,
+            with_rng=True, flops_per_step=sum(flops) / n_steps, **kw)
+        rec = dict(launches=read_counts(*kernels),
+                   bwd_variant_launches=dict(
+                       fa.flash_attention_bwd.variant_launches),
+                   losses=[h["loss"] for h in res["history"]],
+                   flops=flops, step_s=step_s, fit_s=fit_s,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   dropout_sites=len(drawn),
+                   dropout_uniforms_own_rows=sum(drawn),
+                   dropout_draw_gb_per_rank={
+                       n: 4 * n * sum(drawn) / 1e9 for n in (1, 2, 4, 8)},
+                   meter=meter_line(res["meter"]), batch_per_rank=local,
+                   world_size=ctx.size, rank=ctx.rank,
+                   backend=ctx.gang.backend, device=str(ctx.device))
+        out[arm] = rec
+        del res, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # dp_lora: llama3_8b's widths at DP_LORA_LAYERS layers
+    model = lora_cut_model(torch)
+    ids = train_ids(torch, model.cfg)
+    per = TRAIN_BATCH // ctx.size
+    flops = train_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.put_replicated(model)
+    torch.cuda.synchronize()
+    bcast_s = time.perf_counter() - t0
+    bcast_bytes = sum(t.numel() * t.element_size()
+                      for t in [*model.parameters(), *model.buffers()])
+    # the same broadcast at llama3_8b's full depth: the per-layer bytes
+    # times its layers, plus the rest
+    layer_bytes = sum(t.numel() * t.element_size() for n, t in
+                      [*model.named_parameters(), *model.named_buffers()]
+                      if n.startswith("layers."))
+    full_bytes = bcast_bytes - layer_bytes + layer_bytes \
+        // model.cfg.num_layers * L.LlamaConfig.llama3_8b().num_layers
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    res, step_s, fit_s = stamped_fit(
+        torch, ctx, L.causal_lm_loss_fn(), model,
+        L.lora_optimizer(TRAIN_LR),
+        ListDataset([{"input_ids": ids}] * DP_LORA_STEPS, shard=True),
+        DP_LORA_STEPS, flops_per_step=flops)
+    out["dp_lora"] = dict(
+        launches=read_counts(*kernels),
+        bwd_variant_launches=dict(fa.flash_attention_bwd.variant_launches),
+        losses=[h["loss"] for h in res["history"]], flops=flops,
+        step_s=step_s, fit_s=fit_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        meter=meter_line(res["meter"]), batch_per_rank=per,
+        trainable=len(res["state"].trainable()),
+        trainable_params=sum(p.numel() for p in res["state"].trainable()),
+        put_replicated_bytes=bcast_bytes, put_replicated_s=bcast_s,
+        put_replicated_bytes_full_depth=full_bytes,
+        world_size=ctx.size, rank=ctx.rank)
+    (Path(out_dir) / "dp_m.json").write_text(json.dumps(out))
+    leave_gang()
+    return 0
+
+
+def phase_dp_m(torch, glue: dict) -> dict:
+    """Phase m (module docstring): the one-rank NCCL gang's BERT and LoRA
+    fine-tunes against phase h's losses and an in-process LoRA fit, then
+    ``XlaTransformer``'s runner."""
+    import gc
+    import tempfile
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.runner import XlaRunner, launcher
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sparkdl_dp_m_") as d:
+        t0 = time.perf_counter()
+        launcher.launch(str(ROOT / "chip_smoke.py"), np=1,
+                        args=["--dp-m-worker", d], timeout_s=DP_TIMEOUT_S,
+                        capture=True)
+        gang_wall_s = time.perf_counter() - t0
+        w = json.loads((Path(d) / "dp_m.json").read_text())
+
+    nl = 12  # BertConfig.base()'s layers
+    recs = {}
+    for arm, warm in (("dp_bert", DP_BERT_WARMUP), ("dp_bert_accum", 0)):
+        r = w[arm]
+        steps = len(r["losses"])
+        line = step_line(r["step_s"], warm)
+        ms = line["step_ms_median"]
+        flops = sum(r["flops"][warm:]) / max(steps - warm, 1)
+        rec = dict(phase=arm, config="BASELINE config 4, np=1 NCCL gang",
+                   model="BertConfig.base()", num_classes=2,
+                   dtype="bfloat16", params="float32", tf32=False,
+                   batch_global=GLUE_BATCH, seq=GLUE_SEQ, lr=GLUE_LR,
+                   optimizer="adam", with_rng=True,
+                   accum_steps=2 if arm == "dp_bert_accum" else 1,
+                   step="implicit (gradient all-reduce; dropout from the "
+                        "rank's RowWindow of the global batch)",
+                   steps=steps, warmup_steps=warm, **line,
+                   examples_per_s_per_chip=r["batch_per_rank"] / ms * 1e3,
+                   flops_per_step=flops,
+                   mfu=flops / (ms / 1e3) / (PEAK_FLOPS["bfloat16"]
+                                             * r["world_size"]),
+                   mfu_formula=GLUE_MFU_FORMULA,
+                   **{k: r[k] for k in ("losses", "launches",
+                                        "bwd_variant_launches",
+                                        "peak_mem_gb", "fit_s",
+                                        "batch_per_rank", "world_size",
+                                        "backend", "device",
+                                        "dropout_sites",
+                                        "dropout_uniforms_own_rows",
+                                        "dropout_draw_gb_per_rank")},
+                   meter_examples_per_s_per_chip=r["meter"][
+                       "examples_per_sec_per_chip"],
+                   meter_mfu=r["meter"]["mfu"], gang_wall_s=gang_wall_s,
+                   nvidia_smi=smi())
+        assert r["backend"] == "nccl" and r["world_size"] == 1, r
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        launches = r["launches"]
+        assert launches["flash_attention"] > 0 and \
+            launches["flash_attention_bwd"] > 0, launches
+        assert launches["flash_attention"] == nl * steps * rec[
+            "accum_steps"], launches
+        assert launches["flash_attention_bwd"] == \
+            launches["flash_attention"], launches
+        assert r["bwd_variant_launches"]["fma_f32"] == 0, r
+        if arm == "dp_bert":
+            want = glue["losses"][:steps]
+            rec.update(in_process_losses=want,
+                       losses_bitwise_equal=r["losses"] == want,
+                       loss_max_abs_err=max(abs(a - b) for a, b in
+                                            zip(r["losses"], want)),
+                       against="phase h's in-process fit, same seed, "
+                               "batches and rng (its with_rng repeat is "
+                               "bitwise)")
+        emit(rec)
+        recs[arm] = rec
+        if arm == "dp_bert":
+            assert rec["losses_bitwise_equal"], rec
+
+    # dp_lora, against the same fit in this process
+    r = w["dp_lora"]
+    model = lora_cut_model(torch)
+    ids = train_ids(torch, model.cfg)
+    cfg = model.cfg
+    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+        loss_fn=L.causal_lm_loss_fn(), model=model,
+        tx=L.lora_optimizer(TRAIN_LR),
+        data=[{"input_ids": ids}] * DP_LORA_STEPS, num_steps=DP_LORA_STEPS,
+        log_every=1))
+    want = [h["loss"] for h in res["history"]]
+    del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = step_line(r["step_s"], 1)
+    ms = line["step_ms_median"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want))
+    rec = dict(phase="dp_lora",
+               config=f"LlamaConfig.llama3_8b(lora_rank=16), depth cut to "
+                      f"{DP_LORA_LAYERS} of 32 layers, np=1 NCCL gang",
+               layers=cfg.num_layers, hidden=cfg.hidden_size,
+               heads=[cfg.num_heads, cfg.num_kv_heads],
+               head_dim=cfg.head_dim, ffn=cfg.intermediate_size,
+               vocab=cfg.vocab_size, dtype="bfloat16", batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, lr=TRAIN_LR, optimizer="lora_optimizer",
+               steps=len(r["losses"]), warmup_steps=1, **line,
+               tokens_per_s_per_chip=r["batch_per_rank"] * TRAIN_SEQ / ms
+               * 1e3, flops_per_step=r["flops"],
+               mfu=r["flops"] / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
+               **{k: r[k] for k in ("losses", "launches",
+                                    "bwd_variant_launches", "peak_mem_gb",
+                                    "fit_s", "trainable", "trainable_params",
+                                    "put_replicated_bytes",
+                                    "put_replicated_s",
+                                    "put_replicated_bytes_full_depth",
+                                    "world_size")},
+               in_process_losses=want,
+               losses_bitwise_equal=r["losses"] == want,
+               loss_max_rel_err=rel, loss_rtol=DP_LORA_LOSS_RTOL,
+               gang_wall_s=gang_wall_s, nvidia_smi=smi())
+    emit(rec)
+    steps = len(r["losses"])
+    assert all(math.isfinite(x) for x in r["losses"]), rec
+    assert r["launches"]["flash_attention"] == cfg.num_layers * steps, rec
+    assert r["launches"]["flash_attention_bwd"] == \
+        cfg.num_layers * steps, rec
+    assert r["bwd_variant_launches"]["tc_mma_bf16"] == \
+        cfg.num_layers * steps, rec
+    assert rel <= DP_LORA_LOSS_RTOL, rec
+    recs["dp_lora"] = rec
+    recs["xla_transformer"] = xla_transformer(torch)
+    return recs
+
+
+def xla_transformer(torch) -> dict:
+    """Phase m, ``xla_transformer``: ``XlaTransformer``'s runner on the
+    card over XLA_ROWS seeded rows (a bf16 dense layer and an exact
+    GELU), timed after one warm-up batch; the output against the same
+    runner on the CPU."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.transformers import XlaTransformer
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((XLA_ROWS, XLA_WIDTH)).astype(np.float32)
+    w = (rng.standard_normal((XLA_WIDTH, XLA_WIDTH))
+         / np.sqrt(XLA_WIDTH)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(XLA_WIDTH)).astype(np.float32)
+
+    def dense_gelu(device):
+        wt = torch.from_numpy(w).to(device, torch.bfloat16)
+        bt = torch.from_numpy(b).to(device, torch.bfloat16)
+
+        def fn(batch):
+            y = torch.nn.functional.linear(batch.to(torch.bfloat16), wt, bt)
+            return torch.nn.functional.gelu(y).float()
+
+        return fn
+
+    batches = [x[i:i + XLA_BATCH] for i in range(0, XLA_ROWS, XLA_BATCH)]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        runner = XlaTransformer(
+            inputCol="x", outputCol="y", fn=dense_gelu(device),
+            batchSize=XLA_BATCH,
+            **({} if device == "cuda" else {"device": "cpu"})
+        )._get_runner()
+        assert runner.device.type == device, runner.device
+        list(runner.run(batches[:1]))
+        t0 = time.perf_counter()
+        outs[device] = np.concatenate(list(runner.run(batches)))
+        outs[device + "_s"] = time.perf_counter() - t0
+    got, want = outs["cuda"], outs["cpu"]
+    excess = float((np.abs(got - want) - 2.0 ** -6 * (1 + np.abs(want)))
+                   .max())
+    rec = dict(phase="xla_transformer", rows=XLA_ROWS, width=XLA_WIDTH,
+               batch_size=XLA_BATCH, fn="gelu(bf16 dense)",
+               seconds=outs["cuda_s"], rows_per_s=XLA_ROWS / outs["cuda_s"],
+               cpu_rows_per_s=XLA_ROWS / outs["cpu_s"],
+               max_abs_err=float(np.abs(got - want).max()),
+               tol_rule="2^-6·(1 + |cpu|)", excess_over_rule=excess,
+               nvidia_smi=smi())
+    emit(rec)
+    assert got.shape == (XLA_ROWS, XLA_WIDTH) and np.isfinite(got).all()
+    assert excess <= 0, rec
+    return rec
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -3098,6 +3520,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--dp-m-worker"]:
+        return dp_m_worker(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from sparkdl_tpu_torch.ops import _build
@@ -3121,6 +3545,7 @@ def main() -> int:
     phase_images(torch)
     resnet = phase_resnet(torch, (fa, fd, pfd))
     phase_dp(torch, (fa, fd, pfd), resnet["train"])
+    gang = phase_dp_m(torch, glue)
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -3160,7 +3585,10 @@ def main() -> int:
                 bert_case=bert_case(main_recs["flash_attention_bert"]),
                 bert_launches=glue["launches"]["flash_attention"],
                 bert_launches_per_step=glue["launches_per_step"][
-                    "flash_attention"])
+                    "flash_attention"],
+                gang_launches={arm: gang[arm]["launches"]["flash_attention"]
+                               for arm in ("dp_bert", "dp_bert_accum",
+                                           "dp_lora")})
             kernels[-1].update(
                 variant=r["variant"], pv_rtol=r["pv_rtol"],
                 live_tflops=r["live_tflops"],
@@ -3191,6 +3619,8 @@ def main() -> int:
         bert_launches_per_step=glue["launches_per_step"][
             "flash_attention_bwd"],
         bert_variant_launches=glue["bwd_variant_launches"],
+        gang_launches={arm: gang[arm]["launches"]["flash_attention_bwd"]
+                       for arm in ("dp_bert", "dp_bert_accum", "dp_lora")},
         f32_variant=dict(variant=f32["variant"], route="cuda",
                          source="sparkdl_tpu_torch/csrc/"
                                 "flash_attention_bwd.cu",

@@ -19,7 +19,8 @@ fine-tune (``runner.XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
 ``models.llama.causal_lm_loss_fn`` and ``lora_optimizer``), the BERT GLUE
 fine-tune (``models.bert``, ``fit(..., with_rng=True)`` for dropout), the
 Arrow DataFrame (``DataFrame``, ``Row``; ``runner.data.ArrowDataset``) and
-the token-column UDFs (``udf``: generation, text generation, sequence
+the UDFs (``udf``: ``registerUDF`` over numeric columns through
+``XlaTransformer``, the image UDFs, generation, text generation, sequence
 classification), and image scoring — the image model zoo
 (``models.registry``), ``core.runtime.BatchRunner``, the Params / Pipeline
 API and ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` — with the
@@ -48,12 +49,15 @@ from .image.imageIO import (createResizeImageUDF,  # noqa: E402
 from .serving import GenerationEngine  # noqa: E402 — as sparkdl_tpu does
 from .transformers import (DeepImageFeaturizer,  # noqa: E402
                            DeepImagePredictor, TFImageTransformer,
-                           XlaImageTransformer)
+                           TFTransformer, XlaImageTransformer,
+                           XlaTransformer)
 from .udf import (applyUDF, listUDFs, registerGenerationUDF,  # noqa: E402
+                  registerImageUDF, registerKerasImageUDF,
                   registerSequenceClassificationUDF,
-                  registerTextGenerationUDF, unregisterUDF)
+                  registerTextGenerationUDF, registerUDF, unregisterUDF)
 
 __all__ = ["GenerationEngine", "DataFrame", "Row", "applyUDF", "listUDFs",
+           "registerUDF", "registerImageUDF", "registerKerasImageUDF",
            "registerGenerationUDF", "registerSequenceClassificationUDF",
            "registerTextGenerationUDF", "unregisterUDF",
            "Param", "Params", "TypeConverters", "keyword_only",
@@ -63,6 +67,7 @@ __all__ = ["GenerationEngine", "DataFrame", "Row", "applyUDF", "listUDFs",
            "MLWritable", "load", "imageSchema", "readImages",
            "readImagesWithCustomFn", "createResizeImageUDF",
            "nhwcToImageColumn", "XlaImageTransformer", "TFImageTransformer",
+           "XlaTransformer", "TFTransformer",
            "DeepImageFeaturizer", "DeepImagePredictor",
            "LogisticRegression", "LogisticRegressionModel"]
 

@@ -35,7 +35,9 @@ the right, and its positions are ``arange(S)`` whatever the padding.
 Dropout draws from an explicit ``torch.Generator`` (``generator=``):
 ``torch.rand(...) < 1 - rate`` keeps an element and scales it by
 ``1 / (1 - rate)``, as flax's ``Dropout`` does; the bits differ from
-JAX's. ``deterministic=True`` (the default) is the identity.
+JAX's. In a gang's implicit step the generator is a
+``utils.rng.RowWindow``, which draws this rank's rows of the global
+batch's masks. ``deterministic=True`` (the default) is the identity.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from torch import nn
 
 from ..ops.flash_attention import resolve_attn_fn
 from ..utils.platform import resolve_device
+from ..utils.rng import uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +88,15 @@ class BertConfig:
 def dropout(x, rate: float, generator):
     """flax ``Dropout``: keep each element with probability ``1 - rate``
     (``torch.rand < 1 - rate`` from ``generator``) and scale the kept ones
-    by ``1 / (1 - rate)``. ``generator`` None is the identity."""
+    by ``1 / (1 - rate)``. ``generator`` None is the identity; a
+    ``utils.rng.RowWindow`` (a gang's step) draws this rank's rows of the
+    global batch's mask."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
     if keep_prob <= 0.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep_prob
+    keep = uniform(x.shape, generator, x.device) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 
@@ -372,10 +376,11 @@ def glue_loss_fn():
 def bert_finetune_loss(model: BertForSequenceClassification):
     """The dropout-active GLUE loss: ``loss_fn(m, batch, rng=None)`` runs
     ``model`` with dropout drawn from ``rng`` (a ``torch.Generator`` on the
-    model's device, which a ``with_rng=True`` train step hands it anew each
-    step); ``rng=None`` runs it deterministic, equal to
-    :func:`glue_loss_fn`. ``model`` is the module the step trains (the
-    step's own, ``m``, holds the same weights)."""
+    model's device, or in a gang a ``utils.rng.RowWindow`` over one, which
+    a ``with_rng=True`` train step hands it anew each step); ``rng=None``
+    runs it deterministic, equal to :func:`glue_loss_fn`. ``model`` is the
+    module the step trains (the step's own, ``m``, holds the same
+    weights)."""
     def loss_fn(m, batch, rng=None):
         return _classification_loss(_logits(model, batch, rng),
                                     batch["label"])

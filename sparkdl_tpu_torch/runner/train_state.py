@@ -41,8 +41,16 @@ reference keep their semantics:
 
 Either way a step makes one all-reduce of one flat f32 buffer
 (:func:`_gang_mean`) after its backward, besides synchronised BatchNorm's
-two a layer. Dropout across ranks (``with_rng`` in a gang) is ROADMAP.md's
-Queue A 3 (e).
+two a layer.
+
+Dropout in a gang (``with_rng=True``) keeps the reference's keys. The
+implicit step is the step of the global batch, so rank r draws rows r of
+the masks one process would draw over it: every rank seeds the step's
+generator alike and hands the loss a :class:`~..utils.rng.RowWindow` of
+its rows (rank·n of world·n, n its rows; every rank passes the same n,
+which ``RunnerContext`` checks). The explicit step folds the rank into
+the generator's seed (:func:`step_generator` ``rank=``), so each rank
+draws its own masks over its own rows.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..models.image_layers import sync_batch_stats
+from ..utils.rng import RowWindow
 
 
 @dataclasses.dataclass
@@ -115,15 +124,21 @@ def sgd(learning_rate: float, momentum: float | None = None,
 
 
 def step_generator(rng_seed: int, step: int, device,
-                   micro: int | None = None) -> torch.Generator:
+                   micro: int | None = None,
+                   rank: int | None = None) -> torch.Generator:
     """The ``rng=`` of train step ``step``: a ``torch.Generator`` on
-    ``device`` seeded from ``(rng_seed, step)``, or from ``(rng_seed,
-    step, micro)`` for microbatch ``micro`` under ``accum_steps`` (the
-    reference folds the microbatch index into the step's key). A pure
-    function of its arguments."""
-    # micro + 1: SeedSequence does not tell a trailing 0 word from none
-    words = [rng_seed, step] if micro is None else [rng_seed, step,
-                                                    micro + 1]
+    ``device`` seeded from ``(rng_seed, step)``, from ``(rng_seed, step,
+    micro)`` for microbatch ``micro`` under ``accum_steps`` (the reference
+    folds the microbatch index into the step's key), and with ``rank``
+    from the rank too (the explicit step's per-rank key). A pure function
+    of its arguments; no two argument tuples share a seed."""
+    # SeedSequence does not tell a trailing 0 word from none, so each
+    # optional word is stored + 1 and a missing micro before a rank is 0
+    words = [rng_seed, step]
+    if micro is not None or rank is not None:
+        words.append(0 if micro is None else micro + 1)
+    if rank is not None:
+        words.append(rank + 1)
     seed = int(np.random.SeedSequence(words).generate_state(
         1, np.uint64)[0] >> np.uint64(1))
     return torch.Generator(device=device).manual_seed(seed)
@@ -165,8 +180,14 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
     ``with_rng=True`` calls ``loss_fn(model, batch, rng=g)``, ``g`` =
     :func:`step_generator` of ``(rng_seed, state.step)`` on the model's
     device, and under ``accum_steps`` of ``(rng_seed, state.step, i)`` for
-    microbatch i. The generator is made inside the (rematerialised)
-    forward, so a recomputation draws the same masks.
+    microbatch i. In a gang ``g`` is the :class:`~..utils.rng.RowWindow`
+    of this rank's rows over that generator: rows ``rank·n`` to
+    ``(rank + 1)·n`` of a global ``world·n`` (under ``accum_steps`` n is
+    the microbatch's rows, so the rank's chunk i is its rows of the global
+    microbatch i, the reference's shard-aligned split), and the masks are
+    those of one process over the global batch. The generator and its
+    window are made inside the (rematerialised) forward, so a
+    recomputation draws the same masks.
 
     ``mutable=True`` calls ``loss_fn(model, batch) -> (loss, aux,
     new_model_state)`` (the reference's mutable branch): the forward (under
@@ -191,7 +212,7 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     return _make_step(loss_fn, mutable, with_rng, rng_seed, remat,
-                      accum_steps, group, sync_bn=True)
+                      accum_steps, group, implicit=True)
 
 
 def make_shard_map_step(loss_fn: Callable, group=None,
@@ -201,7 +222,9 @@ def make_shard_map_step(loss_fn: Callable, group=None,
     """The explicit-collective twin of :func:`make_train_step` (the
     reference's ``shard_map`` step): each rank runs its forward and
     backward on its own rows, and its gradients, loss and aux are averaged
-    over ``group`` (``pmean``), Horovod's ring all-reduce.
+    over ``group`` (``pmean``), Horovod's ring all-reduce. With
+    ``with_rng`` the loss gets :func:`step_generator` of ``(rng_seed,
+    state.step, rank=r)``: each rank's own masks over its own rows.
 
     ``mutable=True``: BatchNorm normalises by each rank's own batch
     statistics, and only the new running statistics are averaged, which
@@ -215,7 +238,7 @@ def make_shard_map_step(loss_fn: Callable, group=None,
             "accum_steps is not supported with explicit_collectives / "
             "make_shard_map_step — use the implicit make_train_step path")
     return _make_step(loss_fn, mutable, with_rng, rng_seed, remat, 1,
-                      group, sync_bn=False)
+                      group, implicit=False)
 
 
 def _gang_mean(tensors: list, group) -> list:
@@ -232,19 +255,25 @@ def _gang_mean(tensors: list, group) -> list:
 
 
 def _make_step(loss_fn, mutable, with_rng, rng_seed, remat, accum_steps,
-               group, sync_bn: bool) -> Callable:
-    if with_rng and group is not None:
-        raise NotImplementedError(
-            "with_rng=True in a data-parallel gang (dropout across ranks, "
-            "with the reference's per-rank keys) is not ported to "
-            "sparkdl_tpu_torch yet (ROADMAP.md, Queue A 3 (e))")
+               group, implicit: bool) -> Callable:
+    rank = world = None
+    if group is not None:
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
 
     def run(model, batch, n_step, micro):
         if not with_rng:
             return loss_fn(model, batch)
         device = next(model.parameters()).device
-        return loss_fn(model, batch,
-                       rng=step_generator(rng_seed, n_step, device, micro))
+        if group is None:
+            return loss_fn(model, batch, rng=step_generator(
+                rng_seed, n_step, device, micro))
+        if not implicit:  # the rank's own key
+            return loss_fn(model, batch, rng=step_generator(
+                rng_seed, n_step, device, micro, rank=rank))
+        n = len(next(iter(batch.values())))
+        return loss_fn(model, batch, rng=RowWindow(
+            step_generator(rng_seed, n_step, device, micro),
+            rank * n, world * n))
 
     def forward(model, batch, n_step, micro=None):
         if remat:
@@ -282,7 +311,7 @@ def _make_step(loss_fn, mutable, with_rng, rng_seed, remat, accum_steps,
 
     def step(state: TrainState, batch):
         synced = (sync_batch_stats(state.model, group)
-                  if group is not None and sync_bn
+                  if group is not None and implicit
                   else contextlib.nullcontext())
         with synced:
             loss, aux, new_ms, grads = local_step(state, batch)
@@ -290,7 +319,7 @@ def _make_step(loss_fn, mutable, with_rng, rng_seed, remat, accum_steps,
         if group is not None:
             # synchronised statistics are equal on every rank already;
             # the explicit step's own ones are averaged with the rest
-            own = list(new_ms) if new_ms and not sync_bn else []
+            own = list(new_ms) if new_ms and not implicit else []
             out = iter(_gang_mean([*grads, loss, *aux.values(),
                                    *(new_ms[k] for k in own)], group))
             grads = [next(out) for _ in grads]

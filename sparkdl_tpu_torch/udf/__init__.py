@@ -1,6 +1,7 @@
-"""Named column functions over DataFrames (``registry``): the token-column
-UDFs of the JAX package's ``sparkdl_tpu/udf``. Importing this package
-imports no pyarrow; applying a UDF reads a DataFrame, which does."""
+"""Named column functions over DataFrames (``registry``): the UDFs of the
+JAX package's ``sparkdl_tpu/udf`` (numeric, image and token columns).
+Importing this package imports no pyarrow; applying a UDF reads a
+DataFrame, which does."""
 
 from .registry import (applyUDF, classify_rows, listUDFs,
                        registerGenerationUDF, registerImageUDF,

@@ -1,9 +1,14 @@
 """UDF registry — named, reusable column functions over DataFrames.
 
-The counterpart of ``sparkdl_tpu/udf/registry.py``'s token-column half: a
-process-global registry of named batch functions applied to a DataFrame
-column by ``applyUDF(df, name, inputCol, outputCol)``.
+The counterpart of ``sparkdl_tpu/udf/registry.py``: a process-global
+registry of named batch functions applied to a DataFrame column by
+``applyUDF(df, name, inputCol, outputCol)``.
 
+- :func:`registerUDF` — a torch callable over a numeric array column,
+  through ``transformers.tensor.XlaTransformer``;
+- :func:`registerImageUDF` — a torch callable over an image column,
+  through ``XlaImageTransformer``; :func:`registerKerasImageUDF` composes
+  a named zoo model (random weights, as the reference's) behind it;
 - :func:`registerGenerationUDF` — Llama generation over int token-id
   columns (the batch-inference half of BASELINE configuration 5), through
   ``models.llama.generate`` and ``left_pad_prompts``;
@@ -20,10 +25,11 @@ chunk has one shape. The generation UDF calls ``generate()`` once a chunk;
 each call captures its own decode graph on the card (ROADMAP.md A 1).
 
 The DataFrame (pyarrow) is imported inside the functions that need it, so
-this module, and :func:`classify_rows`, import without pyarrow. The
-numeric and image UDFs (``registerUDF``, ``registerImageUDF``,
-``registerKerasImageUDF``) ride the image tier and raise
-``NotImplementedError`` until it is ported (ROADMAP.md Queue A 6).
+this module, and :func:`classify_rows`, import without pyarrow. Every UDF
+runs on the card unless ``device="cpu"`` is asked for (the port's
+argument; the reference's signatures have none). A Keras model object or
+file raises ``NotImplementedError`` (the Keras path is ROADMAP.md Queue
+A 9's).
 """
 
 from __future__ import annotations
@@ -36,26 +42,68 @@ import torch
 _UDF_REGISTRY: dict[str, Callable] = {}
 
 
-def _image_tier(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the image UDFs are not ported to sparkdl_tpu_torch yet "
-        f"(ROADMAP.md, Queue A 6)")
-
-
 def registerUDF(name: str, fn: Callable, batchSize: int = 64,
-                inputShape: tuple | None = None) -> None:
-    raise _image_tier("registerUDF (XlaTransformer)")
+                inputShape: tuple | None = None, device=None) -> None:
+    """Register a torch ``fn(batch)`` over numeric array columns
+    (``(N, ...)`` float32 tensors on ``device``)."""
+    from ..transformers.tensor import XlaTransformer
+
+    def apply(df, inputCol: str, outputCol: str):
+        t = XlaTransformer(inputCol=inputCol, outputCol=outputCol, fn=fn,
+                           batchSize=batchSize, device=device,
+                           **({"inputShape": inputShape} if inputShape
+                              else {}))
+        return t.transform(df)
+
+    _UDF_REGISTRY[name] = apply
 
 
 def registerImageUDF(name: str, fn: Callable, inputSize: tuple[int, int],
-                     batchSize: int = 32, channelOrder: str = "RGB") -> None:
-    raise _image_tier("registerImageUDF")
+                     batchSize: int = 32, channelOrder: str = "RGB",
+                     device=None) -> None:
+    """Register a torch ``fn(nhwc_batch)`` over image-struct columns
+    (float32 NHWC in [0, 255], resized to ``inputSize``)."""
+    from ..transformers.xla_image import XlaImageTransformer
+
+    def apply(df, inputCol: str, outputCol: str):
+        t = XlaImageTransformer(inputCol=inputCol, outputCol=outputCol,
+                                fn=fn, inputSize=inputSize,
+                                batchSize=batchSize,
+                                channelOrder=channelOrder, device=device)
+        return t.transform(df)
+
+    _UDF_REGISTRY[name] = apply
 
 
 def registerKerasImageUDF(udf_name: str, keras_model_or_file,
                           preprocessor: Callable | None = None,
-                          batchSize: int = 32) -> None:
-    raise _image_tier("registerKerasImageUDF")
+                          batchSize: int = 32, device=None) -> None:
+    """The reference's flagship UDF: image decode ∘ (``preprocessor``) ∘
+    model, registered under ``udf_name``.
+
+    ``keras_model_or_file`` names a zoo model (``models.SUPPORTED_MODELS``,
+    e.g. ``"InceptionV3"``): built at random weights from seed 0, as the
+    reference's (nothing is downloaded), on ``device``, its logits over
+    its own preprocessing at its input size. ``preprocessor`` is a torch
+    NHWC → NHWC function run in front of the model in the same device
+    step. A Keras model object or a saved-model path raises
+    ``NotImplementedError`` (ROADMAP.md, Queue A 9)."""
+    from ..models.registry import SUPPORTED_MODELS
+    from ..utils.platform import resolve_device
+
+    if not (isinstance(keras_model_or_file, str)
+            and keras_model_or_file in SUPPORTED_MODELS):
+        raise NotImplementedError(
+            f"registerKerasImageUDF({keras_model_or_file!r}): Keras models "
+            f"and model files are not ported to sparkdl_tpu_torch yet "
+            f"(ROADMAP.md, Queue A 9); name one of "
+            f"{sorted(SUPPORTED_MODELS)}")
+    spec = SUPPORTED_MODELS[keras_model_or_file]
+    base_fn = spec.apply_fn(spec.build(seed=0,
+                                       device=resolve_device(device)))
+    fn = (lambda b: base_fn(preprocessor(b))) if preprocessor else base_fn
+    registerImageUDF(udf_name, fn, inputSize=spec.input_size,
+                     batchSize=batchSize, device=device)
 
 
 def _with_weights(model, variables, params_dtype, load):

@@ -1457,3 +1457,26 @@ def test_one_rank_nccl_gang_step_matches_in_process_step(dev, tmp_path):
     assert all(torch.equal(t, gang["remat"][k]) for k, t in got.items()
                if "running" in k)
     assert gang["replicated"]
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 128), (32, 12, 128, 128),
+                                   (32, 768)])
+def test_row_window_draws_rows_of_the_global_draw(dev, shape):
+    """A gang's dropout draw on the card (``utils.rng.RowWindow``, at the
+    shapes of BERT's dropout sites): rank r's window is rows ``[r·n,
+    (r + 1)·n)`` of the global draw from the same generator, bitwise, and
+    a window over every row is ``torch.rand`` itself (a one-rank gang
+    draws what one process draws)."""
+    from sparkdl_tpu_torch.runner.train_state import step_generator
+    from sparkdl_tpu_torch.utils.rng import RowWindow, uniform
+
+    n, world = shape[0], 4
+    want = torch.rand((world * n, *shape[1:]),
+                      generator=step_generator(3, 7, dev), device=dev)
+    for r in range(world):
+        got = uniform(shape, RowWindow(step_generator(3, 7, dev), r * n,
+                                       world * n), dev)
+        assert torch.equal(got, want[r * n:(r + 1) * n]), r
+    one = uniform(shape, RowWindow(step_generator(3, 7, dev), 0, n), dev)
+    assert torch.equal(one, torch.rand(shape, device=dev,
+                                       generator=step_generator(3, 7, dev)))

@@ -216,15 +216,15 @@ def test_the_two_references_differ_beyond_the_limits(resnet_gang):
 def test_gang_step_behaviour(resnet_gang):
     """``remat`` leaves the state bitwise as without it (the statistics
     updated once, the recomputed forward's collectives in step on both
-    ranks); the explicit step refuses ``accum_steps``; ``with_rng`` names
-    Queue A 3 (e); ranks seeded differently start equal after
-    ``put_replicated``."""
+    ranks); the explicit step refuses ``accum_steps``; ``with_rng`` hands
+    the loss rank r's window of the global batch (rows 4r..4r+4 of 8);
+    ranks seeded differently start equal after ``put_replicated``."""
     outs, _, _ = resnet_gang
-    for out in outs:
+    for r, out in enumerate(outs):
         for k, t in out["implicit"].items():
             assert torch.equal(t, out["remat"][k]), k
-        assert "explicit_collectives" in out["refusals"]["explicit_accum"]
-        assert "Queue A 3 (e)" in out["refusals"]["with_rng"]
+        assert "explicit_collectives" in out["explicit_accum_refusal"]
+        assert out["with_rng_window"] == [("RowWindow", 4 * r, GLOBAL)]
         assert out["replicated"]
 
 

@@ -14,10 +14,22 @@ Usage: ``test_torch_gang_worker.py <mode> <in_dir> <out_dir> [device]``
   collectives (the port's twin of ``tests/mp_worker.py``);
 - ``resnet``: one mutable SGD step of a narrow ResNet18 from
   ``in_dir/init.pt`` on this rank's rows of ``in_dir/batch.npz``: the
-  implicit step, with ``remat`` too, and the explicit one; the refusals;
-  ``put_replicated`` of a model drawn from this rank's own seed;
+  implicit step, with ``remat`` too, and the explicit one; the explicit
+  step's refusal of ``accum_steps``; the ``rng=`` a ``with_rng`` step
+  hands its loss; ``put_replicated`` of a model drawn from this rank's
+  own seed;
 - ``fit``: ``ctx.fit(checkpoint_every=2)`` over a ``shard=True`` dataset,
-  4 steps straight and 2 + a resume to 4, with the saves counted.
+  4 steps straight and 2 + a resume to 4, with the saves counted;
+- ``bert``: the tiny BERT of ``in_dir/bert_init.pt`` with dropout on this
+  rank's rows of ``in_dir/bert.npz``: one ``with_rng`` SGD step of each
+  gang step (implicit, with ``remat``, with ``accum_steps=2``, explicit),
+  its gradients and loss; a dropout-0 ``fit(with_rng=True)`` from the
+  same start; ``fit(with_rng=True, checkpoint_every=2)``
+  4 steps straight and 2 + a resume to 4; the config-4 DataFrame
+  fine-tune (the twin of ``tests/test_transformer_models.py``'s);
+- ``lora``: the tiny LoRA Llama of ``in_dir/lora_init.pt`` through
+  ``fit(causal_lm_loss_fn(), lora_optimizer(5e-3))`` on this rank's rows
+  of ``in_dir/lora.npz``.
 """
 
 import os
@@ -86,17 +98,25 @@ def resnet(ctx, in_dir):
         out[name] = {k: v.detach().cpu() for k, v in
                      model.state_dict().items()}
         out[name + "_loss"] = float(m["loss"])
-    refusals = {}
-    for name, kw, err in (
-            ("explicit_accum", dict(explicit_collectives=True,
-                                    accum_steps=2), ValueError),
-            ("with_rng", dict(with_rng=True), NotImplementedError)):
-        try:
-            ctx.make_train_step(bn_classifier_loss(), **kw)
-            refusals[name] = "did not raise"
-        except err as e:
-            refusals[name] = str(e)
-    out["refusals"] = refusals
+    try:
+        ctx.make_train_step(bn_classifier_loss(), explicit_collectives=True,
+                            accum_steps=2)
+        out["explicit_accum_refusal"] = "did not raise"
+    except ValueError as e:
+        out["explicit_accum_refusal"] = str(e)
+    # with_rng: the implicit step hands the loss this rank's window of
+    # the global batch's rows
+    seen = []
+
+    def loss_rng(m, b, rng=None):
+        seen.append((type(rng).__name__, rng.row_start, rng.global_rows))
+        return bn_classifier_loss()(m, b)
+
+    model = _narrow_resnet().to(ctx.device)
+    model.load_state_dict(init)
+    ctx.make_train_step(loss_rng, mutable=True, with_rng=True)(
+        TrainState.create(model, sgd(0.01)), local)
+    out["with_rng_window"] = seen
     # a model drawn from this rank's seed starts as rank 0's
     mine = _narrow_resnet(seed=ctx.rank).to(ctx.device)
     opt = sgd(0.01, momentum=0.9)(mine)
@@ -152,6 +172,157 @@ def fit(ctx, in_dir, out_dir):
             "n_chips": straight["meter"].summary()["n_chips"]}
 
 
+def _bert_model(path, device, **cfg):
+    import dataclasses
+
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+
+    model = B.BertForSequenceClassification(
+        dataclasses.replace(B.BertConfig.tiny(), **cfg), num_classes=3,
+        attn_fn=fa.flash_attention, device=device)
+    model.load_state_dict(torch.load(path))
+    return model
+
+
+def _grads(state):
+    return {n: p.grad.detach().cpu().clone()
+            for n, p in state.model.named_parameters()
+            if p.grad is not None}
+
+
+def bert(ctx, in_dir, out_dir):
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.runner import TrainState, XlaRunner, adam, sgd
+    from sparkdl_tpu_torch.runner.data import ListDataset
+
+    init = os.path.join(in_dir, "bert_init.pt")
+    d = dict(np.load(os.path.join(in_dir, "bert.npz")))
+    batch = {k: d[k] for k in ("input_ids", "attention_mask", "label")}
+    local = ctx.shard_batch(_local(batch, ctx.rank, ctx.size))
+    out = {}
+    # one SGD step of each gang step with dropout, from one start
+    for name, kw in (("implicit", {}), ("remat", {"remat": True}),
+                     ("accum", {"accum_steps": 2}),
+                     ("explicit", {"explicit_collectives": True})):
+        model = _bert_model(init, ctx.device)
+        state = TrainState.create(model, sgd(0.1))
+        step = ctx.make_train_step(B.bert_finetune_loss(model),
+                                   with_rng=True, rng_seed=3, **kw)
+        state, m = step(state, local)
+        out[name] = {"grads": _grads(state), "loss": float(m["loss"])}
+
+    # a dropout-0 fit with with_rng (the reference's np=2 fit's twin)
+    batches = [{k: v[i] for k, v in d.items() if k.startswith("fit_")}
+               for i in range(len(d["fit_input_ids"]))]
+    batches = [{k[4:]: v for k, v in b.items()} for b in batches]
+    model = _bert_model(init, ctx.device, dropout_rate=0.0)
+    res = ctx.fit(loss_fn=B.bert_finetune_loss(model), model=model,
+                  tx=adam(1e-3, eps=1e-4),
+                  data=ListDataset(batches, shard=True),
+                  num_steps=len(batches), log_every=1, with_rng=True)
+    out["fit0_losses"] = [h["loss"] for h in res["history"]]
+    out["fit0_params"] = B.flax_params(model)
+
+    # checkpoint and resume with dropout on
+    def run(directory, steps):
+        model = _bert_model(init, ctx.device)
+        res = XlaRunner(np=ctx.size, device=ctx.device.type,
+                        checkpoint_dir=directory).run(lambda c: c.fit(
+                            loss_fn=B.bert_finetune_loss(model),
+                            model=model, tx=adam(1e-3),
+                            data=ListDataset(batches, shard=True),
+                            num_steps=steps, log_every=1, with_rng=True,
+                            checkpoint_every=2))
+        return ([h["loss"] for h in res["history"]],
+                {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()})
+
+    out["straight"] = run(os.path.join(out_dir, "straight"), 4)
+    first = run(os.path.join(out_dir, "resumed"), 2)
+    second = run(os.path.join(out_dir, "resumed"), 4)
+    out["resumed"] = (first[0] + second[0], second[1])
+    out["config4_accuracy"] = config4(ctx)
+    return out
+
+
+def config4_frame(vocab):
+    """The config-4 test's DataFrame: 96 rows of lengths 6-12, the first
+    token from a set of 10 ids, the label whether it is in their upper
+    half (``tests/test_transformer_models.py``), split 0.75 / 0.25."""
+    from sparkdl_tpu_torch.core.frame import DataFrame
+
+    S, n = 12, 96
+    rng = np.random.RandomState(0)
+    seqs, masks, labels = [], [], []
+    for _ in range(n):
+        ln = rng.randint(6, S + 1)
+        toks = rng.randint(1, vocab, size=(ln,))
+        toks[0] = 2 + rng.randint(0, 10)
+        seqs.append(toks.tolist() + [0] * (S - ln))
+        masks.append([1] * ln + [0] * (S - ln))
+        labels.append(int(toks[0] >= 7))
+    df = DataFrame.fromPydict(
+        {"input_ids": seqs, "attention_mask": masks, "label": labels},
+        numPartitions=4)
+    return df.randomSplit([0.75, 0.25], seed=1)
+
+
+def config4(ctx):
+    """The config-4 DataFrame fine-tune in the gang: whole batches of 16
+    (the reference drops the partial tails), each rank its 8 rows, 30
+    epochs of ``fit(bert_finetune_loss, with_rng=True)``; the held-out
+    accuracy."""
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.runner import adam
+    from sparkdl_tpu_torch.runner.data import (FactoryDataset,
+                                               record_batch_to_numpy)
+
+    cfg = B.BertConfig.tiny()
+    train_df, test_df = config4_frame(cfg.vocab_size)
+
+    def batches():
+        return (record_batch_to_numpy(rb) for rb in train_df.iterBatches(16)
+                if rb.num_rows == 16)
+
+    steps = 30 * sum(1 for _ in batches())
+    model = B.BertForSequenceClassification(
+        cfg, num_classes=2, attn_fn=fa.flash_attention, device=ctx.device,
+        generator=torch.Generator().manual_seed(0))
+    res = ctx.fit(loss_fn=B.bert_finetune_loss(model), model=model,
+                  tx=adam(2e-3), data=FactoryDataset(batches, epochs=30,
+                                                     shard=True),
+                  num_steps=steps, with_rng=True, log_every=steps)
+    assert res["state"].step == steps, res["state"].step
+    rows = test_df.collect()
+    ids = torch.tensor([r["input_ids"] for r in rows])
+    msk = torch.tensor([r["attention_mask"] for r in rows])
+    y = torch.tensor([r["label"] for r in rows])
+    with torch.no_grad():
+        return (model(ids, msk).argmax(-1) == y).float().mean().item()
+
+
+def lora(ctx, in_dir):
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.runner.data import ListDataset
+
+    variables = torch.load(os.path.join(in_dir, "lora_init.pt"),
+                           weights_only=False)
+    ids = np.load(os.path.join(in_dir, "lora.npz"))["ids"]
+    model = L.load_flax_params(L.LlamaModel(
+        L.LlamaConfig.tiny(lora_rank=4), attn_fn=fa.flash_attention,
+        device=ctx.device), variables)
+    res = ctx.fit(loss_fn=L.causal_lm_loss_fn(), model=model,
+                  tx=L.lora_optimizer(5e-3),
+                  data=ListDataset([{"input_ids": ids}] * 8, shard=True),
+                  num_steps=8, log_every=1)
+    return {"losses": [h["loss"] for h in res["history"]],
+            "params": L.flax_params(model),
+            "trainable": len(res["state"].trainable())}
+
+
 def main():
     mode, in_dir, out_dir = sys.argv[1:4]
     device = sys.argv[4] if len(sys.argv) > 4 else "cpu"
@@ -171,6 +342,10 @@ def main():
         out = resnet(ctx, in_dir)
     elif mode == "fit":
         out = fit(ctx, in_dir, out_dir)
+    elif mode == "bert":
+        out = bert(ctx, in_dir, out_dir)
+    elif mode == "lora":
+        out = lora(ctx, in_dir)
     else:
         raise SystemExit(f"unknown mode {mode}")
     torch.save(out, os.path.join(out_dir, f"rank{ctx.rank}.pt"))

@@ -365,7 +365,7 @@ def test_out_of_slice_surfaces_raise_naming_their_queue(tmp_path):
             f.transform(tdf).collect()
     import sparkdl_tpu_torch.estimators as E
     import sparkdl_tpu_torch.transformers as T
-    for mod, name, queue in ((T, "TensorTransformer", "A 9"),
+    for mod, name, queue in ((T, "KerasTransformer", "A 9"),
                              (T, "KerasImageFileTransformer", "A 9"),
                              (T, "VectorAssembler", "A 4"),
                              (E, "MulticlassClassificationEvaluator", "A 4"),

@@ -366,11 +366,19 @@ def test_registration_checks_and_registry(llama):
     with pytest.raises(TypeError, match="eos_id"):
         sdl.registerGenerationUDF("bad", model, eos_id="</s>")
     assert "bad" not in sdl.listUDFs()
-    for fn, args in ((reg.registerUDF, ("u", len)),
-                     (reg.registerImageUDF, ("u", len, (8, 8))),
-                     (reg.registerKerasImageUDF, ("u", "ResNet50"))):
-        with pytest.raises(NotImplementedError, match="Queue A 6"):
-            fn(*args)
+    # the numeric and image UDFs register; a Keras model or model file
+    # names Queue A 9, and a zoo model without device= needs the card
+    reg.registerUDF("u1", len, device="cpu")
+    reg.registerImageUDF("u2", len, (8, 8), device="cpu")
+    assert {"u1", "u2"} <= set(sdl.listUDFs())
+    for keras_model_or_file in ("model.keras", object()):
+        with pytest.raises(NotImplementedError, match="Queue A 9"):
+            reg.registerKerasImageUDF("u3", keras_model_or_file)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reg.registerKerasImageUDF("u3", "ResNet50")
+    assert "u3" not in sdl.listUDFs()
+    sdl.unregisterUDF("u1")
+    sdl.unregisterUDF("u2")
     sdl.registerGenerationUDF("g1", model, max_new_tokens=1)
     assert "g1" in sdl.listUDFs()
     sdl.unregisterUDF("g1")
