@@ -54,8 +54,10 @@ b. kernels — each kernel against its plain PyTorch version on the same
    [2047, 1500, 900, 513, 300, 64, 17, 0] (the last slot parked on the
    trash block), non-contiguous tables, every block no live range reads
    filled with NaN; S = 1 and S = 5; bf16 and f32 pools, int8 and fp8
-   pools with scales. Its SDPA yardstick runs on the pre-gathered dense
-   view and so excludes the gather.
+   pools with scales; and the same pools at llama3_8b's 32:8 layout
+   (phase n's, 4 query rows a KV head), S = 1 and S = 5, bf16 and f32.
+   Its SDPA yardstick runs on the pre-gathered dense view and so
+   excludes the gather.
    Both decode kernels are split-KV launches: each record carries the
    wrapper's plan (``chunk`` positions a split, ``n_splits``,
    ``rows_per_block``) and the blocks the kernel counted itself, those
@@ -299,10 +301,47 @@ m. BASELINE configs 4 and 5 over a gang, and the numeric scoring runner:
    within 2^-6·(1 + |CPU|) (a bf16 product may round one step apart, and
    GELU's slope is at most 1.13).
 
+n. int8 projection weights, the registry draft and the tokenizer:
+   - ``int8_weights``: ``LlamaConfig.llama3_8b()`` at full width and
+     depth (32 layers), bf16 compute, seeded weights; a bf16-weight leg,
+     then ``GenerationEngine.from_model(model, weight_dtype="int8",
+     block_size=16, prefill_chunk=256, stall_free=False)``, which
+     quantizes the same model in place. Each leg: 8 slots, 8 seeded
+     prompts of 64–1536 tokens, INT8_NEW new tokens each, the paged
+     blocking refill (the paged prefill that runs flash_attention; a
+     chunked prefill attends densely). Each line: new tokens/s, TTFT
+     p50/p95, decode-iteration ms, graph captures and replays, peak
+     memory, the projections' bytes (codes + scales against bf16), the
+     card's name and power limit, and the launches (set to 0 just before
+     the leg, read just after): flash_attention == 32 × prefills,
+     paged_flash_decode == 32 × steps, flash_decode 0. Then a summary
+     line of the two legs side by side;
+   - ``int8_parity``: llama_small widths at depth INT8_PARITY_LAYERS,
+     f32, TF32 off, int8 codes, a one-slot paged engine: its decode
+     steps' logits within LOGIT_TOL of the int8 model's dense in-model
+     path fed the engine's tokens, and its greedy stream equal to dense's
+     argmax wherever the top-2 gap exceeds 10 × LOGIT_TOL;
+   - ``draft_registry``: llama_small (bf16, seeded) served with
+     ``spec_k=4`` and ``DraftModelProvider.from_registry("llama_small")``
+     (llama_tiny, seeded, dense attention: the kernels do not take its
+     head dim 32); the target's ``lm_head`` rows past the draft's 512
+     ids are zeroed and the prompts drawn below 512, so the draft can
+     read the stream. ``spec_verifies`` >= 1, paged_flash_decode == 16
+     × steps; accepted draft tokens reported;
+   - ``tokenizer``: a ``ByteBPETokenizer`` trained here on README.md
+     (vocab TOKENIZER_VOCAB), TOKENIZER_ROWS prompts from it encoded
+     (``decode(encode(s)) == s`` for each), run through
+     ``udf.generate_rows`` — the per-chunk step of
+     ``registerTextGenerationUDF``, no DataFrame — on llama_small, bf16,
+     in chunks of TOKENIZER_CHUNK, TOKENIZER_NEW new tokens, then decoded:
+     rows/s, tokenizer ms against device ms, flash_attention == 16 a
+     chunk and flash_decode == 16 a step.
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
 entries add their BERT case and phase h's launches, and phase m's gang
-launches) and, last,
+launches; the three forward kernels add phase n's launches leg by leg,
+``phase_n_launches``) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
@@ -923,12 +962,13 @@ def decode_case(torch, fd, flush, *, name, b, hq, hkv, length, d, cur, pads,
     return rec
 
 
-def paged_inputs(torch, *, dtype, kv, s_q):
+def paged_inputs(torch, *, dtype, kv, s_q, hq=16):
     """One seeded paged_flash_decode input on the card, the main path's
     serving shapes: (q, k pool, v pool, tables, cur, pad, scales), every
     block no live range reads filled with NaN. ``kv``: "same" (pools in
-    ``dtype``), "int8" or "fp8" (codes with a scale plane)."""
-    b, hq, hkv, d, bs, mb = 8, 16, 8, 128, PAGED_BS, PAGED_MB
+    ``dtype``), "int8" or "fp8" (codes with a scale plane). ``hq``: the
+    query heads over 8 KV heads (16 for llama_small, 32 for llama3_8b)."""
+    b, hkv, d, bs, mb = 8, 8, 128, PAGED_BS, PAGED_MB
     g = torch.Generator().manual_seed(1000 * s_q + len(kv))
     dt = getattr(torch, dtype)
     need = [0 if c == 0 else -(-min(c + s_q, mb * bs) // bs)
@@ -968,13 +1008,14 @@ def paged_inputs(torch, *, dtype, kv, s_q):
     return q, kp, vp, tables, cur_t, pad_t, scales
 
 
-def paged_case(torch, pfd, flush, *, name, dtype, kv, s_q, profile=False):
+def paged_case(torch, pfd, flush, *, name, dtype, kv, s_q, hq=16,
+               profile=False):
     """paged_flash_decode kernel vs plain on one seeded pool
     (:func:`paged_inputs`), then the three times; returns the phase-b
     record."""
     import torch.nn.functional as F
 
-    args = paged_inputs(torch, dtype=dtype, kv=kv, s_q=s_q)
+    args = paged_inputs(torch, dtype=dtype, kv=kv, s_q=s_q, hq=hq)
     q, kp, vp, tables, cur_t, pad_t, scales = args
     b, hq, s_q, d = q.shape
     pool, hkv, bs, _ = kp.shape
@@ -1092,6 +1133,9 @@ def phase_kernels(torch, fa, fd, pfd) -> dict:
                                  kv=kv, s_q=s_q, profile=main_case)
                 if main_case:
                     main["paged_flash_decode"] = rec
+        for s_q in (1, 5):  # phase n's llama3_8b: 4 query rows a KV head
+            paged_case(torch, pfd, flush, name=f"llama3_8b_gqa_paged_s{s_q}",
+                       dtype=dtype, kv="same", s_q=s_q, hq=32)
     for dtype in ("bfloat16", "float32"):  # phase g's shape, and ragged
         rec = bwd_case(torch, fa, flush, name="train", b=TRAIN_BATCH, h=32,
                        s=TRAIN_SEQ, d=128, causal=True, pads=None,
@@ -1136,14 +1180,15 @@ def prompts(torch, cfg):
     return left_pad_prompts(toks)
 
 
-def graph_captures(since: float) -> list:
+def graph_captures(since: float, fn: str | None = None) -> list:
     """Capture times (ms) of the CUDA graphs made since ``since`` (a
     ``time.time()``), from the flight recorder's ``graph_capture``
-    events."""
+    events; with ``fn``, only those of that step."""
     from sparkdl_tpu_torch.runner import events
 
     return [e["ms"] for e in events.get_recorder().tail()
-            if e["name"] == "graph_capture" and e["t"] >= since]
+            if e["name"] == "graph_capture" and e["t"] >= since
+            and fn in (None, e.get("fn"))]
 
 
 def eager_decode(torch, L):
@@ -1448,13 +1493,15 @@ def read_counts(fa, fd, pfd) -> dict:
             "paged_flash_decode": pfd.paged_flash_decode.launches}
 
 
-def serve_leg(torch, model, kernels, *, leg, prompts, **kw) -> tuple:
-    """One fresh engine serving ``prompts`` (all submitted at once) to the
-    end; the launch counters are set to 0 just before and read just
-    after. Returns the leg's record and the engine."""
+def serve_leg(torch, model, kernels, *, leg, prompts, new=SERVE_NEW,
+              max_len=2048, config="LlamaConfig.small", **kw) -> tuple:
+    """One fresh engine serving ``prompts`` (all submitted at once, ``new``
+    tokens each) to the end; the launch counters are set to 0 just
+    before and read just after. Returns the leg's record and the
+    engine."""
     from sparkdl_tpu_torch import GenerationEngine
 
-    eng = GenerationEngine.from_model(model, num_slots=8, max_len=2048,
+    eng = GenerationEngine.from_model(model, num_slots=8, max_len=max_len,
                                       device="cuda", **kw)
     iter_s = []
     for attr in ("step", "verify"):  # time each decode iteration
@@ -1471,7 +1518,7 @@ def serve_leg(torch, model, kernels, *, leg, prompts, **kw) -> tuple:
     reset_counts(*kernels)
     since = time.time()
     t0 = time.perf_counter()
-    hs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    hs = [eng.submit(p, max_new_tokens=new) for p in prompts]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1479,17 +1526,20 @@ def serve_leg(torch, model, kernels, *, leg, prompts, **kw) -> tuple:
     outs = [h.result(1) for h in hs]
     ttft = sorted(h.t_first_token - h.t_submit for h in hs)
     st = eng.stats
-    new = sum(len(o) for o in outs)
+    n_new = sum(len(o) for o in outs)
     for o in outs:
-        assert len(o) == SERVE_NEW and 0 <= min(o) and max(o) < \
+        assert len(o) == new and 0 <= min(o) and max(o) < \
             model.cfg.vocab_size, f"{leg}: bad stream {o[:8]}"
-    rec = dict(phase="serve", leg=leg, config="LlamaConfig.small",
-               dtype="bfloat16", layers=model.cfg.num_layers,
-               engine={k: v for k, v in kw.items()}, num_slots=8,
-               max_len=2048, requests=len(prompts),
+    rec = dict(phase="serve", leg=leg, config=config,
+               dtype=str(model.dtype).replace("torch.", ""),
+               layers=model.cfg.num_layers,
+               engine={k: v if isinstance(v, (int, float, str, type(None)))
+                       else type(v).__name__ for k, v in kw.items()},
+               num_slots=8,
+               max_len=max_len, requests=len(prompts),
                completed=st["completed"],
-               prompt_lens=[len(p) for p in prompts], new_tokens=new,
-               wall_s=wall, new_tokens_per_s=new / wall,
+               prompt_lens=[len(p) for p in prompts], new_tokens=n_new,
+               wall_s=wall, new_tokens_per_s=n_new / wall,
                ttft_p50_s=ttft[len(ttft) // 2],
                ttft_p95_s=ttft[max(0, -(-95 * len(ttft) // 100) - 1)],
                decode_iterations=len(iter_s),
@@ -1501,7 +1551,7 @@ def serve_leg(torch, model, kernels, *, leg, prompts, **kw) -> tuple:
                spec_tokens_accepted=st["spec_tokens_accepted"],
                prefix=eng.backend.prefix_stats(), launches=launches,
                graphs=eng.backend.graphs.snapshot(),
-               capture_ms=graph_captures(since),
+               capture_ms=graph_captures(since, "serve_decode_step"),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     assert st["completed"] == len(prompts), rec
     # every S = 1 step came from the graph: one capture (whose warm-up
@@ -1569,7 +1619,8 @@ def iteration_split(torch, eng, steps: int) -> dict:
     return ms
 
 
-def profile_serve(torch, L, eng, cfg, steps: int = 4) -> list:
+def profile_serve(torch, L, eng, cfg, steps: int = 4,
+                  what: str = "small bf16") -> list:
     """Where a paged engine iteration spends its time once all 8 slots
     decode: 8 requests of 64-token prompts are prefilled (one chunk an
     iteration), then ``steps`` decode-only iterations are profiled with
@@ -1583,7 +1634,7 @@ def profile_serve(torch, L, eng, cfg, steps: int = 4) -> list:
     replays = eng.backend.graphs.snapshot()["replays"]
     graph = device_profile(torch, eng.step, steps,
                            f"{steps} paged engine iterations from the "
-                           f"graph, 8 slots decoding, small bf16")
+                           f"graph, 8 slots decoding, {what}")
     assert eng.backend.graphs.snapshot()["replays"] == replays + steps
     graph["host_split_ms"] = iteration_split(torch, eng, steps)
     real = eng.backend.step
@@ -1591,7 +1642,7 @@ def profile_serve(torch, L, eng, cfg, steps: int = 4) -> list:
     try:
         eager = device_profile(torch, eng.step, steps,
                                f"{steps} paged engine iterations, eager "
-                               f"step, 8 slots decoding, small bf16")
+                               f"step, 8 slots decoding, {what}")
     finally:
         eng.backend.step = real
     eng.run_until_idle()
@@ -3497,6 +3548,304 @@ def xla_transformer(torch) -> dict:
     return rec
 
 
+# --- phase n: int8-weight serving, the registry draft, the tokenizer ------
+
+INT8_NEW = 64                  # new tokens a request in the int8 legs
+INT8_PARITY_LAYERS = 2         # int8_parity: llama_small widths, depth 2
+TOKENIZER_VOCAB = 2048         # at most llama_small's 32000
+TOKENIZER_ROWS, TOKENIZER_CHUNK, TOKENIZER_NEW = 256, 64, 32
+
+
+def free_engines(torch) -> None:
+    """Release engines just dropped: an engine whose backend methods are
+    wrapped (``serve_leg``'s timers) sits in a reference cycle, and its
+    pool and graph stay allocated until the collector runs."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_int8_weights(torch, kernels) -> dict:
+    """``int8_weights``: llama3_8b at full width and depth, bf16 compute,
+    seeded weights; a bf16-weight leg, then the same model quantized in
+    place by ``from_model(weight_dtype="int8")`` and served again. Each
+    leg: 8 slots, 8 prompts of 64–1536 tokens, 64 new tokens each, the
+    paged blocking refill (``stall_free=False``: the paged prefill that
+    runs flash_attention; the chunked prefill attends densely, as in
+    the reference) with block 16."""
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = L.LlamaConfig.llama3_8b()
+    nl = cfg.num_layers
+    t0 = time.perf_counter()
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(14)
+    lens = torch.randint(64, 1537, (8,), generator=g).tolist()
+    lens[0], lens[-1] = 64, 1536
+    prompts = serve_prompts(torch, cfg, lens, 14)
+    kw = dict(block_size=16, prefill_chunk=256, stall_free=False,
+              max_len=4096, new=INT8_NEW, config="LlamaConfig.llama3_8b")
+    warm, eng = serve_leg(torch, model, kernels,
+                          leg="int8_weights_warm-up",
+                          prompts=[[1, 2, 3] * 20], **dict(kw, new=4))
+    del warm, eng
+    free_engines(torch)
+    legs = {}
+    for leg, wq in (("bf16_weights", None), ("int8_weights", "int8")):
+        bf16_bytes = L.projection_bytes(model)
+        t0 = time.perf_counter()
+        rec, eng = serve_leg(torch, model, kernels, leg=leg, prompts=prompts,
+                             **kw, **({"weight_dtype": wq} if wq else {}))
+        assert eng.backend.weight_dtype == wq, rec
+        assert (model.layers[0].mlp.down_proj.base.weight.dtype
+                == (torch.int8 if wq else torch.bfloat16)), rec
+        assert rec["launches"]["flash_attention"] == \
+            nl * rec["prefills"] > 0, rec
+        assert rec["launches"]["paged_flash_decode"] == \
+            nl * rec["steps"] > 0, rec
+        assert rec["launches"]["flash_decode"] == 0, rec
+        rec.update(phase="int8_weights", weight_dtype=wq or "bfloat16",
+                   init_s=init_s, projection_bytes=L.projection_bytes(model),
+                   projection_bytes_bf16=bf16_bytes if wq is None
+                   else legs["bf16_weights"]["projection_bytes"],
+                   leg_s=time.perf_counter() - t0,
+                   memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                   nvidia_smi=smi())
+        emit(rec)
+        legs[leg] = rec
+        for prof in profile_serve(torch, L, eng, cfg,
+                                  what=f"llama3_8b {leg}"):
+            emit(dict(prof, leg=leg))
+        del eng
+        free_engines(torch)
+    b, q = legs["bf16_weights"], legs["int8_weights"]
+    emit(dict(phase="int8_weights", leg="summary",
+              config="LlamaConfig.llama3_8b", layers=nl,
+              decode_iter_ms=[b["decode_iter_ms_mean"],
+                              q["decode_iter_ms_mean"]],
+              int8_over_bf16_iter=q["decode_iter_ms_mean"]
+              / b["decode_iter_ms_mean"],
+              new_tokens_per_s=[b["new_tokens_per_s"],
+                                q["new_tokens_per_s"]],
+              peak_mem_gb=[b["peak_mem_gb"], q["peak_mem_gb"]],
+              projection_gb=[b["projection_bytes"] / 1e9,
+                             q["projection_bytes"] / 1e9],
+              nvidia_smi=smi()))
+    del model
+    torch.cuda.empty_cache()
+    return legs
+
+
+def phase_int8_parity(torch, kernels) -> dict:
+    """``int8_parity``: llama_small widths at depth 2, f32, TF32 off,
+    int8 codes. The paged engine (one slot, so every step's logits row 0
+    is the request's) against the int8 model's dense in-model path fed
+    the engine's tokens: decode-step logits within ``LOGIT_TOL`` of
+    dense, and the greedy stream equal to dense's argmax wherever the
+    top-2 gap exceeds 10 × ``LOGIT_TOL``."""
+    import dataclasses
+
+    from sparkdl_tpu_torch import GenerationEngine
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = dataclasses.replace(L.LlamaConfig.small(),
+                              num_layers=INT8_PARITY_LAYERS)
+    model = L.LlamaModel(cfg, dtype=torch.float32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve_prompts(torch, cfg, [600, 300, 90, 33], 15)
+    new, gate = PARITY_TOKENS, 10 * LOGIT_TOL
+    eng = GenerationEngine.from_model(
+        model, num_slots=1, max_len=2048, block_size=16, prefill_chunk=256,
+        stall_free=False, weight_dtype="int8", device="cuda")
+    assert model.weight_quant == "int8"
+    steps = []
+    real = eng.backend.graphs.get
+
+    def kept(*a, **k):
+        out = real(*a, **k)
+        steps.append(out[0].clone())
+        return out
+    eng.backend.graphs.get = kept
+    reset_counts(*kernels)
+    got, kern = [], []
+    for p in prompts:
+        steps.clear()
+        h = eng.submit(p, max_new_tokens=new)
+        eng.run_until_idle()
+        got.append(h.result(1))
+        kern.append(torch.stack(steps))        # predicts tokens 1..new-1
+    launches = read_counts(*kernels)
+    assert launches["paged_flash_decode"] == \
+        cfg.num_layers * eng.stats["steps"] > 0, launches
+    assert launches["flash_attention"] == \
+        cfg.num_layers * eng.stats["prefills"], launches
+    model.attn_fn = None                       # the dense in-model path
+    err, min_gap, flips = 0.0, float("inf"), []
+    with torch.no_grad():
+        for r, (p, stream, k_logits) in enumerate(zip(prompts, got, kern)):
+            seq = torch.tensor([p + stream], device="cuda")
+            dense = model(seq)[0, len(p) - 1:len(p) - 1 + new]
+            err = max(err, (k_logits - dense[1:]).abs().max().item())
+            top2 = dense.topk(2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            min_gap = min(min_gap, min(gaps))
+            for j, t in enumerate(dense.argmax(-1).tolist()):
+                if stream[j] != t:
+                    assert gaps[j] <= gate, (
+                        f"request {r}: engine and dense differ at position "
+                        f"{j} with a top-2 gap of {gaps[j]} > {gate}")
+                    flips.append(dict(request=r, position=j, gap=gaps[j]))
+    assert err <= LOGIT_TOL, f"int8 logits: paged vs dense {err}"
+    rec = dict(phase="int8_parity", config="LlamaConfig.small",
+               layers=cfg.num_layers, depth_cut="16 -> 2",
+               dtype="float32", tf32=False, weight_dtype="int8",
+               prompt_lens=[len(p) for p in prompts], new_tokens=new,
+               engine="paged, block 16, blocking refill, one slot",
+               reference="the int8 model's dense in-model path",
+               max_abs_logit_err=err, tol=LOGIT_TOL, near_tie_gate=gate,
+               near_ties=flips, min_top2_gap=min_gap, launches=launches)
+    emit(rec)
+    del eng, model
+    free_engines(torch)
+    return rec
+
+
+def phase_draft_registry(torch, kernels) -> dict:
+    """``draft_registry``: phase e's llama_small (bf16, seeded) served with
+    ``spec_k=4`` and ``DraftModelProvider.from_registry("llama_small")``
+    — llama_tiny on the card, seeded, attending densely (its head dim 32
+    is not one the kernels take: through them it would raise). The
+    draft stands down on any token outside its 512-id vocabulary, so the
+    target's ``lm_head`` rows past 512 are zeroed and the prompts drawn
+    below 512: the target's stream stays where the draft can read it."""
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.serving import DraftModelProvider
+
+    cfg = L.LlamaConfig.small()
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    draft = DraftModelProvider.from_registry(
+        "llama_small", device="cuda", dtype=torch.bfloat16, attn_fn=None,
+        min_bucket=16)
+    dv = draft.model.cfg.vocab_size
+    assert draft.model.cfg == L.LlamaConfig.tiny()
+    with torch.no_grad():
+        model.lm_head.weight[dv:].zero_()
+    g = torch.Generator().manual_seed(16)
+    prompts = [torch.randint(1, dv, (n,), generator=g).tolist()
+               for n in (200, 120, 64, 33)]
+    rec, eng = serve_leg(torch, model, kernels, leg="draft_registry",
+                         prompts=prompts, spec_k=4, draft_provider=draft,
+                         block_size=16, prefill_chunk=256)
+    assert rec["spec_verifies"] >= 1, rec
+    assert rec["launches"]["paged_flash_decode"] == \
+        cfg.num_layers * rec["steps"], rec
+    rec.update(phase="draft_registry", draft="llama_tiny (registry pairing "
+               "of llama_small)", draft_attn="dense (head dim 32)",
+               target_lm_head_rows_zeroed=f"{dv}..{cfg.vocab_size - 1}",
+               accepted_draft_tokens=rec["spec_tokens_accepted"])
+    emit(rec)
+    del eng, model, draft
+    free_engines(torch)
+    return rec
+
+
+def readme_prompts(text: str, n: int, seed: int) -> list:
+    """``n`` seeded prompts from ``text``: runs of 3–40 words starting at
+    a random word (whitespace kept as written)."""
+    import random
+    import re
+
+    words = [m.group() for m in re.finditer(r"\s*\S+", text)]
+    rnd = random.Random(seed)
+    out = []
+    for _ in range(n):
+        k = rnd.randint(3, 40)
+        i = rnd.randrange(0, len(words) - k)
+        out.append("".join(words[i:i + k]).lstrip())
+    return out
+
+
+def phase_tokenizer(torch, kernels) -> dict:
+    """``tokenizer``: a ``ByteBPETokenizer`` trained here on the repo's
+    README.md (vocab ``TOKENIZER_VOCAB``), 256 prompts from it encoded,
+    run through ``udf.generate_rows`` — the per-chunk device step of
+    ``registerTextGenerationUDF`` (no DataFrame: the card path runs
+    without pyarrow) — on llama_small, bf16, in chunks of 64 left-padded
+    to the column's longest prompt, then decoded."""
+    from sparkdl_tpu_torch.models import ByteBPETokenizer
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.udf import generate_rows
+
+    text = (ROOT / "README.md").read_text()
+    t0 = time.perf_counter()
+    tok = ByteBPETokenizer.train([text], vocab_size=TOKENIZER_VOCAB)
+    train_s = time.perf_counter() - t0
+    cfg = L.LlamaConfig.small()
+    assert tok.vocab_size <= cfg.vocab_size
+    rows = readme_prompts(text, TOKENIZER_ROWS, 17)
+    t0 = time.perf_counter()
+    ids = [tok.encode(r) for r in rows]
+    encode_s = time.perf_counter() - t0
+    for r, i in zip(rows, ids):
+        assert tok.decode(i) == r, r
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    max_len = max(len(i) for i in ids)
+    generate_rows(model, ids[:2], max_len, 2)   # warm-up, outside the count
+    torch.cuda.synchronize()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    outs, chunks = [], 0
+    for c in range(0, len(ids), TOKENIZER_CHUNK):
+        outs += generate_rows(model, ids[c:c + TOKENIZER_CHUNK], max_len,
+                              TOKENIZER_NEW)
+        chunks += 1
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    launches = read_counts(*kernels)
+    t0 = time.perf_counter()
+    texts = [tok.decode(o[len(i):]) for o, i in zip(outs, ids)]
+    decode_s = time.perf_counter() - t0
+    nl = cfg.num_layers
+    assert launches["flash_attention"] == nl * chunks, launches
+    assert launches["flash_decode"] == nl * chunks * TOKENIZER_NEW, launches
+    for o, i in zip(outs, ids):
+        assert o[:len(i)] == i and len(o) == len(i) + TOKENIZER_NEW
+    assert all(isinstance(t, str) for t in texts)
+    rec = dict(phase="tokenizer", corpus="README.md",
+               corpus_bytes=len(text.encode()), vocab=tok.vocab_size,
+               merges=len(tok.merges), train_s=train_s,
+               config="LlamaConfig.small", dtype="bfloat16", layers=nl,
+               rows=len(rows), chunk_rows=TOKENIZER_CHUNK, chunks=chunks,
+               padded_len=max_len, new_tokens=TOKENIZER_NEW,
+               bytes_per_token=sum(len(r.encode()) for r in rows)
+               / sum(len(i) for i in ids),
+               round_trip_equal=len(rows),
+               tokenizer_ms=(encode_s + decode_s) * 1e3,
+               encode_ms=encode_s * 1e3, decode_ms=decode_s * 1e3,
+               device_ms=device_s * 1e3,
+               rows_per_s=len(rows) / (device_s + encode_s + decode_s),
+               launches=launches, first_completion=texts[0][:80])
+    emit(rec)
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_n(torch, kernels) -> dict:
+    """Phase n: int8-weight serving of llama3_8b, its parity at depth 2,
+    the registry-paired draft and the in-repo tokenizer."""
+    return dict(int8_weights=phase_int8_weights(torch, kernels),
+                int8_parity=phase_int8_parity(torch, kernels),
+                draft_registry=phase_draft_registry(torch, kernels),
+                tokenizer=phase_tokenizer(torch, kernels))
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -3546,6 +3895,7 @@ def main() -> int:
     resnet = phase_resnet(torch, (fa, fd, pfd))
     phase_dp(torch, (fa, fd, pfd), resnet["train"])
     gang = phase_dp_m(torch, glue)
+    n = phase_n(torch, (fa, fd, pfd))
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -3562,6 +3912,10 @@ def main() -> int:
             legs["paged"]["launches"]),
     }
     kernels = []
+    # phase n's launches of each kernel, leg by leg
+    n_recs = dict(n["int8_weights"], int8_parity=n["int8_parity"],
+                  draft_registry=n["draft_registry"],
+                  tokenizer=n["tokenizer"])
     for name, (src, replaces, counts) in sources.items():
         r = main_recs[name]
         kernels.append(dict(
@@ -3570,7 +3924,9 @@ def main() -> int:
             tol=r["tol"], rtol=r["rtol"], case=r["case"], dtype=r["dtype"],
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            phase_n_launches={leg: rec["launches"][name]
+                              for leg, rec in n_recs.items()}))
         if name != "flash_attention":  # the split-KV decode kernels
             kernels[-1].update(
                 chunk=r["chunk"], n_splits=r["n_splits"],

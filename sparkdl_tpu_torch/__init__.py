@@ -21,9 +21,13 @@ fine-tune (``models.bert``, ``fit(..., with_rng=True)`` for dropout), the
 Arrow DataFrame (``DataFrame``, ``Row``; ``runner.data.ArrowDataset``) and
 the UDFs (``udf``: ``registerUDF`` over numeric columns through
 ``XlaTransformer``, the image UDFs, generation, text generation, sequence
-classification), and image scoring — the image model zoo
+classification), image scoring — the image model zoo
 (``models.registry``), ``core.runtime.BatchRunner``, the Params / Pipeline
-API and ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` — with the
+API and ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` — model
+selection (``CrossValidator``, ``TrainValidationSplit`` and the
+evaluators), the feature stages, the byte-level BPE tokenizer
+(``ByteBPETokenizer``) and int8 projection weights in serving
+(``GenerationEngine.from_model(..., weight_dtype="int8")``), with the
 kernels they run: ``ops.flash_attention``
 (prefill, the training forward and its backward, causal or padded),
 ``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
@@ -39,18 +43,29 @@ from .core.params import (HasBatchSize, HasDevice, HasInputCol,  # noqa: E402
                           HasLabelCol, HasOutputCol, HasPredictionCol,
                           HasSeed, Param, Params, TypeConverters,
                           keyword_only)
-from .core.pipeline import (Estimator, MLWritable, Model,  # noqa: E402
-                            Pipeline, PipelineModel, Transformer, load)
-from .estimators import (LogisticRegression,  # noqa: E402
-                         LogisticRegressionModel)
+from .core.pipeline import (Estimator, Evaluator, MLWritable,  # noqa: E402
+                            Model, Pipeline, PipelineModel, Transformer,
+                            load)
+from .core.tuning import (CrossValidator,  # noqa: E402
+                          CrossValidatorModel, ParamGridBuilder,
+                          TrainValidationSplit, TrainValidationSplitModel)
+from .estimators import (BinaryClassificationEvaluator,  # noqa: E402
+                         LogisticRegression, LogisticRegressionModel,
+                         MulticlassClassificationEvaluator,
+                         RegressionEvaluator)
 from .image.imageIO import (createResizeImageUDF,  # noqa: E402
                             nhwcToImageColumn, readImages,
                             readImagesWithCustomFn)
+from .models import ByteBPETokenizer  # noqa: E402
 from .serving import GenerationEngine  # noqa: E402 — as sparkdl_tpu does
 from .transformers import (DeepImageFeaturizer,  # noqa: E402
                            DeepImagePredictor, TFImageTransformer,
                            TFTransformer, XlaImageTransformer,
                            XlaTransformer)
+from .transformers.feature import (IndexToString,  # noqa: E402
+                                   StandardScaler, StandardScalerModel,
+                                   StringIndexer, StringIndexerModel,
+                                   VectorAssembler)
 from .udf import (applyUDF, listUDFs, registerGenerationUDF,  # noqa: E402
                   registerImageUDF, registerKerasImageUDF,
                   registerSequenceClassificationUDF,
@@ -63,8 +78,14 @@ __all__ = ["GenerationEngine", "DataFrame", "Row", "applyUDF", "listUDFs",
            "Param", "Params", "TypeConverters", "keyword_only",
            "HasInputCol", "HasOutputCol", "HasLabelCol", "HasPredictionCol",
            "HasBatchSize", "HasSeed", "HasDevice",
-           "Transformer", "Estimator", "Model", "Pipeline", "PipelineModel",
-           "MLWritable", "load", "imageSchema", "readImages",
+           "Transformer", "Estimator", "Model", "Evaluator", "Pipeline",
+           "PipelineModel", "MLWritable", "load", "ByteBPETokenizer",
+           "ParamGridBuilder", "CrossValidator", "CrossValidatorModel",
+           "TrainValidationSplit", "TrainValidationSplitModel",
+           "MulticlassClassificationEvaluator", "RegressionEvaluator",
+           "BinaryClassificationEvaluator", "VectorAssembler",
+           "StringIndexer", "StringIndexerModel", "StandardScaler",
+           "StandardScalerModel", "IndexToString", "imageSchema", "readImages",
            "readImagesWithCustomFn", "createResizeImageUDF",
            "nhwcToImageColumn", "XlaImageTransformer", "TFImageTransformer",
            "XlaTransformer", "TFTransformer",

@@ -1,15 +1,18 @@
 """Estimators of the port: ``LogisticRegression`` (the shallow learner of
-BASELINE config 1). The evaluators and ``KerasImageFileEstimator`` are not
-ported yet (ROADMAP.md, Queue A 4 and A 9)."""
+BASELINE config 1) and the evaluators of model selection
+(``evaluation``). ``KerasImageFileEstimator`` is not ported yet
+(ROADMAP.md, Queue A 9)."""
 
+from .evaluation import (BinaryClassificationEvaluator,
+                         MulticlassClassificationEvaluator,
+                         RegressionEvaluator)
 from .logistic_regression import LogisticRegression, LogisticRegressionModel
 
-__all__ = ["LogisticRegression", "LogisticRegressionModel"]
+__all__ = ["LogisticRegression", "LogisticRegressionModel",
+           "MulticlassClassificationEvaluator", "RegressionEvaluator",
+           "BinaryClassificationEvaluator"]
 
-_NOT_PORTED = {"MulticlassClassificationEvaluator": "A 4",
-               "RegressionEvaluator": "A 4",
-               "BinaryClassificationEvaluator": "A 4",
-               "KerasImageFileEstimator": "A 9"}
+_NOT_PORTED = {"KerasImageFileEstimator": "A 9"}
 
 
 def __getattr__(name):

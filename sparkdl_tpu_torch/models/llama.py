@@ -1,14 +1,15 @@
 """Llama-style decoder-only transformer with LoRA, and KV-cache generation.
 
-The counterpart of ``sparkdl_tpu/models/llama.py``'s single-device,
-float-weight part: config, RMSNorm, LoRADense, rope, the attention with
-its training path, its static-cache decode path and its per-slot
-(``slot_cur``) serving branches, MLP, layer, model, ``generate``, the
-continuous-batching slot primitives, the paged block-table primitives,
-the block-quantized (int8 / fp8) KV pool and the LoRA training utilities
-(:func:`lora_mask`, :func:`lora_optimizer`, :func:`causal_lm_loss_fn`).
-Weight quantization and the tensor-parallel kernel mesh are not ported
-yet (ROADMAP.md).
+The counterpart of ``sparkdl_tpu/models/llama.py``'s single-device
+part: config, RMSNorm, LoRADense (with the int8 base of the reference's
+``QuantDense``), rope, the attention with its training path, its
+static-cache decode path and its per-slot (``slot_cur``) serving
+branches, MLP, layer, model, ``generate``, the continuous-batching slot
+primitives, the paged block-table primitives, the block-quantized
+(int8 / fp8) KV pool, int8 projection weights (:func:`quantize_params`)
+and the LoRA training utilities (:func:`lora_mask`,
+:func:`lora_optimizer`, :func:`causal_lm_loss_fn`). The tensor-parallel
+kernel mesh is not ported yet (ROADMAP.md).
 
 Hazards the port keeps, each from the JAX module:
 
@@ -119,7 +120,16 @@ class LoRADense(nn.Module):
     """Linear with optional LoRA: y = xW + (alpha/r)·(xA)B, no bias,
     computed in ``dtype``: the input and the weights are cast to it at use
     (a no-op for weights stored in it; ``models.pretrained.
-    cast_float_leaves`` may store them in another)."""
+    cast_float_leaves`` may store them in another).
+
+    An int8 base (:func:`quantize_params`, or a quantized tree through
+    :func:`load_flax_params`) is the reference's ``QuantDense``: ``base.
+    weight`` holds the codes ``[out, in]`` and ``base.weight_scale`` the
+    f32 absmax scale of each output channel ``[out]``; the product runs
+    against the codes cast to ``dtype`` and the scale is applied after it
+    in f32 (``(x @ q.T)·s``, then cast back, as the reference does). The
+    cast writes a ``dtype`` copy of the codes for the product (XLA fuses
+    it into the reference's dot). The adapters stay float."""
 
     def __init__(self, in_features: int, features: int, rank: int = 0,
                  alpha: float = 16.0, dtype=torch.float32, device=None):
@@ -134,7 +144,12 @@ class LoRADense(nn.Module):
     def forward(self, x):
         d = self.dtype
         x = x.to(d)
-        y = F.linear(x, self.base.weight.to(d))
+        w = self.base.weight
+        if w.dtype == torch.int8:
+            y = (F.linear(x, w.to(d)).float()
+                 * self.base.weight_scale).to(d)
+        else:
+            y = F.linear(x, w.to(d))
         if self.rank > 0:
             a = F.linear(x, self.lora_a.weight.to(d))
             y = y + (self.alpha / self.rank) * F.linear(
@@ -627,6 +642,13 @@ class LlamaModel(nn.Module):
     def device(self) -> torch.device:
         return self.lm_head.weight.device
 
+    @property
+    def weight_quant(self) -> str | None:
+        """"int8" when the projections hold codes
+        (:func:`quantize_params`), else None."""
+        return "int8" if any(m.base.weight.dtype == torch.int8
+                             for _, m in _projections(self)) else None
+
     @torch.no_grad()
     def reset_parameters(self, generator=None) -> None:
         if generator is None:
@@ -718,30 +740,56 @@ def check_fill(cache: KVCache, s: int, first_chunk: bool = False) -> None:
 # Weights carried across from the JAX package
 # ---------------------------------------------------------------------------
 
-def _param_map(model: LlamaModel):
-    """(flax path, torch parameter, transposed) for every weight: a flax
-    Dense kernel ``[in, out]`` is a ``Linear.weight`` ``[out, in]``."""
-    out = [(("embed_tokens", "embedding"), model.embed_tokens.weight, False)]
+_ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj")
+_MLP_PROJ = ("gate_proj", "up_proj", "down_proj")
 
-    def dense(prefix, mod):
+
+def _projections(model: LlamaModel):
+    """(flax path, :class:`LoRADense`) for every layer's seven
+    projections, in the reference's tree order."""
+    for i, layer in enumerate(model.layers):
+        p = (f"layer_{i}",)
+        for name in _ATTN_PROJ:
+            yield p + ("attn", name), getattr(layer.attn, name)
+        for name in _MLP_PROJ:
+            yield p + ("mlp", name), getattr(layer.mlp, name)
+
+
+def _param_map(model: LlamaModel):
+    """(flax path, torch tensor, transposed) for every weight: a flax
+    Dense kernel ``[in, out]`` is a ``Linear.weight`` ``[out, in]``; an
+    int8 base adds its ``kernel_scale``."""
+    out = [(("embed_tokens", "embedding"), model.embed_tokens.weight, False)]
+    for prefix, mod in _projections(model):
         out.append((prefix + ("base", "kernel"), mod.base.weight, True))
+        if mod.base.weight.dtype == torch.int8:
+            out.append((prefix + ("base", "kernel_scale"),
+                        mod.base.weight_scale, False))
         if mod.rank > 0:
             out.append((prefix + ("lora_a", "kernel"), mod.lora_a.weight,
                         True))
             out.append((prefix + ("lora_b", "kernel"), mod.lora_b.weight,
                         True))
-
     for i, layer in enumerate(model.layers):
         p = (f"layer_{i}",)
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            dense(p + ("attn", name), getattr(layer.attn, name))
-        for name in ("gate_proj", "up_proj", "down_proj"):
-            dense(p + ("mlp", name), getattr(layer.mlp, name))
         out.append((p + ("attn_norm", "scale"), layer.attn_norm.scale, False))
         out.append((p + ("mlp_norm", "scale"), layer.mlp_norm.scale, False))
     out.append((("final_norm", "scale"), model.final_norm.scale, False))
     out.append((("lm_head", "kernel"), model.lm_head.weight, True))
     return out
+
+
+def _set_base(mod: LoRADense, codes, scale=None) -> None:
+    """Give ``mod`` an int8 base (``codes`` ``[out, in]``, f32 ``scale``
+    ``[out]``) or, with ``codes`` a float tensor and no scale, a float
+    base again. The old weight is released here."""
+    base = mod.base
+    base.weight = nn.Parameter(codes, requires_grad=scale is None)
+    if scale is None:
+        if "weight_scale" in base._buffers:
+            del base._buffers["weight_scale"]
+    else:
+        base.register_buffer("weight_scale", scale)
 
 
 def _flatten(tree, prefix=()):
@@ -758,11 +806,27 @@ def load_flax_params(model: LlamaModel, params) -> LlamaModel:
     nested dicts of numpy arrays (``params['layer_0']['attn']['q_proj']
     ['base']['kernel']`` ``[in, out]``, ``embed_tokens/embedding``,
     ``*_norm/scale``, ``lm_head/kernel``, optional ``lora_a``/``lora_b``);
-    a ``{"params": ...}`` wrapper is accepted. Raises on a missing,
+    a ``{"params": ...}`` wrapper is accepted. A quantized tree (the
+    reference's ``quantize_params``: an int8 ``kernel`` and its
+    ``kernel_scale``) gives the projections int8 bases; a float tree
+    gives them float ones, whatever the model held. Raises on a missing,
     unexpected or mis-shaped leaf. Returns the model."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     leaves = dict(_flatten(params))
+    for prefix, mod in _projections(model):
+        kernel = leaves.get(prefix + ("base", "kernel"))
+        w = mod.base.weight
+        if kernel is None or ((np.asarray(kernel).dtype == np.int8)
+                              == (w.dtype == torch.int8)):
+            continue
+        if w.dtype == torch.int8:   # a float tree: float bases again
+            _set_base(mod, torch.zeros(w.shape, dtype=mod.dtype,
+                                       device=w.device))
+        else:                       # a quantized tree: int8 bases
+            _set_base(mod, torch.zeros(w.shape, dtype=torch.int8,
+                                       device=w.device),
+                      torch.ones(w.shape[0], device=w.device))
     for path, param, transposed in _param_map(model):
         if path not in leaves:
             raise KeyError(f"flax params lack {'/'.join(path)}")
@@ -791,6 +855,58 @@ def flax_params(model: LlamaModel) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = (t.T if transposed else t).contiguous().numpy()
     return tree
+
+
+# ---------------------------------------------------------------------------
+# int8 projection weights
+# ---------------------------------------------------------------------------
+
+# The projections of every layer — attention q/k/v/o and MLP gate/up/down
+# (the reference's ``WEIGHT_QUANT_TARGETS``). lm_head, embed, the norms and
+# the LoRA adapters stay float.
+WEIGHT_QUANT_TARGETS = frozenset(_ATTN_PROJ + _MLP_PROJ)
+
+
+@torch.no_grad()
+def quantize_params(model: LlamaModel, name: str = "int8") -> LlamaModel:
+    """Quantize ``model``'s projection weights IN PLACE (the reference's
+    ``quantize_params`` returns a new tree; the port's model holds its
+    weights): every base in :data:`WEIGHT_QUANT_TARGETS` becomes int8
+    codes plus an absmax per-output-channel f32 scale, computed in f32
+    from the stored weight — ``s = max|row| / 127`` (1 where the row is
+    all zero, so the dequant stays finite) and ``q = clamp(round(w / s),
+    -127, 127)``, rounding half to even as ``jnp.round`` does. Each float
+    weight is released as its codes land, so the model never holds both
+    copies of more than one projection. Bases already int8 are left as
+    they are. Returns the model."""
+    if name != "int8":
+        raise ValueError(
+            f"unsupported weight quant dtype {name!r} (int8 only)")
+    for _, mod in _projections(model):
+        if mod.base.weight.dtype == torch.int8:
+            continue
+        w = mod.base.weight.float()
+        amax = w.abs().amax(dim=1)
+        # a true division by a tensor: CUDA turns a division by a Python
+        # scalar into a product with its reciprocal, which rounds apart
+        s = amax / torch.full_like(amax, 127.0)
+        s = torch.where(s > 0, s, torch.ones_like(s))
+        q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(
+            torch.int8)
+        del w
+        _set_base(mod, q, s)
+    return model
+
+
+def projection_bytes(model: LlamaModel) -> int:
+    """Bytes the projections' weights hold on the device: int8 codes plus
+    their scales, or the float weights (the adapters not counted)."""
+    n = 0
+    for _, mod in _projections(model):
+        for t in (mod.base.weight, getattr(mod.base, "weight_scale", None)):
+            if t is not None:
+                n += t.numel() * t.element_size()
+    return n
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,13 @@ flax default distributions (``image_layers.init_flax_defaults``).
 ``save_weights``/``load_weights`` are ``torch.save``/``torch.load`` of the
 state dict, and :func:`load_flax_variables` carries the JAX package's
 ``{"params", "batch_stats"}`` into a port model (the image half of the
-weight bridge). The LLM-family metadata of the reference registry
-(``llm_config``, ``draft_for``) is not part of the image slice.
+weight bridge).
+
+The LLM half: :func:`llm_config` names the Llama configs and
+:data:`DRAFT_PAIRS` / :func:`draft_for` / :func:`register_draft_pair`
+pair each target family with its speculative draft family, as the
+reference does (``serving.draft.DraftModelProvider.from_registry``
+builds the draft from them).
 """
 
 from __future__ import annotations
@@ -154,6 +159,55 @@ def decodePredictions(logits: np.ndarray, top: int = 5) -> list[list[dict]]:
         out.append([{"class": int(i), "label": f"class_{int(i)}",
                      "score": float(row[i])} for i in idx])
     return out
+
+
+# ---------------------------------------------------------------------------
+# LLM family metadata — draft/target pairing for speculative serving
+# ---------------------------------------------------------------------------
+# The image registry above names vision models; the generation stack's
+# families live in ``models.llama`` as config constructors. Speculative
+# decoding (serving.draft.DraftModelProvider) needs a DRAFT model per
+# target family — registry-driven so deployments swap pairings without
+# touching engine code. Names: ``llama3_8b`` / ``llama_small``
+# (TinyLlama-shaped ~1B) / ``llama_tiny`` (test scale).
+
+# target family -> draft family (each one tier down: the draft must be
+# cheap relative to its target or speculation cannot pay)
+DRAFT_PAIRS: dict[str, str] = {
+    "llama3_8b": "llama_small",
+    "llama_small": "llama_tiny",
+}
+
+
+def register_draft_pair(target: str, draft: str) -> None:
+    """Name ``draft`` as the speculative draft family for ``target``
+    (overwrites an existing pairing — deployments tune this)."""
+    if target == draft:
+        raise ValueError(f"{target!r} cannot draft for itself — a draft "
+                         f"model the size of its target saves nothing")
+    DRAFT_PAIRS[str(target)] = str(draft)
+
+
+def draft_for(model_name: str) -> str | None:
+    """The registered draft family for ``model_name`` (None when the
+    family has no pairing — the engine then uses n-gram
+    self-drafting)."""
+    return DRAFT_PAIRS.get(model_name)
+
+
+def llm_config(name: str):
+    """Named LLM config constructor (``models.llama.LlamaConfig``
+    classmethods). Lazy import: the image-model paths never pay it."""
+    from .llama import LlamaConfig
+    factories = {"llama3_8b": LlamaConfig.llama3_8b,
+                 "llama_small": LlamaConfig.small,
+                 "llama_tiny": LlamaConfig.tiny}
+    try:
+        factory = factories[name]
+    except KeyError:
+        raise ValueError(f"Unknown LLM config {name!r}; supported: "
+                         f"{sorted(factories)}") from None
+    return factory()
 
 
 # ---------------------------------------------------------------------------

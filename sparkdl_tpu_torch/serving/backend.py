@@ -66,9 +66,11 @@ With temperature sampling the draws come from one ``torch.Generator``
 seeded from ``seed`` on the model's device: reproducible for a fixed
 engine schedule, but not the draws ``generate()`` makes.
 
-Not ported yet (ROADMAP.md): the tensor-parallel backends and int8
-projection weights (``weight_dtype``); ``GenerationEngine.from_model``
-refuses both.
+``weight_dtype="int8"`` quantizes the model's projection weights in
+place at construction (``models.llama.quantize_params``, the
+reference's ``_weight_quantize``): every later call, the captured decode
+step included, runs the int8 products. Not ported yet (ROADMAP.md): the
+tensor-parallel backends; ``GenerationEngine.from_model`` refuses them.
 """
 
 from __future__ import annotations
@@ -115,6 +117,20 @@ def _is_device_error(e: BaseException) -> bool:
     if accel is not None and isinstance(e, accel):
         return True
     return isinstance(e, RuntimeError) and "CUDA error" in str(e)
+
+
+def _weight_quantize(self, weight_dtype) -> None:
+    """The int8-weight hook both backends run at construction, before the
+    cache is made: validate the mode and quantize ``self.model``'s
+    projections in place (each float weight is released as its codes
+    land). A model already quantized is left as it is."""
+    self.weight_dtype = weight_dtype
+    if weight_dtype is None:
+        return
+    L.quantize_params(self.model, weight_dtype)
+    log.info("serving with %s-quantized projection weights (absmax "
+             "per-channel scales, applied after each product)",
+             weight_dtype)
 
 
 def _gather_slot_rows(cache: L.KVCache, slot: int, rows: int) -> L.KVCache:
@@ -181,13 +197,15 @@ class LlamaSlotBackend:
     def __init__(self, model, num_slots: int, max_len: int, *,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, seed: int = 0,
-                 prefix_cache_bytes: int | None = None):
+                 prefix_cache_bytes: int | None = None,
+                 weight_dtype: str | None = None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 2:
             raise ValueError(f"max_len must be >= 2, got {max_len}")
         self.model = model
         self.device = model.device
+        _weight_quantize(self, weight_dtype)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.vocab_size = int(model.cfg.vocab_size)
@@ -510,7 +528,8 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, seed: int = 0,
                  prefix_cache_bytes: int | None = None,
-                 kv_dtype: str | None = None):
+                 kv_dtype: str | None = None,
+                 weight_dtype: str | None = None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 2:
@@ -522,6 +541,7 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
         self.kv_dtype = kv_dtype
         self.model = model
         self.device = model.device
+        _weight_quantize(self, weight_dtype)
         self.num_slots = int(num_slots)
         self.block_size = int(block_size)
         self.max_blocks = -(-int(max_len) // self.block_size)

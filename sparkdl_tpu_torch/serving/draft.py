@@ -2,7 +2,7 @@
 
 The port's copy of ``sparkdl_tpu/serving/draft.py``;
 :class:`DraftModelProvider` drives the port's Llama, and its
-``from_registry`` raises until ``models.registry`` is ported.
+``from_registry`` builds the draft the registry pairs with a target.
 
 Speculative decode splits token generation in two: a cheap DRAFT of k
 candidate tokens per request, and one batched target-model VERIFY call
@@ -35,9 +35,7 @@ Built-in providers:
   k tokens per proposal (Leviathan et al. 2023). Pairing is registry-
   driven, not hardcoded: :func:`models.registry.draft_for` names the
   draft config for a target family and
-  :meth:`DraftModelProvider.from_registry` builds it (not in the port
-  yet: it needs the LLM half of ``models.registry`` — ``draft_for``,
-  ``llm_config`` — ROADMAP Queue A 2; the port has the image half).
+  :meth:`DraftModelProvider.from_registry` builds it.
 
 A provider may return FEWER than k tokens (or none): the engine pads
 the verify window and still always commits >= 1 token per iteration —
@@ -219,18 +217,36 @@ class DraftModelProvider:
         self.min_bucket = max(1, int(min_bucket))
 
     @classmethod
-    def from_registry(cls, target_name: str, *, variables=None, **kw
-                      ) -> "DraftModelProvider":
-        """Build the registry-paired draft model for ``target_name``.
-        Not ported yet: it needs the LLM half of ``models.registry``
-        (``draft_for``, ``llm_config``; ROADMAP.md Queue A 2), where the
-        port has only the image half; construct the provider from a model
-        instead."""
-        raise NotImplementedError(
-            "DraftModelProvider.from_registry needs the LLM half of "
-            "models.registry (draft_for, llm_config), which the port does "
-            "not have yet (ROADMAP.md Queue A 2); build "
-            "DraftModelProvider(model) from a LlamaModel instead")
+    def from_registry(cls, target_name: str, *, variables=None,
+                      device=None, dtype=None, attn_fn="auto",
+                      **kw) -> "DraftModelProvider":
+        """Build the registry-paired draft model for ``target_name``
+        (``models.registry.draft_for``) on ``device`` (None: the card,
+        as every entry point of the port), in ``dtype`` (default f32)
+        with ``attn_fn`` as ``LlamaModel`` takes it. Its weights are
+        ``variables`` (a JAX-package tree, carried across by
+        ``load_flax_params``) or, when None, drawn from a
+        ``torch.Generator`` seeded with 0 — not the reference's
+        ``PRNGKey(0)`` draw, so only carried weights equal the
+        reference's draft. Raises ``ValueError`` when the family has no
+        draft pairing."""
+        import torch
+
+        from ..models import llama as L
+        from ..models import registry
+        from ..utils.platform import resolve_device
+        draft_name = registry.draft_for(target_name)
+        if draft_name is None:
+            raise ValueError(
+                f"no draft pairing registered for {target_name!r}; "
+                f"add one via models.registry.register_draft_pair")
+        device = resolve_device(device)
+        model = L.LlamaModel(
+            registry.llm_config(draft_name),
+            dtype=torch.float32 if dtype is None else dtype,
+            attn_fn=attn_fn, device=device,
+            generator=torch.Generator(device=device).manual_seed(0))
+        return cls(model, variables, **kw)
 
     def propose(self, history: Sequence[int], k: int) -> list[int]:
         if k <= 0 or not history:

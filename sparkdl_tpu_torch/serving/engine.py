@@ -944,13 +944,15 @@ class GenerationEngine:
         tables, with block-granular radix prefix sharing instead of the
         copy-based LRU. ``kv_dtype`` ("int8"/"fp8", or
         ``SPARKDL_SERVE_KV_DTYPE``) block-quantizes that pool (paged
-        only — raises otherwise).
+        only — raises otherwise). ``weight_dtype`` ("int8", or
+        ``SPARKDL_SERVE_WEIGHT_DTYPE``) quantizes the model's projection
+        weights IN PLACE to int8 codes with per-channel scales
+        (``models.llama.quantize_params``); any other name raises
+        ``ValueError``.
 
         Not ported yet, and refused rather than dropped: ``tp`` > 1 /
         ``mesh`` / ``SPARKDL_SERVE_TP`` (tensor-parallel serving, ROADMAP
-        Queue A 8) and ``weight_dtype`` / ``SPARKDL_SERVE_WEIGHT_DTYPE``
-        (int8 projection weights, ROADMAP Queue A 2) raise
-        ``NotImplementedError``."""
+        Queue A 8) raise ``NotImplementedError``."""
         from ..models.llama import load_flax_params
         from ..utils.platform import resolve_device
         num_slots = num_slots if num_slots is not None \
@@ -976,11 +978,6 @@ class GenerationEngine:
                 "the port serves on one device")
         if weight_dtype is None:
             weight_dtype = os.environ.get(WEIGHT_DTYPE_ENV) or None
-        if weight_dtype:
-            raise NotImplementedError(
-                f"weight_dtype={weight_dtype!r} ({WEIGHT_DTYPE_ENV}: "
-                "QuantDense / quantize_params) is not ported yet "
-                "(ROADMAP.md Queue A 2)")
         pbytes = None if prefix_cache_mb is None \
             else int(prefix_cache_mb * 2 ** 20)
         if kv_dtype is None:
@@ -1011,13 +1008,14 @@ class GenerationEngine:
                 kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
                 temperature=temperature,
                 top_k=top_k, top_p=top_p, seed=seed,
-                prefix_cache_bytes=pbytes)
+                prefix_cache_bytes=pbytes, weight_dtype=weight_dtype)
         else:
             from .backend import LlamaSlotBackend
             backend = LlamaSlotBackend(
                 model, num_slots, max_len,
                 temperature=temperature, top_k=top_k, top_p=top_p,
-                seed=seed, prefix_cache_bytes=pbytes)
+                seed=seed, prefix_cache_bytes=pbytes,
+                weight_dtype=weight_dtype)
         return cls(backend, eos_id=eos_id, **kw)
 
     # -- telemetry helpers ------------------------------------------------

@@ -2,11 +2,15 @@
 over an image column; alias ``TFImageTransformer``), ``XlaTransformer``
 (a torch callable over a numeric array column; aliases ``TFTransformer``
 and ``TensorTransformer``), ``DeepImageFeaturizer`` and
-``DeepImagePredictor``. ``KerasTransformer``,
-``KerasImageFileTransformer`` and ``defaultImageLoader`` are not ported
-yet (ROADMAP.md, Queue A 9), nor are the feature stages (``feature``,
-Queue A 4); their names raise ``NotImplementedError`` here."""
+``DeepImagePredictor``, and the feature stages (``feature``:
+``VectorAssembler``, ``StringIndexer``, ``StandardScaler``,
+``IndexToString``; pyarrow loads when they run, not at import).
+``KerasTransformer``, ``KerasImageFileTransformer`` and
+``defaultImageLoader`` are not ported yet (ROADMAP.md, Queue A 9); their
+names raise ``NotImplementedError`` here."""
 
+from .feature import (IndexToString, StandardScaler, StandardScalerModel,
+                      StringIndexer, StringIndexerModel, VectorAssembler)
 from .named_image import DeepImageFeaturizer, DeepImagePredictor
 from .tensor import XlaTransformer
 from .xla_image import XlaImageTransformer
@@ -20,13 +24,13 @@ TensorTransformer = XlaTransformer
 
 __all__ = ["XlaImageTransformer", "TFImageTransformer",
            "XlaTransformer", "TFTransformer", "TensorTransformer",
-           "DeepImageFeaturizer", "DeepImagePredictor"]
+           "DeepImageFeaturizer", "DeepImagePredictor",
+           "VectorAssembler", "StringIndexer", "StringIndexerModel",
+           "StandardScaler", "StandardScalerModel", "IndexToString"]
 
 _NOT_PORTED = {"KerasTransformer": "A 9",
                "KerasImageFileTransformer": "A 9",
-               "defaultImageLoader": "A 9", "feature": "A 4",
-               "VectorAssembler": "A 4", "StandardScaler": "A 4",
-               "StringIndexer": "A 4", "IndexToString": "A 4"}
+               "defaultImageLoader": "A 9"}
 
 
 def __getattr__(name):

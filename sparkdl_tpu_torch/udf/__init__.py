@@ -3,7 +3,7 @@ JAX package's ``sparkdl_tpu/udf`` (numeric, image and token columns).
 Importing this package imports no pyarrow; applying a UDF reads a
 DataFrame, which does."""
 
-from .registry import (applyUDF, classify_rows, listUDFs,
+from .registry import (applyUDF, classify_rows, generate_rows, listUDFs,
                        registerGenerationUDF, registerImageUDF,
                        registerKerasImageUDF,
                        registerSequenceClassificationUDF,
@@ -13,5 +13,5 @@ from .registry import (applyUDF, classify_rows, listUDFs,
 __all__ = ["registerUDF", "registerImageUDF", "registerKerasImageUDF",
            "registerGenerationUDF", "registerTextGenerationUDF",
            "registerSequenceClassificationUDF", "classify_rows",
-           "right_pad_rows",
+           "generate_rows", "right_pad_rows",
            "applyUDF", "listUDFs", "unregisterUDF"]

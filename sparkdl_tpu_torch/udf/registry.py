@@ -178,34 +178,54 @@ def _make_generation_apply(model, variables, *, max_new_tokens: int = 32,
         gen = torch.Generator(device=model.device).manual_seed(seed)
 
         def compute(prompts, lmax, n_fill):
-            ids, pads = L.left_pad_prompts(prompts, pad_to=lmax)
-            n = len(ids)
-            if n_fill:
-                ids = torch.cat([ids, ids[:1].expand(n_fill, -1)])
-                pads = torch.cat([pads, pads[:1].expand(n_fill)])
-            out_ids = L.generate(
-                model, ids, max_new_tokens, temperature=temperature,
-                generator=gen, pad_to=lmax + max_new_tokens, pad_lens=pads,
-                top_k=top_k, top_p=top_p, eos_id=eos_id).cpu().numpy()
-            pads = pads.numpy()
-            out: list = []
-            for row in range(n):
-                # strip this row's left pads: real prompt + new tokens
-                toks = out_ids[row, pads[row]:].tolist()
-                if eos_id is not None:
-                    # trim the repeated-eos tail, keep one eos
-                    plen = len(prompts[row])
-                    gen_part = toks[plen:]
-                    if eos_id in gen_part:
-                        gen_part = gen_part[:gen_part.index(eos_id) + 1]
-                    toks = toks[:plen] + gen_part
-                out.append(toks)
-            return pa.array(out, type=pa.list_(pa.int64()))
+            return pa.array(generate_rows(
+                model, prompts, lmax, max_new_tokens, n_fill=n_fill,
+                temperature=temperature, generator=gen, top_k=top_k,
+                top_p=top_p, eos_id=eos_id), type=pa.list_(pa.int64()))
 
         return _streamed_token_apply(df, inputCol, outputCol, batchRows,
                                      compute, pa.list_(pa.int64()))
 
     return apply
+
+
+@torch.no_grad()
+def generate_rows(model, prompts, max_len: int, max_new_tokens: int, *,
+                  n_fill: int = 0, temperature: float = 0.0,
+                  generator=None, top_k: int = 0, top_p: float = 1.0,
+                  eos_id: int | None = None) -> list:
+    """The generation UDFs' device step, one chunk: token-id lists →
+    each row's prompt plus its new tokens (lists of ints). The prompts
+    are left-padded to ``max_len`` with ``n_fill`` copies of the first
+    row appended (dropped from the output) and run through one
+    ``models.llama.generate`` call; with ``eos_id`` the tail after the
+    first eos is trimmed."""
+    from ..models import llama as L
+
+    ids, pads = L.left_pad_prompts(prompts, pad_to=max_len)
+    n = len(ids)
+    if n_fill:
+        ids = torch.cat([ids, ids[:1].expand(n_fill, -1)])
+        pads = torch.cat([pads, pads[:1].expand(n_fill)])
+    out_ids = L.generate(
+        model, ids, max_new_tokens, temperature=temperature,
+        generator=generator, pad_to=max_len + max_new_tokens,
+        pad_lens=pads, top_k=top_k, top_p=top_p,
+        eos_id=eos_id).cpu().numpy()
+    pads = pads.numpy()
+    out: list = []
+    for row in range(n):
+        # strip this row's left pads: real prompt + new tokens
+        toks = out_ids[row, pads[row]:].tolist()
+        if eos_id is not None:
+            # trim the repeated-eos tail, keep one eos
+            plen = len(prompts[row])
+            gen_part = toks[plen:]
+            if eos_id in gen_part:
+                gen_part = gen_part[:gen_part.index(eos_id) + 1]
+            toks = toks[:plen] + gen_part
+        out.append(toks)
+    return out
 
 
 def _streamed_token_apply(df, inputCol: str, outputCol: str,

@@ -1480,3 +1480,47 @@ def test_row_window_draws_rows_of_the_global_draw(dev, shape):
     one = uniform(shape, RowWindow(step_generator(3, 7, dev), 0, n), dev)
     assert torch.equal(one, torch.rand(shape, device=dev,
                                        generator=step_generator(3, 7, dev)))
+
+
+def test_int8_weight_engine_on_card_matches_cpu_int8_engine(dev):
+    """A depth-2 int8-weight paged engine on the card (f32, TF32 off,
+    head_dim 64) against the same engine on the CPU from the same f32
+    weights: the codes and scales equal bitwise, the paged kernel
+    launched once a layer a step, and the greedy streams equal wherever
+    the CPU int8 model's dense top-2 gap exceeds 2e-2 (10 × the 2e-3
+    logit limit of the serving parity); a flip below that is a near tie."""
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.serving import GenerationEngine
+
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        rope_theta=10000.0)
+    cpu = L.LlamaModel(cfg, attn_fn=fa.flash_attention, device="cpu")
+    card = L.LlamaModel(cfg, attn_fn=fa.flash_attention, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    prompts = [[5, 6, 7], [9, 3, 2, 8, 1, 4, 4, 7] * 5, [11] * 70]
+    kw = dict(num_slots=2, max_len=160, block_size=16, prefill_chunk=32,
+              weight_dtype="int8")
+    streams = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        p0 = pfd.paged_flash_decode.launches
+        eng = GenerationEngine.from_model(model, device=model.device, **kw)
+        hs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle()
+        streams[name] = [h.result(1) for h in hs]
+        if name == "card":
+            assert pfd.paged_flash_decode.launches - p0 == \
+                cfg.num_layers * eng.stats["steps"] > 0
+    for (n, a), b in zip(cpu.state_dict().items(),
+                         card.state_dict().values()):
+        assert torch.equal(a, b.cpu()), n
+    assert cpu.layers[1].mlp.down_proj.base.weight.dtype == torch.int8
+    cpu.attn_fn = None
+    with torch.no_grad():
+        for p, got, want in zip(prompts, streams["card"], streams["cpu"]):
+            logits = cpu(torch.tensor([p + want]))[0, len(p) - 1:-1]
+            top2 = logits.topk(2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            flip = next((j for j in range(len(want)) if got[j] != want[j]),
+                        None)
+            assert flip is None or gaps[flip] <= 2e-2, (flip, gaps)

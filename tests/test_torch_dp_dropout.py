@@ -4,7 +4,15 @@ one-process step and the JAX package's ``XlaRunner(np=2)``, on the CPU.
 
 Two gloo ranks are started by ``runner.launcher.launch`` on
 ``tests/test_torch_gang_worker.py`` (modes ``bert`` and ``lora``); each
-writes what it computed, and this module holds it against this process.
+writes what it computed, and this module holds it against the port's
+one-process step and the JAX package. The one-process references of the
+dropout steps are made by the worker's ``bert_ref`` mode in one more
+process started the same way (fresh, ``OMP_NUM_THREADS=2``), not in the
+pytest process: made here, under a parallel run they once came out
+1.1e-5 of the largest gradient away from the gang (5.6× the limit),
+where every run on its own read 4.4e-7. That cause is not proven, so
+each rank also makes the one-process step in its own process, and the
+message of a failed gradient check shows both shares.
 
 The port draws masks with ``torch.rand``, the reference with threefry, so
 masks are never compared with the reference's bits. What is held:
@@ -57,10 +65,8 @@ from sparkdl_tpu.models import bert as JB
 from sparkdl_tpu.models import llama as JL
 from sparkdl_tpu.runner import XlaRunner as JaxRunner
 from sparkdl_tpu_torch.models import bert as B
-from sparkdl_tpu_torch.ops import flash_attention as fa
-from sparkdl_tpu_torch.runner import TrainState, launcher, sgd
-from sparkdl_tpu_torch.runner.train_state import (make_train_step,
-                                                  step_generator)
+from sparkdl_tpu_torch.runner import launcher
+from sparkdl_tpu_torch.runner.train_state import step_generator
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).with_name("test_torch_gang_worker.py")
@@ -68,14 +74,17 @@ GLOBAL, SEQ, SEED = 8, 16, 3
 GRAD_SHARE, LOSS_RTOL = 2e-6, 1e-6
 
 
-def _gang(mode, d):
+def _gang(mode, d, out=None, ranks=2):
+    """Run the worker's ``mode`` on ``ranks`` gloo ranks (inputs in
+    ``d``, outputs in ``out``, default ``d``); each rank's result."""
+    out = d if out is None else out
     env = {"OMP_NUM_THREADS": "2",
            "PYTHONPATH": str(ROOT) + os.pathsep
            + os.environ.get("PYTHONPATH", "")}
-    launcher.launch(str(WORKER), np=2, args=[mode, str(d), str(d)], env=env,
-                    timeout_s=180.0, capture=True)
-    return [torch.load(Path(d) / f"rank{r}.pt", weights_only=False)
-            for r in range(2)]
+    launcher.launch(str(WORKER), np=ranks, args=[mode, str(d), str(out)],
+                    env=env, timeout_s=180.0, capture=True)
+    return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
+            for r in range(ranks)]
 
 
 def _np_tree(tree):
@@ -100,35 +109,28 @@ def _bert_batch(seed):
             "attention_mask": mask, "label": rng.randint(0, 3, GLOBAL)}
 
 
-def _model(init, **cfg):
-    model = B.BertForSequenceClassification(
-        dataclasses.replace(B.BertConfig.tiny(), **cfg), num_classes=3,
-        attn_fn=fa.flash_attention, device="cpu")
-    model.load_state_dict(init)
-    return model
-
-
-def _tensors(batch):
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in batch.items()}
-
-
-def _one_process(init, batch, **kw):
-    """One SGD step with dropout over ``batch`` in this process: its
-    gradients and loss."""
-    model = _model(init)
-    state = TrainState.create(model, sgd(0.1))
-    state, m = make_train_step(B.bert_finetune_loss(model), with_rng=True,
-                               rng_seed=SEED, **kw)(state, _tensors(batch))
-    return {n: p.grad.clone() for n, p in model.named_parameters()}, \
-        float(m["loss"])
-
-
 def _share(got, want):
     """The largest gradient error as a share of the largest gradient."""
     top = max(g.abs().max().item() for g in want.values())
     return max((got[n] - want[n]).abs().max().item()
                for n in want) / top
+
+
+def _worst(got, want):
+    """What a failed gradient check read: the share, and the parameter
+    with the largest error and that error."""
+    err = {n: (got[n] - want[n]).abs().max().item() for n in want}
+    n = max(err, key=err.get)
+    return f"share {_share(got, want):.3g}, worst {n} |diff| {err[n]:.3g}"
+
+
+def _first_diff(got, want):
+    """The first parameter that is not bitwise equal, and its largest
+    difference; None when all are."""
+    for n, g in got.items():
+        if not torch.equal(g, want[n]):
+            return f"{n} differs by {(g - want[n]).abs().max().item():.3g}"
+    return None
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +148,13 @@ def bert_gang(tmp_path_factory):
     np.savez(d / "bert.npz", **batch,
              **{f"fit_{k}": np.stack([b[k] for b in fit_batches])
                 for k in batch})
-    return _gang("bert", d), tree, init, batch, fit_batches
+    ref_dir = d / "ref"
+    ref_dir.mkdir()
+    # the one-process references, made in a process started like a rank
+    # (fresh, the gang's env): what they are held to must not depend on
+    # the state of the pytest process that runs this module
+    ref = _gang("bert_ref", d, ref_dir, ranks=1)[0]
+    return _gang("bert", d), tree, init, batch, fit_batches, ref
 
 
 def test_implicit_dropout_step_equals_the_global_batch_step(bert_gang):
@@ -154,17 +162,26 @@ def test_implicit_dropout_step_equals_the_global_batch_step(bert_gang):
     gradients and loss equal one process's over the global batch; the
     ranks agree to the bit; ``remat`` (the window made again in the
     recomputed forward) is bitwise."""
-    outs, _, init, batch, _ = bert_gang
-    want, loss = _one_process(init, batch)
+    outs, *_, ref = bert_gang
+    want, loss = ref["global"]["grads"], ref["global"]["loss"]
     for out in outs:
         got = out["implicit"]
-        assert _share(got["grads"], want) <= GRAD_SHARE
-        assert got["loss"] == pytest.approx(loss, rel=LOSS_RTOL)
-        for n, g in got["grads"].items():
-            assert torch.equal(g, out["remat"]["grads"][n]), n
-        assert got["loss"] == out["remat"]["loss"]
-    for n, g in outs[0]["implicit"]["grads"].items():
-        assert torch.equal(g, outs[1]["implicit"]["grads"][n]), n
+        # on a failure, the rank's own one-process step against the
+        # reference process says which side moved: near 0, the gang's
+        # step; as far off as the gang's, the process the ranks run in
+        assert _share(got["grads"], want) <= GRAD_SHARE, (
+            _worst(got["grads"], want) + "; the rank's own one-process "
+            "step: " + _worst(out["global_here"]["grads"], want))
+        assert got["loss"] == pytest.approx(loss, rel=LOSS_RTOL), \
+            f"loss relative error {abs(got['loss'] - loss) / abs(loss):.3g}"
+        assert _first_diff(got["grads"], out["remat"]["grads"]) is None, \
+            "remat: " + _first_diff(got["grads"], out["remat"]["grads"])
+        assert got["loss"] == out["remat"]["loss"], \
+            (got["loss"], out["remat"]["loss"])
+    assert _first_diff(outs[0]["implicit"]["grads"],
+                       outs[1]["implicit"]["grads"]) is None, \
+        "ranks: " + _first_diff(outs[0]["implicit"]["grads"],
+                                outs[1]["implicit"]["grads"])
 
 
 def test_accum_dropout_step_equals_the_shard_aligned_microbatches(
@@ -173,12 +190,11 @@ def test_accum_dropout_step_equals_the_shard_aligned_microbatches(
     microbatch i, which the reference's shard-aligned split makes of
     every rank's chunk i; so one process fed the batch regrouped that way
     (rows 0, 1, 4, 5 then 2, 3, 6, 7) makes the same step."""
-    outs, _, init, batch, _ = bert_gang
-    order = [0, 1, 4, 5, 2, 3, 6, 7]
-    want, loss = _one_process(init, {k: v[order] for k, v in batch.items()},
-                              accum_steps=2)
+    outs, *_, ref = bert_gang
+    want, loss = ref["accum"]["grads"], ref["accum"]["loss"]
     for out in outs:
-        assert _share(out["accum"]["grads"], want) <= GRAD_SHARE
+        assert _share(out["accum"]["grads"], want) <= GRAD_SHARE, \
+            _worst(out["accum"]["grads"], want)
         assert out["accum"]["loss"] == pytest.approx(loss, rel=LOSS_RTOL)
 
 
@@ -187,19 +203,12 @@ def test_explicit_step_draws_each_ranks_own_masks(bert_gang):
     mean of the two ranks' one-process gradients, each on its own rows
     with ``step_generator(..., rank=r)``; and it differs from the
     implicit step's beyond the limit (other masks)."""
-    outs, _, init, batch, _ = bert_gang
-    grads = []
-    for r in range(2):
-        model = _model(init)
-        rows = _tensors({k: v[r * 4:(r + 1) * 4] for k, v in batch.items()})
-        loss, _ = B.bert_finetune_loss(model)(
-            model, rows, rng=step_generator(SEED, 0, "cpu", rank=r))
-        grads.append(dict(zip(
-            [n for n, _ in model.named_parameters()],
-            torch.autograd.grad(loss, list(model.parameters())))))
+    outs, *_, ref = bert_gang
+    grads = ref["rank_grads"]
     want = {n: (grads[0][n] + grads[1][n]) / 2 for n in grads[0]}
     for out in outs:
-        assert _share(out["explicit"]["grads"], want) <= GRAD_SHARE
+        assert _share(out["explicit"]["grads"], want) <= GRAD_SHARE, \
+            _worst(out["explicit"]["grads"], want)
         assert _share(out["explicit"]["grads"],
                       out["implicit"]["grads"]) > 100 * GRAD_SHARE
     seeds = {step_generator(SEED, 0, "cpu", rank=r).initial_seed()
@@ -220,7 +229,7 @@ def test_dropout0_gang_fit_matches_the_reference_np2_fit(bert_gang):
     against the reference's ``XlaRunner(np=2)`` fit with the same flags
     from the same flax weights: losses and parameters within the fit
     parity of ``tests/test_torch_bert.py``."""
-    outs, tree, _, _, fit_batches = bert_gang
+    outs, tree, _, _, fit_batches, _ = bert_gang
     jmodel = JB.BertForSequenceClassification(
         dataclasses.replace(JB.BertConfig.tiny(), dropout_rate=0.0), 3)
     res = JaxRunner(np=2).run(lambda ctx: ctx.fit(

@@ -26,7 +26,16 @@ Usage: ``test_torch_gang_worker.py <mode> <in_dir> <out_dir> [device]``
   its gradients and loss; a dropout-0 ``fit(with_rng=True)`` from the
   same start; ``fit(with_rng=True, checkpoint_every=2)``
   4 steps straight and 2 + a resume to 4; the config-4 DataFrame
-  fine-tune (the twin of ``tests/test_transformer_models.py``'s);
+  fine-tune (the twin of ``tests/test_transformer_models.py``'s); and
+  the one-process step over the global batch made in the rank's own
+  process (``global_here``: read only by a failure message, to tell
+  whether the gang's step or the rank's process moved);
+- ``bert_ref`` (one rank): the one-process references of the ``bert``
+  gang's steps, made in a process like a rank's (started fresh by the
+  launcher, with the gang's env): one ``with_rng`` SGD step over the
+  global batch, the same with ``accum_steps=2`` over the batch regrouped
+  as the reference's shard-aligned microbatches, and each rank's rows'
+  gradient with ``step_generator(..., rank=r)``;
 - ``lora``: the tiny LoRA Llama of ``in_dir/lora_init.pt`` through
   ``fit(causal_lm_loss_fn(), lora_optimizer(5e-3))`` on this rank's rows
   of ``in_dir/lora.npz``.
@@ -191,14 +200,35 @@ def _grads(state):
             if p.grad is not None}
 
 
+def _bert_inputs(in_dir):
+    """The start's path, the arrays of ``bert.npz`` and its global
+    batch as CPU tensors."""
+    d = dict(np.load(os.path.join(in_dir, "bert.npz")))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(d[k]))
+             for k in ("input_ids", "attention_mask", "label")}
+    return os.path.join(in_dir, "bert_init.pt"), d, batch
+
+
+def _one_process_step(init, rows, **kw):
+    """One ``with_rng`` SGD step of one process on ``rows``."""
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.runner import TrainState, sgd
+    from sparkdl_tpu_torch.runner.train_state import make_train_step
+
+    model = _bert_model(init, "cpu")
+    state = TrainState.create(model, sgd(0.1))
+    state, m = make_train_step(B.bert_finetune_loss(model), with_rng=True,
+                               rng_seed=3, **kw)(state, rows)
+    return {"grads": _grads(state), "loss": float(m["loss"])}
+
+
 def bert(ctx, in_dir, out_dir):
     from sparkdl_tpu_torch.models import bert as B
     from sparkdl_tpu_torch.runner import TrainState, XlaRunner, adam, sgd
     from sparkdl_tpu_torch.runner.data import ListDataset
 
-    init = os.path.join(in_dir, "bert_init.pt")
-    d = dict(np.load(os.path.join(in_dir, "bert.npz")))
-    batch = {k: d[k] for k in ("input_ids", "attention_mask", "label")}
+    init, d, batch = _bert_inputs(in_dir)
+    batch = {k: v.numpy() for k, v in batch.items()}
     local = ctx.shard_batch(_local(batch, ctx.rank, ctx.size))
     out = {}
     # one SGD step of each gang step with dropout, from one start
@@ -211,6 +241,8 @@ def bert(ctx, in_dir, out_dir):
                                    with_rng=True, rng_seed=3, **kw)
         state, m = step(state, local)
         out[name] = {"grads": _grads(state), "loss": float(m["loss"])}
+    out["global_here"] = _one_process_step(
+        init, {k: torch.from_numpy(v) for k, v in batch.items()})
 
     # a dropout-0 fit with with_rng (the reference's np=2 fit's twin)
     batches = [{k: v[i] for k, v in d.items() if k.startswith("fit_")}
@@ -243,6 +275,29 @@ def bert(ctx, in_dir, out_dir):
     second = run(os.path.join(out_dir, "resumed"), 4)
     out["resumed"] = (first[0] + second[0], second[1])
     out["config4_accuracy"] = config4(ctx)
+    return out
+
+
+def bert_ref(in_dir):
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.runner.train_state import step_generator
+
+    init, _, batch = _bert_inputs(in_dir)
+    half = len(batch["label"]) // 2
+    order = [0, 1, 4, 5, 2, 3, 6, 7]  # every rank's chunk i, in turn
+    out = {"global": _one_process_step(init, batch),
+           "accum": _one_process_step(
+               init, {k: v[order] for k, v in batch.items()},
+               accum_steps=2),
+           "rank_grads": []}
+    for r in range(2):
+        model = _bert_model(init, "cpu")
+        rows = {k: v[r * half:(r + 1) * half] for k, v in batch.items()}
+        loss, _ = B.bert_finetune_loss(model)(
+            model, rows, rng=step_generator(3, 0, "cpu", rank=r))
+        out["rank_grads"].append(dict(zip(
+            [n for n, _ in model.named_parameters()],
+            torch.autograd.grad(loss, list(model.parameters())))))
     return out
 
 
@@ -344,6 +399,8 @@ def main():
         out = fit(ctx, in_dir, out_dir)
     elif mode == "bert":
         out = bert(ctx, in_dir, out_dir)
+    elif mode == "bert_ref":
+        out = bert_ref(in_dir)
     elif mode == "lora":
         out = lora(ctx, in_dir)
     else:

@@ -367,10 +367,21 @@ def test_out_of_slice_surfaces_raise_naming_their_queue(tmp_path):
     import sparkdl_tpu_torch.transformers as T
     for mod, name, queue in ((T, "KerasTransformer", "A 9"),
                              (T, "KerasImageFileTransformer", "A 9"),
-                             (T, "VectorAssembler", "A 4"),
-                             (E, "MulticlassClassificationEvaluator", "A 4"),
+                             (T, "defaultImageLoader", "A 9"),
                              (E, "KerasImageFileEstimator", "A 9")):
         with pytest.raises(NotImplementedError, match=f"Queue {queue}"):
             getattr(mod, name)
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
-        from sparkdl_tpu_torch.core import tuning  # noqa: F401
+    # Queue A 4's names import now (model selection, evaluators, the
+    # feature stages, the tokenizer)
+    from sparkdl_tpu_torch.core import tuning
+    from sparkdl_tpu_torch.models import ByteBPETokenizer
+    for mod, name in ((T, "VectorAssembler"), (T, "StringIndexer"),
+                      (T, "StandardScaler"), (T, "IndexToString"),
+                      (E, "MulticlassClassificationEvaluator"),
+                      (E, "RegressionEvaluator"),
+                      (E, "BinaryClassificationEvaluator"),
+                      (tuning, "CrossValidator"),
+                      (tuning, "TrainValidationSplit"),
+                      (tuning, "ParamGridBuilder")):
+        assert isinstance(getattr(mod, name), type), name
+    assert getattr(tdl, "ByteBPETokenizer") is ByteBPETokenizer

@@ -159,13 +159,22 @@ def test_stub_backend_scenario_matches_jax_engine():
 
 
 def test_from_model_refuses_what_is_not_ported(models, monkeypatch):
+    """Tensor-parallel serving still raises naming A 8; int8 projection
+    weights and the registry-paired draft (A 2's first half) now build;
+    a weight mode other than int8 raises the reference's ValueError."""
     _, _, tm = models
     with pytest.raises(NotImplementedError, match="Queue A 8"):
         GenerationEngine.from_model(tm, device="cpu", tp=2)
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
-        GenerationEngine.from_model(tm, device="cpu", weight_dtype="int8")
-    with pytest.raises(NotImplementedError, match="weight_dtype"):
-        GenerationEngine.from_model(tm, device="cpu", weight_dtype="int8")
+    fresh = L.LlamaModel(L.LlamaConfig.tiny(), device="cpu")
+    eng = GenerationEngine.from_model(fresh, device="cpu",
+                                      weight_dtype="int8", num_slots=1,
+                                      max_len=32)
+    assert eng.backend.weight_dtype == "int8" == fresh.weight_quant
+    assert fresh.layers[0].attn.q_proj.base.weight.dtype == torch.int8
+    with pytest.raises(ValueError, match="int8 only"):
+        GenerationEngine.from_model(
+            L.LlamaModel(L.LlamaConfig.tiny(), device="cpu"), device="cpu",
+            weight_dtype="fp8", num_slots=1, max_len=32)
     monkeypatch.setenv("SPARKDL_SERVE_TP", "2")
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         GenerationEngine.from_model(tm, device="cpu")
@@ -176,8 +185,10 @@ def test_from_model_refuses_what_is_not_ported(models, monkeypatch):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             GenerationEngine.from_model(tm)
     from sparkdl_tpu_torch.serving import DraftModelProvider
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
-        DraftModelProvider.from_registry("llama3_8b")
+    draft = DraftModelProvider.from_registry("llama_small", device="cpu")
+    assert draft.model.cfg == L.LlamaConfig.tiny()
+    with pytest.raises(ValueError, match="no draft pairing"):
+        DraftModelProvider.from_registry("llama_tiny", device="cpu")
 
 
 def test_host_error_keeps_retry_and_device_error_fails_over(models):
