@@ -337,11 +337,62 @@ n. int8 projection weights, the registry draft and the tokenizer:
      rows/s, tokenizer ms against device ms, flash_attention == 16 a
      chunk and flash_decode == 16 a step.
 
+o. The serving fleet (``serving.router.EngineFleet``), after phase n has
+   freed its model: ``LlamaConfig.llama3_8b()`` at full width and depth,
+   bf16, seeded weights, one model under FLEET_REPLICAS paged replicas
+   (``from_model`` copies nothing), each FLEET_SLOTS slots of
+   FLEET_MAX_LEN, pool blocks of 16, the radix prefix cache. Traffic:
+   FLEET_FAMILIES prefix families of FLEET_FAMILY_SIZE requests, each on
+   its own FLEET_HEAD-token head, tails drawn from seed 15 (prompts
+   576–1536), FLEET_NEW new tokens each, greedy, all submitted at once.
+   One ``{"phase": "fleet"}`` line a leg: new tokens/s, TTFT p50/p95,
+   decode-iteration ms a replica, placements a replica, fleet-wide prefix
+   reuse (the requests' ``prefill_reused`` and the replicas'
+   ``prefix_stats()``), peak memory, graphs, the health transitions, the
+   card's name and power limit, and the launches (set to 0 just before
+   the leg, read just after):
+   - ``fleet_radix``: inline (``fleet.step()`` to idle), the blocking
+     refill (``stall_free=False``: the paged prefill that runs
+     flash_attention); flash_attention == 32 × prefills,
+     paged_flash_decode == 32 × decode steps summed over the replicas,
+     flash_decode 0;
+   - ``fleet_radix_chunked`` and ``fleet_round_robin``: the same traffic
+     through the chunked prefill (the blocking refill never radix-shares:
+     its left-padded rows are not block-aligned, in the reference too),
+     radix then round-robin routing; radix's reused tokens must exceed
+     round-robin's;
+   - ``fleet_failover``: the blocking radix fleet; the last request is
+     held back, and after FLEET_KILL_AFTER steps its routing decision
+     kills uncleanly (chaos ``replica_dead`` at ``fleet_route``) the
+     replica it would choose, which is streaming; FLEET_DOOM_AFTER steps
+     later ``doom_replica`` drains the busiest survivor. ``recovery_s``
+     (the kill to the first re-admitted token), re-admissions, drains and
+     deaths; the exactly-once audit (each request's streamed tokens equal
+     its ``tokens``, ``delivered`` their count); each stream against a
+     clean single engine's, equal up to the first position whose top-2
+     gap lies within 10 × BF16_LOGIT_RTOL × (1 + max |logit|), with the
+     positions compared and excused; the launches as ``fleet_radix``;
+   - ``fleet_threaded``: the blocking radix fleet driven by
+     ``fleet.start()`` / ``stop(drain=True)`` (three engine threads and
+     the supervisor's on one card) with ``telemetry.start(port=0)`` and
+     ``SPARKDL_SLO_TTFT_S`` set; ``/metrics`` (the ``fleet_*`` metrics),
+     ``/metrics.json`` (every request's trace, its stages summing to its
+     latency within 5 %, and the ``slo`` block), ``/serving`` (one fleet
+     of three replicas) and ``/healthz`` scraped over HTTP; its tokens/s
+     and plane-on iteration ms beside ``fleet_radix``'s; one capture and
+     steps − 1 replays a replica, the launches as ``fleet_radix``. Then
+     the same at a FLEET_SWITCH_S thread switch interval
+     (``fleet_threaded_switch_0.5ms``): whether the threads, each back
+     from the card, queue for the interpreter lock;
+   - ``fleet_parity``: llama_small widths at depth FLEET_PARITY_LAYERS,
+     f32, TF32 off, ``fleet_failover``'s fleet, kill and doom: every
+     stream token for token a clean single engine's.
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
 entries add their BERT case and phase h's launches, and phase m's gang
-launches; the three forward kernels add phase n's launches leg by leg,
-``phase_n_launches``) and, last,
+launches; the three forward kernels add phase n's and phase o's launches
+leg by leg, ``phase_n_launches`` and ``phase_o_launches``) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
@@ -1454,23 +1505,26 @@ def phase_parity(torch) -> dict:
 
 
 def serve_prompts(torch, cfg, lens, seed, shared=(), head_len=512,
-                  repeat=None):
+                  repeat=None, families=None):
     """Seeded prompts of ``lens`` tokens; those at indices ``shared`` start
-    with one common ``head_len``-token head; ``repeat`` n makes every
+    with one common ``head_len``-token head; ``families`` n gives n heads
+    and starts prompt i with head i mod n; ``repeat`` n makes every
     prompt a cycle of an n-token phrase (n-gram drafts find matches)."""
     g = torch.Generator().manual_seed(seed)
 
     def rand(n):
         return torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
 
-    head = rand(head_len)
+    heads = [rand(head_len) for _ in range(families or 1)]
     out = []
     for i, n in enumerate(lens):
         if repeat:
             phrase = rand(repeat)
             p = (phrase * (n // repeat + 1))[:n]
+        elif families:
+            p = heads[i % families] + rand(n - head_len)
         elif i in shared:
-            p = head + rand(n - head_len)
+            p = heads[0] + rand(n - head_len)
         else:
             p = rand(n)
         out.append(p)
@@ -3846,6 +3900,525 @@ def phase_n(torch, kernels) -> dict:
                 tokenizer=phase_tokenizer(torch, kernels))
 
 
+# phase o: the serving fleet. FLEET_REPLICAS replicas over one model, each
+# FLEET_SLOTS slots of FLEET_MAX_LEN, pool blocks of 16, the radix prefix
+# cache, chunks of FLEET_CHUNK where the prefill is chunked; FLEET_FAMILIES prefix families of FLEET_FAMILY_SIZE requests, each
+# family on its own FLEET_HEAD-token head, tails of FLEET_TAILS tokens drawn
+# from seed 15 (prompts 576-1536), FLEET_NEW new tokens each, greedy
+FLEET_REPLICAS, FLEET_SLOTS, FLEET_MAX_LEN, FLEET_CHUNK = 3, 8, 4096, 256
+FLEET_FAMILIES, FLEET_FAMILY_SIZE, FLEET_HEAD = 4, 6, 512
+FLEET_TAILS, FLEET_NEW = (64, 1024), 64
+FLEET_PARITY_LAYERS = 2        # fleet_parity: llama_small widths, depth 2
+# fleet_failover / fleet_parity: the last request is held back; after
+# FLEET_KILL_AFTER inline fleet steps its routing decision kills (chaos
+# replica_dead at fleet_route) the replica it would choose, and
+# FLEET_DOOM_AFTER steps later the busiest survivor is doomed
+FLEET_KILL_AFTER, FLEET_DOOM_AFTER = 12, 8
+FLEET_SLO_TTFT_S = 10.0        # fleet_threaded: the armed TTFT objective
+FLEET_SWITCH_S = 5e-4          # fleet_threaded's second run: switch interval
+FLEET_WAIT_S = 600.0           # the longest any wait on the fleet may take
+
+
+def fleet_prompts(torch, cfg) -> list:
+    g = torch.Generator().manual_seed(15)
+    n = FLEET_FAMILIES * FLEET_FAMILY_SIZE
+    tails = torch.randint(FLEET_TAILS[0], FLEET_TAILS[1] + 1, (n,),
+                          generator=g).tolist()
+    return serve_prompts(torch, cfg, [FLEET_HEAD + t for t in tails], 15,
+                         head_len=FLEET_HEAD, families=FLEET_FAMILIES)
+
+
+def fleet_engine(model, stall_free: bool = False):
+    """One replica: a paged engine over ``model``, which it does not
+    copy."""
+    from sparkdl_tpu_torch import GenerationEngine
+
+    return GenerationEngine.from_model(
+        model, num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN, block_size=16,
+        prefill_chunk=FLEET_CHUNK, stall_free=stall_free, device="cuda")
+
+
+def fleet_engines(model, stall_free: bool = False) -> tuple:
+    """FLEET_REPLICAS replicas and, for each, the list its decode
+    iterations' host times land in."""
+    engines, timers = [], []
+    for _ in range(FLEET_REPLICAS):
+        eng = fleet_engine(model, stall_free)
+        iter_s = []
+
+        def timed(*a, _fn=eng.backend.step, _acc=iter_s, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)  # returns host tokens: the device is done
+            _acc.append(time.perf_counter() - t0)
+            return out
+        eng.backend.step = timed
+        engines.append(eng)
+        timers.append(iter_s)
+    return engines, timers
+
+
+def fleet_transitions() -> tuple:
+    """A flight-recorder tee collecting the fleet's health transitions
+    (``fleet_replica_*`` events), and the list it fills."""
+    seen = []
+
+    def tee(rec):
+        if str(rec.get("name", "")).startswith("fleet_replica_"):
+            seen.append((rec["name"].removeprefix("fleet_replica_"),
+                         rec.get("replica")))
+    return tee, seen
+
+
+def fleet_serve(torch, fleet, prompts, kernels, *, failover: bool) -> dict:
+    """Drive ``fleet`` inline: every prompt submitted at once (the last one
+    held back when ``failover``: see FLEET_KILL_AFTER), every streamed
+    token recorded with its time, then stepped to idle. The launch counts
+    are set to 0 just before and read just after."""
+    from sparkdl_tpu_torch.runner import chaos, events
+    from sparkdl_tpu_torch.serving import DEAD, HEALTHY
+
+    streams: dict = {}
+
+    def cb(fr, tok):
+        streams.setdefault(fr.id, []).append((time.perf_counter(), tok))
+
+    tee, transitions = fleet_transitions()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events.add_tee(tee)
+    if failover:
+        chaos.install(chaos.FaultPlan([chaos.Fault(
+            site="fleet_route", kind="replica_dead", at_step=len(prompts))]))
+    out: dict = {}
+    try:
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        frs = [fleet.submit(p, FLEET_NEW, stream_cb=cb)
+               for p in (prompts[:-1] if failover else prompts)]
+        out["placed"] = [fr.replica for fr in frs]
+        if failover:
+            for _ in range(FLEET_KILL_AFTER):
+                fleet.step()
+            home = {fr.id: fr.replica for fr in frs}
+            delivered = {fr.id: fr.delivered for fr in frs}
+            t_kill = time.perf_counter()
+            frs.append(fleet.submit(prompts[-1], FLEET_NEW, stream_cb=cb))
+            out["placed"].append(frs[-1].replica)
+            dead = [r for r in fleet.replica_names()
+                    if fleet.replica_state(r) == DEAD]
+            assert len(dead) == 1, dead
+            hit = [i for i, r in home.items() if r == dead[0]]
+            assert hit and max(delivered[i] for i in hit) > 0, (
+                "the kill must land on a replica streaming requests",
+                home, delivered)
+            hop_at = {i: delivered[i] for i in hit}
+            for _ in range(FLEET_DOOM_AFTER):
+                fleet.step()
+            reps = fleet.debug_state()["replicas"]
+            live = [r for r in reps if reps[r]["state"] == HEALTHY]
+            doomed = max(live, key=lambda r: (reps[r]["load"], r))
+            for fr in frs:
+                if fr.replica == doomed:
+                    hop_at.setdefault(fr.id, fr.delivered)
+            fleet.doom_replica(doomed, "chip_smoke fleet_failover")
+            out.update(killed=dead[0], doomed=doomed,
+                       killed_requests=len(hit),
+                       killed_delivered=[delivered[i] for i in hit],
+                       hop_at=[hop_at.get(fr.id) for fr in frs])
+        fleet.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(*kernels)
+    finally:
+        chaos.uninstall()
+        events.remove_tee(tee)
+    results = [fr.result(FLEET_WAIT_S) for fr in frs]
+    for fr in frs:  # the exactly-once audit
+        assert [t for _, t in streams.get(fr.id, [])] == fr.tokens, fr
+        assert fr.delivered == len(fr.tokens) == FLEET_NEW, fr
+    if failover:
+        firsts = [t for i in hit for t, _ in streams[i][delivered[i]:]]
+        assert firsts, "no killed request was re-admitted"
+        out["recovery_s"] = min(firsts) - t_kill
+    out.update(frs=frs, results=results, wall=wall, launches=launches,
+               transitions=transitions)
+    return out
+
+
+def fleet_record(torch, fleet, timers, run: dict, *, leg: str, model,
+                 config: str) -> dict:
+    """The leg's JSON line from a finished :func:`fleet_serve` run."""
+    frs, names = run["frs"], fleet.replica_names()
+    stats = [fleet.engine(n).stats for n in names]
+    ttft = sorted(fr.t_first_token - fr.t_submit for fr in frs)
+    iters = [1e3 * sum(t) / max(len(t), 1) for t in timers]
+    prefix = [fleet.engine(n).backend.prefix_stats() or {} for n in names]
+    n_new = sum(len(r) for r in run["results"])
+    return dict(
+        phase="fleet", leg=leg, config=config,
+        dtype=str(model.dtype).replace("torch.", ""),
+        layers=model.cfg.num_layers, replicas=len(names),
+        num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN, requests=len(frs),
+        families=FLEET_FAMILIES,
+        prompt_lens=[min(len(fr.prompt) for fr in frs),
+                     max(len(fr.prompt) for fr in frs)],
+        new_tokens=n_new, wall_s=run["wall"],
+        new_tokens_per_s=n_new / run["wall"],
+        ttft_p50_s=ttft[len(ttft) // 2],
+        ttft_p95_s=ttft[max(0, -(-95 * len(ttft) // 100) - 1)],
+        decode_iter_ms_mean=dict(zip(names, iters)),
+        placements={n: run["placed"].count(n) for n in names},
+        steps=[s["steps"] for s in stats],
+        prefills=[s["prefills"] for s in stats],
+        prefill_chunks=[s["prefill_chunks"] for s in stats],
+        failovers=[s["failovers"] for s in stats],
+        prefix_reused_tokens=sum(p.get("reused_tokens", 0) for p in prefix),
+        prefix_hits=sum(p.get("hits", 0) for p in prefix),
+        prefix_misses=sum(p.get("misses", 0) for p in prefix),
+        request_reused_tokens=sum(getattr(fr._primary, "prefill_reused", 0)
+                                  for fr in frs),
+        graphs=[fleet.engine(n).backend.graphs.snapshot() for n in names],
+        fleet_stats=dict(fleet.stats), transitions=run["transitions"],
+        states={n: fleet.replica_state(n) for n in names},
+        launches=run["launches"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        nvidia_smi=smi())
+
+
+def check_fleet_launches(rec: dict, nl: int, *, chunked: bool) -> None:
+    """Every decode step of every replica ran paged_flash_decode once a
+    layer; every blocking prefill ran flash_attention once a layer (the
+    chunked prefill attends densely, as in the reference: none)."""
+    got = rec["launches"]
+    assert got["paged_flash_decode"] == nl * sum(rec["steps"]) > 0, rec
+    if chunked:
+        assert got["flash_attention"] == 0 < sum(rec["prefill_chunks"]), rec
+    else:
+        assert got["flash_attention"] == nl * sum(rec["prefills"]) > 0, rec
+        assert sum(rec["prefill_chunks"]) == 0, rec
+    assert got["flash_decode"] == 0, rec
+    assert sum(rec["failovers"]) == 0, rec  # no engine rebuilt itself
+
+
+def fleet_gaps(torch, model, prompts, streams, new: int) -> list:
+    """The top-2 logit gap, and the bf16 near-tie gate 10 ×
+    BF16_LOGIT_RTOL × (1 + max |logit|), at every generated position of
+    each stream, from one forward over the finished sequence."""
+    out = []
+    with torch.no_grad():
+        for p, s in zip(prompts, streams):
+            logits = model(torch.tensor([p + s], device=model.device))[
+                0, len(p) - 1:len(p) - 1 + new].float()
+            top2 = logits.topk(2, dim=-1).values
+            gate = 10 * BF16_LOGIT_RTOL * (1 + logits.abs().amax(-1))
+            out.append(list(zip((top2[:, 0] - top2[:, 1]).tolist(),
+                                gate.tolist())))
+            del logits
+    return out
+
+
+def fleet_vs_clean(got: list, clean: list, gaps: list, hop_at: list
+                   ) -> dict:
+    """Each fleet stream against the clean engine's. Up to the position
+    where the request first left its replica (``hop_at``; the whole
+    stream if it never did) the fleet ran the clean engine's kernels on
+    the same shapes, so the streams are equal bitwise. From there (the
+    re-admission re-prefills prompt + delivered tokens in one pass) they
+    are equal up to the first position whose top-2 gap lies within its
+    gate; the positions from that one on are excused."""
+    compared = excused = identical = 0
+    flips, gap_over_gate = [], []
+    for r, (a, b, g, h) in enumerate(zip(got, clean, gaps, hop_at)):
+        h = len(b) if h is None else h
+        tie = next((j for j, (gap, gate) in enumerate(g)
+                    if j >= h and gap <= gate), len(b))
+        flip = next((j for j in range(len(b)) if a[j] != b[j]), None)
+        identical += flip is None
+        assert flip is None or flip >= h, (
+            f"request {r}: fleet and clean engine differ at position {flip}"
+            f", before it left its replica ({h})")
+        assert flip is None or flip >= tie, (
+            f"request {r}: fleet and clean engine differ at position {flip}"
+            f" before the first near tie ({tie}), gap {g[flip]}")
+        compared += tie
+        excused += len(b) - tie if flip is not None else 0
+        if flip is not None:
+            flips.append(dict(request=r, hop_at=h, position=flip,
+                              gap=g[flip][0], gate=g[flip][1]))
+        gap_over_gate += [gap / gate for gap, gate in g]
+    gap_over_gate.sort()
+    return dict(positions_compared=compared, positions_excused=excused,
+                identical_streams=identical, flips=flips,
+                gap_over_gate_median=gap_over_gate[len(gap_over_gate) // 2],
+                gap_over_gate_share_above_1=sum(
+                    x > 1 for x in gap_over_gate) / len(gap_over_gate))
+
+
+def phase_fleet(torch, kernels) -> dict:
+    """Phase o's legs on llama3_8b: ``fleet_radix``,
+    ``fleet_round_robin``, ``fleet_failover`` and ``fleet_threaded``; then
+    ``fleet_parity`` on llama_small at depth 2."""
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.serving import EngineFleet
+
+    cfg = L.LlamaConfig.llama3_8b()
+    nl, config = cfg.num_layers, "LlamaConfig.llama3_8b"
+    t0 = time.perf_counter()
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model_gb = torch.cuda.memory_allocated() / 1e9
+    prompts = fleet_prompts(torch, cfg)
+    legs = {}
+
+    def leg(name, routing="radix", stall_free=False, failover=False):
+        engines, timers = fleet_engines(model, stall_free)
+        fleet = EngineFleet(engines, routing=routing, min_replicas=1)
+        run = fleet_serve(torch, fleet, prompts, kernels, failover=failover)
+        rec = fleet_record(torch, fleet, timers, run, leg=name, model=model,
+                           config=config)
+        rec.update(routing=routing, init_s=init_s,
+                   prefill=f"chunked, {FLEET_CHUNK}" if stall_free
+                   else "blocking")
+        check_fleet_launches(rec, nl, chunked=stall_free)
+        legs[name] = rec
+        return rec, run, fleet
+
+    rec, run, fleet = leg("fleet_radix")
+    assert rec["transitions"] == [], rec  # nobody was told to change
+    emit(rec)
+    del run, fleet
+    free_engines(torch)
+    # The blocking refill never radix-shares (its left-padded rows are not
+    # block-aligned, in the reference too), so the routing policies are
+    # compared where the radix cache serves: the chunked prefill.
+    for name, routing in (("fleet_radix_chunked", "radix"),
+                          ("fleet_round_robin", "round_robin")):
+        rec, run, fleet = leg(name, routing, stall_free=True)
+        assert rec["transitions"] == [], rec
+        emit(rec)
+        del run, fleet
+        free_engines(torch)
+    radix, rr = legs["fleet_radix_chunked"], legs["fleet_round_robin"]
+    assert radix["request_reused_tokens"] > rr["request_reused_tokens"], (
+        radix["request_reused_tokens"], rr["request_reused_tokens"])
+
+    rec, run, fleet = leg("fleet_failover", failover=True)
+    st = rec["fleet_stats"]
+    assert st["replica_deaths"] == 1 and st["drains"] == 1, st
+    assert st["readmissions"] >= run["killed_requests"], st
+    eng = fleet_engine(model)  # the clean reference: one engine, no fault
+    hs = [eng.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    eng.run_until_idle()
+    ref = [h.result(FLEET_WAIT_S) for h in hs]
+    del hs, eng
+    free_engines(torch)
+    rec.update(fleet_vs_clean(run["results"], ref, fleet_gaps(
+        torch, model, prompts, ref, FLEET_NEW), run["hop_at"]))
+    rec.update(recovery_s=run["recovery_s"], killed=run["killed"],
+               doomed=run["doomed"], killed_requests=run["killed_requests"],
+               killed_delivered=run["killed_delivered"],
+               resume_prefill="blocking (flash_attention)"
+               if sum(rec["prefill_chunks"]) == 0 else "chunked")
+    emit(rec)
+    del run, fleet
+    free_engines(torch)
+
+    # then the same with a 0.5 ms switch interval: whether the threads
+    # wait on one another for the GIL
+    for switch_s in (None, FLEET_SWITCH_S):
+        threaded = fleet_threaded(torch, model, prompts, kernels, nl,
+                                  switch_s)
+        threaded.update(init_s=init_s, inline_new_tokens_per_s=legs[
+            "fleet_radix"]["new_tokens_per_s"],
+            inline_decode_iter_ms_mean=legs["fleet_radix"][
+                "decode_iter_ms_mean"])
+        emit(threaded)
+        legs[threaded["leg"]] = threaded
+        free_engines(torch)
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    # every leg's engines (a dead replica's pool and graphs too) are gone
+    assert left_gb - model_gb < 1.0, (left_gb, model_gb)
+    del model
+    free_engines(torch)
+    legs["fleet_parity"] = fleet_parity(torch, kernels)
+    return legs
+
+
+def fleet_threaded(torch, model, prompts, kernels, nl: int,
+                   switch_s: float | None = None) -> dict:
+    """``fleet_threaded``: the radix fleet driven by ``fleet.start()``
+    (three engine threads and the supervisor's on one card) with the
+    telemetry plane armed on port 0 and a TTFT objective; its four HTTP
+    routes scraped over HTTP. ``switch_s``: the interpreter's thread
+    switch interval for the run (``sys.setswitchinterval``; None keeps
+    the default 5 ms) — how long a thread back from the card may wait
+    for another thread to hand over the GIL."""
+    import os
+    import urllib.request
+
+    from sparkdl_tpu_torch.runner import events, slo, telemetry
+    from sparkdl_tpu_torch.serving import EngineFleet
+
+    env = {"SPARKDL_SLO_TTFT_S": str(FLEET_SLO_TTFT_S),
+           "SPARKDL_TRACE_SLOWEST": str(len(prompts))}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    slo.reset()
+    telemetry.reset()
+    tee, transitions = fleet_transitions()
+    streams: dict = {}
+    fleet, stopped = None, False
+    interval = sys.getswitchinterval()
+    if switch_s is not None:
+        sys.setswitchinterval(switch_s)
+    try:
+        telemetry.start(port=0)
+        port = telemetry.server_port()
+        assert port, "the telemetry endpoint did not bind"
+
+        def get(route):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                        timeout=60) as resp:
+                assert resp.status == 200, route
+                return resp.read().decode()
+
+        engines, timers = fleet_engines(model)
+        fleet = EngineFleet(engines, min_replicas=1)
+        get("/metrics.json")  # the SLO monitor's baseline, before traffic
+        events.add_tee(tee)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        t0 = time.perf_counter()
+        fleet.start()
+        frs = [fleet.submit(p, FLEET_NEW, stream_cb=lambda fr, t:
+                            streams.setdefault(fr.id, []).append(t))
+               for p in prompts]
+        placed = [fr.replica for fr in frs]
+        live = json.loads(get("/serving"))  # mid-run
+        for fr in frs:
+            assert fr.wait(FLEET_WAIT_S), f"{fr} not done"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prom = get("/metrics")
+        snap = json.loads(get("/metrics.json"))
+        health = json.loads(get("/healthz"))
+        serving = json.loads(get("/serving"))
+        fleet.stop(drain=True, timeout=60)
+        stopped = True
+        launches = read_counts(*kernels)
+    finally:
+        events.remove_tee(tee)
+        if fleet is not None and not stopped:
+            fleet.stop(drain=False, timeout=60)
+        sys.setswitchinterval(interval)
+        telemetry.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        slo.reset()
+        telemetry.reset()
+    run = dict(frs=frs, results=[fr.result(1) for fr in frs], wall=wall,
+               launches=launches, transitions=transitions, placed=placed)
+    for fr in frs:  # the exactly-once audit
+        assert streams.get(fr.id) == fr.tokens, fr
+        assert fr.delivered == len(fr.tokens) == FLEET_NEW, fr
+    leg = "fleet_threaded" if switch_s is None else \
+        f"fleet_threaded_switch_{switch_s * 1e3:g}ms"
+    rec = fleet_record(torch, fleet, timers, run, leg=leg, model=model,
+                       config="LlamaConfig.llama3_8b")
+    check_fleet_launches(rec, nl, chunked=False)
+    for g, steps in zip(rec["graphs"], rec["steps"]):
+        assert g["captures"] == 1 and g["replays"] == steps - 1, rec
+    # the four routes: Prometheus text with the fleet's and the engines'
+    # metrics, the JSON snapshot with every request's trace and the SLO
+    # block, the inspector with one fleet of three replicas, liveness
+    assert "sparkdl_fleet_replicas_healthy" in prom, prom[-2000:]
+    assert "sparkdl_serving_ttft_s_bucket" in prom, prom[-2000:]
+    tr = snap["request_traces"]
+    assert tr["completed"] == len(prompts) == len(tr["slowest"]), tr
+    worst = 0.0
+    for t in tr["slowest"]:
+        parts = (t["queue_s"] + t["prefill_s"] + t["prefill_wait_s"]
+                 + t["decode_s"] + t["unattributed_s"])
+        assert abs(parts - t["latency_s"]) <= 1e-4, t
+        assert abs(t["unattributed_s"]) <= 0.05 * t["latency_s"], t
+        worst = max(worst, abs(t["unattributed_s"]) / t["latency_s"])
+    ttft_slo = snap["slo"]["objectives"]["ttft"]
+    assert ttft_slo["compliance"] is not None, snap["slo"]
+    for view in (live, serving):
+        assert view["n_fleets"] == 1, view.get("fleets")
+        assert len(view["fleets"][0]["replicas"]) == FLEET_REPLICAS, view
+    assert health["status"] == "ok", health
+    rec.update(
+        drive="fleet.start() / stop(drain=True): 3 engine threads and "
+              "the supervisor",
+        plane="telemetry.start(port=0), SPARKDL_SLO_TTFT_S="
+              f"{FLEET_SLO_TTFT_S:g}",
+        routing="radix", prefill="blocking",
+        switch_interval_s=switch_s or interval, traces=tr["completed"], unattributed_max_share=worst,
+        trace_phases_dominant=sorted({t["dominant_phase"]
+                                      for t in tr["slowest"]}),
+        slo_ttft=dict(compliance=ttft_slo["compliance"],
+                      burn_rate=ttft_slo["burn_rate"],
+                      breaching=ttft_slo["breaching"]),
+        prometheus_fleet_lines=[ln for ln in prom.splitlines()
+                                if ln.startswith("sparkdl_fleet_")],
+        serving_replicas={n: r["state"] for n, r in
+                          serving["fleets"][0]["replicas"].items()},
+        healthz=health)
+    return rec
+
+
+def fleet_parity(torch, kernels) -> dict:
+    """``fleet_parity``: llama_small widths at depth FLEET_PARITY_LAYERS,
+    f32, TF32 off; fleet_failover's fleet, traffic, kill and doom. Every
+    stream token for token a clean single engine's."""
+    import dataclasses
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.serving import EngineFleet
+
+    cfg = dataclasses.replace(L.LlamaConfig.small(),
+                              num_layers=FLEET_PARITY_LAYERS)
+    model = L.LlamaModel(cfg, dtype=torch.float32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    prompts = fleet_prompts(torch, cfg)
+    engines, timers = fleet_engines(model)
+    fleet = EngineFleet(engines, min_replicas=1)
+    run = fleet_serve(torch, fleet, prompts, kernels, failover=True)
+    rec = fleet_record(torch, fleet, timers, run, leg="fleet_parity",
+                       model=model, config="LlamaConfig.small")
+    check_fleet_launches(rec, cfg.num_layers, chunked=False)
+    st = rec["fleet_stats"]
+    assert st["replica_deaths"] == 1 and st["drains"] == 1, st
+    del fleet, run["frs"]
+    free_engines(torch)
+    eng = fleet_engine(model)
+    hs = [eng.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    eng.run_until_idle()
+    ref = [h.result(FLEET_WAIT_S) for h in hs]
+    for r, (a, b) in enumerate(zip(run["results"], ref)):
+        assert a == b, (f"request {r}: the fleet's f32 stream differs from "
+                        f"the clean engine's at position "
+                        f"{next(j for j in range(len(b)) if a[j] != b[j])}")
+    rec.update(depth_cut=f"{L.LlamaConfig.small().num_layers} -> "
+                         f"{FLEET_PARITY_LAYERS}", tf32=False,
+               identical_streams=len(ref), recovery_s=run["recovery_s"],
+               killed=run["killed"], doomed=run["doomed"],
+               killed_requests=run["killed_requests"],
+               killed_delivered=run["killed_delivered"],
+               reference="one clean engine, the same prompts, no fault")
+    emit(rec)
+    del eng, hs, model
+    free_engines(torch)
+    return rec
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -3896,6 +4469,7 @@ def main() -> int:
     phase_dp(torch, (fa, fd, pfd), resnet["train"])
     gang = phase_dp_m(torch, glue)
     n = phase_n(torch, (fa, fd, pfd))
+    o = phase_fleet(torch, (fa, fd, pfd))
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -3926,7 +4500,9 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             phase_n_launches={leg: rec["launches"][name]
-                              for leg, rec in n_recs.items()}))
+                              for leg, rec in n_recs.items()},
+            phase_o_launches={leg: rec["launches"][name]
+                              for leg, rec in o.items()}))
         if name != "flash_attention":  # the split-KV decode kernels
             kernels[-1].update(
                 chunk=r["chunk"], n_splits=r["n_splits"],

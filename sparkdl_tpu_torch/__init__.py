@@ -14,7 +14,9 @@ This package imports ``torch`` and never ``jax``, ``flax`` or anything of
 
 Ported so far: Llama generation (``models.llama.generate``), the
 continuous-batching serving engine (``GenerationEngine.from_model``,
-unpaged and paged, speculative verify, int8 / fp8 KV pool), the LoRA
+unpaged and paged, speculative verify, int8 / fp8 KV pool) and the
+serving fleet over its replicas (``EngineFleet``, with the SLO burn
+trackers and the telemetry plane's exporter and HTTP endpoint), the LoRA
 fine-tune (``runner.XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
 ``models.llama.causal_lm_loss_fn`` and ``lora_optimizer``), the BERT GLUE
 fine-tune (``models.bert``, ``fit(..., with_rng=True)`` for dropout), the
@@ -57,7 +59,10 @@ from .image.imageIO import (createResizeImageUDF,  # noqa: E402
                             nhwcToImageColumn, readImages,
                             readImagesWithCustomFn)
 from .models import ByteBPETokenizer  # noqa: E402
-from .serving import GenerationEngine  # noqa: E402 — as sparkdl_tpu does
+from .serving import (DEAD, DEGRADED, DOOMED, HEALTHY,  # noqa: E402
+                      EngineFleet, FleetDegradedError, FleetRequest,
+                      FleetRoutingError, GenerationEngine,
+                      RequestShedError, fleet_debug_state)
 from .transformers import (DeepImageFeaturizer,  # noqa: E402
                            DeepImagePredictor, TFImageTransformer,
                            TFTransformer, XlaImageTransformer,
@@ -71,7 +76,10 @@ from .udf import (applyUDF, listUDFs, registerGenerationUDF,  # noqa: E402
                   registerSequenceClassificationUDF,
                   registerTextGenerationUDF, registerUDF, unregisterUDF)
 
-__all__ = ["GenerationEngine", "DataFrame", "Row", "applyUDF", "listUDFs",
+__all__ = ["GenerationEngine", "EngineFleet", "FleetRequest",
+           "FleetDegradedError", "RequestShedError", "FleetRoutingError",
+           "HEALTHY", "DEGRADED", "DOOMED", "DEAD", "fleet_debug_state",
+           "DataFrame", "Row", "applyUDF", "listUDFs",
            "registerUDF", "registerImageUDF", "registerKerasImageUDF",
            "registerGenerationUDF", "registerSequenceClassificationUDF",
            "registerTextGenerationUDF", "unregisterUDF",

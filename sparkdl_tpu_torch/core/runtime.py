@@ -67,16 +67,28 @@ def _telemetry():
     return telemetry
 
 
+_CAPTURE_LOCK = threading.Lock()
+
+
 class StepGraph:
     """One S = 1 step, ``fn(*inputs) -> tensor``, run from static input
     buffers to a static output.
 
-    On a CUDA device the first call runs ``fn`` once eagerly on a side
-    stream (a real step, whose output it returns: it allocates what the
-    kernels keep across calls outside the graph's memory pool, and loads
-    cuBLAS), then captures ``fn`` into a CUDA graph; every later call
-    copies its inputs into the static buffers and replays the graph. The
-    output is then the graph's own tensor, valid until the next call.
+    On a CUDA device the first call runs ``fn`` once eagerly on the
+    current stream (a real step, whose output it returns: it allocates
+    what the kernels keep across calls outside the graph's memory pool,
+    and loads cuBLAS), then captures ``fn`` into a CUDA graph; every later
+    call copies its inputs into the static buffers and replays the graph.
+    The output is then the graph's own tensor, valid until the next call.
+
+    Several engines may step on several threads at once (a fleet's
+    replicas on one card). So captures are serialised by one process-wide
+    lock (they share PyTorch's capture stream), a capture errors only on
+    what its own thread does (``capture_error_mode="thread_local"``: the
+    other threads go on launching and allocating), and the eager step
+    runs on the current stream, where the other threads' steps run too:
+    the decode kernels' merge counters are shared by calls of one shape,
+    which must not run at once.
 
     On the CPU (the CPU mode, taken only for CPU tensors) every call
     copies its inputs into the same static buffers and calls ``fn`` on
@@ -85,9 +97,10 @@ class StepGraph:
 
     ``counters``: the kernel wrappers whose ``launches`` count their CUDA
     launches. Capture launches nothing, so the counts it adds are taken
-    back, and each replay adds what the capture counted: a replayed step
-    counts the launches an eager step would. A capture or replay that
-    fails raises; nothing falls back to the eager step."""
+    into a tally of the capturing thread alone (``ops._build.
+    capture_tally``), and each replay adds what the capture counted: a
+    replayed step counts the launches an eager step would. A capture or
+    replay that fails raises; nothing falls back to the eager step."""
 
     def __init__(self, fn, inputs, counters=()):
         self.fn = fn
@@ -118,30 +131,26 @@ class StepGraph:
         if self.graph is None:
             return self._capture()
         self.graph.replay()
+        from ..ops import _build
         for c, n in zip(self.counters, self.launches):
-            c.launches += n
+            _build.count_launch(c, n)
         return self.out
 
     def _capture(self):
         import torch
 
+        from ..ops import _build
+
         with torch.cuda.device(self.device):
-            here = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(here)
-            with torch.cuda.stream(side):
-                first = self.fn(*self.static)
-            here.wait_stream(side)
-            before = [c.launches for c in self.counters]
-            t0 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self.fn(*self.static)
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
-            self.launches = tuple(c.launches - b
-                                  for c, b in zip(self.counters, before))
-            for c, b in zip(self.counters, before):
-                c.launches = b
+            first = self.fn(*self.static)
+            with _CAPTURE_LOCK, _build.capture_tally() as tally:
+                t0 = time.perf_counter()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    out = self.fn(*self.static)
+                self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self.launches = tuple(tally.get(c, 0) for c in self.counters)
         self.graph, self.out = graph, out
         return first
 

@@ -169,6 +169,41 @@ class CudaError(RuntimeError):
     refused, or an earlier kernel on the stream faulted."""
 
 
+# Launch counts. Each wrapper counts its kernel's launches in its own
+# ``launches`` attribute, through count_launch. Engines run on several
+# threads at once (a fleet's replicas), so a count is added under a lock,
+# and a thread that is capturing a CUDA graph (core.runtime.StepGraph)
+# counts into its own tally: the graph's launches, which each replay
+# adds, without the other threads' launches of the same moment.
+_count_lock = threading.Lock()
+_capture_tls = threading.local()
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` launches to ``wrapper.launches``, or to this thread's
+    capture tally while it captures a graph (:func:`capture_tally`)."""
+    tally = getattr(_capture_tls, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + n
+        return
+    with _count_lock:
+        wrapper.launches += n
+
+
+class capture_tally:
+    """``with capture_tally() as tally:`` — the launches this thread
+    counts inside the block land in ``tally`` (wrapper → count), not in
+    the wrappers' counts: a graph capture launches nothing."""
+
+    def __enter__(self) -> dict:
+        self.outer = getattr(_capture_tls, "tally", None)
+        _capture_tls.tally = {}
+        return _capture_tls.tally
+
+    def __exit__(self, *exc) -> None:
+        _capture_tls.tally = self.outer
+
+
 def check(err: int, what: str) -> None:
     """Raise :class:`CudaError` when a launcher returned a non-zero
     ``cudaError_t``."""

@@ -301,7 +301,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None,
             None if tile_counter is None else tile_counter.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
-    flash_attention_fwd.launches += 1
+    _build.count_launch(flash_attention_fwd)
     return o, lse
 
 

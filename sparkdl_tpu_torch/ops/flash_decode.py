@@ -374,7 +374,7 @@ def flash_decode(q, k_cache, v_cache, cur, pad_lens=None, *,
             None if block_counter is None else block_counter.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_decode")
-    flash_decode.launches += 1
+    _build.count_launch(flash_decode)
     return o
 
 

@@ -269,7 +269,7 @@ def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
             None if block_counter is None else block_counter.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "paged_flash_decode")
-    paged_flash_decode.launches += 1
+    _build.count_launch(paged_flash_decode)
     return o
 
 

@@ -5,11 +5,11 @@ data-parallel gang of processes, one device each (``xla_runner``:
 (``checkpoint``) and the checkpointable data plane ``data``), the gang
 launcher (``launcher.launch``, the ``mpirun`` role), the hvd-compat module
 ``api``, and the parts of ``sparkdl_tpu/runner`` the serving engine
-reaches — the flight recorder (``events``), the metrics registry
-(``telemetry``), the anomaly sentinel (``sentinel``) and fault injection
-(``chaos``). The gang supervisor, the SLO monitor and the rest of the
-telemetry plane come with the slices that port their callers
-(ROADMAP.md)."""
+reaches — the flight recorder (``events``), the telemetry plane
+(``telemetry``: registry, stage accountant, request traces, exporter and
+HTTP endpoint), the SLO burn-rate monitor (``slo``), the anomaly sentinel
+(``sentinel``) and fault injection (``chaos``). The gang supervisor comes
+with the slice that ports it (ROADMAP.md, Queue A 7)."""
 
 from .checkpoint import CheckpointManager
 from .launcher import GangFailure, launch

@@ -1,15 +1,14 @@
-"""Deterministic fault injection at the serving engine's, the image
-scorer's and the train loop's sites.
+"""Deterministic fault injection at the serving engine's, the fleet
+router's, the image scorer's and the train loop's sites.
 
 The port's copy of ``sparkdl_tpu/runner/chaos.py``, cut to what the
-serving engine, the image scorer and the one-process train loop reach:
-their sites and the kinds that make sense there. The data-plane and fleet
-sites (and their kinds: ``nan``, ``poison``, ``sigkill``, ``decimate``,
-``corrupt``, ``replica_dead``), ``worker`` and the checkpoint sites
-return with the slices that port their callers (ROADMAP.md, Queue A 7
-and A 2); the checkpoint damage itself is
-``checkpoint.corrupt_latest_checkpoint``. Every fired fault counts into
-``runner.metrics.run_stats``.
+serving engine, the fleet router, the image scorer and the one-process
+train loop reach: their sites and the kinds that make sense there. The
+data-plane sites (and their kinds: ``nan``, ``poison``, ``sigkill``,
+``decimate``, ``corrupt``), ``worker`` and the checkpoint sites return
+with the slice that ports their callers (ROADMAP.md, Queue A 7); the
+checkpoint damage itself is ``checkpoint.corrupt_latest_checkpoint``.
+Every fired fault counts into ``runner.metrics.run_stats``.
 
 A seeded :class:`FaultPlan` injects faults at named **sites**; plans
 serialize to one env var (``SPARKDL_CHAOS``), so a serving process picks a
@@ -34,6 +33,9 @@ Sites (where the engine and the scorer consult the plan):
   (commit failures must degrade, never kill the request)
 - ``step_start``       — the top of each step of ``RunnerContext.fit``
   (exercises ``run_with_restarts`` and checkpoint resume)
+- ``fleet_route``      — one client routing decision of
+  ``serving.router.EngineFleet.submit``
+- ``fleet_drain``      — the entry of a DOOMED replica's drain
 
 Kinds (what happens when a fault fires):
 
@@ -46,6 +48,9 @@ Kinds (what happens when a fault fires):
   the call cannot help, and the engine must fail over (snapshot live
   requests, rebuild the backend, re-admit). This is how the failover path
   is exercised on the CPU, where no device call fails.
+- ``replica_dead`` — raise ``InjectedReplicaDead`` at a fleet site: the
+  fleet router kills the replica uncleanly (no drain) and re-admits its
+  in-flight requests from its own shadow state on the survivors.
 
 Triggers are deterministic: ``at_step=N`` fires when the hook's step equals
 N; ``prob=p`` draws from a per-fault ``RandomState`` seeded from
@@ -63,14 +68,17 @@ import os
 import time
 
 __all__ = ["Fault", "FaultPlan", "InjectedFault", "InjectedPreemption",
-           "InjectedFatal", "InjectedCacheLost", "SITES", "KINDS",
+           "InjectedFatal", "InjectedCacheLost", "InjectedReplicaDead",
+           "SITES", "SERVING_SITES", "FLEET_SITES", "KINDS",
            "CHAOS_ENV", "fire", "install", "uninstall", "active_plan"]
 
 CHAOS_ENV = "SPARKDL_CHAOS"
 
-SITES = ("decode", "dispatch", "serve_prefill", "serve_decode",
-         "serve_alloc", "serve_commit", "step_start")
-KINDS = ("preempt", "fatal", "hang", "cache_lost")
+SERVING_SITES = ("serve_prefill", "serve_decode", "serve_alloc",
+                 "serve_commit")
+FLEET_SITES = ("fleet_route", "fleet_drain")
+SITES = ("decode", "dispatch", "step_start") + SERVING_SITES + FLEET_SITES
+KINDS = ("preempt", "fatal", "hang", "cache_lost", "replica_dead")
 
 
 class InjectedFault(RuntimeError):
@@ -94,6 +102,13 @@ class InjectedCacheLost(InjectedFault):
     engine routes on the ``serving_fatal`` class attribute, exactly as it
     does for the organic error."""
     serving_fatal = True
+
+
+class InjectedReplicaDead(InjectedFault):
+    """A whole serving replica died UNCLEANLY: no drain, no snapshots,
+    engine unusable. Retryable AT THE FLEET TIER only — the router
+    re-admits the replica's in-flight requests from its shadow state on
+    the survivors; nothing below the router can recover from this."""
 
 
 def _this_rank() -> int:
@@ -124,6 +139,14 @@ class Fault:
         if self.kind not in KINDS:
             raise ValueError(f"unknown chaos kind {self.kind!r}; "
                              f"kinds: {KINDS}")
+        if self.kind == "cache_lost" and self.site not in SERVING_SITES:
+            raise ValueError("kind='cache_lost' models a lost slot cache "
+                             "— use a serving site: "
+                             f"{SERVING_SITES}")
+        if self.kind == "replica_dead" and self.site not in FLEET_SITES:
+            raise ValueError("kind='replica_dead' kills a whole serving "
+                             "replica — only the fleet router can "
+                             f"survive it; use a fleet site: {FLEET_SITES}")
         if self.at_step is None and not (0.0 < self.prob <= 1.0):
             raise ValueError(f"fault needs a trigger: at_step=N or "
                              f"0 < prob <= 1 (got at_step=None, "
@@ -251,6 +274,11 @@ def _execute(f: Fault, site: str, step):
             f"injected slot-cache loss ({where}): KV cache lost to a "
             "failed device call; backend state unrecoverable — engine "
             "must fail over")
+    if f.kind == "replica_dead":
+        raise InjectedReplicaDead(
+            f"injected replica death ({where}): the replica is gone "
+            "uncleanly — no drain possible; the fleet router must "
+            "re-admit its in-flight requests from shadow state")
     if f.kind == "hang":
         time.sleep(f.hang_s)
 

@@ -2,8 +2,9 @@
 
 The port's copy of ``sparkdl_tpu/runner/events.py``, cut to what the
 serving engine reaches: point events, spans, back-dated completed spans,
-the causal trace ids and the tee seam the telemetry and sentinel layers
-observe. Crash postmortems and the gang-timeline merge serve the
+the causal trace ids, the tee seam the telemetry and sentinel layers
+observe, :func:`reset` and the atomic JSON writer the telemetry
+exporter uses. Crash postmortems and the gang-timeline merge serve the
 training supervisor and return with the slice that ports it
 (ROADMAP.md).
 
@@ -35,8 +36,8 @@ import time
 
 __all__ = ["FlightRecorder", "RECORDER_DIR_ENV", "RING_ENV",
            "TRACE_ID_ENV", "TRACE_PARENT_ENV",
-           "event", "span", "completed_span", "get_recorder",
-           "add_tee", "remove_tee",
+           "event", "span", "completed_span", "get_recorder", "reset",
+           "add_tee", "remove_tee", "atomic_write_json",
            "trace_armed", "new_span_id", "current_span_id"]
 
 RECORDER_DIR_ENV = "SPARKDL_EVENT_DIR"
@@ -319,6 +320,16 @@ class FlightRecorder:
             evs = []
         return evs if n is None else evs[-n:]
 
+    def close(self):
+        with self._lock:
+            if self._file is not None:
+                try:
+                    self._file.close()
+                except OSError:
+                    pass
+                self._file = None
+                self._dir = None
+
 
 # -- process-global recorder --------------------------------------------------
 
@@ -332,6 +343,16 @@ def get_recorder() -> FlightRecorder:
     return _RECORDER
 
 
+def reset(ring_size: int | None = None) -> FlightRecorder:
+    """Fresh recorder (tests; ring-size changes). Closes any open stream.
+    The tees are module-level and survive it."""
+    global _RECORDER
+    if _RECORDER is not None:
+        _RECORDER.close()
+    _RECORDER = FlightRecorder(ring_size=ring_size)
+    return _RECORDER
+
+
 def event(name: str, **attrs):
     get_recorder().event(name, **attrs)
 
@@ -342,3 +363,15 @@ def span(name: str, **attrs) -> _Span:
 
 def completed_span(name: str, dur_s: float, **attrs) -> None:
     get_recorder().completed_span(name, dur_s, **attrs)
+
+
+def atomic_write_json(path: str, obj) -> str:
+    """The one tmp-file + ``os.replace`` JSON writer (the telemetry
+    plane's snapshots ride it): a reader can never observe a torn or
+    empty body, and a kill between write and replace leaves only a pid-
+    tagged .tmp file behind."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, default=str)
+    os.replace(tmp, path)
+    return path

@@ -5,7 +5,8 @@ The counterpart of ``sparkdl_tpu/runner/metrics.py``, cut to what
 ``RunnerContext.fit`` reaches: :class:`StepTimeStats`,
 :class:`ThroughputMeter` (in a data-parallel gang it counts the gang's
 rows, and its per-chip rate divides by the gang's devices, so it reads
-BASELINE's img/s/chip), :class:`MetricsLogger` (the text log; the
+BASELINE's img/s/chip; its summary carries the telemetry plane's
+``stage_utilization`` block), :class:`MetricsLogger` (the text log; the
 TensorBoard sink is not ported) and :func:`peak_flops_per_chip`, and the
 process-wide failure counters :class:`RunStats` / ``run_stats`` that the
 scoring runner's retries, the streaming scorer's quarantine and the
@@ -23,7 +24,7 @@ import random
 import time
 from dataclasses import dataclass, field
 
-from . import sentinel
+from . import sentinel, telemetry
 
 log = logging.getLogger("sparkdl_tpu_torch.runner")
 
@@ -305,6 +306,9 @@ class ThroughputMeter:
             "n_chips": self.n_chips,
             "step_time": st or None,
             "mfu": round(mfu, 4) if mfu is not None else None,
+            # The live telemetry plane's per-stage busy fractions and
+            # dominant stage; None when the plane is off.
+            "stage_utilization": telemetry.stage_utilization_summary(),
         }
 
 

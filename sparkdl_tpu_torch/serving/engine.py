@@ -313,6 +313,13 @@ class SnapshotIncompatibleError(ServingError):
 # :class:`SnapshotIncompatibleError` instead of corrupting a slot.
 SNAPSHOT_VERSION = 1
 
+# Request ids are unique in the process, not per engine: the telemetry
+# plane's trace collector and the flight recorder key a request by its
+# id alone, and a fleet runs several engines in one process (the JAX
+# package numbers each engine's requests from 0, and its collector folds
+# two replicas' request 0 into one trace).
+_REQUEST_IDS = itertools.count()
+
 
 def bucket_length(prompt_len: int, min_bucket: int = _DEFAULT_MIN_BUCKET
                   ) -> int:
@@ -853,7 +860,6 @@ class GenerationEngine:
         self._slots: list[Request | None] = [None] * backend.num_slots
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
-        self._ids = itertools.count()
         self._thread: threading.Thread | None = None
         self._stop_mode: str | None = None  # None | "drain" | "now"
         self._fatal: BaseException | None = None
@@ -1137,7 +1143,7 @@ class GenerationEngine:
                                             QueueFullError)
                 if self._stop_mode is not None or self._fatal is not None:
                     raise EngineStopped("engine is stopped")
-            req = Request(next(self._ids), prompt, int(max_new_tokens),
+            req = Request(next(_REQUEST_IDS), prompt, int(max_new_tokens),
                           bucket, stream_cb)
             limit = deadline_s if deadline_s is not None \
                 else self.default_deadline_s

@@ -1,20 +1,21 @@
 """Live engine inspector — jax-free.
 
-The port's copy of ``sparkdl_tpu/serving/introspect.py``, without the
-fleet half (the router it reads is not ported yet, ROADMAP.md).
+The port's copy of ``sparkdl_tpu/serving/introspect.py``.
 
 ``GenerationEngine.snapshot()`` is the engine's own aggregate counters;
-this module is the *state* view an operator debugging a live engine
+this module is the *state* view an operator debugging a live fleet
 needs: the slot table (who holds each slot, how long, at what write
 frontier), the queue (depth + head age — admission starvation is
 visible as an aging head), the KV pool (free/shared/CoW block counts,
 per-slot block footprints, radix residency), and speculation
-acceptance. :func:`serving_snapshot` returns it for every live engine
-as plain JSON-able data.
+acceptance — and, for each :class:`~sparkdl_tpu_torch.serving.router.
+EngineFleet`, its replicas' health. :func:`serving_snapshot` returns it
+for every live engine and fleet as plain JSON-able data, and the
+telemetry plane's HTTP server serves it at ``/serving``.
 
-Engines register themselves here at construction through a
-``weakref.WeakSet`` — one set-add per engine *build* (never per token),
-and a garbage-collected engine drops out on its own. The inspector only
+Engines and fleets register themselves here at construction through a
+``weakref.WeakSet`` — one set-add per *build* (never per token), and a
+garbage-collected engine or fleet drops out on its own. The inspector only
 ever *reads* engine state under the engine's lock; a failing read
 degrades to an error entry, never takes the caller (or the engine) down.
 """
@@ -26,9 +27,11 @@ import time
 import weakref
 
 __all__ = ["register_engine", "live_engines", "engine_debug_state",
+           "register_fleet", "live_fleets", "fleet_debug_state",
            "serving_snapshot"]
 
 _ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+_FLEETS: "weakref.WeakSet" = weakref.WeakSet()
 _lock = threading.Lock()
 
 
@@ -39,9 +42,32 @@ def register_engine(engine) -> None:
         _ENGINES.add(engine)
 
 
+def register_fleet(fleet) -> None:
+    """Track a live :class:`~sparkdl_tpu_torch.serving.router.EngineFleet`
+    for the inspector (weakly, like engines)."""
+    with _lock:
+        _FLEETS.add(fleet)
+
+
 def live_engines() -> list:
     with _lock:
         return list(_ENGINES)
+
+
+def live_fleets() -> list:
+    with _lock:
+        return list(_FLEETS)
+
+
+def fleet_debug_state(fleet) -> dict:
+    """One fleet's router-tier state: per-replica health + reason,
+    routing load, residency-shadow size, burn, breaker ledger, plus the
+    fleet counters (hedges fired/won, re-admissions, sheds, replica
+    deaths). Pure delegation — the router already exposes a JSON-able
+    ``debug_state()``."""
+    out = fleet.debug_state()
+    out["t"] = round(time.time(), 6)
+    return out
 
 
 def engine_debug_state(eng) -> dict:
@@ -148,8 +174,9 @@ def engine_debug_state(eng) -> dict:
 
 
 def serving_snapshot() -> dict:
-    """Every live engine's debug state. A single engine failing to
-    snapshot yields an error entry for that engine only."""
+    """Every live engine's and fleet's debug state — the ``/serving``
+    endpoint's body. A single engine or fleet failing to snapshot
+    yields an error entry for that one only."""
     engines = []
     for eng in live_engines():
         try:
@@ -157,5 +184,15 @@ def serving_snapshot() -> dict:
         except Exception as e:  # noqa: BLE001 — inspector must degrade
             engines.append({"error": f"{type(e).__name__}: {e}"[:300]})
     engines.sort(key=lambda d: d.get("t", 0))
-    return {"t": round(time.time(), 6), "n_engines": len(engines),
-            "engines": engines}
+    fleets = []
+    for fleet in live_fleets():
+        try:
+            fleets.append(fleet_debug_state(fleet))
+        except Exception as e:  # noqa: BLE001 — inspector must degrade
+            fleets.append({"error": f"{type(e).__name__}: {e}"[:300]})
+    out = {"t": round(time.time(), 6), "n_engines": len(engines),
+           "engines": engines}
+    if fleets:
+        out["n_fleets"] = len(fleets)
+        out["fleets"] = fleets
+    return out

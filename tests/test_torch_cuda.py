@@ -1524,3 +1524,78 @@ def test_int8_weight_engine_on_card_matches_cpu_int8_engine(dev):
             flip = next((j for j in range(len(want)) if got[j] != want[j]),
                         None)
             assert flip is None or gaps[flip] <= 2e-2, (flip, gaps)
+
+
+@pytest.mark.parametrize("drive", ["inline_kill", "threaded"])
+def test_fleet_on_card_matches_cpu_fleet(dev, drive):
+    """A two-replica fleet (paged, blocking refill, depth 2, f32, TF32
+    off, head_dim 64) on the card against the same fleet on the CPU from
+    the same weights, driven inline with one replica killed uncleanly
+    mid-stream (chaos ``replica_dead`` at ``fleet_route``), or threaded
+    (``fleet.start()``: both replicas capture and replay their graphs on
+    their own threads). The streams equal the CPU fleet's token for
+    token, every token streamed exactly once, and the card's kernels
+    launched once a layer a decode step and a prefill."""
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.runner import chaos
+    from sparkdl_tpu_torch.serving import EngineFleet, GenerationEngine
+
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        rope_theta=10000.0)
+    cpu = L.LlamaModel(cfg, attn_fn=fa.flash_attention, device="cpu")
+    card = L.LlamaModel(cfg, attn_fn=fa.flash_attention, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    head = [7, 3, 9, 1] * 8
+    prompts = [head + [i + 10] * (i + 2) for i in range(4)] + [
+        [5, 6, 7] * 7, head + [99]]
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        streamed = {}
+
+        def cb(fr, tok):
+            streamed.setdefault(fr.id, []).append(tok)
+
+        engines = [GenerationEngine.from_model(
+            model, device=model.device, num_slots=2, max_len=160,
+            block_size=16, prefill_chunk=32, stall_free=False)
+            for _ in range(2)]
+        fleet = EngineFleet(engines, min_replicas=1)
+        f0 = fa.flash_attention_fwd.launches
+        p0 = pfd.paged_flash_decode.launches
+        if name == "card" and drive == "threaded":
+            fleet.start()
+            try:
+                frs = [fleet.submit(p, 12, stream_cb=cb) for p in prompts]
+                assert all(fr.wait(120) for fr in frs)
+            finally:
+                fleet.stop(drain=True, timeout=60)
+        else:
+            chaos.install(chaos.FaultPlan([chaos.Fault(
+                site="fleet_route", kind="replica_dead",
+                at_step=len(prompts))]))
+            try:
+                frs = [fleet.submit(p, 12, stream_cb=cb)
+                       for p in prompts[:-1]]
+                for _ in range(4):
+                    fleet.step()
+                frs.append(fleet.submit(prompts[-1], 12, stream_cb=cb))
+                fleet.run_until_idle()
+            finally:
+                chaos.uninstall()
+            assert fleet.stats["replica_deaths"] == 1
+            assert fleet.stats["readmissions"] >= 1
+        for fr in frs:
+            assert streamed[fr.id] == fr.tokens and fr.delivered == 12
+        out[name] = [fr.result(1) for fr in frs]
+        if name == "card":
+            steps = sum(e.stats["steps"] for e in engines)
+            prefills = sum(e.stats["prefills"] for e in engines)
+            assert pfd.paged_flash_decode.launches - p0 == \
+                cfg.num_layers * steps > 0
+            assert fa.flash_attention_fwd.launches - f0 == \
+                cfg.num_layers * prefills > 0
+            assert sum(e.stats["failovers"] for e in engines) == 0
+            assert all(e.backend.graphs.snapshot()["captures"] == 1
+                       for e in engines)
+    assert out["card"] == out["cpu"]

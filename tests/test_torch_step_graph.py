@@ -332,3 +332,55 @@ def test_support_reason_lets_gradients_through():
     fa.flash_attention(q, k, v, causal=True).sum().backward()
     assert all(t.grad is not None and t.grad.abs().sum() > 0
                for t in (q, k, v))
+
+
+def test_launch_counts_of_a_capture_stay_on_its_thread():
+    """Engines step on several threads at once (a fleet's replicas). A
+    thread capturing a graph counts its wrappers' launches into its own
+    tally (what each replay then adds), never into the shared counts, and
+    the launches other threads make meanwhile land in the shared counts
+    whole: 4 threads × 2000 launches while one thread holds a tally."""
+    import sys
+    import threading
+
+    from sparkdl_tpu_torch.ops import _build
+
+    class Wrapper:
+        launches = 0
+
+    w = Wrapper()
+    go = threading.Event()
+    ready = threading.Barrier(5)
+    held = {}
+
+    def capturing():
+        with _build.capture_tally() as tally:
+            ready.wait(10)
+            for _ in range(7):
+                _build.count_launch(w)
+            go.wait(10)
+            held.update(tally)
+
+    def launching():
+        ready.wait(10)
+        for _ in range(2000):
+            _build.count_launch(w)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=capturing)] + [
+            threading.Thread(target=launching) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads[1:]:
+            t.join(30)
+        go.set()
+        threads[0].join(30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert held == {w: 7}
+    assert w.launches == 4 * 2000
+    _build.count_launch(w, 7)  # a replay adds what the capture counted
+    assert w.launches == 8007
