@@ -388,11 +388,53 @@ o. The serving fleet (``serving.router.EngineFleet``), after phase n has
      f32, TF32 off, ``fleet_failover``'s fleet, kill and doom: every
      stream token for token a clean single engine's.
 
+p. The flight recorder and data plane (``runner/events.py``,
+   ``runner/data.py``'s batch ledger, ``runner/metrics.py``'s heartbeat and
+   profiler helpers, ``runner/chaos.py``), armed through the env knobs
+   ``SPARKDL_EVENT_DIR``, ``SPARKDL_BATCH_LEDGER``,
+   ``SPARKDL_HEARTBEAT_DIR`` and ``SPARKDL_METRICS_DIR`` (a ``tempfile``
+   directory each), two ``{"phase": "flight_recorder"}`` lines:
+   - ``resnet_chaos``: BASELINE config 3, phase k's bf16 ResNet-50 at
+     full width and depth, 256 a batch at 224², FR_BATCHES seeded wire
+     batches as a looping ``ListDataset``. First FR_OVERHEAD_ARMS fits of
+     FR_BATCHES steps, everything off and on in turn: step ms (median of
+     the steps after the first), events and bytes streamed a step, the
+     losses bitwise equal in every arm. Then, under one directory:
+     a. ``XlaRunner(checkpoint_dir=).run_with_restarts(fit)`` with
+        ``checkpoint_every=FR_CKPT_EVERY`` and a chaos ``step_start
+        preempt`` at FR_PREEMPT_AT: one restart, the resume at step 4,
+        the ledger exactly once over steps 0–11 (the replayed steps 4–5
+        on the same batches), the final parameters within phase k's
+        shares of an uninterrupted fit's; restart to the first resumed
+        step (the ``restart`` event to the loss call after that step's
+        read), the restore and first-step times behind it;
+     b. the newest checkpoint corrupted (``chaos.corrupt_latest_checkpoint``),
+        a fit to FR_ROLLBACK_STEPS: one rollback (12 → 8), in the meter's
+        ``fault_tolerance``; the rollback restore's seconds (verify,
+        quarantine, verify, load);
+     c. a chaos ``batch_fetch nan`` at FR_NAN_AT on float32 images:
+        ``TrainingDivergedError``, not retried, and a postmortem naming
+        step 2 and batch 2;
+     then ``merge_timeline`` must name part c's fault first,
+     ``collect_degradations`` the two resumes and the rollback, the
+     telemetry snapshot must be on disk and the heartbeat name step 2;
+   - ``lora_recorder``: BASELINE config 5, ``llama3_8b(lora_rank=16)`` at
+     full width, depth cut to DP_LORA_LAYERS, bf16, phase g's 2 × 2048
+     batch; three fits of FR_LORA_STEPS steps (everything off; the
+     recorder, ledger and heartbeat on; on with ``fit(profile_dir=)``):
+     losses bitwise equal, step ms off and on, launches a step from the
+     wrappers' counters, and from the Chrome trace one ``train_step#i``
+     range a step holding DP_LORA_LAYERS forward and backward flash
+     kernels, its size and the device's busy share of the profiled steps.
+   A ``summary`` line: the phase's seconds and the memory allocated on
+   the card before and after it, which must come back to what it was.
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
-entries add their BERT case and phase h's launches, and phase m's gang
-launches; the three forward kernels add phase n's and phase o's launches
-leg by leg, ``phase_n_launches`` and ``phase_o_launches``) and, last,
+entries add their BERT case and phase h's launches, phase m's gang
+launches and phase p's, ``phase_p_launches``; the three forward kernels
+add phase n's and phase o's launches leg by leg, ``phase_n_launches`` and
+``phase_o_launches``) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
@@ -4419,6 +4461,504 @@ def fleet_parity(torch, kernels) -> dict:
     return rec
 
 
+# phase p: the flight recorder and data plane on the card. resnet_chaos:
+# phase k's bf16 ResNet-50 recipe (256 a batch at 224², sgd(0.1, momentum
+# 0.9)) over FR_BATCHES seeded wire batches (a looping ListDataset, so fit
+# keeps a cursor); FR_OVERHEAD_ARMS fits of FR_BATCHES steps, recorder off
+# and on in turn; checkpoints every FR_CKPT_EVERY steps, a preemption at
+# step FR_PREEMPT_AT, a rollback fit to FR_ROLLBACK_STEPS, a NaN batch at
+# step FR_NAN_AT (float32 images: ``nan`` poisons float leaves only).
+# lora_recorder: phase m's LoRA model (llama3_8b widths at DP_LORA_LAYERS
+# layers), phase g's batch, FR_LORA_STEPS steps a fit.
+FR_BATCHES, FR_CKPT_EVERY, FR_PREEMPT_AT = 12, 4, 6
+FR_ROLLBACK_STEPS, FR_NAN_AT, FR_LORA_STEPS = 16, 2, 6
+FR_OVERHEAD_ARMS = ("off", "on", "off", "on")
+# the env knobs phase p arms, each to its own subdirectory
+FR_ENV = {"SPARKDL_EVENT_DIR": "events", "SPARKDL_BATCH_LEDGER": "ledger",
+          "SPARKDL_HEARTBEAT_DIR": "heartbeat",
+          "SPARKDL_METRICS_DIR": "metrics"}
+# memory phase p may leave allocated beyond what it found, bytes, with
+# cuBLAS's workspaces (2 × 32 MiB on an H100, kept once made) released
+# before both readings
+FR_MEMORY_SLACK = 4 << 20
+
+
+def recorder_env(root) -> dict:
+    """Arm the flight recorder's stream, the batch ledger, the heartbeat
+    and the telemetry plane's snapshots under ``root`` (a subdirectory
+    each; ``fit`` arms the plane itself), or with ``root`` None disarm
+    them; a fresh recorder and a stopped plane either way. Returns the
+    directories."""
+    import os
+
+    from sparkdl_tpu_torch.runner import events, telemetry
+
+    dirs = {}
+    for k, sub in FR_ENV.items():
+        if root is None:
+            os.environ.pop(k, None)
+        else:
+            dirs[k] = os.environ[k] = os.path.join(root, sub)
+    telemetry.reset()
+    events.reset()
+    return dirs
+
+
+def fr_resnet_main(torch, spec, batches, steps: int, stamps: list,
+                   built: list, **kw):
+    """``main_fn`` for ``XlaRunner.run`` / ``run_with_restarts``: a fresh
+    bf16 ResNet-50 (seed 0) each call, then phase k's fit over
+    ``batches`` (a looping ``ListDataset``) with ``log_every=1``; the loss
+    stamps ``time.time()`` at each call and ``built`` gets the time the
+    model was ready."""
+    from sparkdl_tpu_torch.runner import (ListDataset, bn_classifier_loss,
+                                          sgd)
+
+    loss_fn = bn_classifier_loss(preprocess=resnet_preprocess(spec))
+
+    def stamped(m, batch):
+        stamps.append(time.time())
+        return loss_fn(m, batch)
+
+    def main(ctx):
+        model = spec.build(dtype=torch.bfloat16, num_classes=1000, seed=0,
+                           device="cuda")
+        torch.cuda.synchronize()
+        built.append(time.time())
+        return ctx.fit(loss_fn=stamped, model=model,
+                       tx=sgd(RESNET_LR, momentum=0.9),
+                       data=ListDataset(list(batches), epochs=None),
+                       num_steps=steps, log_every=1, mutable=True, **kw)
+
+    return main
+
+
+def _ring(name: str, since: float = 0.0) -> list:
+    from sparkdl_tpu_torch.runner import events
+
+    return [e for e in events.get_recorder().tail()
+            if e["name"] == name and e["t"] >= since]
+
+
+def _float_state(model) -> dict:
+    return {k: v.detach().float().cpu()
+            for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def _stream_size(path: str) -> tuple:
+    """(lines, bytes) of a JSONL file (0, 0 when absent)."""
+    import os
+
+    if not os.path.exists(path):
+        return 0, 0
+    with open(path, "rb") as f:
+        data = f.read()
+    return data.count(b"\n"), len(data)
+
+
+def resnet_chaos(torch, root: str) -> dict:
+    """Phase p, ``resnet_chaos`` (module docstring)."""
+    import gc
+    import json
+    import os
+
+    import numpy as np
+
+    from sparkdl_tpu_torch.models.registry import get_model
+    from sparkdl_tpu_torch.runner import (Fault, FaultPlan,
+                                          TrainingDivergedError, XlaRunner,
+                                          chaos, events, metrics)
+    from sparkdl_tpu_torch.runner.data import read_ledger
+
+    spec = get_model("ResNet50")
+    wire = resnet_wire(FR_BATCHES, RESNET_BATCH, RESNET_SIZE, seed=44)
+    before = _float_state(spec.build(dtype=torch.bfloat16, num_classes=1000,
+                                     seed=0))
+    metrics.run_stats.reset()
+
+    # the overhead: the same 12 steps with everything off and on, in turn
+    arms, streamed = [], None
+    for n, arm in enumerate(FR_OVERHEAD_ARMS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        dirs = recorder_env(os.path.join(root, f"overhead{n}")
+                            if arm == "on" else None)
+        stamps, built = [], []
+        res = XlaRunner(np=1).run(fr_resnet_main(
+            torch, spec, wire, FR_BATCHES, stamps, built))
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+        step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+        line = step_line(step_s, 1)
+        losses = [h["loss"] for h in res["history"]]
+        assert len(losses) == FR_BATCHES and all(map(math.isfinite, losses))
+        if arm == "on":
+            ev = os.path.join(dirs["SPARKDL_EVENT_DIR"], "events_rank0.jsonl")
+            lines, nbytes = _stream_size(ev)
+            hb = os.path.join(dirs["SPARKDL_HEARTBEAT_DIR"], "rank0.hb")
+            with open(hb) as f:
+                assert events.parse_heartbeat_body(f.read())["step"] == \
+                    FR_BATCHES - 1
+            led = read_ledger(dirs["SPARKDL_BATCH_LEDGER"])
+            assert [(e["step"], e["batch_index"]) for e in led] == \
+                [(i, i) for i in range(FR_BATCHES)]
+            streamed = dict(events_per_step=lines / FR_BATCHES,
+                            bytes_per_step=nbytes / FR_BATCHES)
+        else:
+            uninterrupted = _float_state(res["state"].model)
+        arms.append(dict(arm=arm, losses=losses, **line))
+        del res
+    recorder_env(None)
+    off = [a["step_ms_median"] for a in arms if a["arm"] == "off"]
+    on = [a["step_ms_median"] for a in arms if a["arm"] == "on"]
+    assert [a["losses"] for a in arms[1:]] == [arms[0]["losses"]] * 3, \
+        "the recorder changed the losses"
+
+    # parts a-c under one recorder directory
+    dirs = recorder_env(os.path.join(root, "chaos"))
+    ckpt = os.path.join(root, "ckpt")
+    runner = XlaRunner(np=1, checkpoint_dir=ckpt)
+
+    # a. a preemption at step 6, one restart, the resume at step 4
+    chaos.install(FaultPlan([Fault("step_start", "preempt",
+                                   at_step=FR_PREEMPT_AT)]))
+    chaos.announce_injection(f"a preemption at step {FR_PREEMPT_AT} "
+                             "(phase p, resnet_chaos part a)")
+    stamps, built = [], []
+    try:
+        res = runner.run_with_restarts(
+            fr_resnet_main(torch, spec, wire, FR_BATCHES, stamps, built,
+                           checkpoint_every=FR_CKPT_EVERY),
+            max_restarts=2, backoff_s=0.0)
+    finally:
+        chaos.uninstall()
+    torch.cuda.synchronize()
+    resumed_at = FR_PREEMPT_AT // FR_CKPT_EVERY * FR_CKPT_EVERY
+    assert len(built) == 2 and metrics.run_stats.restarts == 1
+    assert res["state"].step == FR_BATCHES
+    assert res["meter"].steps == FR_BATCHES - resumed_at
+    restart_t = _ring("restart")[-1]["t"]
+    resume = [e for e in _ring("train_resume") if e["t"] >= restart_t]
+    assert resume and resume[0]["step"] == resumed_at, resume
+    led = read_ledger(dirs["SPARKDL_BATCH_LEDGER"])
+    pairs = [(e["step"], e["batch_index"]) for e in led]
+    assert pairs == [(i, i) for i in range(FR_PREEMPT_AT)] + \
+        [(i, i) for i in range(resumed_at, FR_BATCHES)], pairs
+    last = {}
+    for e in led:
+        last[e["step"]] = e["batch_index"]
+    exactly_once = sorted(last.items()) == [(i, i)
+                                            for i in range(FR_BATCHES)]
+    assert exactly_once
+    # the first resumed step's loss call is stamps[FR_PREEMPT_AT]; the next
+    # call follows its loss read (log_every=1), the step done
+    restart_s = stamps[FR_PREEMPT_AT + 1] - restart_t
+    restore_after_restart_s = resume[0]["t"] - built[1]
+    compile_s = [e["dur_s"] for e in _ring("compile", restart_t)][0]
+    shares = _update_shares(_float_state(res["state"].model), uninterrupted,
+                            before)
+    assert shares[0] <= RESNET_PARITY_PARAM_SHARE, shares
+    assert shares[1] <= RESNET_PARITY_STAT_SHARE, shares
+    del res
+
+    # b. the newest checkpoint (12) corrupted; a fit to 16 rolls back to 8
+    damaged = chaos.corrupt_latest_checkpoint(ckpt)
+    assert damaged
+    gc.collect()
+    stamps, built = [], []
+    t_b = time.time()
+    res = runner.run(fr_resnet_main(torch, spec, wire, FR_ROLLBACK_STEPS,
+                                    stamps, built,
+                                    checkpoint_every=FR_CKPT_EVERY))
+    torch.cuda.synchronize()
+    rolled = [e for e in _ring("checkpoint_rollback", t_b)]
+    assert [(e["from_step"], e["to_step"]) for e in rolled] == \
+        [(FR_BATCHES, FR_BATCHES - FR_CKPT_EVERY)], rolled
+    assert res["state"].step == FR_ROLLBACK_STEPS
+    assert res["meter"].steps == FR_ROLLBACK_STEPS - FR_BATCHES \
+        + FR_CKPT_EVERY
+    ft = res["meter"].summary()["fault_tolerance"]
+    assert ft["checkpoint_rollbacks"] == 1, ft
+    rollback_restore_s = _ring("train_resume", t_b)[0]["t"] - built[0]
+    del res
+
+    # c. a NaN batch at step 2: diverged, not retried, the postmortem exact
+    gc.collect()
+    fwire = [dict(b, image=b["image"].astype(np.float32))
+             for b in wire[:FR_NAN_AT + 2]]
+    chaos.install(FaultPlan([Fault("batch_fetch", "nan",
+                                   at_step=FR_NAN_AT)]))
+    stamps, built = [], []
+    diverged = None
+    try:
+        XlaRunner(np=1).run_with_restarts(
+            fr_resnet_main(torch, spec, fwire, len(fwire), stamps, built),
+            max_restarts=2, backoff_s=0.0)
+    except TrainingDivergedError as e:
+        diverged = e.step
+    finally:
+        chaos.uninstall()
+    assert diverged == FR_NAN_AT + 1 and len(built) == 1, (diverged, built)
+    assert metrics.run_stats.last_failure_kind == "fatal"
+    with open(os.path.join(dirs["SPARKDL_EVENT_DIR"],
+                           "postmortem_rank0.json")) as f:
+        pm = json.load(f)
+    assert (pm["site"], pm["step"], pm["batch_index"], pm["epoch"]) == \
+        ("fit", FR_NAN_AT, FR_NAN_AT, 0), pm
+    assert pm["error"]["type"] == "TrainingDivergedError"
+
+    # after a-c: the timeline, the degradations, the snapshot, the beat
+    events.get_recorder().close()
+    tl = events.merge_timeline(dirs["SPARKDL_EVENT_DIR"],
+                               heartbeat_dir=dirs["SPARKDL_HEARTBEAT_DIR"])
+    ff = tl["first_failure"]
+    assert (tl["first_failing_rank"], ff["site"], ff["step"]) == \
+        (0, "batch_fetch", FR_NAN_AT), tl["first_failure"]
+    degr = [e["name"] for e in events.collect_degradations(
+        dirs["SPARKDL_EVENT_DIR"])]
+    assert degr.count("train_resume") == 2 and \
+        "checkpoint_rollback" in degr, degr
+    snap = os.path.join(dirs["SPARKDL_METRICS_DIR"], "metrics_rank0.json")
+    with open(snap) as f:
+        snap_keys = sorted(json.load(f))
+    with open(os.path.join(dirs["SPARKDL_HEARTBEAT_DIR"], "rank0.hb")) as f:
+        beat = events.parse_heartbeat_body(f.read())
+    assert beat["step"] == FR_NAN_AT, beat
+    recorder_env(None)
+    metrics.run_stats.reset()
+    rec = dict(
+        phase="flight_recorder", arm="resnet_chaos",
+        config="BASELINE config 3: ResNet50 bf16, 256 a batch at 224², "
+               "np=1", batches=FR_BATCHES, checkpoint_every=FR_CKPT_EVERY,
+        restarts=1, resumed_at=resumed_at,
+        ledger_exactly_once=exactly_once, ledger_lines=len(led),
+        replayed_steps=list(range(resumed_at, FR_PREEMPT_AT)),
+        resumed_param_share=shares[0], resumed_stat_share=shares[1],
+        restart_to_first_resumed_step_s=restart_s,
+        restore_after_restart_s=restore_after_restart_s,
+        first_resumed_step_compile_s=compile_s,
+        rollback=ft["last_rollback"],
+        checkpoint_rollbacks=ft["checkpoint_rollbacks"],
+        rollback_restore_s=rollback_restore_s,
+        postmortem=dict(site=pm["site"], step=pm["step"],
+                        batch_index=pm["batch_index"], epoch=pm["epoch"],
+                        error=pm["error"]["type"],
+                        events=len(pm["events"])),
+        timeline_first_failure=dict(site=ff["site"], step=ff["step"],
+                                    error=ff["error"]),
+        degradations=sorted(set(degr)), telemetry_snapshot=snap_keys,
+        heartbeat_step=beat["step"], **streamed,
+        step_ms_off=off, step_ms_on=on,
+        overhead_ms=float(np.mean(on) - np.mean(off)),
+        overhead_share=float(np.mean(on) / np.mean(off) - 1),
+        arms=[{k: v for k, v in a.items() if k != "losses"} for a in arms],
+        nvidia_smi=smi())
+    emit(rec)
+    return rec
+
+
+def trace_steps(trace: dict, names: tuple) -> dict:
+    """From a Chrome trace of a profiled ``fit``: each ``train_step#i``
+    range (the CPU annotation) and, a step, how many kernels whose name
+    holds each of ``names`` it launched; the device busy share of the
+    steps after the first (the union of kernel, copy and set intervals
+    over the window from the second step's start to the last device
+    activity). A kernel belongs to the step whose range holds its launch,
+    joined by the profiler's correlation id; without launch records, to
+    the step whose device-side annotation holds it; without those, to
+    the step it ran after (``fit(log_every=1)`` waits for each step's
+    loss, so a step's kernels end before the next step starts)."""
+    evs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    steps = sorted((e for e in evs if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("train_step#")),
+                   key=lambda e: e["ts"])
+    dev = [e for e in evs if e.get("cat") in ("kernel", "gpu_memcpy",
+                                              "gpu_memset")]
+    kernels = [e for e in dev if e.get("cat") == "kernel"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in evs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    gpu_ann = {e["name"]: e for e in evs
+               if e.get("cat") == "gpu_user_annotation"
+               and e["name"].startswith("train_step#")}
+    starts = [s["ts"] for s in steps] + [float("inf")]
+
+    def by_launch(i, st):
+        return [k for k in kernels
+                if st["ts"] <= launch_ts.get(k.get("args", {})
+                                             .get("correlation"), -1)
+                <= st["ts"] + st["dur"]]
+
+    def by_gpu_annotation(i, st):
+        g = gpu_ann.get(st["name"])
+        return [] if g is None else [
+            k for k in kernels if g["ts"] <= k["ts"] <= g["ts"] + g["dur"]]
+
+    def by_window(i, st):
+        return [k for k in kernels if starts[i] <= k["ts"] < starts[i + 1]]
+
+    per_step, joined = [], "none"
+    for join in (by_launch, by_gpu_annotation, by_window):
+        per_step = [{n: sum(n in k["name"] for k in join(i, st))
+                     for n in names} for i, st in enumerate(steps)]
+        joined = join.__name__
+        if any(any(c.values()) for c in per_step):
+            break
+    busy = "not measured: no device activity in the trace"
+    if len(steps) > 1 and dev:
+        t0 = steps[1]["ts"]
+        t1 = max(e["ts"] + e["dur"] for e in dev)
+        spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                       for e in dev if e["ts"] + e["dur"] > t0)
+        covered, cur_lo, cur_hi = 0.0, None, None
+        for a, b in spans:
+            if cur_hi is None or a > cur_hi:
+                if cur_hi is not None:
+                    covered += cur_hi - cur_lo
+                cur_lo, cur_hi = a, b
+            else:
+                cur_hi = max(cur_hi, b)
+        if cur_hi is not None:
+            covered += cur_hi - cur_lo
+        busy = dict(share=covered / (t1 - t0),
+                    busy_ms_per_step=covered / 1e3 / (len(steps) - 1),
+                    window_ms=(t1 - t0) / 1e3)
+    return dict(steps=[s["name"] for s in steps], per_step=per_step,
+                joined_by=joined, device_busy=busy)
+
+
+def lora_recorder(torch, kernels, root: str) -> dict:
+    """Phase p, ``lora_recorder`` (module docstring)."""
+    import gc
+    import json
+    import os
+
+    import numpy as np
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.runner import XlaRunner
+    from sparkdl_tpu_torch.runner.data import read_ledger
+
+    ids = None
+    out = {}
+    for arm in ("off", "on", "profiled"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = lora_cut_model(torch)
+        if ids is None:
+            ids = train_ids(torch, model.cfg)
+        dirs = recorder_env(None if arm == "off"
+                            else os.path.join(root, f"lora_{arm}"))
+        prof_dir = os.path.join(root, "lora_trace") if arm == "profiled" \
+            else None
+        reset_counts(*kernels)
+        ctx = XlaRunner(np=1).make_context()
+        res, step_s, fit_s = stamped_fit(
+            torch, ctx, L.causal_lm_loss_fn(), model,
+            L.lora_optimizer(TRAIN_LR), [{"input_ids": ids}] * FR_LORA_STEPS,
+            FR_LORA_STEPS, profile_dir=prof_dir)
+        launches = read_counts(*kernels)
+        nl = model.cfg.num_layers
+        assert launches["flash_attention"] == nl * FR_LORA_STEPS, launches
+        assert launches["flash_attention_bwd"] == nl * FR_LORA_STEPS, \
+            launches
+        rec = dict(losses=[h["loss"] for h in res["history"]],
+                   launches=launches,
+                   launches_per_step={k: v / FR_LORA_STEPS
+                                      for k, v in launches.items()},
+                   fit_s=fit_s, **step_line(step_s, 1))
+        if arm != "off":
+            led = read_ledger(dirs["SPARKDL_BATCH_LEDGER"])
+            assert [e["step"] for e in led] == list(range(FR_LORA_STEPS))
+            rec["events_per_step"] = _stream_size(os.path.join(
+                dirs["SPARKDL_EVENT_DIR"], "events_rank0.jsonl"))[0] \
+                / FR_LORA_STEPS
+        if prof_dir:
+            path = os.path.join(prof_dir, "trace_rank0.json")
+            rec["trace_bytes"] = os.path.getsize(path)
+            with open(path) as f:
+                tr = trace_steps(json.load(f), ("fa_fwd_tc_kernel",
+                                                "fa_bwd_dkdv_tc_kernel",
+                                                "fa_bwd_dq_tc_kernel"))
+            assert tr["steps"] == [f"train_step#{i}"
+                                   for i in range(FR_LORA_STEPS)], tr
+            assert all(c == {"fa_fwd_tc_kernel": nl,
+                             "fa_bwd_dkdv_tc_kernel": nl,
+                             "fa_bwd_dq_tc_kernel": nl}
+                       for c in tr["per_step"]), tr["per_step"]
+            rec["trace"] = tr
+        out[arm] = rec
+        del res, model, ctx
+    recorder_env(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bitwise = out["on"]["losses"] == out["off"]["losses"] == \
+        out["profiled"]["losses"]
+    assert bitwise, {a: r["losses"] for a, r in out.items()}
+    off, on = out["off"]["step_ms_median"], out["on"]["step_ms_median"]
+    rec = dict(
+        phase="flight_recorder", arm="lora_recorder",
+        config=f"BASELINE config 5: LlamaConfig.llama3_8b(lora_rank=16), "
+               f"depth cut to {DP_LORA_LAYERS} of 32, bf16",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=FR_LORA_STEPS,
+        losses_bitwise_equal=bitwise, losses=out["off"]["losses"],
+        step_ms_off=off, step_ms_on=on,
+        step_ms_profiled=out["profiled"]["step_ms_median"],
+        overhead_ms=on - off, overhead_share=on / off - 1,
+        launches_per_step=out["on"]["launches_per_step"],
+        launches={a: r["launches"] for a, r in out.items()},
+        events_per_step=out["on"]["events_per_step"],
+        trace_bytes=out["profiled"]["trace_bytes"],
+        trace_kernels_per_step=out["profiled"]["trace"]["per_step"],
+        trace_joined_by=out["profiled"]["trace"]["joined_by"],
+        device_busy=out["profiled"]["trace"]["device_busy"],
+        arms={a: {k: v for k, v in r.items()
+                  if k not in ("losses", "trace", "launches")}
+              for a, r in out.items()},
+        nvidia_smi=smi())
+    emit(rec)
+    return rec
+
+
+def phase_flight_recorder(torch, kernels) -> dict:
+    """Phase p: the flight recorder and data plane (module docstring).
+    Everything it writes lives in a ``tempfile`` directory; the memory
+    allocated on the card must come back to what the phase found. A
+    ``summary`` line gives both readings and the phase's seconds."""
+    import gc
+    import tempfile
+
+    def allocated() -> int:
+        gc.collect()
+        if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+            torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    mem0 = allocated()
+    t0 = time.perf_counter()
+    tf32_was = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with tempfile.TemporaryDirectory(prefix="sparkdl_fr_") as root:
+            resnet = resnet_chaos(torch, root)
+            gc.collect()
+            torch.cuda.empty_cache()
+            lora = lora_recorder(torch, kernels, root)
+    finally:
+        recorder_env(None)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32_was
+    seconds = time.perf_counter() - t0
+    mem1 = allocated()
+    emit(dict(phase="flight_recorder", arm="summary", seconds=seconds,
+              memory_allocated_before=mem0, memory_allocated_after=mem1))
+    assert mem1 <= mem0 + FR_MEMORY_SLACK, (mem0, mem1)
+    return dict(resnet_chaos=resnet, lora_recorder=lora)
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -4470,6 +5010,8 @@ def main() -> int:
     gang = phase_dp_m(torch, glue)
     n = phase_n(torch, (fa, fd, pfd))
     o = phase_fleet(torch, (fa, fd, pfd))
+    p = phase_flight_recorder(torch, (fa, fd, pfd))
+    p_launches = p["lora_recorder"]["launches"]
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -4520,7 +5062,9 @@ def main() -> int:
                     "flash_attention"],
                 gang_launches={arm: gang[arm]["launches"]["flash_attention"]
                                for arm in ("dp_bert", "dp_bert_accum",
-                                           "dp_lora")})
+                                           "dp_lora")},
+                phase_p_launches={arm: c["flash_attention"]
+                                  for arm, c in p_launches.items()})
             kernels[-1].update(
                 variant=r["variant"], pv_rtol=r["pv_rtol"],
                 live_tflops=r["live_tflops"],
@@ -4553,6 +5097,8 @@ def main() -> int:
         bert_variant_launches=glue["bwd_variant_launches"],
         gang_launches={arm: gang[arm]["launches"]["flash_attention_bwd"]
                        for arm in ("dp_bert", "dp_bert_accum", "dp_lora")},
+        phase_p_launches={arm: c["flash_attention_bwd"]
+                          for arm, c in p_launches.items()},
         f32_variant=dict(variant=f32["variant"], route="cuda",
                          source="sparkdl_tpu_torch/csrc/"
                                 "flash_attention_bwd.cu",

@@ -696,6 +696,9 @@ class BatchRunner:
         ev = _events()
         chaos = _chaos()
         tel = _telemetry()
+        # env-armed (SPARKDL_METRICS_DIR / SPARKDL_METRICS_PORT); two dict
+        # lookups and the plane stays off when neither is set
+        tel.maybe_start_from_env()
         depth_gauge = occupancy_gauge = None
         if tel.enabled():
             depth_gauge = tel.registry().gauge("run_stream_window_depth")

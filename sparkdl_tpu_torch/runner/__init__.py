@@ -2,23 +2,48 @@
 data-parallel gang of processes, one device each (``xla_runner``:
 ``XlaRunner(np=, checkpoint_dir=).run(lambda ctx: ctx.fit(...))`` and
 ``run_with_restarts``, over ``train_state``, ``metrics``, checkpoints
-(``checkpoint``) and the checkpointable data plane ``data``), the gang
-launcher (``launcher.launch``, the ``mpirun`` role), the hvd-compat module
-``api``, and the parts of ``sparkdl_tpu/runner`` the serving engine
-reaches — the flight recorder (``events``), the telemetry plane
+(``checkpoint``) and the checkpointable data plane ``data`` with its
+batch ledger), the gang launcher (``launcher.launch``, the ``mpirun``
+role), the hvd-compat module ``api``, the flight recorder (``events``:
+spans, crash postmortems, merged timelines), the telemetry plane
 (``telemetry``: registry, stage accountant, request traces, exporter and
 HTTP endpoint), the SLO burn-rate monitor (``slo``), the anomaly sentinel
 (``sentinel``) and fault injection (``chaos``). The gang supervisor comes
-with the slice that ports it (ROADMAP.md, Queue A 7)."""
+with the slice that ports it (ROADMAP.md, Queue A 7 (b))."""
 
-from .checkpoint import CheckpointManager
+from . import events
+from . import telemetry
+from .chaos import Fault, FaultPlan, InjectedFatal, InjectedFault, \
+    InjectedPreemption
+from .checkpoint import CheckpointCorruptionError, CheckpointManager, \
+    load_portable, save_portable
+from .data import (ArrowDataset, CheckpointableDataset, FactoryDataset,
+                   ListDataset, as_dataset)
+from .events import FlightRecorder, Timer, enable_flight_recorder, \
+    merge_timeline
+from .failures import TrainingDivergedError, classify_exception, \
+    exception_summary
 from .launcher import GangFailure, launch
+from .metrics import MetricsLogger, StepTimeStats, ThroughputMeter, \
+    debug_mode, global_step_stats, peak_flops_per_chip, run_stats, \
+    touch_heartbeat, trace
+from .telemetry import start as enable_telemetry
 from .train_state import (TrainState, adam, bn_classifier_loss,
                           make_shard_map_step, make_train_step, sgd,
                           softmax_cross_entropy_loss)
 from .xla_runner import RunnerContext, XlaRunner, current_context
 
-__all__ = ["CheckpointManager", "GangFailure", "RunnerContext",
-           "TrainState", "XlaRunner", "adam", "bn_classifier_loss",
-           "current_context", "launch", "make_shard_map_step",
-           "make_train_step", "sgd", "softmax_cross_entropy_loss"]
+__all__ = ["CheckpointCorruptionError", "CheckpointManager",
+           "CheckpointableDataset", "ArrowDataset", "FactoryDataset",
+           "Fault", "FaultPlan", "FlightRecorder", "GangFailure",
+           "InjectedFatal", "InjectedFault", "InjectedPreemption",
+           "ListDataset", "MetricsLogger", "RunnerContext", "StepTimeStats",
+           "ThroughputMeter", "Timer", "TrainState",
+           "TrainingDivergedError", "XlaRunner", "adam", "as_dataset",
+           "bn_classifier_loss", "classify_exception", "current_context",
+           "debug_mode", "enable_flight_recorder", "enable_telemetry",
+           "events", "exception_summary", "global_step_stats", "launch",
+           "load_portable", "make_shard_map_step", "make_train_step",
+           "merge_timeline", "peak_flops_per_chip", "run_stats",
+           "save_portable", "sgd", "softmax_cross_entropy_loss",
+           "telemetry", "touch_heartbeat", "trace"]

@@ -10,7 +10,12 @@ or the one :func:`init` made). New code should use the context directly.
 :func:`allreduce` and :func:`broadcast` are for values outside the train
 step (metric aggregation, a seed): numpy arrays or scalars go in, numpy
 comes out, and in a gang they run over the gang's host-side process
-group. Gradients are averaged inside the step (``train_state``).
+group. Gradients are averaged inside the step (``train_state``); both
+consult the ``collective`` chaos site first.
+
+The observability switches ride beside the hvd calls:
+:func:`enable_flight_recorder` (``runner.events``) and
+:func:`enable_telemetry` (``runner.telemetry.start``).
 """
 
 from __future__ import annotations
@@ -19,11 +24,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import xla_runner
+from . import chaos, xla_runner
+from .events import enable_flight_recorder  # noqa: F401
+from .telemetry import start as enable_telemetry  # noqa: F401
 from .xla_runner import RunnerContext, XlaRunner, current_context
 
 __all__ = ["init", "size", "rank", "local_rank", "shutdown", "allreduce",
-           "broadcast"]
+           "broadcast", "enable_flight_recorder", "enable_telemetry"]
 
 _INIT_CONTEXTS: list[RunnerContext] = []  # made by init(), not by run()
 
@@ -81,6 +88,7 @@ def allreduce(x, average: bool = True) -> np.ndarray:
     """hvd.allreduce over the gang: the sum of every rank's ``x``, or
     its mean with ``average``. In one process the mean is ``x`` and the
     sum ``x·size`` (= ``x``)."""
+    chaos.fire("collective")
     ctx = _ctx()
     t, shape = _host_tensor(x)
     if ctx.gang:
@@ -91,6 +99,7 @@ def allreduce(x, average: bool = True) -> np.ndarray:
 
 def broadcast(x, root_rank: int = 0) -> np.ndarray:
     """hvd.broadcast: rank ``root_rank``'s ``x`` on every rank."""
+    chaos.fire("collective")
     ctx = _ctx()
     t, shape = _host_tensor(x)
     if ctx.gang:

@@ -63,8 +63,11 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from . import events
+from . import chaos, events
 from . import metrics as metrics_lib
+# Damage the newest step as a torn write would: the chaos kind ``corrupt``
+# and the tests call the one implementation, which lives in chaos.
+from .chaos import corrupt_latest_checkpoint  # noqa: F401
 
 log = logging.getLogger("sparkdl_tpu_torch.runner")
 
@@ -370,6 +373,7 @@ class CheckpointManager:
         rank 0 writes and waits, and every rank returns once the step's
         manifest is committed."""
         with events.span("checkpoint_save", step=step, wait=wait):
+            chaos.fire("checkpoint_save", step=step)
             self._join()
             if self.rank == 0:
                 model_sd = state.model.state_dict()
@@ -439,8 +443,10 @@ class CheckpointManager:
         rollback. A named step that fails verification raises
         :class:`CheckpointCorruptionError`. In a gang rank 0 chooses the
         step (and raises what it raises on every rank) and every rank
-        loads it."""
+        loads it. The ``checkpoint_restore`` chaos site fires first (its
+        ``corrupt`` kind damages the newest step on disk)."""
         self._join()
+        chaos.fire("checkpoint_restore", step=step, path=self.directory)
         if self.group is None:
             return self._restore_step(self._choose(step), state_template)
         chosen: list = [None]
@@ -529,43 +535,6 @@ class CheckpointManager:
         except Exception:
             log.warning("checkpoint finalize during close failed",
                         exc_info=True)
-
-
-def corrupt_latest_checkpoint(directory: str | None) -> list[str]:
-    """Damage the newest step under ``directory`` as a kill in the middle
-    of a write or bit rot would: the largest file bit-flipped at its middle
-    and truncated to 3/4 of its length. Returns the damaged paths (empty
-    when there is nothing to damage). The JAX package's
-    ``chaos.corrupt_latest_checkpoint``, for tests and ``chip_smoke.py``."""
-    if not directory:
-        return []
-    try:
-        steps = [d for d in os.listdir(directory)
-                 if d.isdigit() and os.path.isdir(os.path.join(directory, d))]
-    except OSError:
-        return []
-    if not steps:
-        return []
-    step_dir = os.path.join(directory, max(steps, key=int))
-    files = []
-    for root, _, names in os.walk(step_dir):
-        for name in names:
-            p = os.path.join(root, name)
-            try:
-                files.append((os.path.getsize(p), p))
-            except OSError:
-                continue
-    files = [(s, p) for s, p in files if s > 0]
-    if not files:
-        return []
-    size, victim = max(files)
-    with open(victim, "r+b") as fh:
-        fh.seek(size // 2)
-        b = fh.read(1)
-        fh.seek(size // 2)
-        fh.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
-        fh.truncate(max(1, size * 3 // 4))
-    return [victim]
 
 
 def _flatten(tree, prefix: str = ""):

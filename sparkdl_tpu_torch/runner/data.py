@@ -10,8 +10,12 @@ the exactly-once design): :class:`CheckpointableDataset`,
 ``fit`` streams them, saves the cursor of the last completed step with
 each checkpoint (``runner/checkpoint.py``) and, on resume, restores the
 dataset there. ``shard=True`` cuts each rank's rows from the global
-stream in a data-parallel gang. The batch ledger and the ``data_fetch``
-chaos site come with the gang supervisor (ROADMAP.md, Queue A 7).
+stream in a data-parallel gang. The ``data_fetch`` chaos site fires as
+each batch is drawn, with the batch index as its step, so a fault can
+target one batch across restarts; with ``SPARKDL_BATCH_LEDGER`` set,
+``fit`` appends one line a completed step to the **batch ledger**
+(:func:`append_ledger`, :func:`read_ledger`), the exactly-once audit
+trail across restarts.
 
 A **skip-list** (``SPARKDL_SKIP_BATCHES``, a JSON list of batch indices)
 names batches that are consumed but never yielded, nor examined.
@@ -26,17 +30,20 @@ import inspect
 import json
 import logging
 import os
+import time
 from typing import Any, Callable, Iterable, Iterator
 
-from . import events
+from . import chaos, events
 
 __all__ = ["CheckpointableDataset", "ListDataset", "FactoryDataset",
            "ArrowDataset", "record_batch_to_numpy", "as_dataset",
-           "env_skip_list", "SKIP_ENV"]
+           "env_skip_list", "append_ledger", "read_ledger", "SKIP_ENV",
+           "LEDGER_ENV"]
 
 log = logging.getLogger("sparkdl_tpu_torch.runner")
 
 SKIP_ENV = "SPARKDL_SKIP_BATCHES"
+LEDGER_ENV = "SPARKDL_BATCH_LEDGER"
 
 
 def _tag_batch(exc: BaseException, epoch: int, batch_index: int):
@@ -101,7 +108,9 @@ class CheckpointableDataset:
         """Yield ``(cursor_after, batch)``: the batch plus the state that
         replays everything after it. Fast-forward past an earlier restore
         point is draw-and-discard; skip-listed indices are consumed but
-        not yielded (a ``train_batch_skipped`` event marks each)."""
+        not yielded (a ``train_batch_skipped`` event marks each), and the
+        ``data_fetch`` chaos site fires per yielded batch with its index
+        (a fault it raises is tagged with that batch)."""
         epoch, start = self._epoch, self._start_index
         while self.epochs is None or epoch < self.epochs:
             drew = 0
@@ -123,6 +132,11 @@ class CheckpointableDataset:
                     events.event("train_batch_skipped", epoch=epoch,
                                  batch_index=idx)
                     continue
+                try:
+                    batch = chaos.fire("data_fetch", step=idx, batch=batch)
+                except BaseException as e:
+                    _tag_batch(e, epoch, idx)
+                    raise
                 yield ({"epoch": epoch, "batch_index": idx + 1,
                         "skip_list": sorted(self.skip_list)},
                        self._shard_rows(batch))
@@ -310,3 +324,49 @@ def env_skip_list(environ=None) -> list[int]:
     except (ValueError, TypeError):
         log.warning("ignoring unparseable %s=%r", SKIP_ENV, text)
         return []
+
+
+def append_ledger(step: int, cursor: dict | None):
+    """Batch ledger: one JSON line a step, ``{step, epoch, batch_index,
+    skip_list, world, t}``, appended to ``ledger_rank{i}.jsonl`` under
+    ``SPARKDL_BATCH_LEDGER`` (a no-op when unset or without a cursor).
+    The step is ledgered when it has been enqueued, which may precede a
+    divergence found at a later read of the loss; a replayed attempt
+    supersedes it, so an audit takes the last line per step. Append
+    mode: the file survives a kill up to the last step and accumulates
+    across restart attempts (the exactly-once audit needs them all).
+    ``world`` is the gang's size when the batch was drawn; the skip-list
+    in force lets an audit tell a legal remap (a batch quarantined in
+    between) from a replay that diverged."""
+    d = os.environ.get(LEDGER_ENV)
+    if not d or cursor is None:
+        return
+    rank = os.environ.get("SPARKDL_PROCESS_ID", "0")
+    try:
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, f"ledger_rank{rank}.jsonl"), "a") as f:
+            f.write(json.dumps({
+                "step": int(step),
+                "epoch": cursor.get("epoch"),
+                "batch_index": int(cursor.get("batch_index", 0)) - 1,
+                "skip_list": cursor.get("skip_list") or [],
+                "world": int(os.environ.get("SPARKDL_NUM_PROCESSES", "1")),
+                "t": round(time.time(), 3)}) + "\n")
+    except OSError:
+        pass  # a torn-down tmpdir must not kill the train loop
+
+
+def read_ledger(directory: str, rank: int = 0) -> list[dict]:
+    """Parse one rank's batch ledger (torn tail lines skipped)."""
+    path = os.path.join(directory, f"ledger_rank{rank}.jsonl")
+    out = []
+    try:
+        with open(path) as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue  # torn tail line from a killed rank
+    except OSError:
+        pass
+    return out

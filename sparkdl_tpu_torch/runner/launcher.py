@@ -20,7 +20,7 @@ gang is killed, and the captured output rides in the raised
 :class:`GangFailure`, classified retryable or fatal
 (``failures.classify_text``). The supervisor (budgeted restarts,
 heartbeats and the watchdog, the event and metrics directories, the gang
-timeline) and the CLI are ROADMAP.md's Queue A 7.
+timeline) and the CLI are ROADMAP.md's Queue A 7 (b).
 
 This module never touches CUDA: the parent must not take a card from its
 workers.
@@ -282,7 +282,7 @@ def launch(script: str, np: int = 2, args: list[str] | None = None,
     concurrently, so a chatty worker cannot deadlock the poll loop).
     ``heartbeat_dir``, ``watchdog_s`` and ``event_dir`` (the hang
     watchdog and the flight recorder's gang timeline) raise
-    ``NotImplementedError``: they are ROADMAP.md's Queue A 7."""
+    ``NotImplementedError``: they are ROADMAP.md's Queue A 7 (b)."""
     if np < 1:
         raise ValueError(f"np must be >= 1, got {np}")
     for name, value in (("heartbeat_dir", heartbeat_dir),
@@ -291,7 +291,7 @@ def launch(script: str, np: int = 2, args: list[str] | None = None,
         if value is not None:
             raise NotImplementedError(
                 f"launch({name}=...) is not ported to sparkdl_tpu_torch "
-                f"yet (ROADMAP.md, Queue A 7)")
+                f"yet (ROADMAP.md, Queue A 7 (b))")
     status, results, info = _run_gang(script, np, args, env, timeout_s,
                                       coordinator, capture, poll_s)
     if status == "ok":

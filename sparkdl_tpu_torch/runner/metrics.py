@@ -1,21 +1,24 @@
-"""Runner metering: step-time statistics, throughput, MFU and a metrics
-logger.
+"""Runner observability: step-time statistics, throughput, MFU, a
+metrics logger, heartbeats, profiler traces and a debug mode.
 
-The counterpart of ``sparkdl_tpu/runner/metrics.py``, cut to what
-``RunnerContext.fit`` reaches: :class:`StepTimeStats`,
+The counterpart of ``sparkdl_tpu/runner/metrics.py``:
+:class:`StepTimeStats` (and the process-wide ``global_step_stats``),
 :class:`ThroughputMeter` (in a data-parallel gang it counts the gang's
 rows, and its per-chip rate divides by the gang's devices, so it reads
-BASELINE's img/s/chip; its summary carries the telemetry plane's
-``stage_utilization`` block), :class:`MetricsLogger` (the text log; the
-TensorBoard sink is not ported) and :func:`peak_flops_per_chip`, and the
-process-wide failure counters :class:`RunStats` / ``run_stats`` that the
-scoring runner's retries, the streaming scorer's quarantine and the
-checkpoint rollbacks record into. Heartbeats come with the gang
-supervisor (ROADMAP.md, Queue A 7).
+BASELINE's img/s/chip; its summary carries the ``compile_cache``,
+``fault_tolerance`` and ``stage_utilization`` blocks),
+:class:`MetricsLogger` (the text log; the TensorBoard sink is not
+ported), :func:`peak_flops_per_chip`, the process-wide failure counters
+:class:`RunStats` / ``run_stats``, the liveness beacon
+:func:`touch_heartbeat`, ``torch.profiler`` traces
+(:func:`start_profiler_trace` / :func:`stop_profiler_trace` /
+:func:`trace`, one :func:`step_annotation` range a train step) and
+:func:`debug_mode`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -24,7 +27,7 @@ import random
 import time
 from dataclasses import dataclass, field
 
-from . import sentinel, telemetry
+from . import events, sentinel, telemetry
 
 log = logging.getLogger("sparkdl_tpu_torch.runner")
 
@@ -34,10 +37,11 @@ class RunStats:
     ``RunStats``): the restart machinery, the chaos subsystem and the
     scoring runner record here so the emitted metrics carry ``restarts``,
     ``faults_injected``, quarantined rows and dispatch retries next to the
-    throughput numbers. In the port the scoring runner
-    (``record_retry``) and the streaming scorer (``record_quarantine``)
-    record; the restart and checkpoint fields wait for the launcher.
-    Cumulative per process — tests isolate with ``reset()``.
+    throughput numbers: ``run_with_restarts`` records restarts and
+    failures, ``chaos.fire`` injections, the checkpoint manager
+    rollbacks, the scoring runner retries and the streaming scorer
+    quarantined rows. Cumulative per process — tests isolate with
+    ``reset()``.
     """
     restarts: int = 0
     faults_injected: int = 0
@@ -138,6 +142,29 @@ class RunStats:
 run_stats = RunStats()
 
 
+def touch_heartbeat(step: int | None = None):
+    """Per-rank liveness beacon for a hang watchdog.
+
+    ``fit()`` calls this every step; with ``SPARKDL_HEARTBEAT_DIR`` unset
+    it is a no-op. The body is JSON ``{"step": N, "time": <unix>}`` in
+    ``rank{i}.hb`` — the step shows where each rank stopped making
+    progress, the wall clock lines beats up against the event timeline.
+    Written to a tmp file + ``os.replace`` so a reader never sees a torn
+    or empty body.
+    """
+    hb_dir = os.environ.get("SPARKDL_HEARTBEAT_DIR")
+    if not hb_dir:
+        return
+    rank = os.environ.get("SPARKDL_PROCESS_ID", "0")
+    try:
+        os.makedirs(hb_dir, exist_ok=True)
+        events.atomic_write_json(
+            os.path.join(hb_dir, f"rank{rank}.hb"),
+            {"step": step, "time": round(time.time(), 3)})
+    except OSError:  # a torn-down tmpdir must not kill the train loop
+        pass
+
+
 # Dense bf16 tensor-core peak FLOP/s per card by device-name substring:
 # NVIDIA H100 SXM data sheet (989 TFLOP/s bf16 dense, at the 700 W power
 # limit). SPARKDL_PEAK_FLOPS overrides (raw FLOP/s, e.g. "989e12").
@@ -203,6 +230,13 @@ class StepTimeStats:
                          math.ceil(q / 100.0 * len(sorted_sample)) - 1))
         return sorted_sample[idx]
 
+    def percentile(self, q: float) -> float:
+        """Nearest-rank percentile over the sample (exact when the run is
+        shorter than the reservoir)."""
+        if not self._sample:
+            return 0.0
+        return self._nearest_rank(sorted(self._sample), q)
+
     def summary(self) -> dict:
         if not self.count:
             return {}
@@ -215,6 +249,19 @@ class StepTimeStats:
             "p99_s": round(self._nearest_rank(s, 99), 6),
             "max_s": round(self.max_s, 6),
         }
+
+    def reset(self):
+        self._sample = []
+        self._rng = random.Random(0xC0FFEE)
+        self.count = 0
+        self.total_s = 0.0
+        self.max_s = 0.0
+
+
+# Process-wide accumulator (the run_stats pattern): every meter also
+# records here, so a caller can read step-time percentiles of whatever
+# trained in the process without holding the meter.
+global_step_stats = StepTimeStats()
 
 
 @dataclass
@@ -253,6 +300,7 @@ class ThroughputMeter:
         if self._last_t is not None:
             dt = now - self._last_t
             self.step_stats.record(dt)
+            global_step_stats.record(dt)
             sentinel.observe("step_time", dt)
         self._last_t = now
         self._window.append((now, n_examples))
@@ -306,10 +354,41 @@ class ThroughputMeter:
             "n_chips": self.n_chips,
             "step_time": st or None,
             "mfu": round(mfu, 4) if mfu is not None else None,
+            "compile_cache": compile_cache_summary(),
+            "fault_tolerance": fault_tolerance_summary(),
             # The live telemetry plane's per-stage busy fractions and
             # dominant stage; None when the plane is off.
             "stage_utilization": telemetry.stage_utilization_summary(),
         }
+
+
+def fault_tolerance_summary() -> dict | None:
+    """Restart / quarantine / dispatch-retry / checkpoint-rollback
+    counters for ``meter.summary()`` — the degradations a job survived,
+    next to its throughput. None when nothing engaged, so clean runs stay
+    clean."""
+    if not run_stats.degraded():
+        return None
+    snap = run_stats.snapshot()
+    return {k: v for k, v in snap.items()
+            if k in ("restarts", "faults_injected", "rows_quarantined",
+                     "dispatch_retries", "dispatch_giveups",
+                     "checkpoint_rollbacks", "last_rollback",
+                     "train_batches_quarantined", "resizes", "last_resize")
+            and v}
+
+
+def compile_cache_summary() -> dict | None:
+    """Process-wide step-graph visibility for ``meter.summary()``: the
+    signature hits and misses, graph captures and replays of
+    ``core.runtime.GLOBAL_COMPILE_CACHE`` (every miss is a new capture).
+    None when nothing has been recorded, so quiet runs stay quiet. The
+    reference's persistent on-disk compile cache has no counterpart in
+    the port."""
+    from ..core.runtime import GLOBAL_COMPILE_CACHE
+
+    snap = GLOBAL_COMPILE_CACHE.snapshot()
+    return snap if snap["hits"] or snap["misses"] else None
 
 
 class MetricsLogger:
@@ -344,3 +423,99 @@ class MetricsLogger:
 
         _flatten("", summary)
         self.log(step, flat)
+
+
+# -- profiler traces ------------------------------------------------------
+
+_PROFILERS: list = []  # the running (profile, log_dir) pair, at most one
+
+
+def start_profiler_trace(log_dir: str, cuda: bool | None = None):
+    """Start a ``torch.profiler`` trace over the CPU and, when ``cuda``
+    (default: a card is present), CUDA, plus the flight-recorder event
+    linking postmortems to the trace on disk. Pair with
+    :func:`stop_profiler_trace` (or use the :func:`trace` context
+    manager), which writes ``trace_rank{i}.json`` (Chrome format) into
+    ``log_dir``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if _PROFILERS:
+        raise RuntimeError("a profiler trace is already running")
+    if cuda is None:
+        cuda = torch.cuda.is_available()
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    events.event("profile_trace", trace_dir=log_dir)
+    prof.__enter__()
+    _PROFILERS.append((prof, log_dir))
+
+
+def stop_profiler_trace(failed: bool = False):
+    """The one implementation of the guarded profiler stop: stop the
+    running trace and write it. If the traced region already ``failed``,
+    a stop or export error is logged, not raised — a profiling hiccup
+    must never mask the real failure. On a clean region it propagates."""
+    try:
+        if not _PROFILERS:
+            raise RuntimeError("no profiler trace is running")
+        prof, log_dir = _PROFILERS.pop()
+        prof.__exit__(None, None, None)
+        rank = os.environ.get("SPARKDL_PROCESS_ID", "0")
+        prof.export_chrome_trace(os.path.join(log_dir,
+                                              f"trace_rank{rank}.json"))
+    except Exception:
+        if not failed:
+            raise
+        log.warning("profiler stop failed during exception unwind",
+                    exc_info=True)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, cuda: bool | None = None):
+    """Profile a region to a Chrome trace:
+    ``with metrics.trace("prof"): run_steps()``.
+
+    The profiler is closed even when the region raises, without the stop
+    masking the region's own exception (see :func:`stop_profiler_trace`).
+    """
+    start_profiler_trace(log_dir, cuda=cuda)
+    failed = False
+    try:
+        yield
+    except BaseException:
+        failed = True
+        raise
+    finally:
+        stop_profiler_trace(failed)
+
+
+def step_annotation(step: int):
+    """One named range a train step (``train_step#<step>``) so a profiler
+    trace groups the step's operators and kernels by step. Outside a
+    trace the range costs one small host call and records nothing."""
+    import torch
+
+    return torch.profiler.record_function(f"train_step#{step}")
+
+
+@contextlib.contextmanager
+def debug_mode(nans: bool = True):
+    """Numeric sanitizer mode: with ``nans``, autograd's anomaly mode
+    checks every backward function's output for NaN and raises naming
+    the forward operation that made it
+    (``torch.autograd.set_detect_anomaly(True, check_nan=True)``). The
+    reference's ``jax_debug_nans`` traps every operation, forward ones
+    included; this traps the backward's (ROADMAP.md, Queue C 2). The
+    previous mode is restored on exit."""
+    import torch
+
+    prev = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(nans, check_nan=True)
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(*prev)

@@ -3,8 +3,8 @@ traces, export.
 
 The port's copy of ``sparkdl_tpu/runner/telemetry.py``, whole but the
 gang aggregation (``clear_rank_files``, ``aggregate_snapshots``), whose
-reader is the gang supervisor (ROADMAP.md, Queue A 7). Stdlib only, like
-the rest of the runner's observability stack: it imports no torch.
+reader is the gang supervisor (ROADMAP.md, Queue A 7 (b)). Stdlib only,
+like the rest of the runner's observability stack: it imports no torch.
 
 - **Registry** (:class:`MetricsRegistry`): counters, gauges (with
   high-water marks), histograms — the queue-depth / slot-occupancy /

@@ -58,6 +58,7 @@ from . import events
 from . import failures
 from . import metrics as metrics_lib
 from . import sentinel as sentinel_lib
+from . import telemetry as telemetry_lib
 from .checkpoint import CheckpointManager
 from .failures import TrainingDivergedError
 from .train_state import (TrainState, make_eval_step,
@@ -254,6 +255,12 @@ class RunnerContext:
     def make_eval_step(self, eval_fn):
         return make_eval_step(eval_fn)
 
+    def trace(self, log_dir: str):
+        """``with ctx.trace(dir): ...`` — a ``torch.profiler`` trace of
+        the region (``metrics.trace``; CUDA too when the context trains on
+        the card), written to ``dir/trace_rank{i}.json``."""
+        return metrics_lib.trace(log_dir, cuda=self.device.type == "cuda")
+
     def meter(self, warmup_steps: int = 1) -> metrics_lib.ThroughputMeter:
         """Counts global rows over ``n_chips = size``, so its per-chip rate
         is img/s/chip."""
@@ -347,14 +354,40 @@ class RunnerContext:
         workers copy on a stream of their own, so a copy overlaps the
         steps before it.
         ``profile_dir`` writes a ``torch.profiler`` trace of the steps
-        (``trace_rank0.json``, Chrome format) there.
+        (``metrics.start_profiler_trace``: ``trace_rank{i}.json``, Chrome
+        format) there, each step one ``metrics.step_annotation`` range.
 
         Flight-recorded (``runner.events``): ``fit_start``, ``train_resume``,
         per-step ``data_fetch`` / ``shard_put`` / ``step_compute`` spans,
-        ``checkpoint_save`` / ``checkpoint_restore`` and ``eval`` spans and
-        ``fit_end`` with the meter's summary. The crash postmortem the
-        reference writes on a failure comes with ``events.postmortem``
-        (ROADMAP.md, Queue A 7)."""
+        ``compile`` (the first step's wall time: allocation, autotuning,
+        the first launches), ``checkpoint_save`` / ``checkpoint_restore``
+        and ``eval`` spans and ``fit_end`` with the meter's summary. The
+        env-armed layers start here: the telemetry plane
+        (``SPARKDL_METRICS_DIR`` / ``SPARKDL_METRICS_PORT``, its snapshot
+        flushed at the end and on a failure) and the sentinel
+        (``SPARKDL_SENTINEL``). After each step call ``fit`` beats the
+        heartbeat (``metrics.touch_heartbeat``, ``SPARKDL_HEARTBEAT_DIR``)
+        and, with a dataset, appends the step's batch to the ledger
+        (``data.append_ledger``, ``SPARKDL_BATCH_LEDGER``). The step call
+        returns once the step is enqueued on the card, so the beat and
+        the ledger line say the step was enqueued, not finished; neither
+        waits for the device. The beat comes after the call, not before
+        it: the first call holds the first step's set-up, which a
+        watchdog armed by an earlier beat would read as a hang.
+
+        Chaos sites (``runner.chaos``): ``step_start`` at the top of each
+        step and ``batch_fetch`` on each drawn batch (its step is the
+        train step the batch feeds).
+
+        On any failure the ring's tail and the exception are flushed as a
+        crash postmortem (``events.postmortem``, site ``fit`` or
+        ``fit_finalize``) naming the step and, where it is exact, the
+        batch: a failure while drawing names the batch being drawn (the
+        dataset tags the exception), one in a step names that step's
+        batch, and a divergence found at a ``log_every`` > 1 read names
+        none (the batch that made the NaN lies anywhere in the window).
+        The exception is marked ``_sparkdl_postmortemed`` so
+        ``run_with_restarts`` does not overwrite the record."""
         if log_every < 1:
             raise ValueError(f"log_every must be >= 1, got {log_every}")
         state = TrainState.create(model, tx)
@@ -390,6 +423,7 @@ class RunnerContext:
         meter = self.meter()
         meter.flops_per_step = flops_per_step
         logger = metrics_lib.MetricsLogger()
+        telemetry_lib.maybe_start_from_env()
         sentinel_lib.maybe_arm_from_env()
         events.event("fit_start", start_step=start_step,
                      num_steps=num_steps, n_chips=self.size,
@@ -412,26 +446,43 @@ class RunnerContext:
 
         staged_it = _staged(self, data_it, _crop, num_steps - start_step,
                             start_step, int(feed_lookahead))
-        prof = _start_profiler(profile_dir, self.device)
+        if profile_dir:
+            metrics_lib.start_profiler_trace(
+                profile_dir, cuda=self.device.type == "cuda")
         ckpt = self.checkpoints
         last_m = None
+        i = start_step
+        # cur_cursor names the batch of the step in flight (the
+        # postmortem's attribution), last_cursor the one the last
+        # completed step consumed (what the checkpoint keeps)
+        cur_cursor: dict | None = None
         last_cursor: dict | None = None
         failed = False
         try:
             for i in range(start_step, num_steps):
+                # cleared before anything this step can raise (the
+                # step_start hook included), so a failure before the draw
+                # never names the previous step's batch
+                cur_cursor = None
                 chaos.fire("step_start", step=i)
                 try:
-                    n_local, dev_batch, cur = next(staged_it)
+                    n_local, dev_batch, cur_cursor = next(staged_it)
                 except StopIteration:
                     break
                 # checked here, on the loop's thread: a lookahead stages
                 # from worker threads, and collectives must keep one order
                 self._check_rows(n_local)
                 n = n_local * self.size  # the gang's rows this step
-                with events.span("step_compute", step=i):
+                with metrics_lib.step_annotation(i), \
+                        events.span("step_compute", step=i) as sp:
                     state, m = step_fn(state, dev_batch)
-                if cur is not None:
-                    last_cursor = cur
+                if i == start_step:
+                    events.event("compile", step=i,
+                                 dur_s=round(sp.seconds, 6))
+                metrics_lib.touch_heartbeat(i)
+                if cur_cursor is not None:
+                    last_cursor = cur_cursor
+                    data_lib.append_ledger(i, cur_cursor)
                 if (i + 1) % log_every == 0 or i + 1 == num_steps:
                     m = {k: float(v) for k, v in m.items()}
                     _assert_finite_loss(m, i + 1)
@@ -455,6 +506,29 @@ class RunnerContext:
                         evm = _run_eval(eval_step, state, eval_data,
                                         self)
                     logger.log(i + 1, {f"eval_{k}": v for k, v in evm.items()})
+        except BaseException as e:
+            failed = True
+            bi = getattr(e, "_sparkdl_batch_index", None)
+            ep = getattr(e, "_sparkdl_batch_epoch", None)
+            if bi is None and cur_cursor is not None and not (
+                    isinstance(e, TrainingDivergedError)
+                    and log_every != 1):
+                bi = cur_cursor["batch_index"] - 1
+                ep = cur_cursor.get("epoch")
+            events.postmortem(e, site="fit", step=i, batch_index=bi,
+                              epoch=ep)
+            # the dying run's last telemetry snapshot is failure evidence
+            # too (which stage was starving); a no-op when disarmed
+            telemetry_lib.flush_snapshot()
+            _mark_postmortemed(e)
+            raise
+        finally:
+            staged_it.close()
+            if profile_dir:
+                metrics_lib.stop_profiler_trace(failed)
+            if failed:
+                self._close_checkpoints()
+        try:
             if ckpt:
                 # the final save waits; a step the loop just saved is not
                 # written twice
@@ -463,18 +537,17 @@ class RunnerContext:
                 if ckpt.latest_step() != state.step:  # waits for the writer
                     ckpt.save(state.step, state, wait=True,
                               data_cursor=last_cursor)
-        except BaseException:
-            failed = True
+        except BaseException as e:
+            events.postmortem(e, site="fit_finalize", step=i)
+            _mark_postmortemed(e)
+            self._close_checkpoints()
             raise
-        finally:
-            staged_it.close()
-            _stop_profiler(prof, profile_dir, failed)
-            if failed:
-                self._close_checkpoints()
         summary = meter.summary()
         logger.log_summary(state.step, summary)
         events.event("fit_end", final_step=state.step, steps=meter.steps,
                      mfu=summary.get("mfu"))
+        # exact at the boundary, not one export interval stale
+        telemetry_lib.flush_snapshot()
         return {"state": state, "meter": meter, "history": history}
 
 
@@ -526,6 +599,8 @@ def _staged(ctx: RunnerContext, data_it, crop, limit: int, start_step: int,
             batch = crop(batch)
             if batch is None:
                 continue
+            batch = chaos.fire("batch_fetch", step=start_step + produced,
+                               batch=batch)
             produced += 1
             yield cur, batch
 
@@ -549,37 +624,13 @@ def _staged(ctx: RunnerContext, data_it, crop, limit: int, start_step: int,
         pool.shutdown(wait=False, cancel_futures=True)
 
 
-def _start_profiler(profile_dir: str | None, device: torch.device):
-    """A running ``torch.profiler`` over the CPU and, on the card, CUDA
-    (None without ``profile_dir``)."""
-    if not profile_dir:
-        return None
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(profile_dir, exist_ok=True)
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.__enter__()
-    events.event("profile_trace", dir=os.path.abspath(profile_dir))
-    return prof
-
-
-def _stop_profiler(prof, profile_dir: str | None, failed: bool) -> None:
-    """Stop the trace and write it; while a failure unwinds, a stop that
-    fails is logged and does not replace the training error."""
-    if prof is None:
-        return
+def _mark_postmortemed(e: BaseException) -> None:
+    """Mark ``e`` as already postmortemed by ``fit`` (with its step), so
+    ``run_with_restarts`` does not overwrite the record."""
     try:
-        prof.__exit__(None, None, None)
-        prof.export_chrome_trace(os.path.join(profile_dir,
-                                              "trace_rank0.json"))
+        e._sparkdl_postmortemed = True
     except Exception:
-        if not failed:
-            raise
-        log.warning("profiler stop failed during exception unwind",
-                    exc_info=True)
+        pass  # exceptions with __slots__: the outer record is step-less
 
 
 def _map(fn, tree):
@@ -684,7 +735,9 @@ class XlaRunner:
 
     def run(self, main_fn: Callable, **kwargs) -> Any:
         """Invoke ``main_fn(ctx, **kwargs)`` with a fresh context (the
-        current one, for ``runner.api``, while it runs)."""
+        current one, for ``runner.api``, while it runs). The ``worker``
+        chaos site fires first."""
+        chaos.fire("worker")
         ctx = self.make_context()
         _CURRENT_CONTEXT.append(ctx)
         try:
@@ -705,9 +758,9 @@ class XlaRunner:
         restart; program errors (``ValueError`` and the like, a diverged
         loss, a CUDA out-of-memory) re-raise at once. ``retry_all=True``
         retries everything. Attempt ``k`` waits ``backoff_s·k`` seconds
-        first. The crash postmortem the reference writes before
-        re-raising comes with ``events.postmortem`` (ROADMAP.md, Queue
-        A 7)."""
+        first. A failure it re-raises gets a crash postmortem (site
+        ``run_with_restarts``) unless ``fit`` already wrote one naming
+        its step."""
         attempt = 0
         while True:
             try:
@@ -719,6 +772,9 @@ class XlaRunner:
                 attempt += 1
                 if (kind == "fatal" and not retry_all) \
                         or attempt > max_restarts:
+                    if not getattr(e, "_sparkdl_postmortemed", False):
+                        events.postmortem(e, site="run_with_restarts",
+                                          kind=kind, attempt=attempt)
                     raise
                 metrics_lib.run_stats.record_restart()
                 events.event("restart", attempt=attempt, kind=kind,

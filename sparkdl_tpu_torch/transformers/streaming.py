@@ -265,6 +265,9 @@ class StreamScorer:
         from concurrent.futures import ThreadPoolExecutor
         ev = _events()
         tel = _telemetry()
+        # env-armed (SPARKDL_METRICS_DIR / SPARKDL_METRICS_PORT); two dict
+        # lookups and the plane stays off when neither is set
+        tel.maybe_start_from_env()
         pending_gauge = backlog_gauge = None
         if tel.enabled():
             # Live queue-depth gauges: `pending` = partitions

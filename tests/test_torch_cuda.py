@@ -1599,3 +1599,72 @@ def test_fleet_on_card_matches_cpu_fleet(dev, drive):
             assert all(e.backend.graphs.snapshot()["captures"] == 1
                        for e in engines)
     assert out["card"] == out["cpu"]
+
+
+@pytest.mark.parametrize("lookahead", [0, 2])
+def test_fit_on_card_postmortem_names_the_nan_batch(dev, tmp_path,
+                                                    monkeypatch, lookahead):
+    """A ``fit`` on the card with the flight recorder streaming, the
+    heartbeat and the ledger on, and a ``batch_fetch nan`` plan at step
+    2: the batch reaches the step NaN on the card (inline and through the
+    pinned side-stream feed), the divergence guard raises
+    ``TrainingDivergedError`` (fatal: ``run_with_restarts`` does not
+    retry), and the postmortem names step 2 and batch 2."""
+    import json
+
+    from sparkdl_tpu_torch.runner import (Fault, FaultPlan,
+                                          TrainingDivergedError, XlaRunner,
+                                          chaos, events, sgd,
+                                          softmax_cross_entropy_loss)
+
+    for k, sub in (("SPARKDL_EVENT_DIR", "ev"), ("SPARKDL_HEARTBEAT_DIR",
+                                                  "hb"),
+                   ("SPARKDL_BATCH_LEDGER", "led")):
+        monkeypatch.setenv(k, str(tmp_path / sub))
+    monkeypatch.setenv("SPARKDL_PROCESS_ID", "0")
+    events.reset()
+    rng = np.random.default_rng(3)
+    data = [{"image": rng.standard_normal((64, 32)).astype(np.float32),
+             "label": rng.integers(0, 10, 64)} for _ in range(6)]
+    seen = []
+    loss = softmax_cross_entropy_loss()
+
+    def spy(model, batch):
+        seen.append(batch["image"])
+        return loss(model, batch)
+
+    attempts = []
+
+    def main(ctx):
+        attempts.append(1)
+        model = torch.nn.Linear(32, 10).to(ctx.device)
+        return ctx.fit(loss_fn=spy, model=model, tx=sgd(0.1), data=data,
+                       num_steps=6, log_every=1, feed_lookahead=lookahead)
+
+    chaos.install(FaultPlan([Fault("batch_fetch", "nan", at_step=2)]))
+    try:
+        with pytest.raises(TrainingDivergedError) as ei:
+            XlaRunner(np=1).run_with_restarts(main, max_restarts=2,
+                                              backoff_s=0.0)
+    finally:
+        chaos.uninstall()
+        events.get_recorder().close()
+    assert ei.value.step == 3 and attempts == [1]
+    assert len(seen) == 3
+    assert all(t.device.type == "cuda" for t in seen)
+    assert torch.isnan(seen[2]).all().item()
+    assert not torch.isnan(seen[1]).any().item()
+    pm = json.loads((tmp_path / "ev" / "postmortem_rank0.json").read_text())
+    assert (pm["site"], pm["step"], pm["batch_index"], pm["epoch"]) == \
+        ("fit", 2, 2, 0)
+    assert pm["error"]["type"] == "TrainingDivergedError"
+    hb = json.loads((tmp_path / "hb" / "rank0.hb").read_text())
+    assert hb["step"] == 2
+    text = (tmp_path / "led" / "ledger_rank0.jsonl").read_text()
+    led = [json.loads(ln) for ln in text.splitlines()]
+    assert [(e["step"], e["batch_index"]) for e in led] == \
+        [(0, 0), (1, 1), (2, 2)]
+    tl = events.merge_timeline(str(tmp_path / "ev"),
+                               heartbeat_dir=str(tmp_path / "hb"))
+    assert tl["first_failure"]["site"] == "batch_fetch"
+    assert tl["first_failure"]["step"] == 2
