@@ -429,12 +429,58 @@ p. The flight recorder and data plane (``runner/events.py``,
    A ``summary`` line: the phase's seconds and the memory allocated on
    the card before and after it, which must come back to what it was.
 
+q. The gang supervisor (``runner/launcher.py::supervise``): each arm a
+   one-rank NCCL gang of this script as its worker (``chip_smoke.py
+   --sup-worker <dir> <arm>``) under ``launcher.supervise(...,
+   capture=True)`` with a chaos ``FaultPlan``, ``max_restarts=1``,
+   ``poll_s=SUP_POLL_S``; the parent frees its cached memory before each
+   gang and only supervises (its launcher imports no torch). The worker
+   joins through ``XlaRunner(checkpoint_dir=)`` and runs ``fit(resume=True,
+   log_every=1)``; a tee on its flight recorder writes the times of its
+   start-up, the restore and each loss call, and at the chaos event the
+   fault's time (and the wrappers' counts) before the fault acts. One
+   ``{"phase": "supervise"}`` line an arm:
+   - ``sup_resnet_kill``: BASELINE config 3, phase p's bf16 ResNet-50 at
+     full width and depth, 256 a batch at 224², SUP_RESNET_STEPS seeded
+     wire batches (made once, in ``wire.npz``), ``checkpoint_every=
+     SUP_RESNET_CKPT_EVERY``, cuDNN deterministic; a ``step_start
+     sigkill`` at SUP_RESNET_FAULT_AT. ``detect_s`` (the kill to the
+     supervisor's failure record), the relaunch to the first resumed step
+     in a new process split into interpreter and ``import torch``, the
+     CUDA context, NCCL's communicator, the model's build, the restore
+     and the first step; the resume at the newest manifest committed
+     when the kill struck; the batch ledger exactly once over the steps,
+     the replayed steps named; the final parameters and BatchNorm
+     statistics **bitwise** those of a clean ``launch`` of the same
+     worker;
+   - ``sup_resnet_hang``: the same worker with a ``hang`` at
+     SUP_RESNET_FAULT_AT under ``watchdog_s=SUP_WATCHDOG_S``: the beat's
+     age when the watchdog tripped (at most ``watchdog_s`` + 2 polls),
+     the step the ``GangFailure`` names, the gang timeline's first
+     failure and that the gang postmortem was written; then the relaunch
+     and the same bitwise check;
+   - ``sup_bert_kill``: BASELINE config 4, phase h's BERT-base at full
+     width and depth, 32 × 128, ``fit(with_rng=True)`` for SUP_BERT_STEPS
+     steps, ``checkpoint_every=SUP_BERT_CKPT_EVERY``, a ``sigkill`` at
+     SUP_BERT_KILL_AT: the flash forward and backward launches of each
+     attempt and of a clean run (12 a step each; the killed attempt's
+     read at the kill), the kernel library's load time in each process
+     (no ``nvcc`` after phase a), the relaunch split, and the resumed
+     losses **bitwise** the clean gang's.
+   The clean runs (a ``launch`` of each worker with no plan) go first,
+   both at once. Elastic resizing is not shown on one card (NCCL refuses
+   two ranks on it): it is held on the CPU with gloo
+   (``tests/test_torch_supervise*``).
+   A ``summary`` line gives the phase's seconds.
+
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
 entries add their BERT case and phase h's launches, phase m's gang
-launches and phase p's, ``phase_p_launches``; the three forward kernels
-add phase n's and phase o's launches leg by leg, ``phase_n_launches`` and
-``phase_o_launches``) and, last,
+launches, phase p's, ``phase_p_launches``, and phase q's
+``sup_bert_kill`` attempts, ``phase_q_launches``; the three forward
+kernels add phase n's and phase o's launches leg by leg,
+``phase_n_launches`` and ``phase_o_launches``; paged_flash_decode adds
+its llama3_8b 32:8 S = 5 verify window, ``llama3_8b_s5_case``) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
@@ -443,6 +489,7 @@ nothing of JAX, and no pyarrow or pandas.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -1227,8 +1274,11 @@ def phase_kernels(torch, fa, fd, pfd) -> dict:
                 if main_case:
                     main["paged_flash_decode"] = rec
         for s_q in (1, 5):  # phase n's llama3_8b: 4 query rows a KV head
-            paged_case(torch, pfd, flush, name=f"llama3_8b_gqa_paged_s{s_q}",
-                       dtype=dtype, kv="same", s_q=s_q, hq=32)
+            rec = paged_case(torch, pfd, flush,
+                             name=f"llama3_8b_gqa_paged_s{s_q}",
+                             dtype=dtype, kv="same", s_q=s_q, hq=32)
+            if dtype == "bfloat16" and s_q == 5:  # its verify window
+                main["paged_llama3_8b_s5"] = rec
     for dtype in ("bfloat16", "float32"):  # phase g's shape, and ragged
         rec = bwd_case(torch, fa, flush, name="train", b=TRAIN_BATCH, h=32,
                        s=TRAIN_SEQ, d=128, causal=True, pads=None,
@@ -4959,6 +5009,467 @@ def phase_flight_recorder(torch, kernels) -> dict:
     return dict(resnet_chaos=resnet, lora_recorder=lora)
 
 
+# phase q: the gang supervisor (``launcher.supervise``) over a one-rank
+# NCCL gang. ResNet-50 (config 3): phase p's 12 batches, a checkpoint
+# every 4 steps, a SIGKILL or a hang at step 6; BERT-base (config 4):
+# phase h's first 8 batches, a checkpoint every 2 steps, a SIGKILL at step
+# 5. The watchdog's limit lies far above the longest gap between two
+# beats (the first step of a new process pays cuDNN's plans, a step that
+# saves a ResNet-50 checkpoint 0.6 s on an NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md §6); a hang is found within the limit and two polls.
+SUP_RESNET_STEPS, SUP_RESNET_CKPT_EVERY, SUP_RESNET_FAULT_AT = 12, 4, 6
+SUP_BERT_STEPS, SUP_BERT_CKPT_EVERY, SUP_BERT_KILL_AT = 8, 2, 5
+SUP_WATCHDOG_S, SUP_POLL_S, SUP_BACKOFF_S = 10.0, 0.5, 0.1
+SUP_TIMEOUT_S = 600.0
+
+
+def sup_worker(out_dir: str, arm: str, t_torch: float) -> int:
+    """Phase q's gang worker (``chip_smoke.py --sup-worker <dir> <arm>``,
+    started by ``launcher.supervise`` or ``launcher.launch``): joins a
+    one-rank NCCL gang through ``XlaRunner(checkpoint_dir=<dir>/ckpt)``
+    and runs ``arm``'s fit (``resnet``: phase p's ResNet-50 recipe over
+    the seeded wire batches in ``<dir>/../wire.npz``; ``bert``: phase h's),
+    resuming from the directory.
+    A tee on the flight recorder keeps the times of its start-up, the
+    restore, the resume and each loss call; at a chaos event (the plan's
+    SIGKILL or hang, from ``SPARKDL_CHAOS``) it writes them, with the
+    wrappers' launch counts, to ``<dir>/fault_<pid>.json`` before the
+    fault acts. A fit that ends writes ``<dir>/attempt_<pid>.json`` and,
+    for ``resnet``, the final state to ``<dir>/state.pt``. ``t_torch``:
+    the wall time ``import torch`` returned."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sparkdl_tpu_torch.runner import XlaRunner, adam, events, sgd
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # one algorithm choice in every process: the relaunch is held bitwise
+    # against a clean run in another process
+    torch.backends.cudnn.deterministic = True
+    pid = os.getpid()
+    rec = dict(arm=arm, pid=pid, t_torch=t_torch, stamps=[])
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    rec["t_cuda"] = time.time()
+    ckpt = os.path.join(out_dir, "ckpt")
+    runner = XlaRunner(checkpoint_dir=ckpt)
+    assert runner.gang is not None and runner.gang.backend == "nccl"
+    dist.all_reduce(torch.zeros(1, device=runner.device))  # NCCL's comm
+    torch.cuda.synchronize()
+    rec["t_nccl"] = time.time()
+    committed = [int(os.path.basename(p)[len("manifest_step_"):-5])
+                 for p in glob.glob(os.path.join(ckpt, "manifest_step_*"
+                                                 ".json"))]
+    rec["committed_at_start"] = max(committed) if committed else None
+    # the first optimizer a process builds imports torch._dynamo, seconds
+    # of every relaunch (PERF.md §6) that an in-process restart
+    # never pays again: imported here on its own, so the split names it
+    import torch._dynamo  # noqa: F401
+    rec["t_dynamo"] = time.time()
+    kernels = ()
+    if arm == "bert":
+        from sparkdl_tpu_torch.ops import _build
+        from sparkdl_tpu_torch.ops import flash_attention as fa
+        from sparkdl_tpu_torch.ops import flash_decode as fd
+        from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
+
+        t0 = time.time()
+        _build.library()
+        rec["kernel_library_load_s"] = time.time() - t0
+        rec["nvcc_ran"] = not _build.build_info.get("cached", False)
+        kernels = (fa, fd, pfd)
+
+    def write(name: str) -> None:
+        with open(os.path.join(out_dir, f"{name}_{pid}.json"), "w") as f:
+            json.dump(rec, f)
+
+    def tee(e: dict) -> None:
+        name = e.get("name")
+        if name == "train_resume":
+            rec["resume"] = dict(t=e["t"], step=e["step"])
+        elif name == "checkpoint_restore" and e.get("ph") == "E":
+            rec["restore_s"] = e["dur_s"]
+        elif name == "chaos":
+            rec["fault"] = dict(t=time.time(), kind=e.get("kind"),
+                                step=e.get("step"))
+            if kernels:
+                rec["launches"] = read_counts(*kernels)
+            write("fault")
+
+    events.add_tee(tee)
+
+    def stamped(loss_fn):
+        def loss(m, batch, **kw):
+            rec["stamps"].append(time.time())
+            return loss_fn(m, batch, **kw)
+        return loss
+
+    if arm == "resnet":
+        from sparkdl_tpu_torch.models.registry import get_model
+        from sparkdl_tpu_torch.runner import ListDataset, bn_classifier_loss
+
+        spec = get_model("ResNet50")
+        with np.load(Path(out_dir).parent / "wire.npz") as wire:
+            images, labels = wire["image"], wire["label"]
+        batches = [{"image": images[i], "label": labels[i]}
+                   for i in range(SUP_RESNET_STEPS)]
+        model = spec.build(dtype=torch.bfloat16, num_classes=1000, seed=0,
+                           device=runner.device)
+        loss_fn = stamped(bn_classifier_loss(
+            preprocess=resnet_preprocess(spec)))
+        fit_kw = dict(tx=sgd(RESNET_LR, momentum=0.9),
+                      data=ListDataset(batches), num_steps=SUP_RESNET_STEPS,
+                      mutable=True, checkpoint_every=SUP_RESNET_CKPT_EVERY)
+    else:
+        from sparkdl_tpu_torch.models import bert as B
+        from sparkdl_tpu_torch.runner.data import FactoryDataset
+
+        cfg = B.BertConfig.base()
+        batches = [glue_batch(i, cfg.vocab_size)
+                   for i in range(SUP_BERT_STEPS)]
+        model = B.BertForSequenceClassification(
+            cfg, num_classes=2, dtype=torch.bfloat16, device=runner.device,
+            generator=torch.Generator(device=runner.device).manual_seed(0))
+        loss_fn = stamped(B.bert_finetune_loss(model))
+        fit_kw = dict(tx=adam(GLUE_LR),
+                      data=FactoryDataset(lambda: iter(batches)),
+                      num_steps=SUP_BERT_STEPS, with_rng=True,
+                      checkpoint_every=SUP_BERT_CKPT_EVERY)
+    torch.cuda.synchronize()
+    rec["t_model"] = time.time()
+    if kernels:
+        reset_counts(*kernels)
+    res = runner.run(lambda ctx: ctx.fit(loss_fn=loss_fn, model=model,
+                                         log_every=1, **fit_kw))
+    torch.cuda.synchronize()
+    rec["t_end"] = time.time()
+    if kernels:
+        rec["launches"] = read_counts(*kernels)
+        rec["bwd_variant_launches"] = dict(
+            kernels[0].flash_attention_bwd.variant_launches)
+    rec["losses"] = [h["loss"] for h in res["history"]]
+    rec["final_step"] = int(res["state"].step)
+    rec["steps_run"] = res["meter"].steps
+    if arm == "resnet":
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()},
+                   os.path.join(out_dir, "state.pt"))
+    write("attempt")
+    leave_gang()
+    return 0
+
+
+class SupervisorWatch(logging.Handler):
+    """A handler on the port's runner logger, for one ``supervise`` call
+    (``with SupervisorWatch(event_dir) as watch``): the wall time and
+    text of each ``supervise: gang attempt N failed`` record, and the
+    merged gang timeline in ``event_dir`` as it stands at that moment
+    (the next attempt clears it)."""
+
+    def __init__(self, event_dir: str):
+        super().__init__(logging.WARNING)
+        self.event_dir = Path(event_dir)
+        self.failures: list = []
+        self.logger = logging.getLogger("sparkdl_tpu_torch.runner")
+
+    def emit(self, record) -> None:
+        msg = record.getMessage()
+        if not msg.startswith("supervise: gang attempt"):
+            return
+        path = self.event_dir / "gang_timeline.json"
+        self.failures.append(dict(
+            t=record.created, message=msg,
+            timeline=json.loads(path.read_text()) if path.exists()
+            else None))
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def _sup_records(d: str) -> tuple:
+    """(fault records, attempt records) the workers wrote in ``d``, each
+    in the order of its time."""
+    import glob
+
+    def read(kind):
+        out = []
+        for p in glob.glob(str(Path(d) / f"{kind}_*.json")):
+            with open(p) as f:
+                out.append(json.load(f))
+        return sorted(out, key=lambda r: r["t_cuda"])
+
+    return read("fault"), read("attempt")
+
+
+def _attempt_spans(event_dir: str) -> list:
+    """The supervisor's ``gang_attempt`` spans (the manifest of
+    ``event_dir``), in order: each has the wall time just before that
+    attempt's spawn."""
+    with open(Path(event_dir) / "trace_manifest.json") as f:
+        spans = json.load(f)["spans"]
+    return [s for s in spans if s["name"] == "gang_attempt"]
+
+
+def relaunch_split(spawn_t: float, a: dict) -> dict:
+    """A relaunched process's way from the supervisor's spawn to the end
+    of its first resumed step (the second loss call: with
+    ``log_every=1`` a step ends in the read of its loss), seconds."""
+    first_end = a["stamps"][1]
+    return dict(
+        relaunch_to_first_resumed_step_s=first_end - spawn_t,
+        interpreter_and_import_torch_s=a["t_torch"] - spawn_t,
+        cuda_init_s=a["t_cuda"] - a["t_torch"],
+        nccl_init_s=a["t_nccl"] - a["t_cuda"],
+        import_torch_dynamo_s=a["t_dynamo"] - a["t_nccl"],
+        model_build_s=a["t_model"] - a["t_dynamo"],
+        # fit's start to its resume: the manifest's CRC check, the load
+        # (``restore_s``, the ``checkpoint_restore`` span) and the cursor
+        fit_start_to_resume_s=a["resume"]["t"] - a["t_model"],
+        restore_s=a.get("restore_s"),
+        first_resumed_step_s=first_end - a["resume"]["t"])
+
+
+def sup_resnet(torch, root: str, arm: str, clean_state: dict) -> dict:
+    """Phase q, ``sup_resnet_kill`` / ``sup_resnet_hang`` (module
+    docstring): ``supervise`` of the ResNet-50 worker with a chaos plan;
+    the detection, the relaunch split, the ledger and the final state
+    bitwise ``clean_state``."""
+    import gc
+    import os
+
+    from sparkdl_tpu_torch.runner import Fault, FaultPlan, launcher
+    from sparkdl_tpu_torch.runner.data import read_ledger
+
+    d = os.path.join(root, arm)
+    os.makedirs(d)
+    ev, ledger = os.path.join(d, "events"), os.path.join(d, "ledger")
+    kind = "hang" if arm.endswith("hang") else "sigkill"
+    plan = FaultPlan([Fault("step_start", kind,
+                            at_step=SUP_RESNET_FAULT_AT)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with SupervisorWatch(ev) as watch:
+        res = launcher.supervise(
+            str(ROOT / "chip_smoke.py"), np=1,
+            args=["--sup-worker", d, "resnet"],
+            env={"SPARKDL_BATCH_LEDGER": ledger}, plan=plan,
+            max_restarts=1, backoff_s=SUP_BACKOFF_S, poll_s=SUP_POLL_S,
+            timeout_s=SUP_TIMEOUT_S, event_dir=ev, capture=True,
+            watchdog_s=SUP_WATCHDOG_S if kind == "hang" else None)
+    wall_s = time.perf_counter() - t0
+    faults, attempts = _sup_records(d)
+    spans = _attempt_spans(ev)
+    assert res.restarts == 1 and res.failure_kinds == ["retryable"], (
+        res.failure_kinds)
+    assert len(faults) == 1 and len(attempts) == 1 and len(spans) == 2, (
+        faults, attempts, spans)
+    fault, relaunch = faults[0], attempts[0]
+    (failure,) = watch.failures
+    assert fault["fault"]["kind"] == kind
+    assert fault["fault"]["step"] == SUP_RESNET_FAULT_AT
+    # the resume is the newest committed manifest when the fault struck
+    committed = fault["committed_at_start"], relaunch["committed_at_start"]
+    assert committed[0] is None, committed
+    assert relaunch["resume"]["step"] == committed[1] == \
+        SUP_RESNET_FAULT_AT // SUP_RESNET_CKPT_EVERY * SUP_RESNET_CKPT_EVERY
+    resumed_at = relaunch["resume"]["step"]
+    assert relaunch["final_step"] == SUP_RESNET_STEPS
+    assert relaunch["steps_run"] == SUP_RESNET_STEPS - resumed_at
+    led = [(e["step"], e["batch_index"]) for e in read_ledger(ledger)]
+    assert led == [(i, i) for i in range(SUP_RESNET_FAULT_AT)] + \
+        [(i, i) for i in range(resumed_at, SUP_RESNET_STEPS)], led
+    last = dict(led)
+    exactly_once = sorted(last.items()) == [(i, i) for i in range(
+        SUP_RESNET_STEPS)]
+    assert exactly_once
+    state = torch.load(os.path.join(d, "state.pt"))
+    differ = [k for k, v in state.items()
+              if not torch.equal(v, clean_state[k])]
+    rec = dict(
+        phase="supervise", arm=arm,
+        config="BASELINE config 3: ResNet50 bf16, 256 a batch at 224², "
+               "np=1 NCCL gang under launcher.supervise",
+        fault=f"step_start {kind} at step {SUP_RESNET_FAULT_AT}",
+        steps=SUP_RESNET_STEPS, checkpoint_every=SUP_RESNET_CKPT_EVERY,
+        poll_s=SUP_POLL_S, restarts=res.restarts,
+        failure_kinds=res.failure_kinds,
+        degradations=sorted({x.get("name") for x in res.degradations}),
+        committed_at_fault=committed[1], resumed_at=resumed_at,
+        ledger_exactly_once=exactly_once, ledger_lines=len(led),
+        replayed_steps=list(range(resumed_at, SUP_RESNET_FAULT_AT)),
+        state_tensors=len(state), state_bitwise_equal_clean=not differ,
+        state_differs=differ[:8],
+        **relaunch_split(spans[1]["t"], relaunch),
+        first_attempt_spawn_to_fault_s=fault["fault"]["t"] - spans[0]["t"],
+        supervise_wall_s=wall_s, nvidia_smi=smi())
+    if kind == "sigkill":
+        rec["detect_s"] = failure["t"] - fault["fault"]["t"]
+    else:
+        import re
+
+        m = re.search(r"last beat ([0-9.]+)s ago \(at step (\d+)\)",
+                      failure["message"])
+        assert m, failure["message"][:400]
+        tl = failure["timeline"]
+        ff = (tl or {}).get("first_failure") or {}
+        rec.update(watchdog_s=SUP_WATCHDOG_S,
+                   watchdog_age_at_detect_s=float(m.group(1)),
+                   watchdog_named_step=int(m.group(2)),
+                   hang_to_detect_s=failure["t"] - fault["fault"]["t"],
+                   timeline_first_failure=dict(
+                       site=ff.get("site"), step=ff.get("step"),
+                       error=ff.get("error")),
+                   gang_postmortem_written=tl is not None)
+    emit(rec)
+    assert not differ, rec
+    if kind == "hang":
+        assert rec["watchdog_age_at_detect_s"] <= \
+            SUP_WATCHDOG_S + 2 * SUP_POLL_S, rec
+        assert rec["watchdog_named_step"] == SUP_RESNET_FAULT_AT - 1, rec
+        assert rec["gang_postmortem_written"], rec
+        assert (ff.get("site"), ff.get("step")) == \
+            ("step_start", SUP_RESNET_FAULT_AT), rec
+    return rec
+
+
+def sup_bert(torch, root: str) -> dict:
+    """Phase q, ``sup_bert_kill`` (module docstring), against the clean
+    run already in ``root/sup_bert_clean``."""
+    import gc
+    import os
+
+    from sparkdl_tpu_torch.runner import Fault, FaultPlan, launcher
+
+    d, clean_d = os.path.join(root, "sup_bert_kill"), \
+        os.path.join(root, "sup_bert_clean")
+    ev = os.path.join(d, "events")
+    os.makedirs(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with SupervisorWatch(ev) as watch:
+        res = launcher.supervise(
+            str(ROOT / "chip_smoke.py"), np=1,
+            args=["--sup-worker", d, "bert"],
+            plan=FaultPlan([Fault("step_start", "sigkill",
+                                  at_step=SUP_BERT_KILL_AT)]),
+            max_restarts=1, backoff_s=SUP_BACKOFF_S, poll_s=SUP_POLL_S,
+            timeout_s=SUP_TIMEOUT_S, event_dir=ev, capture=True)
+    wall_s = time.perf_counter() - t0
+    faults, attempts = _sup_records(d)
+    _, (clean,) = _sup_records(clean_d)
+    spans = _attempt_spans(ev)
+    assert res.restarts == 1 and res.failure_kinds == ["retryable"], (
+        res.failure_kinds)
+    (fault,), (relaunch,), (failure,) = faults, attempts, watch.failures
+    resumed_at = relaunch["resume"]["step"]
+    assert resumed_at == relaunch["committed_at_start"] == \
+        SUP_BERT_KILL_AT // SUP_BERT_CKPT_EVERY * SUP_BERT_CKPT_EVERY
+    nl = 12  # BertConfig.base()'s layers
+    launches = {"attempt1_killed": fault["launches"],
+                "attempt2_relaunch": relaunch["launches"],
+                "clean": clean["launches"]}
+    want = {"attempt1_killed": SUP_BERT_KILL_AT,
+            "attempt2_relaunch": SUP_BERT_STEPS - resumed_at,
+            "clean": SUP_BERT_STEPS}
+    got_losses = relaunch["losses"]
+    clean_losses = clean["losses"][resumed_at:]
+    rec = dict(
+        phase="supervise", arm="sup_bert_kill",
+        config="BASELINE config 4: BertConfig.base() bf16, 32 x 128, "
+               "fit(with_rng=True), np=1 NCCL gang under launcher.supervise",
+        fault=f"step_start sigkill at step {SUP_BERT_KILL_AT}",
+        steps=SUP_BERT_STEPS, checkpoint_every=SUP_BERT_CKPT_EVERY,
+        poll_s=SUP_POLL_S, restarts=res.restarts,
+        failure_kinds=res.failure_kinds,
+        degradations=sorted({x.get("name") for x in res.degradations}),
+        committed_at_fault=relaunch["committed_at_start"],
+        resumed_at=resumed_at, detect_s=failure["t"] - fault["fault"]["t"],
+        **relaunch_split(spans[1]["t"], relaunch),
+        kernel_library_load_s={"attempt1": fault["kernel_library_load_s"],
+                               "attempt2": relaunch["kernel_library_load_s"],
+                               "clean": clean["kernel_library_load_s"]},
+        nvcc_ran=[fault["nvcc_ran"], relaunch["nvcc_ran"], clean["nvcc_ran"]],
+        launches=launches, bwd_variant_launches=relaunch[
+            "bwd_variant_launches"],
+        losses=got_losses, clean_losses=clean_losses,
+        losses_bitwise_equal_clean=got_losses == clean_losses,
+        loss_max_abs_err=max(abs(a - b) for a, b in
+                             zip(got_losses, clean_losses)),
+        supervise_wall_s=wall_s, nvidia_smi=smi())
+    emit(rec)
+    assert not any(rec["nvcc_ran"]), rec  # no rebuild after phase a
+    for k, c in launches.items():
+        assert c["flash_attention"] == c["flash_attention_bwd"] == \
+            nl * want[k], (k, c)
+        assert c["flash_decode"] == c["paged_flash_decode"] == 0, (k, c)
+    assert rec["bwd_variant_launches"]["tc_mma_bf16"] == \
+        nl * want["attempt2_relaunch"], rec
+    assert len(got_losses) == SUP_BERT_STEPS - resumed_at, rec
+    assert rec["losses_bitwise_equal_clean"], rec
+    return rec
+
+
+def phase_supervise(torch) -> dict:
+    """Phase q: the gang supervisor on the card (module docstring). The
+    parent, which holds a CUDA context of its own, only supervises: its
+    ``launcher`` imports no torch. Everything lives in a ``tempfile``
+    directory; a ``summary`` line gives the phase's seconds."""
+    import gc
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from sparkdl_tpu_torch.runner import launcher
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sparkdl_sup_") as root:
+        for arm in ("sup_resnet_clean", "sup_bert_clean"):
+            os.makedirs(os.path.join(root, arm))
+        wire = resnet_wire(SUP_RESNET_STEPS, RESNET_BATCH, RESNET_SIZE,
+                           seed=44)
+        np.savez(os.path.join(root, "wire.npz"),
+                 image=np.stack([b["image"] for b in wire]),
+                 label=np.stack([b["label"] for b in wire]))
+        del wire
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the clean runs, both at once (two one-rank gangs on the card;
+        # nothing of theirs is timed)
+        with ThreadPoolExecutor(2) as pool:
+            for f in [pool.submit(
+                    launcher.launch, str(ROOT / "chip_smoke.py"), np=1,
+                    args=["--sup-worker", os.path.join(root, arm), kind],
+                    timeout_s=SUP_TIMEOUT_S, capture=True)
+                    for arm, kind in (("sup_resnet_clean", "resnet"),
+                                      ("sup_bert_clean", "bert"))]:
+                f.result()
+        clean_state = torch.load(os.path.join(root, "sup_resnet_clean",
+                                              "state.pt"))
+        recs = {arm: sup_resnet(torch, root, arm, clean_state)
+                for arm in ("sup_resnet_kill", "sup_resnet_hang")}
+        del clean_state
+        recs["sup_bert_kill"] = sup_bert(torch, root)
+    seconds = time.perf_counter() - t0
+    emit(dict(phase="supervise", arm="summary", seconds=seconds,
+              nvidia_smi=smi()))
+    recs["seconds"] = seconds
+    return recs
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -4971,6 +5482,7 @@ def bert_case(r: dict) -> dict:
 def main() -> int:
     import torch
 
+    t_torch = time.time()  # phase q's workers time their start-up
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
@@ -4984,6 +5496,8 @@ def main() -> int:
         return dp_worker(sys.argv[2])
     if sys.argv[1:2] == ["--dp-m-worker"]:
         return dp_m_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--sup-worker"]:
+        return sup_worker(sys.argv[2], sys.argv[3], t_torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from sparkdl_tpu_torch.ops import _build
@@ -5012,6 +5526,8 @@ def main() -> int:
     o = phase_fleet(torch, (fa, fd, pfd))
     p = phase_flight_recorder(torch, (fa, fd, pfd))
     p_launches = p["lora_recorder"]["launches"]
+    q = phase_supervise(torch)
+    q_launches = q["sup_bert_kill"]["launches"]
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -5045,6 +5561,12 @@ def main() -> int:
                               for leg, rec in n_recs.items()},
             phase_o_launches={leg: rec["launches"][name]
                               for leg, rec in o.items()}))
+        if name == "paged_flash_decode":
+            kernels[-1]["llama3_8b_s5_case"] = {
+                k: main_recs["paged_llama3_8b_s5"][k]
+                for k in ("case", "dtype", "shape", "max_abs_err", "ms",
+                          "plain_ms", "library_ms", "bound_ms", "bound_by",
+                          "bytes")}
         if name != "flash_attention":  # the split-KV decode kernels
             kernels[-1].update(
                 chunk=r["chunk"], n_splits=r["n_splits"],
@@ -5064,7 +5586,9 @@ def main() -> int:
                                for arm in ("dp_bert", "dp_bert_accum",
                                            "dp_lora")},
                 phase_p_launches={arm: c["flash_attention"]
-                                  for arm, c in p_launches.items()})
+                                  for arm, c in p_launches.items()},
+                phase_q_launches={arm: c["flash_attention"]
+                                  for arm, c in q_launches.items()})
             kernels[-1].update(
                 variant=r["variant"], pv_rtol=r["pv_rtol"],
                 live_tflops=r["live_tflops"],
@@ -5099,6 +5623,8 @@ def main() -> int:
                        for arm in ("dp_bert", "dp_bert_accum", "dp_lora")},
         phase_p_launches={arm: c["flash_attention_bwd"]
                           for arm, c in p_launches.items()},
+        phase_q_launches={arm: c["flash_attention_bwd"]
+                          for arm, c in q_launches.items()},
         f32_variant=dict(variant=f32["variant"], route="cuda",
                          source="sparkdl_tpu_torch/csrc/"
                                 "flash_attention_bwd.cu",

@@ -3,13 +3,15 @@ data-parallel gang of processes, one device each (``xla_runner``:
 ``XlaRunner(np=, checkpoint_dir=).run(lambda ctx: ctx.fit(...))`` and
 ``run_with_restarts``, over ``train_state``, ``metrics``, checkpoints
 (``checkpoint``) and the checkpointable data plane ``data`` with its
-batch ledger), the gang launcher (``launcher.launch``, the ``mpirun``
-role), the hvd-compat module ``api``, the flight recorder (``events``:
-spans, crash postmortems, merged timelines), the telemetry plane
-(``telemetry``: registry, stage accountant, request traces, exporter and
-HTTP endpoint), the SLO burn-rate monitor (``slo``), the anomaly sentinel
-(``sentinel``) and fault injection (``chaos``). The gang supervisor comes
-with the slice that ports it (ROADMAP.md, Queue A 7 (b))."""
+batch ledger), the gang launcher and supervisor (``launcher.launch``, the
+``mpirun`` role, and ``launcher.supervise``: budgeted restarts, the
+heartbeat watchdog, poison-batch quarantine, elastic resizing; a CLI in
+``python -m sparkdl_tpu_torch.runner.launcher``), the hvd-compat module
+``api``, the flight recorder (``events``: spans, crash postmortems, merged
+timelines), the telemetry plane (``telemetry``: registry, stage
+accountant, request traces, exporter and HTTP endpoint, the gang's
+aggregated snapshots), the SLO burn-rate monitor (``slo``), the anomaly
+sentinel (``sentinel``) and fault injection (``chaos``)."""
 
 from . import events
 from . import telemetry
@@ -23,7 +25,7 @@ from .events import FlightRecorder, Timer, enable_flight_recorder, \
     merge_timeline
 from .failures import TrainingDivergedError, classify_exception, \
     exception_summary
-from .launcher import GangFailure, launch
+from .launcher import GangFailure, SuperviseResult, launch, supervise
 from .metrics import MetricsLogger, StepTimeStats, ThroughputMeter, \
     debug_mode, global_step_stats, peak_flops_per_chip, run_stats, \
     touch_heartbeat, trace
@@ -38,6 +40,7 @@ __all__ = ["CheckpointCorruptionError", "CheckpointManager",
            "Fault", "FaultPlan", "FlightRecorder", "GangFailure",
            "InjectedFatal", "InjectedFault", "InjectedPreemption",
            "ListDataset", "MetricsLogger", "RunnerContext", "StepTimeStats",
+           "SuperviseResult",
            "ThroughputMeter", "Timer", "TrainState",
            "TrainingDivergedError", "XlaRunner", "adam", "as_dataset",
            "bn_classifier_loss", "classify_exception", "current_context",
@@ -46,4 +49,4 @@ __all__ = ["CheckpointCorruptionError", "CheckpointManager",
            "load_portable", "make_shard_map_step", "make_train_step",
            "merge_timeline", "peak_flops_per_chip", "run_stats",
            "save_portable", "sgd", "softmax_cross_entropy_loss",
-           "telemetry", "touch_heartbeat", "trace"]
+           "supervise", "telemetry", "touch_heartbeat", "trace"]

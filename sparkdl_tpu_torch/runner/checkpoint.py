@@ -35,8 +35,12 @@ the ``TrainState`` pytree; here a step is one ``torch.save`` file,
   raises :class:`CheckpointTopologyError` naming every mismatch in one
   error. One exception is kept from the reference: a checkpoint saved
   without a model's buffers (BatchNorm statistics) restores into a model
-  that has them, and the model keeps its own. Resharding across a
-  topology change (``SPARKDL_ELASTIC``) comes with several cards
+  that has them, and the model keeps its own. Under ``SPARKDL_ELASTIC=1``
+  (``failures.elastic_enabled``) a checkpoint whose only mismatch is the
+  world size restores as it is — the gang's state is replicated, so
+  nothing is re-laid out — and records ``checkpoint_resharded``: an
+  elastic gang that shrank finishes from the larger gang's checkpoint.
+  Resharding a sharded state across meshes comes with several cards
   (ROADMAP.md, Queue A 8).
 - **In a gang** (``group=``, the gang's host-side process group): the
   state is the same on every rank, so rank 0 alone writes a step, and
@@ -63,7 +67,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from . import chaos, events
+from . import chaos, events, failures
 from . import metrics as metrics_lib
 # Damage the newest step as a torn write would: the chaos kind ``corrupt``
 # and the tests call the one implementation, which lives in chaos.
@@ -89,8 +93,9 @@ class CheckpointTopologyError(RuntimeError):
         super().__init__(
             f"checkpoint step {step} does not fit the state restoring it "
             f"({len(mismatches)} mismatch(es)): " + "; ".join(mismatches)
-            + ". Resharding a checkpoint across a topology change "
-            "(SPARKDL_ELASTIC) is not ported yet (ROADMAP.md, Queue A 8).")
+            + ". SPARKDL_ELASTIC=1 restores the replicated state across a "
+            "world-size change alone; resharding a sharded state across "
+            "meshes is not ported yet (ROADMAP.md, Queue A 8).")
         self.step = step
         self.mismatches = mismatches
 
@@ -426,12 +431,23 @@ class CheckpointManager:
         with events.span("checkpoint_restore", step=step):
             payload = self._load(step)
             mism = self._mismatches(step, payload, state)
-            if mism:
+            # the gang's state is replicated, the same on every rank: a
+            # checkpoint from another world size and nothing else fits
+            # as it is, and an elastic run takes it
+            resized = len(mism) == 1 and mism[0].startswith(
+                "saved at world size") and failures.elastic_enabled()
+            if mism and not resized:
                 raise CheckpointTopologyError(step, mism)
             state.model.load_state_dict(payload["model"], strict=False)
             state.optimizer.load_state_dict(payload["optimizer"])
             state.step = int(payload["step"])
-            return state
+        if resized:
+            events.event("checkpoint_resharded", step=step,
+                         mismatch=mism[0])
+            log.warning("checkpoint step %d restored across a topology "
+                        "change (%s); the replicated state loads as it is",
+                        step, mism[0])
+        return state
 
     def restore(self, state_template: Any, step: int | None = None) -> Any:
         """Load a step into ``state_template`` (a fresh ``TrainState``: its

@@ -54,11 +54,17 @@ def elastic_min_np(env: dict | None = None) -> int:
 # Status words that indicate the *platform* (not the program) broke.
 # UNAVAILABLE/ABORTED/CANCELLED: backend or coordination flake.
 # DEADLINE_EXCEEDED: rendezvous/collective timeout (peer died).
+# The torch.distributed texts a dead peer leaves in a survivor: NCCL's
+# watchdog timeout and aborted communicator, the TCPStore's
+# ``DistNetworkError`` / ``DistStoreError``, gloo's closed or reset pair.
 _RETRYABLE_PATTERNS = re.compile(
     r"(UNAVAILABLE|ABORTED|CANCELLED|DEADLINE_EXCEEDED"
     r"|backend setup|failed to connect|connection (reset|refused)"
     r"|socket closed|preempt|slice .* unhealthy|device or resource busy"
-    r"|coordination service|heartbeat)", re.IGNORECASE)
+    r"|coordination service|heartbeat"
+    r"|Watchdog caught collective operation timeout"
+    r"|NCCL communicator was aborted|DistNetworkError|DistStoreError"
+    r"|Connection (closed|reset) by peer)", re.IGNORECASE)
 
 # Definitely-program failures even if they arrive wrapped in a runtime error.
 # The CUDA texts: ``torch.cuda.OutOfMemoryError`` ("CUDA out of memory")
@@ -275,8 +281,10 @@ def classify_text(text: str) -> str:
     Fatal evidence first (status patterns, then Python traceback names) —
     stderr spew often carries incidental CANCELLED/coordination lines from
     the teardown of a run that actually died on a program error, so the
-    retryable patterns must not get first look. Unknown text defaults to
-    retryable, same reasoning as ``classify_exception``.
+    retryable patterns must not get first look: a CUDA out-of-memory or a
+    ``ValueError`` beside an NCCL abort or watchdog line stays fatal. What
+    a dead peer leaves in a survivor (``_RETRYABLE_PATTERNS``) restarts,
+    and so does unknown text, same reasoning as ``classify_exception``.
     """
     if _FATAL_PATTERNS.search(text):
         return "fatal"

@@ -1,10 +1,10 @@
 """Live telemetry plane — metrics registry, stage accounting, request
 traces, export.
 
-The port's copy of ``sparkdl_tpu/runner/telemetry.py``, whole but the
-gang aggregation (``clear_rank_files``, ``aggregate_snapshots``), whose
-reader is the gang supervisor (ROADMAP.md, Queue A 7 (b)). Stdlib only,
-like the rest of the runner's observability stack: it imports no torch.
+The port's copy of ``sparkdl_tpu/runner/telemetry.py``, whole. Stdlib
+only, like the rest of the runner's observability stack: it imports no
+torch, so the gang supervisor (``launcher.supervise``) reads the ranks'
+snapshots through it (``clear_rank_files``, ``aggregate_snapshots``).
 
 - **Registry** (:class:`MetricsRegistry`): counters, gauges (with
   high-water marks), histograms — the queue-depth / slot-occupancy /
@@ -59,7 +59,7 @@ __all__ = [
     "start", "stop", "reset", "enabled", "maybe_start_from_env",
     "registry", "accountant", "fleet_metric",
     "snapshot", "flush_snapshot", "render_prometheus",
-    "stage_utilization_summary",
+    "aggregate_snapshots", "clear_rank_files", "stage_utilization_summary",
     "server_port", "histogram_quantile", "histogram_fraction_below",
 ]
 
@@ -82,6 +82,7 @@ _DEFAULT_INTERVAL_S = 2.0
 _DEFAULT_HISTORY_CAP_MB = 64  # per-rank .jsonl history cap; the atomic
 # latest-snapshot file keeps updating past it (same disk-safety rule as
 # SPARKDL_EVENT_MAX_MB: a multi-day run must not fill the volume)
+_SNAPSHOT_FILE_RE = re.compile(r"metrics_rank(\d+)\.json$")
 # Latency-shaped default buckets (seconds), Prometheus-style with +Inf
 # implicit: spans range from sub-ms pad/put to multi-second compiles.
 _DEFAULT_BUCKETS = (0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0)
@@ -1105,6 +1106,142 @@ def render_prometheus(snap: dict, prefix: str = "sparkdl") -> str:
         lines.append(f'{full}_sum{{rank="{rank}"}} {h.get("sum", 0)}')
         lines.append(f'{full}_count{{rank="{rank}"}} {h.get("count", 0)}')
     return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# Gang-level aggregation (supervisor side — must stay jax-free)
+# ---------------------------------------------------------------------------
+
+def clear_rank_files(metrics_dir: str):
+    """Remove one attempt's snapshot files before relaunch (the same
+    staleness rule as ``events.clear_rank_files``): attempt N's gang view
+    must not average in attempt N-1's books — or a dead earlier gang's
+    high-rank snapshot from a larger world size."""
+    try:
+        names = os.listdir(metrics_dir)
+    except OSError:
+        return
+    for fn in names:
+        if _SNAPSHOT_FILE_RE.match(fn) or \
+                re.match(r"metrics_rank\d+\.jsonl$", fn):
+            try:
+                os.unlink(os.path.join(metrics_dir, fn))
+            except OSError:
+                pass
+
+
+def aggregate_snapshots(metrics_dir: str) -> dict | None:
+    """Merge every rank's latest snapshot into one gang-level view:
+    per-stage books summed across ranks (busy/rows/bytes/count; wall-busy
+    sums too — it is per-rank wall, so the gang figure is slot-seconds of
+    rank-walls), ``busy_frac`` recomputed against the widest rank's
+    elapsed, registry counters summed, gauges max'd. None when the dir
+    holds no parseable snapshots."""
+    try:
+        names = sorted(os.listdir(metrics_dir))
+    except OSError:
+        return None
+    ranks: dict[int, dict] = {}
+    for fn in names:
+        m = _SNAPSHOT_FILE_RE.match(fn)
+        if not m:
+            continue
+        try:
+            with open(os.path.join(metrics_dir, fn)) as f:
+                ranks[int(m.group(1))] = json.load(f)
+        except (OSError, ValueError):
+            continue
+    if not ranks:
+        # Supervised gangs export one level down (the same gang-* subdir
+        # isolation event streams get): fall back to the newest such
+        # subdir so pointing the report at $SPARKDL_METRICS_DIR itself
+        # still finds the run. Newest only — merging attempts/gangs
+        # would double-count.
+        gang_dirs = [os.path.join(metrics_dir, fn) for fn in names
+                     if fn.startswith("gang-")
+                     and os.path.isdir(os.path.join(metrics_dir, fn))]
+        gang_dirs.sort(key=lambda p: os.path.getmtime(p), reverse=True)
+        for gd in gang_dirs:
+            agg = aggregate_snapshots(gd)
+            if agg is not None:
+                return agg
+        return None
+    elapsed = max((s.get("elapsed_s") or 0.0) for s in ranks.values())
+    stages: dict[str, dict] = {}
+    events_total: dict[str, int] = {}
+    counters: dict[str, float] = {}
+    gauges: dict[str, dict] = {}
+    histograms: dict[str, dict] = {}
+    traces = {"completed": 0, "open": 0, "slowest": []}
+    for snap in ranks.values():
+        tb = snap.get("request_traces") or {}
+        if tb:
+            traces["completed"] += int(tb.get("completed") or 0)
+            traces["open"] += int(tb.get("open") or 0)
+            traces["slowest"].extend(tb.get("slowest") or [])
+        for name, st in (snap.get("stages") or {}).items():
+            agg = stages.setdefault(name, {
+                "count": 0, "busy_s": 0.0, "wall_busy_s": 0.0, "rows": 0,
+                "bytes": 0, "errors": 0, "max_concurrency": 0})
+            for k in ("count", "rows", "bytes", "errors"):
+                agg[k] += int(st.get(k) or 0)
+            for k in ("busy_s", "wall_busy_s"):
+                agg[k] = round(agg[k] + float(st.get(k) or 0.0), 6)
+            agg["max_concurrency"] = max(agg["max_concurrency"],
+                                         int(st.get("max_concurrency")
+                                             or 0))
+        for name, n in (snap.get("events") or {}).items():
+            events_total[name] = events_total.get(name, 0) + int(n)
+        for name, c in (snap.get("counters") or {}).items():
+            counters[name] = counters.get(name, 0.0) + float(c)
+        for name, g in (snap.get("gauges") or {}).items():
+            cur = gauges.setdefault(name, {"value": 0.0, "max": 0.0})
+            cur["value"] = max(cur["value"], float(g.get("value") or 0.0))
+            cur["max"] = max(cur["max"], float(g.get("max") or 0.0))
+        for name, h in (snap.get("histograms") or {}).items():
+            bounds = list(h.get("bounds") or [])
+            agg = histograms.setdefault(name, {
+                "bounds": bounds, "buckets": [0] * len(bounds),
+                "count": 0, "sum": 0.0})
+            if agg["bounds"] != bounds:
+                # Bucket layouts must agree to merge cumulative counts
+                # (all ranks share the registry defaults; a custom
+                # mismatch is skipped rather than summed into nonsense).
+                continue
+            agg["buckets"] = [a + int(b) for a, b in
+                              zip(agg["buckets"], h.get("buckets") or [])]
+            agg["count"] += int(h.get("count") or 0)
+            agg["sum"] = round(agg["sum"] + float(h.get("sum") or 0.0), 6)
+    n_ranks = len(ranks)
+    for name, st in stages.items():
+        # Gang busy fraction: wall-busy summed over ranks against the
+        # gang's total rank-walls — "what fraction of the gang's rank
+        # time was this stage busy".
+        denom = elapsed * n_ranks
+        st["busy_frac"] = round(min(1.0, st["wall_busy_s"] / denom), 4) \
+            if denom > 0 else 0.0
+    out = {"n_ranks": n_ranks, "elapsed_s": round(elapsed, 6),
+           "stages": stages,
+           "per_rank": {str(r): {"t": s.get("t"),
+                                 "elapsed_s": s.get("elapsed_s")}
+                        for r, s in sorted(ranks.items())}}
+    if events_total:
+        out["events"] = events_total
+    if counters:
+        out["counters"] = counters
+    if gauges:
+        out["gauges"] = gauges
+    if histograms:
+        out["histograms"] = histograms
+    if traces["completed"] or traces["open"]:
+        # gang view of the request-trace tail: slowest across ranks,
+        # re-ranked to the same SPARKDL_TRACE_SLOWEST bound each rank's
+        # export honors
+        traces["slowest"].sort(
+            key=lambda t: -(t.get("latency_s") or 0.0))
+        del traces["slowest"][_trace_slowest_default():]
+        out["request_traces"] = traces
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -568,3 +568,67 @@ def test_cuda_oom_exception_type_is_fatal():
     exc = torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to "
                                       "allocate 20.00 MiB")
     assert classify_exception(exc) == "fatal"
+
+
+# --- what a dead peer leaves in a survivor under torch.distributed ----------
+
+_DIST_RETRYABLE = [
+    "[rank0]:[E1018 00:19:22.000000000 ProcessGroupNCCL.cpp:632] [Rank 0] "
+    "Watchdog caught collective operation timeout: WorkNCCL(SeqNum=7, "
+    "OpType=ALLREDUCE, NumelIn=25557032, NumelOut=25557032, "
+    "Timeout(ms)=600000) ran for 600018 milliseconds before timing out.",
+    "torch.distributed.DistBackendError: NCCL communicator was aborted on "
+    "rank 0.",
+    "torch.distributed.DistNetworkError: failed to recv, got 0 bytes",
+    "torch.distributed.DistStoreError: Timed out after 901 seconds waiting "
+    "for clients. 1/2 clients joined.",
+    "RuntimeError: [../third_party/gloo/gloo/transport/tcp/pair.cc:534] "
+    "Connection closed by peer [127.0.0.1]:61745",
+    "RuntimeError: [../third_party/gloo/gloo/transport/tcp/pair.cc:598] "
+    "Connection reset by peer",
+]
+
+
+@pytest.mark.parametrize("msg", _DIST_RETRYABLE,
+                         ids=["nccl-watchdog", "nccl-aborted",
+                              "dist-network", "dist-store", "gloo-closed",
+                              "gloo-reset"])
+def test_dead_peer_texts_are_retryable(msg):
+    """A survivor's stderr after its peer died restarts the gang, as text
+    and as an exception (whose type name is the torch.distributed one)."""
+    assert classify_text("Traceback (most recent call last):\n ...\n"
+                         + msg) == "retryable"
+    name, _, text = msg.rpartition(": ") if msg.startswith("torch.") \
+        else ("", "", msg)
+    exc_type = type(name.rsplit(".", 1)[-1] or "RuntimeError",
+                    (RuntimeError,), {})
+    assert classify_exception(exc_type(text)) == "retryable"
+
+
+_DIST_FATAL_MIXES = [
+    "torch.OutOfMemoryError: CUDA out of memory. Tried to allocate 2.00 GiB"
+    "\ntorch.distributed.DistBackendError: NCCL communicator was aborted on "
+    "rank 0.",
+    "CUDA error: an illegal memory access was encountered\n"
+    "[Rank 0] Watchdog caught collective operation timeout: WorkNCCL("
+    "SeqNum=3, OpType=ALLREDUCE) ran for 600012 milliseconds",
+    "Traceback (most recent call last):\n  File \"train.py\", line 3\n"
+    "ValueError: operands could not be broadcast\n[Rank 1] Watchdog caught "
+    "collective operation timeout: WorkNCCL(SeqNum=3, OpType=ALLREDUCE)",
+]
+
+
+@pytest.mark.parametrize("text", _DIST_FATAL_MIXES,
+                         ids=["oom-and-abort", "illegal-and-watchdog",
+                              "valueerror-and-watchdog"])
+def test_fatal_evidence_wins_over_dead_peer_texts(text):
+    """Fatal first: a program error beside a dead peer's noise stays
+    fatal, or the supervisor would relaunch a deterministic bug."""
+    assert classify_text(text) == "fatal"
+
+
+def test_torch_dist_store_error_type_is_retryable():
+    import torch.distributed as dist
+    exc = dist.DistStoreError("Timed out after 901 seconds waiting for "
+                              "clients. 1/2 clients joined.")
+    assert classify_exception(exc) == "retryable"

@@ -1459,6 +1459,40 @@ def test_one_rank_nccl_gang_step_matches_in_process_step(dev, tmp_path):
     assert gang["replicated"]
 
 
+def test_supervised_nccl_gang_survives_a_sigkill(dev, tmp_path):
+    """``launcher.supervise`` of a one-rank NCCL gang (the narrow
+    ResNet18 of ``tests/test_torch_gang_worker.py``'s ``sup_resnet``,
+    6 mutable steps, a checkpoint every 2) SIGKILLed by a chaos plan at
+    step 3: one retryable restart, the relaunch resumes at the newest
+    committed step (2) and ends bitwise where a clean ``launch`` of the
+    same worker ends, parameters and BatchNorm statistics."""
+    import os
+
+    from sparkdl_tpu_torch.runner import Fault, FaultPlan, launcher
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(root, "tests", "test_torch_gang_worker.py")
+    got_dir, clean_dir = tmp_path / "sup", tmp_path / "clean"
+    got_dir.mkdir()
+    clean_dir.mkdir()
+    res = launcher.supervise(
+        worker, np=1, args=["sup_resnet", str(got_dir), str(got_dir),
+                            "cuda"],
+        plan=FaultPlan([Fault("step_start", "sigkill", at_step=3)]),
+        max_restarts=1, backoff_s=0.1, poll_s=0.25, timeout_s=300.0)
+    assert res.restarts == 1 and res.failure_kinds == ["retryable"]
+    launcher.launch(worker, np=1, args=["sup_resnet", str(clean_dir),
+                                        str(clean_dir), "cuda"],
+                    timeout_s=300.0, capture=True)
+    got = torch.load(got_dir / "rank0.pt", weights_only=False)
+    clean = torch.load(clean_dir / "rank0.pt", weights_only=False)
+    assert got["step"] == clean["step"] == 6
+    assert got["resumed_at"] == [2] and clean["resumed_at"] == []
+    assert got["losses"] == clean["losses"][2:]
+    assert all(torch.equal(v, clean["state"][k])
+               for k, v in got["state"].items())
+
+
 @pytest.mark.parametrize("shape", [(8, 16, 128), (32, 12, 128, 128),
                                    (32, 768)])
 def test_row_window_draws_rows_of_the_global_draw(dev, shape):

@@ -35,6 +35,7 @@ from sparkdl_tpu_torch.runner import (Fault, FaultPlan, StepTimeStats,
                                       ThroughputMeter, XlaRunner, chaos,
                                       events, sgd,
                                       softmax_cross_entropy_loss)
+from sparkdl_tpu_torch.runner import launcher as port_launcher
 from sparkdl_tpu_torch.runner import metrics as metrics_lib
 from sparkdl_tpu_torch.runner.metrics import MetricsLogger
 
@@ -692,15 +693,19 @@ class TestHeartbeatSatellite:
 
     def test_watchdog_parses_json_and_legacy_bodies(self, tmp_path,
                                                     monkeypatch):
-        """The port's heartbeat body read by the reference's watchdog, and
-        both bodies through both packages' decoders."""
+        """The port's heartbeat body read by both packages' watchdogs
+        (``launcher._heartbeat_ages``: the same steps, a rank that never
+        beat absent), and both bodies through both packages' decoders."""
         monkeypatch.setenv("SPARKDL_HEARTBEAT_DIR", str(tmp_path))
         monkeypatch.setenv("SPARKDL_PROCESS_ID", "0")
         metrics_lib.touch_heartbeat(12)
         (tmp_path / "rank1.hb").write_text("34")  # a bare-step body
-        ages = ref_launcher._heartbeat_ages(str(tmp_path), 2, time.time())
+        now = time.time()
+        ages = ref_launcher._heartbeat_ages(str(tmp_path), 3, now)
         assert ages[0][1] == "12"
         assert ages[1][1] == "34"
+        assert 2 not in ages
+        assert port_launcher._heartbeat_ages(str(tmp_path), 3, now) == ages
         for body in ((tmp_path / "rank0.hb").read_text(), "34", ""):
             assert events.parse_heartbeat_body(body) == \
                 ref_events.parse_heartbeat_body(body)

@@ -38,7 +38,25 @@ Usage: ``test_torch_gang_worker.py <mode> <in_dir> <out_dir> [device]``
   gradient with ``step_generator(..., rank=r)``;
 - ``lora``: the tiny LoRA Llama of ``in_dir/lora_init.pt`` through
   ``fit(causal_lm_loss_fn(), lora_optimizer(5e-3))`` on this rank's rows
-  of ``in_dir/lora.npz``.
+  of ``in_dir/lora.npz``;
+- the supervised gangs (started by ``launcher.supervise``; the chaos plan
+  comes in ``SPARKDL_CHAOS``), each a 4×3 linear softmax model under
+  ``runner.run(lambda ctx: ctx.fit(...))``, SGD 0.1, the reference's
+  seeds: ``sup_linear`` 4 steps of 8 rows a rank from a generator (the
+  twin of ``tests/chaos_mp_worker.py``); ``sup_rollback`` 6 steps with
+  ``checkpoint_dir=out_dir/ckpt`` and ``checkpoint_every=2``, appending
+  ``{final_step, steps_this_attempt}`` to ``out_dir/attempts.jsonl`` (the
+  twin of ``tests/test_chaos.py``'s supervised rollback worker);
+  ``sup_elastic`` 12 steps over 12 global batches of 12 rows
+  (``ListDataset(shard=True)``, so the rows divide at every world size
+  from 4 down), ``checkpoint_every=2``, ``log_every=1``, appending
+  ``{final_step, final_loss, world}`` to ``out_dir/result_rank<r>.jsonl``
+  (the twin of ``scripts/elastic_smoke.py``'s worker); ``sup_resnet`` the
+  narrow ResNet18 (32², 10 classes) from seed 0, ``fit(mutable=True,
+  checkpoint_every=2)`` for 6 steps over 6 seeded batches of 8 with
+  ``checkpoint_dir=out_dir/ckpt``, cuDNN deterministic: its final
+  ``state_dict`` and the step it resumed at (the card test's supervised
+  NCCL gang).
 """
 
 import os
@@ -378,6 +396,110 @@ def lora(ctx, in_dir):
             "trainable": len(res["state"].trainable())}
 
 
+class _Linear(torch.nn.Module):
+    """``x @ w``: the reference's ``apply_fn`` over ``params["w"]``."""
+
+    def __init__(self, w):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.as_tensor(w))
+
+    def forward(self, x):
+        return x @ self.w
+
+
+def _sup_fit(device, out_dir, data, num_steps, checkpoint=False, **kw):
+    """The supervised gangs' fit: a fresh 4×3 linear model from seed 0
+    through ``runner.run``, so the ``worker`` chaos site fires first."""
+    from sparkdl_tpu_torch.runner import (XlaRunner, sgd,
+                                          softmax_cross_entropy_loss)
+
+    runner = XlaRunner(device=device, checkpoint_dir=os.path.join(
+        out_dir, "ckpt") if checkpoint else None)
+    w = np.random.RandomState(0).randn(4, 3).astype(np.float32)
+    model = _Linear(w).to(runner.device)
+    return runner.run(lambda c: c.fit(
+        loss_fn=softmax_cross_entropy_loss(), model=model, tx=sgd(0.1),
+        data=data, num_steps=num_steps, **kw)), model
+
+
+def _generator_batches(rows):
+    r = np.random.RandomState(1)
+    while True:
+        yield {"image": r.randn(rows, 4).astype(np.float32),
+               "label": r.randint(0, 3, (rows,))}
+
+
+def sup_linear(device, out_dir):
+    res, model = _sup_fit(device, out_dir, _generator_batches(8), 4,
+                          log_every=100)
+    return {"step": int(res["state"].step),
+            "w": model.w.detach().cpu().clone()}
+
+
+def sup_rollback(device, out_dir):
+    import json
+
+    res, _ = _sup_fit(device, out_dir, _generator_batches(8), 6,
+                      checkpoint=True, checkpoint_every=2, log_every=100)
+    with open(os.path.join(out_dir, "attempts.jsonl"), "a") as f:
+        f.write(json.dumps({"final_step": int(res["state"].step),
+                            "steps_this_attempt": res["meter"].steps})
+                + "\n")
+    return {"step": int(res["state"].step)}
+
+
+def sup_elastic(device, out_dir):
+    import json
+
+    from sparkdl_tpu_torch.runner.data import ListDataset
+
+    batches = [{"image": np.random.RandomState(i).randn(12, 4)
+                .astype(np.float32),
+                "label": np.random.RandomState(i).randint(0, 3, (12,))}
+               for i in range(12)]
+    res, _ = _sup_fit(device, out_dir, ListDataset(batches, shard=True), 12,
+                      checkpoint=True, checkpoint_every=2, log_every=1)
+    rank = os.environ.get("SPARKDL_PROCESS_ID", "0")
+    with open(os.path.join(out_dir, f"result_rank{rank}.jsonl"), "a") as f:
+        f.write(json.dumps({
+            "final_step": int(res["state"].step),
+            "final_loss": float(res["history"][-1]["loss"]),
+            "world": int(os.environ.get("SPARKDL_NUM_PROCESSES", "1"))})
+            + "\n")
+    return {"step": int(res["state"].step)}
+
+
+def sup_resnet(device, out_dir):
+    from sparkdl_tpu_torch.runner import (ListDataset, XlaRunner,
+                                          bn_classifier_loss, events, sgd)
+
+    # one algorithm choice in every process: the relaunch is held bitwise
+    # against a clean run in another process
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(3)
+    batches = [{"image": rng.uniform(0, 1, (8, 32, 32, 3))
+                .astype(np.float32), "label": rng.integers(0, 10, 8)}
+               for _ in range(6)]
+    resumed = []
+    events.add_tee(lambda rec: resumed.append(rec["step"])
+                   if rec.get("name") == "train_resume" else None)
+    runner = XlaRunner(device=device,
+                       checkpoint_dir=os.path.join(out_dir, "ckpt"))
+    model = _narrow_resnet().to(runner.device)
+    res = runner.run(lambda c: c.fit(
+        loss_fn=bn_classifier_loss(), model=model,
+        tx=sgd(0.01, momentum=0.9), data=ListDataset(batches), num_steps=6,
+        log_every=1, mutable=True, checkpoint_every=2))
+    return {"state": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()},
+            "step": int(res["state"].step), "resumed_at": resumed,
+            "losses": [h["loss"] for h in res["history"]]}
+
+
+SUPERVISED = {"sup_linear": sup_linear, "sup_rollback": sup_rollback,
+              "sup_elastic": sup_elastic, "sup_resnet": sup_resnet}
+
+
 def main():
     mode, in_dir, out_dir = sys.argv[1:4]
     device = sys.argv[4] if len(sys.argv) > 4 else "cpu"
@@ -403,6 +525,8 @@ def main():
         out = bert_ref(in_dir)
     elif mode == "lora":
         out = lora(ctx, in_dir)
+    elif mode in SUPERVISED:
+        out = SUPERVISED[mode](device, out_dir)
     else:
         raise SystemExit(f"unknown mode {mode}")
     torch.save(out, os.path.join(out_dir, f"rank{ctx.rank}.pt"))

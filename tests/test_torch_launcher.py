@@ -1,9 +1,10 @@
 """The port's gang launcher (``sparkdl_tpu_torch.runner.launcher``)
 against the JAX package's: twins of ``tests/test_multiprocess.py``'s
 launcher tests, driven by tiny scripts that import neither jax nor torch,
-plus the spawn contract (the rendezvous env) and what stays Queue A 7's.
+plus the spawn contract (the rendezvous env) and the launcher's imports.
 Timing limits are the reference's: a dead rank is found in under 30 s
-against a 120 s timeout."""
+against a 120 s timeout. The supervisor's twins are in
+``tests/test_torch_supervise.py``."""
 
 import ast
 import sys
@@ -25,11 +26,11 @@ def test_launcher_propagates_failures(tmp_path):
 
 
 def test_launcher_rejects_bad_np():
-    """Twin of ``test_multiprocess.py::test_launcher_rejects_bad_np`` (the
-    supervisor's half is Queue A 7's)."""
+    """Twin of ``test_multiprocess.py::test_launcher_rejects_bad_np``."""
     with pytest.raises(ValueError):
         launcher.launch("x.py", np=0)
-    assert not hasattr(launcher, "supervise")
+    with pytest.raises(ValueError):
+        launcher.supervise("x.py", np=0)
 
 
 def test_dead_rank_detected_within_poll_not_timeout(tmp_path):
@@ -113,30 +114,42 @@ def test_every_rank_gets_the_rendezvous_env(tmp_path):
     assert out[0].stdout.split() == ["127.0.0.1:4242", "1", "0", "y", "a"]
 
 
-@pytest.mark.parametrize("kw", [{"heartbeat_dir": "/nonexistent"},
-                                {"watchdog_s": 5.0},
-                                {"event_dir": "/nonexistent"}])
-def test_supervision_options_are_queue_a7(kw):
-    """The watchdog and the flight recorder's gang timeline are not
-    ported: asking for them raises, naming Queue A 7, before anything is
-    spawned."""
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        launcher.launch("x.py", np=1, **kw)
+_SIBLINGS = {"events", "failures", "telemetry", "chaos", "data"}
+
+
+def _imports(path: Path, top_level_only: bool = False) -> set:
+    """The modules ``path`` imports (relative ones as ``.name``), at its
+    top level or anywhere."""
+    tree = ast.parse(path.read_text())
+    nodes = tree.body if top_level_only else ast.walk(tree)
+    names = set()
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            if node.level and not node.module:  # "from . import events"
+                names |= {"." + a.name for a in node.names}
+            else:
+                names.add("." * node.level + (node.module or ""))
+    return names
 
 
 def test_launcher_imports_no_cuda_code():
-    """The launcher's own module imports the standard library and the
-    port's ``failures`` only: the parent of a gang never takes a card
-    from its workers."""
+    """The launcher's own module imports the standard library and five
+    sibling modules of the runner (``events``, ``failures``,
+    ``telemetry``, ``chaos``, ``data``; ``metrics`` only lazily, inside
+    a function), and none of those five imports torch at its top level:
+    the parent of a gang never takes a card from its workers."""
     path = Path(launcher.__file__)
-    names = set()
-    for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom):  # "from . import failures"
-            names.add("." * node.level + (node.module or ""))
+    names = _imports(path, top_level_only=True)
     stdlib = set(sys.stdlib_module_names)
     assert {n for n in names if not n.startswith(".")} <= stdlib | {
         "__future__"}, names
-    assert {n for n in names if n.startswith(".")} == {"."}, names
-    assert "failures" in path.read_text()
+    assert {n[1:] for n in names if n.startswith(".")} == _SIBLINGS, names
+    assert ".metrics" in _imports(path) - names  # the lazy counters
+    for sib in sorted(_SIBLINGS):
+        top = _imports(path.with_name(f"{sib}.py"), top_level_only=True)
+        assert {n for n in top if not n.startswith(".")} <= stdlib | {
+            "__future__"}, (sib, top)
+        assert {n[1:] for n in top if n.startswith(".")} <= _SIBLINGS, (
+            sib, top)
