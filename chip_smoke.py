@@ -471,7 +471,50 @@ q. The gang supervisor (``runner/launcher.py::supervise``): each arm a
    both at once. Elastic resizing is not shown on one card (NCCL refuses
    two ranks on it): it is held on the CPU with gloo
    (``tests/test_torch_supervise*``).
+   The ResNet arms keep their heartbeats in their own directory, and
+   ``sup_resnet_kill`` streams the telemetry plane's snapshots
+   (``SPARKDL_METRICS_DIR``) beside its events: phase r reads all three.
    A ``summary`` line gives the phase's seconds.
+r. Imported weights, and the offline reports (``models/pretrained.py``,
+   ``runner/analysis.py``, ``runner/traceview.py``, the three
+   ``scripts/torch_*.py``). Four legs, a line each:
+   - ``import_llama3_8b``: BASELINE config 5's model,
+     ``LlamaConfig.llama3_8b()`` at full width, **depth cut to
+     IMPORT_LAYERS of 32**, f32 weights from a seed rounded to bf16
+     values (a published file holds bf16); ``hf_llama_state`` writes them
+     as an HF-named bf16 safetensors file (the inverse of the importer's
+     name map and rope row permutation), ``import_hf_llama`` reads it and
+     ``load_flax_params`` fills a fresh model: every parameter equal
+     (max |Δ| 0). The file's bytes, the write, read and load seconds and
+     the host's peak resident set. Then both models, cast to bf16 on the
+     card, each serve IMPORT_REQUESTS prompts of 64–1536 tokens,
+     IMPORT_NEW new tokens each, through one paged engine of 8 slots
+     (phase n's blocking refill): the streams identical token for token,
+     flash_attention once a layer a prefill and paged_flash_decode once a
+     layer a step. The imported run streams its spans into an event dir
+     with the telemetry plane's snapshots beside it;
+   - ``import_bert_base``: BASELINE config 4's ``BertConfig.base()`` with
+     2 classes, the same round trip through ``import_hf_bert``, then
+     ``classify_rows`` over IMPORT_BERT_ROWS rows of up to
+     IMPORT_BERT_SEQ tokens with each model: logits bitwise, flash
+     launches once a layer;
+   - ``keras_resnet50_h5``: where h5py imports, a keras-applications
+     ``.h5`` of a seeded ResNet50 (``keras_resnet50_h5``) read by
+     ``DeepImageFeaturizer(weightsPath=)`` on the card and on the CPU
+     over IMPORT_IMAGES images, held to phase j's f32 rule; where it does
+     not, the line says ``"ran": false`` and names h5py;
+   - ``offline_trace`` / ``offline_requests``: the three scripts as
+     subprocesses started together, as a user runs them, beside a bare
+     ``import torch``: ``torch_trace_export.py --validate
+     --require-ranks 1`` over ``sup_resnet_kill``'s directories must exit
+     0 with the supervisor's two ``gang_attempt`` spans, every rank span
+     carrying the manifest's ``trace_id`` and the clock skew measured
+     from the heartbeats; ``torch_bottleneck_report.py --json`` over the
+     same; ``torch_request_report.py --json`` over the llama run must
+     count IMPORT_REQUESTS completed with every trace's unattributed
+     share at most OFFLINE_UNATTR_MAX. Each script's wall seconds, the
+     trace's bytes and event counts.
+   A ``summary`` line gives the phase's seconds against PHASE_R_BUDGET_S.
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
@@ -479,9 +522,10 @@ entries add their BERT case and phase h's launches, phase m's gang
 launches, phase p's, ``phase_p_launches``, and phase q's
 ``sup_bert_kill`` attempts, ``phase_q_launches``; the three forward
 kernels add phase n's and phase o's launches leg by leg,
-``phase_n_launches`` and ``phase_o_launches``; paged_flash_decode adds
-its llama3_8b 32:8 S = 5 verify window, ``llama3_8b_s5_case``) and, last,
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+``phase_n_launches`` and ``phase_o_launches``; flash_attention and
+paged_flash_decode add phase r's, ``phase_r_launches``;
+paged_flash_decode adds its llama3_8b 32:8 S = 5 verify window,
+``llama3_8b_s5_case``) and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
 """
@@ -1640,10 +1684,12 @@ def read_counts(fa, fd, pfd) -> dict:
 
 
 def serve_leg(torch, model, kernels, *, leg, prompts, new=SERVE_NEW,
-              max_len=2048, config="LlamaConfig.small", **kw) -> tuple:
+              max_len=2048, config="LlamaConfig.small", keep_streams=False,
+              **kw) -> tuple:
     """One fresh engine serving ``prompts`` (all submitted at once, ``new``
     tokens each) to the end; the launch counters are set to 0 just
-    before and read just after. Returns the leg's record and the
+    before and read just after. Returns the leg's record (with every
+    request's tokens under ``streams`` when ``keep_streams``) and the
     engine."""
     from sparkdl_tpu_torch import GenerationEngine
 
@@ -1700,6 +1746,8 @@ def serve_leg(torch, model, kernels, *, leg, prompts, new=SERVE_NEW,
                capture_ms=graph_captures(since, "serve_decode_step"),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     assert st["completed"] == len(prompts), rec
+    if keep_streams:
+        rec["streams"] = outs
     # every S = 1 step came from the graph: one capture (whose warm-up
     # is the first step), then replays; verify windows run eagerly
     s1 = st["steps"] - st["spec_verifies"]
@@ -5256,16 +5304,21 @@ def sup_resnet(torch, root: str, arm: str, clean_state: dict) -> dict:
     kind = "hang" if arm.endswith("hang") else "sigkill"
     plan = FaultPlan([Fault("step_start", kind,
                             at_step=SUP_RESNET_FAULT_AT)])
+    # the beats and (kill arm) the telemetry plane's snapshots stay in
+    # ``d`` for phase r's offline reports
+    env = {"SPARKDL_BATCH_LEDGER": ledger}
+    if kind == "sigkill":
+        env["SPARKDL_METRICS_DIR"] = os.path.join(d, "metrics")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with SupervisorWatch(ev) as watch:
         res = launcher.supervise(
             str(ROOT / "chip_smoke.py"), np=1,
-            args=["--sup-worker", d, "resnet"],
-            env={"SPARKDL_BATCH_LEDGER": ledger}, plan=plan,
+            args=["--sup-worker", d, "resnet"], env=env, plan=plan,
             max_restarts=1, backoff_s=SUP_BACKOFF_S, poll_s=SUP_POLL_S,
             timeout_s=SUP_TIMEOUT_S, event_dir=ev, capture=True,
+            heartbeat_dir=os.path.join(d, "heartbeats"),
             watchdog_s=SUP_WATCHDOG_S if kind == "hang" else None)
     wall_s = time.perf_counter() - t0
     faults, attempts = _sup_records(d)
@@ -5421,14 +5474,16 @@ def sup_bert(torch, root: str) -> dict:
     return rec
 
 
-def phase_supervise(torch) -> dict:
+def phase_supervise(torch, root: str) -> dict:
     """Phase q: the gang supervisor on the card (module docstring). The
     parent, which holds a CUDA context of its own, only supervises: its
-    ``launcher`` imports no torch. Everything lives in a ``tempfile``
-    directory; a ``summary`` line gives the phase's seconds."""
+    ``launcher`` imports no torch. Everything lives in ``root``, a
+    ``tempfile`` directory of the caller's, which phase r reads and then
+    removes; the ``sup_resnet_kill`` arm's event, heartbeat and metrics
+    directories are under ``dirs``. A ``summary`` line gives the phase's
+    seconds."""
     import gc
     import os
-    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -5436,35 +5491,628 @@ def phase_supervise(torch) -> dict:
     from sparkdl_tpu_torch.runner import launcher
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="sparkdl_sup_") as root:
-        for arm in ("sup_resnet_clean", "sup_bert_clean"):
-            os.makedirs(os.path.join(root, arm))
-        wire = resnet_wire(SUP_RESNET_STEPS, RESNET_BATCH, RESNET_SIZE,
-                           seed=44)
-        np.savez(os.path.join(root, "wire.npz"),
-                 image=np.stack([b["image"] for b in wire]),
-                 label=np.stack([b["label"] for b in wire]))
-        del wire
-        gc.collect()
-        torch.cuda.empty_cache()
-        # the clean runs, both at once (two one-rank gangs on the card;
-        # nothing of theirs is timed)
-        with ThreadPoolExecutor(2) as pool:
-            for f in [pool.submit(
-                    launcher.launch, str(ROOT / "chip_smoke.py"), np=1,
-                    args=["--sup-worker", os.path.join(root, arm), kind],
-                    timeout_s=SUP_TIMEOUT_S, capture=True)
-                    for arm, kind in (("sup_resnet_clean", "resnet"),
-                                      ("sup_bert_clean", "bert"))]:
-                f.result()
-        clean_state = torch.load(os.path.join(root, "sup_resnet_clean",
-                                              "state.pt"))
-        recs = {arm: sup_resnet(torch, root, arm, clean_state)
-                for arm in ("sup_resnet_kill", "sup_resnet_hang")}
-        del clean_state
-        recs["sup_bert_kill"] = sup_bert(torch, root)
+    for arm in ("sup_resnet_clean", "sup_bert_clean"):
+        os.makedirs(os.path.join(root, arm))
+    wire = resnet_wire(SUP_RESNET_STEPS, RESNET_BATCH, RESNET_SIZE,
+                       seed=44)
+    np.savez(os.path.join(root, "wire.npz"),
+             image=np.stack([b["image"] for b in wire]),
+             label=np.stack([b["label"] for b in wire]))
+    del wire
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the clean runs, both at once (two one-rank gangs on the card;
+    # nothing of theirs is timed)
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(
+                launcher.launch, str(ROOT / "chip_smoke.py"), np=1,
+                args=["--sup-worker", os.path.join(root, arm), kind],
+                timeout_s=SUP_TIMEOUT_S, capture=True)
+                for arm, kind in (("sup_resnet_clean", "resnet"),
+                                  ("sup_bert_clean", "bert"))]:
+            f.result()
+    clean_state = torch.load(os.path.join(root, "sup_resnet_clean",
+                                          "state.pt"))
+    recs = {arm: sup_resnet(torch, root, arm, clean_state)
+            for arm in ("sup_resnet_kill", "sup_resnet_hang")}
+    del clean_state
+    recs["sup_bert_kill"] = sup_bert(torch, root)
     seconds = time.perf_counter() - t0
     emit(dict(phase="supervise", arm="summary", seconds=seconds,
+              nvidia_smi=smi()))
+    recs["seconds"] = seconds
+    kill = os.path.join(root, "sup_resnet_kill")
+    recs["dirs"] = {k: os.path.join(kill, k)
+                    for k in ("events", "heartbeats", "metrics")}
+    return recs
+
+
+# --- phase r: imported weights served and read back offline --------------
+
+IMPORT_LAYERS = 2              # import_llama3_8b: llama3_8b widths, depth 2
+IMPORT_REQUESTS, IMPORT_NEW = 16, 32
+IMPORT_BERT_ROWS, IMPORT_BERT_SEQ = 256, 128
+IMPORT_IMAGES = 64             # keras_resnet50_h5: images featurized
+OFFLINE_UNATTR_MAX = 0.05      # phase o's limit on a trace's unattributed
+PHASE_R_BUDGET_S = 90.0        # what phase r is meant to stay under
+# the flax paths of a port Llama's modules → HF's names
+_HF_LLAMA_MODS = {"attn": "self_attn", "mlp": "mlp"}
+_HF_LLAMA_NORMS = {"attn_norm": "input_layernorm",
+                   "mlp_norm": "post_attention_layernorm"}
+# BERT: flax module → HF module, flax leaf → HF leaf
+_HF_BERT_MODS = {"embeddings_norm": "embeddings.LayerNorm",
+                 "query": "attention.self.query",
+                 "key": "attention.self.key",
+                 "value": "attention.self.value",
+                 "attention_output": "attention.output.dense",
+                 "attention_norm": "attention.output.LayerNorm",
+                 "intermediate": "intermediate.dense",
+                 "output_dense": "output.dense",
+                 "output_norm": "output.LayerNorm",
+                 "pooler": "pooler.dense"}
+_HF_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+              "bias": "bias"}
+
+
+def hf_llama_state(torch, model, dtype) -> dict:
+    """A port Llama's weights as an HF ``LlamaForCausalLM`` state dict
+    (``model.layers.N.self_attn.q_proj.weight`` ...), CPU tensors of
+    ``dtype``: the inverse of ``pretrained.import_hf_llama``'s name map
+    and of its rope row permutation (q and k rows go back to HF's
+    half-split order). Torch ``[out, in]`` weights are HF's layout."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.models.pretrained import _rope_permutation
+
+    cfg = model.cfg
+    inv = torch.from_numpy(np.argsort(_rope_permutation(cfg.head_dim)))
+    out = {}
+    with torch.no_grad():
+        for path, p, _ in L._param_map(model):
+            w = p.detach()
+            if path == ("embed_tokens", "embedding"):
+                name = "model.embed_tokens.weight"
+            elif path == ("final_norm", "scale"):
+                name = "model.norm.weight"
+            elif path == ("lm_head", "kernel"):
+                name = "lm_head.weight"
+            elif path[1] in _HF_LLAMA_NORMS:
+                name = (f"model.layers.{path[0][len('layer_'):]}."
+                        f"{_HF_LLAMA_NORMS[path[1]]}.weight")
+            else:
+                assert path[3:] == ("base", "kernel"), path
+                proj = path[2]
+                name = (f"model.layers.{path[0][len('layer_'):]}."
+                        f"{_HF_LLAMA_MODS[path[1]]}.{proj}.weight")
+                if proj in ("q_proj", "k_proj"):
+                    heads = cfg.num_heads if proj == "q_proj" \
+                        else cfg.num_kv_heads
+                    w = w.reshape(heads, cfg.head_dim, -1)[
+                        :, inv.to(w.device), :].reshape(w.shape)
+            out[name] = w.to(dtype).cpu().contiguous()
+    return out
+
+
+def hf_bert_state(torch, model) -> dict:
+    """A port ``BertForSequenceClassification``'s weights as an HF
+    ``BertForSequenceClassification`` state dict (``bert.encoder.layer.N.
+    attention.self.query.weight`` ..., ``classifier.weight``), f32 CPU
+    tensors: the inverse of ``pretrained.import_hf_bert``'s name map."""
+    from sparkdl_tpu_torch.models import bert as B
+
+    out = {}
+    with torch.no_grad():
+        for path, p, _ in B._param_map(model):
+            leaf = _HF_LEAVES[path[-1]]
+            mods = path[1:-1]
+            if path[0] == "classifier":
+                name = f"classifier.{leaf}"
+            elif mods[0].endswith("_embeddings"):
+                name = f"bert.embeddings.{mods[0]}.weight"
+            elif mods[0].startswith("layer_"):
+                name = (f"bert.encoder.layer.{mods[0][len('layer_'):]}."
+                        f"{_HF_BERT_MODS[mods[-1]]}.{leaf}")
+            else:
+                name = f"bert.{_HF_BERT_MODS[mods[0]]}.{leaf}"
+            out[name] = p.detach().float().cpu().contiguous()
+    return out
+
+
+def keras_resnet50_h5(model, path: str) -> None:
+    """A keras-applications-layout ResNet50 ``.h5`` (the legacy
+    topological format of the published ImageNet files: ``model_weights``
+    with ``layer_names``, each layer's ``weight_names``) of a port
+    ResNet50: the inverse of ``pretrained.import_keras_resnet``'s name
+    map, the conv biases written as zeros (the importer folds them into
+    the BatchNorm mean). Needs h5py."""
+    import h5py
+    import numpy as np
+
+    from sparkdl_tpu_torch.models.registry import state_dict_to_flax
+
+    v = state_dict_to_flax(model.state_dict())
+    p, s = v["params"], v["batch_stats"]
+    layers = {}
+
+    def convbn(kname, bname, conv, bn, st):
+        k = conv["kernel"]
+        layers[kname] = [("kernel", k),
+                         ("bias", np.zeros(k.shape[-1], np.float32))]
+        layers[bname] = [("gamma", bn["scale"]), ("beta", bn["bias"]),
+                         ("moving_mean", st["mean"]),
+                         ("moving_variance", st["var"])]
+
+    convbn("conv1_conv", "conv1_bn", p["stem_conv"], p["stem_bn"],
+           s["stem_bn"])
+    for si, n_blocks in enumerate((3, 4, 6, 3)):
+        for b in range(n_blocks):
+            kp = f"conv{si + 2}_block{b + 1}"
+            mine = f"stage{si + 1}_block{b + 1}"
+            bp, bs = p[mine], s[mine]
+            if "proj_conv" in bp:
+                convbn(f"{kp}_0_conv", f"{kp}_0_bn", bp["proj_conv"],
+                       bp["proj_bn"], bs["proj_bn"])
+            for k in (1, 2, 3):
+                convbn(f"{kp}_{k}_conv", f"{kp}_{k}_bn", bp[f"conv{k}"],
+                       bp[f"bn{k}"], bs[f"bn{k}"])
+    layers["predictions"] = [("kernel", p["head"]["kernel"]),
+                             ("bias", p["head"]["bias"])]
+    with h5py.File(path, "w") as h:
+        root = h.create_group("model_weights")
+        root.attrs["layer_names"] = np.array([n.encode() for n in layers])
+        for name, ws in layers.items():
+            g = root.create_group(name)
+            g.attrs["weight_names"] = np.array(
+                [f"{name}/{w}:0".encode() for w, _ in ws])
+            for w, a in ws:
+                g.create_dataset(f"{name}/{w}:0", data=a)
+
+
+class PeakRss:
+    """``with PeakRss() as rss``: the largest resident set of this
+    process while the block ran (``rss.peak_gb``), sampled every 10 ms
+    from ``/proc/self/statm``, and the resident set at entry
+    (``rss.start_gb``)."""
+
+    def __init__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.peak_gb = self.start_gb = 0.0
+
+    def _now_gb(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page / 1e9
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak_gb = max(self.peak_gb, self._now_gb())
+
+    def __enter__(self):
+        self.start_gb = self.peak_gb = self._now_gb()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gb = max(self.peak_gb, self._now_gb())
+
+
+def bf16_copy(torch, model):
+    """A bf16-compute copy of a Llama on the card (``dtype=bfloat16``:
+    the embedding and projections bf16, the norms and ``lm_head`` f32, as
+    phase n serves llama3_8b) holding ``model``'s weights."""
+    from sparkdl_tpu_torch.models import llama as L
+
+    out = L.LlamaModel(model.cfg, dtype=torch.bfloat16, device="cuda")
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            p.copy_(src[name])
+    return out
+
+
+def params_max_abs_diff(torch, a, b) -> float:
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    assert sorted(pa) == sorted(pb)
+    with torch.no_grad():
+        return max(float((pa[k].float() - pb[k].float()).abs().max())
+                   for k in pa)
+
+
+def import_llama3_8b(torch, kernels, root: str) -> dict:
+    """``import_llama3_8b`` (module docstring): llama3_8b at full width,
+    depth IMPORT_LAYERS, written as an HF bf16 safetensors file and read
+    back through ``import_hf_llama`` / ``load_flax_params``; then served
+    twice, original and imported, the imported run streaming into
+    ``root/llama_events`` with the telemetry plane's snapshots in
+    ``root/llama_metrics``."""
+    import dataclasses
+    import gc
+    import os
+
+    from safetensors.torch import save_file
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.models.pretrained import import_hf_llama
+    from sparkdl_tpu_torch.runner import events, telemetry
+
+    cfg = dataclasses.replace(L.LlamaConfig.llama3_8b(),
+                              num_layers=IMPORT_LAYERS)
+    nl = cfg.num_layers
+    path = os.path.join(root, "llama3_8b.safetensors")
+    with PeakRss() as rss:
+        orig = L.LlamaModel(cfg, dtype=torch.float32, device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(18))
+        with torch.no_grad():  # a published file holds bf16 values
+            for p in orig.parameters():
+                p.copy_(p.to(torch.bfloat16))
+        n_params = sum(p.numel() for p in orig.parameters())
+        t0 = time.perf_counter()
+        state = hf_llama_state(torch, orig, torch.bfloat16)
+        save_file(state, path)
+        del state
+        gc.collect()
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        tree = import_hf_llama(path, cfg)
+        read_s = time.perf_counter() - t0
+        tree_bytes = sum(a.nbytes for _, a in _tree_items(tree))
+        fresh = L.LlamaModel(cfg, dtype=torch.float32, device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(99))
+        L.load_flax_params(fresh, tree)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        del tree
+        gc.collect()
+    max_err = params_max_abs_diff(torch, orig, fresh)
+    models = {"original": bf16_copy(torch, orig),
+              "imported": bf16_copy(torch, fresh)}
+    del orig, fresh
+    free_engines(torch)
+    g = torch.Generator().manual_seed(18)
+    lens = torch.randint(64, 1537, (IMPORT_REQUESTS,), generator=g).tolist()
+    lens[0], lens[-1] = 64, 1536
+    prompts = serve_prompts(torch, cfg, lens, 18)
+    kw = dict(block_size=16, prefill_chunk=256, stall_free=False,
+              max_len=4096, new=IMPORT_NEW, keep_streams=True,
+              config=f"LlamaConfig.llama3_8b, {nl} of 32 layers")
+    dirs = {"SPARKDL_EVENT_DIR": os.path.join(root, "llama_events"),
+            "SPARKDL_METRICS_DIR": os.path.join(root, "llama_metrics")}
+    legs = {}
+    for arm in ("original", "imported"):
+        if arm == "imported":
+            os.environ.update(dirs)
+            events.reset()
+            telemetry.reset()
+            assert telemetry.maybe_start_from_env()
+        try:
+            rec, eng = serve_leg(torch, models[arm], kernels,
+                                 leg=f"import_llama3_8b_{arm}",
+                                 prompts=prompts, **kw)
+        finally:
+            if arm == "imported":
+                telemetry.stop()
+                events.reset()  # closes the stream
+                for k in dirs:
+                    os.environ.pop(k, None)
+                telemetry.reset()
+        assert rec["launches"]["flash_attention"] == \
+            nl * rec["prefills"] > 0, rec
+        assert rec["launches"]["paged_flash_decode"] == \
+            nl * rec["steps"] > 0, rec
+        assert rec["launches"]["flash_decode"] == 0, rec
+        legs[arm] = rec
+        del eng
+        free_engines(torch)
+    del models
+    free_engines(torch)
+    streams = {arm: legs[arm].pop("streams") for arm in legs}
+    same = [a == b for a, b in zip(streams["original"], streams["imported"])]
+    rec = dict(
+        phase="import", leg="import_llama3_8b",
+        config=f"LlamaConfig.llama3_8b (BASELINE config 5), full width, "
+               f"depth cut to {nl} of 32; an HF bf16 safetensors file of "
+               f"seeded weights",
+        reduced={"num_layers": [32, nl]}, params=n_params,
+        file_bytes=file_bytes, tree_bytes=tree_bytes, write_s=write_s,
+        read_and_import_s=read_s, import_to_card_s=import_s,
+        host_rss_gb=dict(start=rss.start_gb, peak=rss.peak_gb),
+        params_max_abs_err=max_err, requests=len(prompts),
+        prompt_lens=lens, new_tokens=IMPORT_NEW,
+        streams_identical=sum(same),
+        launches={arm: legs[arm]["launches"] for arm in legs},
+        prefills={arm: legs[arm]["prefills"] for arm in legs},
+        steps={arm: legs[arm]["steps"] for arm in legs},
+        new_tokens_per_s={arm: legs[arm]["new_tokens_per_s"]
+                          for arm in legs},
+        event_dir=dirs["SPARKDL_EVENT_DIR"], nvidia_smi=smi())
+    emit(rec)
+    assert max_err == 0.0, rec
+    assert all(same) and len(same) == IMPORT_REQUESTS, rec
+    rec["dirs"] = dirs
+    return rec
+
+
+def _tree_items(tree, prefix=()):
+    """(key path, leaf) of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def import_bert_base(torch, kernels, root: str) -> dict:
+    """``import_bert_base``: BertConfig.base() with 2 classes through an HF
+    safetensors file and ``import_hf_bert(num_classes=2)``, then
+    ``classify_rows`` on the card over IMPORT_BERT_ROWS rows of up to
+    IMPORT_BERT_SEQ tokens with each model; the logits bitwise."""
+    import gc
+    import os
+
+    import numpy as np
+    from safetensors.torch import save_file
+
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.models.pretrained import import_hf_bert
+    from sparkdl_tpu_torch.udf.registry import classify_rows
+
+    cfg = B.BertConfig.base()
+    path = os.path.join(root, "bert_base.safetensors")
+
+    def build(seed):
+        return B.BertForSequenceClassification(
+            cfg, num_classes=2, dtype=torch.bfloat16, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    orig = build(19)
+    t0 = time.perf_counter()
+    save_file(hf_bert_state(torch, orig), path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = import_hf_bert(path, cfg, num_classes=2)
+    fresh = B.load_flax_params(build(98), tree)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    del tree
+    gc.collect()
+    max_err = params_max_abs_diff(torch, orig, fresh)
+    rng = np.random.default_rng(19)
+    lens = rng.integers(8, IMPORT_BERT_SEQ + 1, IMPORT_BERT_ROWS)
+    lens[0] = IMPORT_BERT_SEQ
+    rows = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    out = {}
+    for arm, model in (("original", orig), ("imported", fresh)):
+        logits = []
+        hook = model.register_forward_hook(
+            lambda m, a, o: logits.append(o.detach().clone()))
+        reset_counts(*kernels)
+        with torch.no_grad():
+            preds = classify_rows(model, rows, IMPORT_BERT_SEQ)
+        torch.cuda.synchronize()
+        hook.remove()
+        out[arm] = dict(logits=torch.cat(logits), preds=preds,
+                        launches=read_counts(*kernels))
+    a, b = out["original"], out["imported"]
+    rec = dict(
+        phase="import", leg="import_bert_base",
+        config="BertConfig.base() (BASELINE config 4), 2 classes, bf16 "
+               "compute over f32 weights; an HF f32 safetensors file of "
+               "seeded weights",
+        file_bytes=os.path.getsize(path), write_s=write_s,
+        import_to_card_s=import_s, params_max_abs_err=max_err,
+        rows=IMPORT_BERT_ROWS, max_len=IMPORT_BERT_SEQ,
+        logits_bitwise=bool(torch.equal(a["logits"], b["logits"])),
+        logits_shape=list(a["logits"].shape),
+        predictions_equal=bool((a["preds"] == b["preds"]).all()),
+        launches={arm: out[arm]["launches"] for arm in out},
+        nvidia_smi=smi())
+    emit(rec)
+    del orig, fresh, out
+    free_engines(torch)
+    assert max_err == 0.0, rec
+    assert rec["logits_bitwise"] and rec["predictions_equal"], rec
+    for arm in rec["launches"]:
+        assert rec["launches"][arm]["flash_attention"] == \
+            cfg.num_layers, rec
+    return rec
+
+
+def keras_resnet50_leg(torch, root: str) -> dict:
+    """``keras_resnet50_h5``: a keras-applications-layout ``.h5`` of a
+    seeded ResNet50 written with h5py, read by
+    ``DeepImageFeaturizer(modelName="ResNet50", weightsPath=...)``
+    (keras-v1 stride placement) on the card and on the CPU over
+    IMPORT_IMAGES images, held to phase j's card-vs-CPU f32 rule. Where
+    h5py does not import, the line says so and nothing runs."""
+    import importlib.util
+    import os
+
+    if importlib.util.find_spec("h5py") is None:
+        rec = dict(phase="import", leg="keras_resnet50_h5", ran=False,
+                   missing="h5py", nvidia_smi=smi())
+        emit(rec)
+        return rec
+    import numpy as np
+
+    from sparkdl_tpu_torch.models import pretrained, resnet
+    from sparkdl_tpu_torch.models.registry import state_dict_to_flax
+    from sparkdl_tpu_torch.transformers import DeepImageFeaturizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    path = os.path.join(root, "resnet50.h5")
+    src = resnet.ResNet50(num_classes=1000, seed=20)
+    keras_resnet50_h5(src, path)
+    want = dict(_tree_items(state_dict_to_flax(src.state_dict())))
+    got = dict(_tree_items(pretrained.load_pretrained("ResNet50", path)))
+    assert sorted(got) == sorted(want)
+    tree_err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    batch = np.random.default_rng(20).integers(
+        0, 256, (IMPORT_IMAGES, 224, 224, 3), dtype=np.uint8)
+    feats = {}
+    for device in ("cuda", "cpu"):
+        f = DeepImageFeaturizer(modelName="ResNet50", weightsPath=path,
+                                batchSize=IMPORT_IMAGES, device=device)
+        assert f._build_kwargs() == {"stride_on_3x3": False}
+        feats[device] = np.concatenate(list(f._get_runner().run([batch])))
+    atol_share, rtol = IMAGE_F32_RULE
+    ref = feats["cpu"]
+    over = np.abs(feats["cuda"] - ref) - (
+        atol_share * max(1.0, float(np.abs(ref).max())) + rtol * np.abs(ref))
+    rec = dict(phase="import", leg="keras_resnet50_h5", ran=True,
+               config="ResNet50 (BASELINE configs 1-2), keras v1 stride "
+                      "placement, seeded weights",
+               file_bytes=os.path.getsize(path), tree_max_abs_err=tree_err,
+               images=IMPORT_IMAGES,
+               features_shape=list(ref.shape),
+               max_abs_err=float(np.abs(feats["cuda"] - ref).max()),
+               worst_over_rule=float(over.max()), nvidia_smi=smi())
+    emit(rec)
+    assert tree_err == 0.0 and over.max() <= 0, rec
+    return rec
+
+
+def run_scripts(cmds: dict) -> dict:
+    """Each of ``cmds`` (name → argv after the interpreter) in a
+    subprocess of its own, all started together as a user would start
+    them; returns name → (exit code, stdout, stderr, wall s)."""
+    procs, t0 = {}, {}
+    for name, argv in cmds.items():
+        t0[name] = time.perf_counter()
+        procs[name] = subprocess.Popen(
+            [sys.executable] + argv, cwd=str(ROOT), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    out = {}
+    for name, p in procs.items():
+        so, se = p.communicate(timeout=300)
+        out[name] = (p.returncode, so, se, time.perf_counter() - t0[name])
+    return out
+
+
+def offline_legs(root: str, sup: dict, llama: dict) -> dict:
+    """``offline_trace`` and ``offline_requests`` (module docstring): the
+    three ``scripts/torch_*.py`` reports over phase q's ``sup_resnet_kill``
+    directories and the imported llama run's event dir, as subprocesses
+    started together, beside a bare ``import torch`` timed the same
+    way."""
+    import glob
+    import os
+
+    trace_path = os.path.join(root, "sup_resnet_kill_trace.json")
+    gangs = sorted(glob.glob(os.path.join(sup["metrics"], "gang-*")),
+                   key=os.path.getmtime)
+    assert gangs, sup  # the supervised run's adopted metrics dir
+    cmds = {
+        "torch_trace_export": [
+            "scripts/torch_trace_export.py", sup["events"],
+            "--heartbeat-dir", sup["heartbeats"], "--metrics-dir",
+            gangs[-1], "--out", trace_path, "--validate",
+            "--require-ranks", "1"],
+        "torch_bottleneck_report": [
+            "scripts/torch_bottleneck_report.py", sup["events"],
+            "--metrics-dir", sup["metrics"], "--json"],
+        "torch_request_report": [
+            "scripts/torch_request_report.py",
+            llama["dirs"]["SPARKDL_EVENT_DIR"], "--json"],
+        "import_torch": [
+            "-c", "import time; t = time.perf_counter(); import torch; "
+                  "print(time.perf_counter() - t)"],
+    }
+    res = run_scripts(cmds)
+    for name, (rc, so, se, _) in res.items():
+        assert rc == 0, (name, rc, se[-3000:])
+    wall = {name: r[3] for name, r in res.items()}
+    summary = json.loads(res["torch_trace_export"][1].strip().splitlines()[-1])
+    with open(trace_path) as f:
+        trace = json.load(f)
+    with open(os.path.join(sup["events"], "trace_manifest.json")) as f:
+        manifest = json.load(f)
+    evs = trace["traceEvents"]
+    from sparkdl_tpu_torch.runner.traceview import DRIVER_PID
+
+    attempts = [e for e in evs if e.get("ph") == "X"
+                and e.get("pid") == DRIVER_PID
+                and e.get("name") == "gang_attempt"]
+    rank_spans = [e for e in evs if e.get("ph") in ("X", "i")
+                  and e.get("pid") != DRIVER_PID
+                  and not str(e.get("name")).startswith("request ")]
+    foreign = sorted({e["name"] for e in rank_spans
+                      if (e.get("args") or {}).get("trace_id")
+                      != manifest["trace_id"]})
+    kinds = {}
+    for e in evs:
+        kinds[e.get("ph")] = kinds.get(e.get("ph"), 0) + 1
+    skew = trace["otherData"]["clock_skew"]
+    bottleneck = json.loads(res["torch_bottleneck_report"][1])
+    requests = json.loads(res["torch_request_report"][1])
+    rec_trace = dict(
+        phase="offline", leg="offline_trace",
+        source="phase q sup_resnet_kill: events, heartbeats, metrics",
+        validation=summary["validation"], trace_id=manifest["trace_id"],
+        gang_attempt_spans=len(attempts), rank_spans=len(rank_spans),
+        rank_spans_without_the_trace_id=foreign,
+        trace_bytes=os.path.getsize(trace_path), event_counts=kinds,
+        clock_skew=skew,
+        bottleneck=dict(
+            dominant_stage=(bottleneck["report"] or {}).get(
+                "dominant_stage"),
+            wall_s=(bottleneck["report"] or {}).get("wall_s"),
+            stages=sorted((bottleneck["report"] or {}).get("stages", {})),
+            gang_metrics_ranks=(bottleneck["gang_metrics"] or {}).get(
+                "n_ranks")),
+        wall_s={k: wall[k] for k in ("torch_trace_export",
+                                     "torch_bottleneck_report")},
+        import_torch_s=float(res["import_torch"][1].strip()),
+        import_torch_wall_s=wall["import_torch"], nvidia_smi=smi())
+    emit(rec_trace)
+    rec_req = dict(
+        phase="offline", leg="offline_requests",
+        source="phase r import_llama3_8b imported run's event dir",
+        completed=requests["completed"], errors=requests["errors"],
+        open=requests["open"],
+        max_unattributed_frac=requests["max_unattributed_frac"],
+        mean_unattributed_frac=requests["mean_unattributed_frac"],
+        latency_s=requests["latency_s"], ttft_s=requests["ttft_s"],
+        tail_dominant_phase=requests["tail_dominant_phase"],
+        wall_s=wall["torch_request_report"], nvidia_smi=smi())
+    emit(rec_req)
+    assert summary["validation"]["ok"], summary
+    assert len(attempts) == 2, rec_trace
+    assert rank_spans and not foreign, rec_trace
+    assert skew["measured"], rec_trace
+    assert bottleneck["report"] is not None, rec_trace
+    assert requests["completed"] == IMPORT_REQUESTS, rec_req
+    assert requests["max_unattributed_frac"] <= OFFLINE_UNATTR_MAX, rec_req
+    return dict(offline_trace=rec_trace, offline_requests=rec_req)
+
+
+def phase_import(torch, kernels, sup: dict) -> dict:
+    """Phase r (module docstring): imported weights on the card, then the
+    offline reports over this run's and phase q's directories.
+    Everything lives in a ``tempfile`` directory; a ``summary`` line
+    gives the phase's seconds."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sparkdl_import_") as root:
+        recs = {"import_llama3_8b": import_llama3_8b(torch, kernels, root)}
+        recs["import_bert_base"] = import_bert_base(torch, kernels, root)
+        recs["keras_resnet50_h5"] = keras_resnet50_leg(torch, root)
+        recs.update(offline_legs(root, sup, recs["import_llama3_8b"]))
+    seconds = time.perf_counter() - t0
+    emit(dict(phase="import", leg="summary", seconds=seconds,
+              budget_s=PHASE_R_BUDGET_S,
+              within_budget=seconds <= PHASE_R_BUDGET_S,
+              h5_leg_ran=recs["keras_resnet50_h5"]["ran"],
               nvidia_smi=smi()))
     recs["seconds"] = seconds
     return recs
@@ -5526,8 +6174,21 @@ def main() -> int:
     o = phase_fleet(torch, (fa, fd, pfd))
     p = phase_flight_recorder(torch, (fa, fd, pfd))
     p_launches = p["lora_recorder"]["launches"]
-    q = phase_supervise(torch)
-    q_launches = q["sup_bert_kill"]["launches"]
+    import shutil
+    import tempfile
+
+    sup_root = tempfile.mkdtemp(prefix="sparkdl_sup_")
+    try:
+        q = phase_supervise(torch, sup_root)
+        q_launches = q["sup_bert_kill"]["launches"]
+        r = phase_import(torch, (fa, fd, pfd), q["dirs"])
+    finally:
+        shutil.rmtree(sup_root, ignore_errors=True)
+    r_launches = {
+        f"import_llama3_8b_{arm}": c for arm, c in
+        r["import_llama3_8b"]["launches"].items()}
+    r_launches.update({f"import_bert_base_{arm}": c for arm, c in
+                       r["import_bert_base"]["launches"].items()})
 
     # each kernel's launches come from the main path that runs it:
     # generate() (phase c) for the first two, the paged serve leg for B3
@@ -5561,6 +6222,9 @@ def main() -> int:
                               for leg, rec in n_recs.items()},
             phase_o_launches={leg: rec["launches"][name]
                               for leg, rec in o.items()}))
+        if name in ("flash_attention", "paged_flash_decode"):
+            kernels[-1]["phase_r_launches"] = {
+                leg: c[name] for leg, c in r_launches.items()}
         if name == "paged_flash_decode":
             kernels[-1]["llama3_8b_s5_case"] = {
                 k: main_recs["paged_llama3_8b_s5"][k]

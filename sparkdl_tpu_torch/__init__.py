@@ -28,8 +28,12 @@ classification), image scoring — the image model zoo
 API and ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` — model
 selection (``CrossValidator``, ``TrainValidationSplit`` and the
 evaluators), the feature stages, the byte-level BPE tokenizer
-(``ByteBPETokenizer``) and int8 projection weights in serving
-(``GenerationEngine.from_model(..., weight_dtype="int8")``), with the
+(``ByteBPETokenizer``), int8 projection weights in serving
+(``GenerationEngine.from_model(..., weight_dtype="int8")``), the
+foreign-checkpoint importers (``load_pretrained``: HF Llama and BERT
+safetensors, Keras-applications ``.h5``, flax msgpack and flax-path
+safetensors) and the offline reports over a run's event dir
+(``runner.analysis``, ``runner.traceview``), with the
 kernels they run: ``ops.flash_attention``
 (prefill, the training forward and its backward, causal or padded),
 ``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
@@ -58,7 +62,7 @@ from .estimators import (BinaryClassificationEvaluator,  # noqa: E402
 from .image.imageIO import (createResizeImageUDF,  # noqa: E402
                             nhwcToImageColumn, readImages,
                             readImagesWithCustomFn)
-from .models import ByteBPETokenizer  # noqa: E402
+from .models import ByteBPETokenizer, load_pretrained  # noqa: E402
 from .serving import (DEAD, DEGRADED, DOOMED, HEALTHY,  # noqa: E402
                       EngineFleet, FleetDegradedError, FleetRequest,
                       FleetRoutingError, GenerationEngine,
@@ -88,6 +92,7 @@ __all__ = ["GenerationEngine", "EngineFleet", "FleetRequest",
            "HasBatchSize", "HasSeed", "HasDevice",
            "Transformer", "Estimator", "Model", "Evaluator", "Pipeline",
            "PipelineModel", "MLWritable", "load", "ByteBPETokenizer",
+           "load_pretrained",
            "ParamGridBuilder", "CrossValidator", "CrossValidatorModel",
            "TrainValidationSplit", "TrainValidationSplitModel",
            "MulticlassClassificationEvaluator", "RegressionEvaluator",

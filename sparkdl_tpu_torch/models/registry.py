@@ -12,7 +12,11 @@ flax default distributions (``image_layers.init_flax_defaults``).
 ``save_weights``/``load_weights`` are ``torch.save``/``torch.load`` of the
 state dict, and :func:`load_flax_variables` carries the JAX package's
 ``{"params", "batch_stats"}`` into a port model (the image half of the
-weight bridge).
+weight bridge); :func:`state_dict_to_flax` is its inverse. The
+reference's two native weight formats read into that flax layout with
+no flax at hand: flax msgpack (:func:`load_flax_msgpack`, ``msgpack``
+only, chunked arrays included) and safetensors keyed by flax path
+(:func:`load_safetensors`).
 
 The LLM half: :func:`llm_config` names the Llama configs and
 :data:`DRAFT_PAIRS` / :func:`draft_for` / :func:`register_draft_pair`
@@ -291,3 +295,144 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
         for k, v in state.items():
             own[k].copy_(v)
     return module
+
+
+_FLAX_LEAVES = {"running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var"),
+                "bias": ("params", "bias")}
+
+
+def state_dict_to_flax(state) -> dict:
+    """The inverse of :func:`flax_to_state_dict`: a port state dict as the
+    reference's ``{"params", "batch_stats"}`` of f32 numpy arrays. A
+    ``weight`` of two or more dimensions is a ``kernel`` (OIHW → HWIO,
+    ``(out, in)`` → ``(in, out)``), a 1-D one a BatchNorm or LayerNorm
+    ``scale``; ``running_mean``/``running_var`` are ``batch_stats``
+    ``mean``/``var``. Other buffers (``num_batches_tracked``) have no
+    flax leaf and are left out."""
+    out: dict = {}
+    for name, t in state.items():
+        *mods, leaf = name.split(".")
+        a = t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t, np.float32)
+        if leaf == "weight":
+            coll, flax_leaf = ("params", "kernel") if a.ndim >= 2 \
+                else ("params", "scale")
+        elif leaf in _FLAX_LEAVES:
+            coll, flax_leaf = _FLAX_LEAVES[leaf]
+        else:
+            continue
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif a.ndim == 2:
+            a = a.T
+        node = out.setdefault(coll, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[flax_leaf] = np.ascontiguousarray(a, dtype=np.float32)
+    return out
+
+
+# flax.serialization's msgpack extension codes and chunk marker
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    """flax's ``(shape, dtype name, buffer)`` array encoding, as a
+    writable array (torch takes it without a copy); bf16 (which numpy
+    lacks) widens to f32."""
+    import msgpack
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    buffer = bytearray(buffer)
+    if dtype_name == b"bfloat16":
+        if not buffer:
+            return np.zeros(shape, np.float32)
+        t = torch.frombuffer(buffer, dtype=torch.bfloat16)
+        return t.float().numpy().reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()),
+                         count=-1, offset=0).reshape(shape, order="C")
+
+
+def _ext_unpack(code, data):
+    import msgpack
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _unchunk(d):
+    """flax stores an array over ``MAX_CHUNK_SIZE`` bytes as a dict of
+    flat chunks (``{"__msgpack_chunked_array__": True, "shape": {"0":
+    ...}, "chunks": {"0": ...}}``); join them back, in place."""
+    if not isinstance(d, dict):
+        return d
+    if _CHUNKED in d:
+        shape = tuple(d["shape"][str(i)] for i in range(len(d["shape"])))
+        chunks = [d["chunks"][str(i)] for i in range(len(d["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    for k, v in d.items():
+        d[k] = _unchunk(v)
+    return d
+
+
+def _restore(template, state, path=()):
+    """flax's ``from_state_dict`` over nested dicts: every template key
+    must be in ``state`` (extra keys are dropped); leaves come from
+    ``state`` as they are."""
+    if not isinstance(template, dict):
+        return state
+    missing = set(map(str, template)) - set(state)
+    if missing:
+        raise ValueError(
+            f"The target dict keys and state dict keys do not match, "
+            f"target dict contains keys {missing} which are not present "
+            f"in state dict at path /{'/'.join(path)}")
+    return {k: _restore(v, state[str(k)], path + (str(k),))
+            for k, v in template.items()}
+
+
+def load_flax_msgpack(variables_template, path: str) -> dict:
+    """Read a flax msgpack weights file (the reference's ``save_weights``,
+    ``flax.serialization.to_bytes``) into ``variables_template``'s
+    structure, with ``msgpack`` alone: ext type 1 arrays, ext type 3
+    numpy scalars and chunked arrays. Returns the flax-layout tree of
+    numpy arrays (load it with :func:`load_flax_variables`)."""
+    import msgpack
+    with open(path, "rb") as f:
+        state = msgpack.unpackb(f.read(), ext_hook=_ext_unpack, raw=False)
+    return _restore(variables_template, _unchunk(state))
+
+
+def load_safetensors(variables_template, path: str) -> dict:
+    """Import a safetensors file whose keys are '/'-joined flax param
+    paths into ``variables_template``'s structure, strict: a missing key
+    or a shape that differs raises ``ValueError`` (no silent reshape — a
+    same-size transposed tensor, e.g. a torch OI export against flax IO,
+    would load as garbage). bf16 tensors widen to f32. Returns the
+    flax-layout tree of numpy arrays."""
+    from safetensors.torch import load_file
+
+    from .pretrained import _to_numpy
+    loaded = load_file(path)
+    flat = {"/".join(map(str, path)): leaf
+            for path, leaf in _flatten(variables_template)}
+    missing = [k for k in flat if k not in loaded]
+    if missing:
+        raise ValueError(f"safetensors file missing {len(missing)} keys, "
+                         f"e.g. {missing[:3]}")
+    out: dict = {}
+    for k, tmpl in flat.items():
+        arr = _to_numpy(loaded[k])
+        if arr.shape != tuple(np.shape(tmpl)):
+            raise ValueError(f"Shape mismatch for {k}: file has "
+                             f"{arr.shape}, model expects "
+                             f"{tuple(np.shape(tmpl))}")
+        node = out
+        *mods, leaf = k.split("/")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
+    return out

@@ -11,10 +11,14 @@ heartbeat watchdog, poison-batch quarantine, elastic resizing; a CLI in
 timelines), the telemetry plane (``telemetry``: registry, stage
 accountant, request traces, exporter and HTTP endpoint, the gang's
 aggregated snapshots), the SLO burn-rate monitor (``slo``), the anomaly
-sentinel (``sentinel``) and fault injection (``chaos``)."""
+sentinel (``sentinel``), fault injection (``chaos``), and the offline
+readers of a run's event dir: bottleneck and request reports
+(``analysis``) and the merged Chrome trace (``traceview``)."""
 
+from . import analysis
 from . import events
 from . import telemetry
+from . import traceview
 from .chaos import Fault, FaultPlan, InjectedFatal, InjectedFault, \
     InjectedPreemption
 from .checkpoint import CheckpointCorruptionError, CheckpointManager, \
@@ -42,11 +46,13 @@ __all__ = ["CheckpointCorruptionError", "CheckpointManager",
            "ListDataset", "MetricsLogger", "RunnerContext", "StepTimeStats",
            "SuperviseResult",
            "ThroughputMeter", "Timer", "TrainState",
-           "TrainingDivergedError", "XlaRunner", "adam", "as_dataset",
+           "TrainingDivergedError", "XlaRunner", "adam", "analysis",
+           "as_dataset",
            "bn_classifier_loss", "classify_exception", "current_context",
            "debug_mode", "enable_flight_recorder", "enable_telemetry",
            "events", "exception_summary", "global_step_stats", "launch",
            "load_portable", "make_shard_map_step", "make_train_step",
            "merge_timeline", "peak_flops_per_chip", "run_stats",
            "save_portable", "sgd", "softmax_cross_entropy_loss",
-           "supervise", "telemetry", "touch_heartbeat", "trace"]
+           "supervise", "telemetry", "touch_heartbeat", "trace",
+           "traceview"]

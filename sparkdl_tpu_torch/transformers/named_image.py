@@ -7,19 +7,21 @@ model's bottleneck features for downstream shallow learners;
 
 Model lookup in :mod:`sparkdl_tpu_torch.models.registry`; the weights are
 an ``nn.Module``'s f32 state, drawn from ``seed`` (flax's default
-distributions) unless ``weightsPath`` names a ``torch.save`` state dict or
+distributions) unless ``weightsPath`` names a local file or
 :meth:`setWeights` installs one (or the JAX package's variables, carried
-by ``registry.load_flax_variables``). The device step is the runner's
+by ``registry.load_flax_variables``). ``weightsPath`` reads what the
+reference reads: a Keras-applications ``.h5``/``.hdf5`` (name-mapped by
+``models.pretrained.load_pretrained``; ResNets then run the keras-v1
+stride placement, ``stride_on_3x3=False``), a flax msgpack
+``.msgpack`` (``registry.load_flax_msgpack``) or a safetensors file keyed
+by flax path (``registry.load_safetensors``); any other path is the
+port's own ``torch.save`` state dict. The device step is the runner's
 cast → flip → resize → preprocess → model, on ``device`` (unset → the
 card). ``computeDtype="bfloat16"`` serves a copy whose conv and dense
 weights are cast to bf16 once (``models.pretrained.cast_float_leaves``);
 ``"float32"`` computes in f32 — on the card cuDNN then runs the
 convolutions in TF32 whenever ``torch.backends.cudnn.allow_tf32`` is on
 (PyTorch's default, which the port leaves to the caller).
-
-Not ported: Keras ``.h5``/``.hdf5`` weights, flax ``.msgpack`` and
-``.safetensors`` files, and the keras-v1 ResNet stride placement they
-imply (ROADMAP.md, Queue A 9).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from ..core.params import (HasSeed, Param, Params, TypeConverters,
 from ..models import registry as model_registry
 from .xla_image import XlaImageTransformer
 
-_IMPORTERS = "is not ported yet (ROADMAP.md, Queue A 9: weight importers)"
 _WEIGHTS_FILE = "weights.pt"
 
 
@@ -49,8 +50,12 @@ class _NamedImageTransformer(XlaImageTransformer, HasSeed):
                          "float32 either way.",
                          TypeConverters.toString)
     weightsPath = Param(Params, "weightsPath",
-                        "local torch.save state dict of the model. Random "
-                        "seeded init when unset (nothing is downloaded)",
+                        "local weights file: a Keras-applications .h5/.hdf5 "
+                        "(name-mapped import; ResNets then run the keras v1 "
+                        "stride placement), flax msgpack (.msgpack), "
+                        "safetensors keyed by flax path (.safetensors), or "
+                        "else a torch.save state dict. Random seeded init "
+                        "when unset (nothing is downloaded)",
                         TypeConverters.toString)
 
     _features_only = True
@@ -82,13 +87,18 @@ class _NamedImageTransformer(XlaImageTransformer, HasSeed):
     def _model(self) -> model_registry.NamedImageModel:
         return model_registry.get_model(self.getModelName())
 
+    def _keras_semantics(self) -> bool:
+        """True when the installed weights come from a Keras-applications
+        ``.h5`` file, in which case ResNets must run the keras v1 stride
+        placement (models/pretrained.py) for the weights to be faithful."""
+        return (self.isDefined(self.weightsPath)
+                and self.getOrDefault(self.weightsPath)
+                        .endswith((".h5", ".hdf5")))
+
     def _build_kwargs(self) -> dict:
-        """The reference switches ResNets to the keras-v1 stride placement
-        for ``.h5`` weights; those weights are not importable here."""
-        if self.isDefined(self.weightsPath) and self.getOrDefault(
-                self.weightsPath).endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                f"Keras .h5 weights (keras-v1 ResNet semantics) {_IMPORTERS}")
+        if self._keras_semantics() \
+                and self.getModelName().startswith("ResNet"):
+            return {"stride_on_3x3": False}
         return {}
 
     def _load_module(self):
@@ -100,11 +110,23 @@ class _NamedImageTransformer(XlaImageTransformer, HasSeed):
                              **self._build_kwargs())
             if self.isDefined(self.weightsPath):
                 path = self.getOrDefault(self.weightsPath)
-                if path.endswith((".msgpack", ".safetensors")):
-                    raise NotImplementedError(
-                        f"weightsPath {path!r}: flax msgpack / safetensors "
-                        f"files {_IMPORTERS}")
-                model_registry.load_weights(module, path)
+                if path.endswith((".h5", ".hdf5", ".msgpack",
+                                  ".safetensors")):
+                    template = model_registry.state_dict_to_flax(
+                        module.state_dict())
+                    if path.endswith((".h5", ".hdf5")):
+                        from ..models import pretrained
+                        variables = pretrained.load_pretrained(
+                            self.getModelName(), path, template=template)
+                    elif path.endswith(".safetensors"):
+                        variables = model_registry.load_safetensors(
+                            template, path)
+                    else:
+                        variables = model_registry.load_flax_msgpack(
+                            template, path)
+                    model_registry.load_flax_variables(module, variables)
+                else:
+                    model_registry.load_weights(module, path)
             self._module = module
         return self._module
 
@@ -165,7 +187,8 @@ class _NamedImageTransformer(XlaImageTransformer, HasSeed):
         self._module = None
         wpath = os.path.join(path, _WEIGHTS_FILE)
         if os.path.exists(wpath):
-            module = self._model().build(seed=self.getOrDefault(self.seed))
+            module = self._model().build(seed=self.getOrDefault(self.seed),
+                                         **self._build_kwargs())
             self._module = model_registry.load_weights(module, wpath)
 
 

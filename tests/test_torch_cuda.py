@@ -1702,3 +1702,73 @@ def test_fit_on_card_postmortem_names_the_nan_batch(dev, tmp_path,
                                heartbeat_dir=str(tmp_path / "hb"))
     assert tl["first_failure"]["site"] == "batch_fetch"
     assert tl["first_failure"]["step"] == 2
+
+
+def test_hf_round_trip_on_card(dev, tmp_path):
+    """Phase r's round trip at a small size: a seeded Llama and BERT on
+    the card written as HF safetensors files (``chip_smoke.py``'s
+    writers), read back by ``models.pretrained`` into fresh models on the
+    card: every parameter equal, greedy tokens identical through the
+    flash kernels, logits bitwise."""
+    import importlib.util
+    import os
+
+    from safetensors.torch import save_file
+
+    from sparkdl_tpu_torch.models import bert as B
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.models.pretrained import (import_hf_bert,
+                                                     import_hf_llama)
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        rope_theta=10000.0)
+
+    def llama(seed):
+        return L.LlamaModel(cfg, attn_fn=fa.flash_attention, device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+
+    orig = llama(0)
+    f = str(tmp_path / "llama.safetensors")
+    save_file(cs.hf_llama_state(torch, orig, torch.float32), f)
+    new = L.load_flax_params(llama(1), import_hf_llama(f, cfg))
+    for (name, a), (_, b) in zip(orig.named_parameters(),
+                                 new.named_parameters()):
+        assert torch.equal(a, b), name
+    ids, pads = L.left_pad_prompts([[5, 6, 7], [9, 3, 2, 8, 1, 4, 4, 7],
+                                    [11] * 70])
+    fa0 = fa.flash_attention_fwd.launches
+    want = L.generate(orig, ids, 6, pad_lens=pads)
+    got = L.generate(new, ids, 6, pad_lens=pads)
+    assert fa.flash_attention_fwd.launches - fa0 == 2 * cfg.num_layers
+    assert torch.equal(got, want)
+    x = torch.randint(0, cfg.vocab_size, (2, 33), device=dev)
+    with torch.no_grad():
+        assert torch.equal(new(x), orig(x))
+
+    bcfg = B.BertConfig(vocab_size=1000, hidden_size=256, num_layers=2,
+                        num_heads=4, intermediate_size=512)
+
+    def bert(seed):
+        return B.BertForSequenceClassification(
+            bcfg, num_classes=2, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+
+    bo = bert(0)
+    fb = str(tmp_path / "bert.safetensors")
+    save_file(cs.hf_bert_state(torch, bo), fb)
+    bn = B.load_flax_params(bert(1), import_hf_bert(fb, bcfg, num_classes=2))
+    ids = torch.randint(1, bcfg.vocab_size, (4, 128), device=dev)
+    mask = torch.ones_like(ids)
+    mask[0, 40:] = 0
+    fa0 = fa.flash_attention_fwd.launches
+    with torch.no_grad():
+        assert torch.equal(bn(ids, mask), bo(ids, mask))
+    assert fa.flash_attention_fwd.launches - fa0 == 2 * bcfg.num_layers

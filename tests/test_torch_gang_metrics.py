@@ -7,10 +7,10 @@ Twins of ``tests/test_telemetry.py::TestGangAggregation`` (on the same
 synthetic snapshots) and of ``tests/test_traceplane.py``'s
 ``TestLauncherPropagation`` and ``TestMergeTimelineResize``, the tests
 that read only the launcher and ``events`` (the manifest is read as the
-file it is; the trace exporter and its readers are ROADMAP.md's Queue
-A 7 (c)). The workers are standard-library scripts; each runs through the
-reference and the port, each in its own directory, and their results are
-held equal.
+file it is; the trace exporter's twins are in
+``test_torch_traceview.py``). The workers are standard-library scripts;
+each runs through the reference and the port, each in its own directory,
+and their results are held equal.
 """
 
 import json

@@ -6,8 +6,9 @@ Twins of ``tests/test_request_trace.py``'s ``TestTraceCollector``,
 ``TestOffPlaneOverhead``, ``TestIntrospect``, ``TestSloMonitor`` and
 ``TestEngineInspectorIntegrity``, on the port's ``StubBackend`` engines,
 with the reference's assertions. The offline assembly reads the streamed
-``events_rank0.jsonl`` line by line (the reference's reader,
-``analysis.load_event_dir``, is not ported: ROADMAP.md, Queue A 7).
+``events_rank0.jsonl`` line by line (the reports over a whole event dir,
+``analysis.load_event_dir`` and its CLIs, are held in
+``test_torch_analysis.py``).
 Beside them, one side-by-side test runs the same Stub workload through
 both packages' engines with the plane armed: the trace blocks agree in
 request count, stage names and the order of stages (durations are not
