@@ -515,6 +515,27 @@ r. Imported weights, and the offline reports (``models/pretrained.py``,
      share at most OFFLINE_UNATTR_MAX. Each script's wall seconds, the
      trace's bytes and event counts.
    A ``summary`` line gives the phase's seconds against PHASE_R_BUDGET_S.
+s. graph — the graph toolkit over ``torch.export`` and the Keras path:
+   - ``graph_resnet50``: ``GraphFunction.fromList([buildSpImageConverter
+     ("BGR"), GraphFunction.fromModule(ResNet50, features_only=True),
+     buildFlattener()])`` on the card (BASELINE config 2's model at
+     224x224, f32, seeded) over GRAPH_ROWS seeded uint8 images in
+     batches of GRAPH_BATCH, held to GRAPH_RULE against the direct
+     module call on the same converted batches, its captured step
+     (``jit``), its ``.pt2`` (``dump`` with a free batch, ``load`` on the
+     card) at batches GRAPH_BATCH and GRAPH_TAIL, the UDF
+     ``makeGraphUDF`` registers (its device step: this script reads no
+     DataFrame) and an ``imageInputPlaceholder`` → ``IsolatedSession`` →
+     ``asGraphFunction`` assembly; rows/s of each beside
+     ``DeepImageFeaturizer(modelName="ResNet50")``'s runner on the same
+     rows, the ``.pt2``'s bytes, export and load seconds;
+   - ``keras``: where keras and pyarrow import, a subprocess
+     (``--keras-leg``) fits a seeded small CNN ``.keras`` with
+     ``KerasImageFileEstimator`` for 2 sgd steps on PNGs it writes, on
+     the card, and scores with the returned ``KerasImageFileTransformer``
+     on the card and the CPU (IMAGE_F32_RULE); where either does not
+     import, the line says ``"ran": false`` and names it.
+   A ``summary`` line gives the phase's seconds against PHASE_S_BUDGET_S.
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
@@ -6118,6 +6139,256 @@ def phase_import(torch, kernels, sup: dict) -> dict:
     return recs
 
 
+# --- phase s: the graph toolkit and the Keras path -------------------------
+
+GRAPH_ROWS, GRAPH_BATCH = 256, 32  # phase s: ResNet50 images, batch
+GRAPH_TAIL = 7                     # the exported graph's odd batch
+# the exported program and the captured step run the live graph's aten
+# ops on the same card, so they are expected bitwise; the limit allows
+# one f32 rounding of a 2048-wide pooled feature
+GRAPH_RULE = (1e-6, 1e-6)          # (share of max|ref|, relative)
+KERAS_LEG_ROWS, KERAS_LEG_BATCH = 32, 16
+PHASE_S_BUDGET_S = 60.0
+
+
+def graph_err(got, ref) -> tuple:
+    """(max |Δ|, worst excess over GRAPH_RULE) of two numpy arrays."""
+    import numpy as np
+    share, rtol = GRAPH_RULE
+    over = np.abs(got - ref) - (share * max(1.0, float(np.abs(ref).max()))
+                                + rtol * np.abs(ref))
+    return float(np.abs(got - ref).max()), float(over.max())
+
+
+def rows_per_s(torch, fn, batches: list) -> tuple:
+    """(outputs as one numpy array, rows/s) of ``fn`` over ``batches``
+    after one warm-up call, waiting for the card at the end."""
+    import numpy as np
+    fn(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(b) for b in batches]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    outs = np.concatenate([o if isinstance(o, np.ndarray) else
+                           o.cpu().numpy() for o in outs])
+    return outs, sum(len(b) for b in batches) / seconds
+
+
+def graph_leg(torch, root: str) -> dict:
+    """``graph_resnet50``: BASELINE config 2's model as a GraphFunction
+    (converter → ResNet50 features → flattener) on the card, held to the
+    direct module call, its captured step (``jit``), its ``.pt2`` round
+    trip at batches GRAPH_BATCH and GRAPH_TAIL, the UDF ``makeGraphUDF``
+    registers (its device step, ``udfStage``: the card machine has
+    no pyarrow) and an IsolatedSession assembly; rows/s of each beside
+    ``DeepImageFeaturizer(modelName="ResNet50")``'s runner on the same
+    rows."""
+    import os
+
+    import numpy as np
+
+    from sparkdl_tpu_torch.graph import (GraphFunction, buildFlattener,
+                                         buildSpImageConverter, makeGraphUDF)
+    from sparkdl_tpu_torch.models import registry as R
+    from sparkdl_tpu_torch.transformers import DeepImageFeaturizer
+    from sparkdl_tpu_torch.transformers.utils import imageInputPlaceholder
+    from sparkdl_tpu_torch.udf import udfStage, unregisterUDF
+
+    dev = {"device": "cuda"}
+    resnet = R.get_model("ResNet50").build(seed=30, **dev)
+    gfn = GraphFunction.fromList([
+        buildSpImageConverter("BGR", **dev),
+        GraphFunction.fromModule(resnet, features_only=True, **dev),
+        buildFlattener(**dev)])
+    images = np.random.default_rng(30).integers(
+        0, 256, (GRAPH_ROWS, 224, 224, 3), dtype=np.uint8)
+    batches = [images[i:i + GRAPH_BATCH]
+               for i in range(0, GRAPH_ROWS, GRAPH_BATCH)]
+    rec = dict(phase="graph", leg="graph_resnet50",
+               config="ResNet50 (BASELINE config 2) at 224x224, f32 (TF32 "
+                      "off), seeded weights", rows=GRAPH_ROWS,
+               batch=GRAPH_BATCH)
+
+    def live(b):
+        return gfn(image=b)["flattened"]
+
+    got, rec["live_rows_per_s"] = rows_per_s(torch, live, batches)
+    with torch.no_grad():
+        direct = np.concatenate([
+            resnet(torch.from_numpy(b).cuda().float().flip(-1),
+                   features_only=True).cpu().numpy() for b in batches])
+    rec["direct_max_abs_err"], over_direct = graph_err(got, direct)
+    jitted = gfn.jit()
+    jit_out, rec["jit_rows_per_s"] = rows_per_s(
+        torch, lambda b: jitted(image=b)["flattened"], batches)
+    rec["jit_max_abs_err"], over_jit = graph_err(jit_out, got)
+
+    path = os.path.join(root, "resnet50_graph.pt2")
+    t0 = time.perf_counter()
+    gfn.dump(path, {"image": ((None, 224, 224, 3), "uint8")})
+    rec["export_s"] = time.perf_counter() - t0
+    rec["pt2_bytes"] = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded = GraphFunction.load(path, **dev)
+    rec["load_s"] = time.perf_counter() - t0
+    exp_out, rec["exported_rows_per_s"] = rows_per_s(
+        torch, lambda b: loaded(image=b)["flattened"], batches)
+    rec["exported_max_abs_err"], over_exp = graph_err(exp_out, got)
+    tail = images[:GRAPH_TAIL]
+    rec["exported_tail_max_abs_err"], over_tail = graph_err(
+        loaded(image=tail)["flattened"].cpu().numpy(),
+        live(tail).cpu().numpy())
+
+    makeGraphUDF(gfn, "graph_resnet50", batchSize=GRAPH_BATCH)
+    try:
+        runner = udfStage("graph_resnet50", "image", "features")._get_runner()
+        assert runner.device.type == "cuda", runner.device
+        fbatches = [b.astype(np.float32) for b in batches]
+        udf_out, rec["udf_rows_per_s"] = rows_per_s(
+            torch, lambda b: np.concatenate(list(runner.run([b]))),
+            fbatches)
+    finally:
+        unregisterUDF("graph_resnet50")
+    rec["udf_max_abs_err"], over_udf = graph_err(udf_out, got)
+
+    node = imageInputPlaceholder(3, 224, 224, **dev)
+    issn = node.session
+    feats = issn.importGraphFunction(gfn, [node], prefix="resnet")
+    sess_gfn = issn.asGraphFunction([node], feats)
+    sess_out = sess_gfn({node.name: batches[0].astype(np.float32)})[
+        feats[0].name].cpu().numpy()
+    rec["session_max_abs_err"], over_sess = graph_err(
+        sess_out, got[:GRAPH_BATCH])
+
+    featurizer = DeepImageFeaturizer(modelName="ResNet50",
+                                     batchSize=GRAPH_BATCH, **dev)
+    frunner = featurizer._get_runner()
+    _, rec["featurizer_rows_per_s"] = rows_per_s(
+        torch, lambda b: np.concatenate(list(frunner.run([b]))), batches)
+    rec.update(features_shape=list(got.shape),
+               tol_rule=f"|Δ| <= {GRAPH_RULE[0]}·max(1, max|ref|) + "
+                        f"{GRAPH_RULE[1]}·|ref|",
+               nvidia_smi=smi())
+    emit(rec)
+    assert got.shape == (GRAPH_ROWS, 2048) and np.isfinite(got).all(), rec
+    for name, over in (("direct", over_direct), ("jit", over_jit),
+                       ("exported", over_exp), ("exported_tail", over_tail),
+                       ("udf", over_udf), ("session", over_sess)):
+        assert over <= 0, (name, rec)
+    return rec
+
+
+def keras_worker(out: str) -> int:
+    """``chip_smoke.py --keras-leg <file>``: the Keras leg in a process of
+    its own (keras and pyarrow stay out of the main process, whose card
+    path imports neither). A seeded small CNN written as ``.keras`` is
+    fitted by ``KerasImageFileEstimator`` for 2 sgd steps on PNGs written
+    here, on the card; the returned ``KerasImageFileTransformer`` scores
+    the rows on the card and on the CPU; one JSON object to ``out``."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    os.environ["KERAS_BACKEND"] = "torch"
+    import sparkdl_tpu_torch as tdl
+    from sparkdl_tpu_torch.transformers.keras_utils import _keras
+    from PIL import Image
+
+    keras = _keras()
+    root = tempfile.mkdtemp(prefix="sparkdl_keras_leg_")
+    keras.utils.set_random_seed(31)
+    with keras.device("cpu"):
+        model = keras.Sequential([
+            keras.Input((32, 32, 3)),
+            keras.layers.Conv2D(8, 3, use_bias=False),
+            keras.layers.BatchNormalization(), keras.layers.ReLU(),
+            keras.layers.GlobalAveragePooling2D(), keras.layers.Dense(2)])
+    path = os.path.join(root, "cnn.keras")
+    model.save(path)
+    rng = np.random.default_rng(31)
+    uris, labels = [], []
+    for i in range(KERAS_LEG_ROWS):
+        f = os.path.join(root, f"im{i}.png")
+        Image.fromarray(rng.integers(0, 256, (32, 32, 3), np.uint8)).save(f)
+        uris.append(f)
+        labels.append(i % 2)
+    df = tdl.DataFrame.fromPydict({"uri": uris, "label": labels})
+    loader = tdl.defaultImageLoader((32, 32))
+    t0 = time.perf_counter()
+    fitted = tdl.KerasImageFileEstimator(
+        inputCol="uri", outputCol="scores", labelCol="label",
+        modelFile=path, imageLoader=loader, batchSize=KERAS_LEG_BATCH,
+        epochs=1, optimizer="sgd", learningRate=0.05,
+        device="cuda").fit(df)
+    fit_s = time.perf_counter() - t0
+    scores = {}
+    for device in ("cuda", "cpu"):
+        fitted.setDevice(device)
+        scores[device] = np.stack([np.asarray(r.scores, np.float32)
+                                   for r in fitted.transform(df).collect()])
+    got, ref = scores["cuda"], scores["cpu"]
+    share, rtol = IMAGE_F32_RULE
+    over = np.abs(got - ref) - (share * max(1.0, float(np.abs(ref).max()))
+                                + rtol * np.abs(ref))
+    with open(out, "w") as f:
+        json.dump(dict(rows=KERAS_LEG_ROWS, steps=KERAS_LEG_ROWS
+                       // KERAS_LEG_BATCH, fit_s=fit_s,
+                       scores_shape=list(got.shape),
+                       max_abs_err=float(np.abs(got - ref).max()),
+                       worst_over_rule=float(over.max()),
+                       keras=keras.__version__), f)
+    return 0 if over.max() <= 0 and np.isfinite(got).all() else 1
+
+
+def keras_leg(root: str) -> dict:
+    """``keras``: :func:`keras_worker` in a subprocess where keras and
+    pyarrow import; otherwise the line says ``"ran": false`` and names
+    what is missing, and nothing runs."""
+    import importlib.util
+    import os
+
+    missing = [m for m in ("keras", "pyarrow")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        rec = dict(phase="graph", leg="keras", ran=False,
+                   missing=missing[0], nvidia_smi=smi())
+        emit(rec)
+        return rec
+    out = os.path.join(root, "keras_leg.json")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--keras-leg", out],
+                         env=dict(os.environ, KERAS_BACKEND="torch"),
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    with open(out) as f:
+        rec = dict(phase="graph", leg="keras", ran=True, **json.load(f),
+                   nvidia_smi=smi())
+    emit(rec)
+    return rec
+
+
+def phase_graph(torch) -> dict:
+    """Phase s (module docstring): the graph toolkit at full width, then
+    the Keras leg. A ``summary`` line gives the phase's seconds."""
+    import tempfile
+
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sparkdl_graph_") as root:
+        recs = {"graph_resnet50": graph_leg(torch, root),
+                "keras": keras_leg(root)}
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit(dict(phase="graph", leg="summary", seconds=seconds,
+              budget_s=PHASE_S_BUDGET_S,
+              within_budget=seconds <= PHASE_S_BUDGET_S,
+              keras_leg_ran=recs["keras"]["ran"], nvidia_smi=smi()))
+    recs["seconds"] = seconds
+    return recs
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -6146,6 +6417,8 @@ def main() -> int:
         return dp_m_worker(sys.argv[2])
     if sys.argv[1:2] == ["--sup-worker"]:
         return sup_worker(sys.argv[2], sys.argv[3], t_torch)
+    if sys.argv[1:2] == ["--keras-leg"]:
+        return keras_worker(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from sparkdl_tpu_torch.ops import _build
@@ -6184,6 +6457,7 @@ def main() -> int:
         r = phase_import(torch, (fa, fd, pfd), q["dirs"])
     finally:
         shutil.rmtree(sup_root, ignore_errors=True)
+    phase_graph(torch)
     r_launches = {
         f"import_llama3_8b_{arm}": c for arm, c in
         r["import_llama3_8b"]["launches"].items()}

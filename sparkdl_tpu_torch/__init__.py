@@ -33,8 +33,12 @@ evaluators), the feature stages, the byte-level BPE tokenizer
 foreign-checkpoint importers (``load_pretrained``: HF Llama and BERT
 safetensors, Keras-applications ``.h5``, flax msgpack and flax-path
 safetensors) and the offline reports over a run's event dir
-(``runner.analysis``, ``runner.traceview``), with the
-kernels they run: ``ops.flash_attention``
+(``runner.analysis``, ``runner.traceview``), the graph toolkit over
+``torch.export`` (``graph``: ``GraphFunction``, ``IsolatedSession``,
+``XlaInputGraph``, ``makeGraphUDF``) and the Keras path on Keras's torch
+backend (``KerasTransformer``, ``KerasImageFileTransformer``,
+``KerasImageFileEstimator``, ``registerKerasImageUDF`` over a Keras
+model or file), with the kernels they run: ``ops.flash_attention``
 (prefill, the training forward and its backward, causal or padded),
 ``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
 (block-table decode and verify). ROADMAP.md lists what is still to port.
@@ -56,9 +60,13 @@ from .core.tuning import (CrossValidator,  # noqa: E402
                           CrossValidatorModel, ParamGridBuilder,
                           TrainValidationSplit, TrainValidationSplitModel)
 from .estimators import (BinaryClassificationEvaluator,  # noqa: E402
-                         LogisticRegression, LogisticRegressionModel,
+                         KerasImageFileEstimator, LogisticRegression,
+                         LogisticRegressionModel,
                          MulticlassClassificationEvaluator,
                          RegressionEvaluator)
+from .graph import (GraphFunction, IsolatedGraph,  # noqa: E402
+                    IsolatedSession, TFInputGraph, XlaInputGraph,
+                    buildFlattener, buildSpImageConverter, makeGraphUDF)
 from .image.imageIO import (createResizeImageUDF,  # noqa: E402
                             nhwcToImageColumn, readImages,
                             readImagesWithCustomFn)
@@ -68,9 +76,10 @@ from .serving import (DEAD, DEGRADED, DOOMED, HEALTHY,  # noqa: E402
                       FleetRoutingError, GenerationEngine,
                       RequestShedError, fleet_debug_state)
 from .transformers import (DeepImageFeaturizer,  # noqa: E402
-                           DeepImagePredictor, TFImageTransformer,
+                           DeepImagePredictor, KerasImageFileTransformer,
+                           KerasTransformer, TFImageTransformer,
                            TFTransformer, XlaImageTransformer,
-                           XlaTransformer)
+                           XlaTransformer, defaultImageLoader)
 from .transformers.feature import (IndexToString,  # noqa: E402
                                    StandardScaler, StandardScalerModel,
                                    StringIndexer, StringIndexerModel,
@@ -103,7 +112,12 @@ __all__ = ["GenerationEngine", "EngineFleet", "FleetRequest",
            "nhwcToImageColumn", "XlaImageTransformer", "TFImageTransformer",
            "XlaTransformer", "TFTransformer",
            "DeepImageFeaturizer", "DeepImagePredictor",
-           "LogisticRegression", "LogisticRegressionModel"]
+           "LogisticRegression", "LogisticRegressionModel",
+           "KerasTransformer", "KerasImageFileTransformer",
+           "KerasImageFileEstimator", "defaultImageLoader",
+           "GraphFunction", "IsolatedSession", "IsolatedGraph",
+           "XlaInputGraph", "TFInputGraph", "buildSpImageConverter",
+           "buildFlattener", "makeGraphUDF"]
 
 
 def __getattr__(name):

@@ -164,6 +164,25 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+class KernelNotExportable(RuntimeError):
+    """A kernel wrapper was reached while ``torch.export`` traced a
+    program: the kernels are ``ctypes`` calls on device pointers, which
+    the exporter's fake tensors do not have (``graph.GraphFunction.
+    serialize`` turns this into its ``ValueError``)."""
+
+
+def refuse_export(name: str) -> None:
+    """Raise :class:`KernelNotExportable` when ``torch.export`` is
+    tracing; each wrapper calls it on its CUDA branch, before the
+    launch."""
+    import torch
+    if torch.compiler.is_exporting():
+        raise KernelNotExportable(
+            f"{name}'s CUDA kernel is a ctypes call, which torch.export "
+            f"cannot trace; export the program on CPU tensors (the "
+            f"kernel's plain PyTorch version) or call it unexported")
+
+
 class CudaError(RuntimeError):
     """A launcher returned a non-zero ``cudaError_t``: the launch was
     refused, or an earlier kernel on the stream faulted."""

@@ -278,6 +278,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
+    from . import _build
+    _build.refuse_export("flash_attention")
     reason = support_reason(q, k, v)
     if reason is not None:
         raise ValueError(f"flash_attention kernel: {reason}")
@@ -285,7 +287,6 @@ def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash_attention kernel needs contiguous, "
                              "16-byte aligned q, k, v")
-    from . import _build
 
     b, h, s, d = q.shape
     mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()

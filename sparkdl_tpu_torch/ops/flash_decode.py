@@ -337,6 +337,8 @@ def flash_decode(q, k_cache, v_cache, cur, pad_lens=None, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    from . import _build
+    _build.refuse_export("flash_decode")
     reason = support_reason(q, k_cache)
     if reason is not None:
         raise ValueError(f"flash_decode kernel: {reason}")
@@ -349,7 +351,6 @@ def flash_decode(q, k_cache, v_cache, cur, pad_lens=None, *,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash_decode kernel needs contiguous, 16-byte "
                              "aligned q and caches")
-    from . import _build
 
     cur_vec, cur_scalar = None, 0
     if isinstance(cur, int):

@@ -225,6 +225,8 @@ def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode runs on cuda or cpu tensors, "
                          f"got {q.device}")
+    from . import _build
+    _build.refuse_export("paged_flash_decode")
     reason = support_reason(q, k_pool, kv_scales, tables)
     if reason is not None:
         raise ValueError(f"paged_flash_decode kernel: {reason}")
@@ -242,7 +244,6 @@ def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
                              "16-byte aligned q, pools and scales")
     if kv_scales is not None and kv_scales.dtype != torch.float32:
         raise ValueError(f"kv_scales must be f32, got {kv_scales.dtype}")
-    from . import _build
 
     b, hq, s_q, d = q.shape
     _, hkv, bs, _ = k_pool.shape

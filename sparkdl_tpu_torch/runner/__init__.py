@@ -34,9 +34,9 @@ from .metrics import MetricsLogger, StepTimeStats, ThroughputMeter, \
     debug_mode, global_step_stats, peak_flops_per_chip, run_stats, \
     touch_heartbeat, trace
 from .telemetry import start as enable_telemetry
-from .train_state import (TrainState, adam, bn_classifier_loss,
-                          make_shard_map_step, make_train_step, sgd,
-                          softmax_cross_entropy_loss)
+from .train_state import (TrainState, adam, adamw, bn_classifier_loss,
+                          make_shard_map_step, make_train_step, rmsprop,
+                          sgd, softmax_cross_entropy_loss)
 from .xla_runner import RunnerContext, XlaRunner, current_context
 
 __all__ = ["CheckpointCorruptionError", "CheckpointManager",
@@ -46,13 +46,13 @@ __all__ = ["CheckpointCorruptionError", "CheckpointManager",
            "ListDataset", "MetricsLogger", "RunnerContext", "StepTimeStats",
            "SuperviseResult",
            "ThroughputMeter", "Timer", "TrainState",
-           "TrainingDivergedError", "XlaRunner", "adam", "analysis",
+           "TrainingDivergedError", "XlaRunner", "adam", "adamw", "analysis",
            "as_dataset",
            "bn_classifier_loss", "classify_exception", "current_context",
            "debug_mode", "enable_flight_recorder", "enable_telemetry",
            "events", "exception_summary", "global_step_stats", "launch",
            "load_portable", "make_shard_map_step", "make_train_step",
-           "merge_timeline", "peak_flops_per_chip", "run_stats",
+           "merge_timeline", "peak_flops_per_chip", "rmsprop", "run_stats",
            "save_portable", "sgd", "softmax_cross_entropy_loss",
            "supervise", "telemetry", "touch_heartbeat", "trace",
            "traceview"]

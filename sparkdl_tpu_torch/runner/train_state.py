@@ -23,8 +23,9 @@ runs it eagerly; nothing is compiled.
   state a dict of buffer name → tensor (``ResNet.forward(train=True)``'s
   second output); the step copies it into the model's buffers after the
   optimizer step (:func:`bn_classifier_loss`).
-- :func:`adam` and :func:`sgd` are ``optax.adam`` and ``optax.sgd`` as
-  optimizer factories; :func:`softmax_cross_entropy_loss` is the
+- :func:`adam`, :func:`sgd`, :func:`adamw` and :func:`rmsprop` are
+  ``optax.adam``, ``optax.sgd``, ``optax.adamw`` and ``optax.rmsprop`` as
+  optimizer factories, with optax's defaults; :func:`softmax_cross_entropy_loss` is the
   reference's classification loss.
 
 **Data parallelism** (``group=``, a ``torch.distributed`` process group
@@ -119,6 +120,62 @@ def sgd(learning_rate: float, momentum: float | None = None,
             [p for p in model.parameters() if p.requires_grad],
             lr=learning_rate, momentum=momentum or 0.0, dampening=0.0,
             nesterov=nesterov)
+
+    return make
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4):
+    """``optax.adamw`` as an optimizer factory: ``torch.optim.AdamW`` over
+    every parameter that requires a gradient. The same update: optax adds
+    ``weight_decay·p`` to the Adam step before scaling by the learning
+    rate, ``p −= lr·(m̂/(√v̂ + eps) + wd·p)``; torch first scales ``p`` by
+    ``1 − lr·wd``, then subtracts ``lr·m̂/(√v̂ + eps)`` — the same sum."""
+    def make(model: nn.Module) -> torch.optim.Optimizer:
+        return torch.optim.AdamW(
+            [p for p in model.parameters() if p.requires_grad],
+            lr=learning_rate, betas=(b1, b2), eps=eps,
+            weight_decay=weight_decay)
+
+    return make
+
+
+class _RMSprop(torch.optim.Optimizer):
+    """optax's ``rmsprop`` (``scale_by_rms`` with ``eps`` inside the root,
+    no centring, no momentum): ``ν ← decay·ν + (1 − decay)·g²`` from
+    ``ν = 0``, then ``p −= lr·g/√(ν + eps)``. ``torch.optim.RMSprop`` adds
+    ``eps`` outside the root, a different update."""
+
+    def __init__(self, params, lr: float, decay: float, eps: float):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr, decay, eps = group["lr"], group["decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["nu"] = torch.zeros_like(p)
+                nu = st["nu"]
+                nu.mul_(decay).addcmul_(p.grad, p.grad, value=1 - decay)
+                p.addcmul_(p.grad, (nu + eps).rsqrt(), value=-lr)
+        return loss
+
+
+def rmsprop(learning_rate: float, decay: float = 0.9, eps: float = 1e-8):
+    """``optax.rmsprop`` as an optimizer factory (optax's defaults: no
+    centring, no momentum, ``eps`` inside the square root) over every
+    parameter that requires a gradient."""
+    def make(model: nn.Module) -> torch.optim.Optimizer:
+        return _RMSprop([p for p in model.parameters() if p.requires_grad],
+                        lr=learning_rate, decay=decay, eps=eps)
 
     return make
 

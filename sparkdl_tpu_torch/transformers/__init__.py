@@ -1,18 +1,20 @@
 """Transformers of the port: ``XlaImageTransformer`` (a torch callable
 over an image column; alias ``TFImageTransformer``), ``XlaTransformer``
 (a torch callable over a numeric array column; aliases ``TFTransformer``
-and ``TensorTransformer``), ``DeepImageFeaturizer`` and
+and ``TensorTransformer``), ``KerasTransformer`` and
+``KerasImageFileTransformer`` (a saved Keras model on Keras's torch
+backend over an array column and over an image-URI column, with
+``defaultImageLoader``), ``DeepImageFeaturizer`` and
 ``DeepImagePredictor``, and the feature stages (``feature``:
 ``VectorAssembler``, ``StringIndexer``, ``StandardScaler``,
-``IndexToString``; pyarrow loads when they run, not at import).
-``KerasTransformer``, ``KerasImageFileTransformer`` and
-``defaultImageLoader`` are not ported yet (ROADMAP.md, Queue A 9); their
-names raise ``NotImplementedError`` here."""
+``IndexToString``; pyarrow loads when they run, keras when a Keras model
+is loaded, not at import)."""
 
 from .feature import (IndexToString, StandardScaler, StandardScalerModel,
                       StringIndexer, StringIndexerModel, VectorAssembler)
+from .keras_image import KerasImageFileTransformer, defaultImageLoader
 from .named_image import DeepImageFeaturizer, DeepImagePredictor
-from .tensor import XlaTransformer
+from .tensor import KerasTransformer, XlaTransformer
 from .xla_image import XlaImageTransformer
 
 # Reference-name aliases: the reference's TFImageTransformer and
@@ -24,18 +26,8 @@ TensorTransformer = XlaTransformer
 
 __all__ = ["XlaImageTransformer", "TFImageTransformer",
            "XlaTransformer", "TFTransformer", "TensorTransformer",
+           "KerasTransformer", "KerasImageFileTransformer",
+           "defaultImageLoader",
            "DeepImageFeaturizer", "DeepImagePredictor",
            "VectorAssembler", "StringIndexer", "StringIndexerModel",
            "StandardScaler", "StandardScalerModel", "IndexToString"]
-
-_NOT_PORTED = {"KerasTransformer": "A 9",
-               "KerasImageFileTransformer": "A 9",
-               "defaultImageLoader": "A 9"}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md, Queue "
-            f"{_NOT_PORTED[name]})")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

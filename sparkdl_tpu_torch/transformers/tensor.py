@@ -1,12 +1,14 @@
-"""XlaTransformer — apply a torch function to a numeric array column.
+"""XlaTransformer — apply a torch function to a numeric array column;
+KerasTransformer — the same with a saved Keras model.
 
-The port's ``sparkdl_tpu/transformers/tensor.py`` without its Keras half
-(``KerasTransformer`` is ROADMAP.md Queue A 9's, so this module imports no
-Keras). The reference's ``TFTransformer`` role: a **torch callable**
+The port's ``sparkdl_tpu/transformers/tensor.py``. The reference's
+``TFTransformer`` role: a **torch callable**
 ``fn(batch)`` over ``(N, ...)`` float32 batches (a tensor on the
 transformer's device) runs in one device step per chunk, on the same
 :class:`~..core.runtime.BatchRunner` and streaming scorer as the image
 transformers. The name is kept for the reference's API; there is no XLA.
+:class:`KerasTransformer` runs a saved Keras model on Keras's torch
+backend (``keras_utils``; keras is imported when the model is loaded).
 
 pyarrow is imported inside the functions that read a DataFrame, so this
 module, and the runner it builds (``_get_runner()``, the card's device
@@ -22,7 +24,8 @@ from ..core.params import (HasBatchSize, HasDevice, HasInputCol, HasOnError,
                            keyword_only)
 from ..core.pipeline import Transformer
 from ..core.runtime import BatchRunner
-from .payloads import PicklesCallableParams
+from .keras_utils import keras_file_to_fn
+from .payloads import BundlesModelFile, PicklesCallableParams
 
 
 class XlaTransformer(PicklesCallableParams, Transformer, HasInputCol,
@@ -52,16 +55,22 @@ class XlaTransformer(PicklesCallableParams, Transformer, HasInputCol,
                   inputShape=None, batchSize=None, onError=None, device=None):
         return self._set(**self._input_kwargs)
 
+    def _make_fn(self):
+        return self.getOrDefault(self.fn)
+
+    def _runner_key(self) -> tuple:
+        return (self.getBatchSize(), self.getDevice(),
+                id(self._paramMap.get(self.fn)))
+
     def _get_runner(self) -> BatchRunner:
         """One BatchRunner per (batch size, device, fn): the device step,
         which ``.run(host float32 batches)`` drives without a
         DataFrame."""
-        key = (self.getBatchSize(), self.getDevice(),
-               id(self._paramMap.get(self.fn)))
+        key = self._runner_key()
         cached = getattr(self, "_runner_cache", None)
         if cached is not None and cached[0] == key:
             return cached[1]
-        runner = BatchRunner(self.getOrDefault(self.fn), self.getBatchSize(),
+        runner = BatchRunner(self._make_fn(), self.getBatchSize(),
                              device=self.getDevice())
         self._runner_cache = (key, runner)
         return runner
@@ -109,3 +118,36 @@ class XlaTransformer(PicklesCallableParams, Transformer, HasInputCol,
                                  changes_length=on_error == "quarantine")
 
     _pickled_params = ("fn",)
+
+
+class KerasTransformer(BundlesModelFile, XlaTransformer):
+    """Applies a saved Keras model (Keras 3 on its torch backend) to a
+    numeric array column — the reference's KerasTransformer (single
+    input/output tensor contract), on ``device`` (unset → the card).
+    save() bundles the model file with the stage (BundlesModelFile)."""
+
+    modelFile = Param(Params, "modelFile",
+                      "path to a saved Keras model (.keras/.h5)",
+                      TypeConverters.toString)
+
+    @keyword_only
+    def __init__(self, inputCol=None, outputCol=None, modelFile=None,
+                 inputShape=None, batchSize=None, device=None):
+        super(XlaTransformer, self).__init__()
+        self._setDefault(batchSize=64, onError="raise")
+        self._set(**self._input_kwargs)
+
+    @keyword_only
+    def setParams(self, inputCol=None, outputCol=None, modelFile=None,
+                  inputShape=None, batchSize=None, device=None):
+        return self._set(**self._input_kwargs)
+
+    def _make_fn(self):
+        return keras_file_to_fn(self.getOrDefault(self.modelFile),
+                                device=self.getDevice())
+
+    def _runner_key(self) -> tuple:
+        return (self.getBatchSize(), self.getOrDefault(self.modelFile),
+                self.getDevice())
+
+    _pickled_params = ()

@@ -8,10 +8,10 @@ from .registry import (applyUDF, classify_rows, generate_rows, listUDFs,
                        registerKerasImageUDF,
                        registerSequenceClassificationUDF,
                        registerTextGenerationUDF, registerUDF,
-                       right_pad_rows, unregisterUDF)
+                       right_pad_rows, udfStage, unregisterUDF)
 
 __all__ = ["registerUDF", "registerImageUDF", "registerKerasImageUDF",
            "registerGenerationUDF", "registerTextGenerationUDF",
            "registerSequenceClassificationUDF", "classify_rows",
            "generate_rows", "right_pad_rows",
-           "applyUDF", "listUDFs", "unregisterUDF"]
+           "applyUDF", "listUDFs", "udfStage", "unregisterUDF"]

@@ -27,9 +27,7 @@ each call captures its own decode graph on the card (ROADMAP.md A 1).
 The DataFrame (pyarrow) is imported inside the functions that need it, so
 this module, and :func:`classify_rows`, import without pyarrow. Every UDF
 runs on the card unless ``device="cpu"`` is asked for (the port's
-argument; the reference's signatures have none). A Keras model object or
-file raises ``NotImplementedError`` (the Keras path is ROADMAP.md Queue
-A 9's).
+argument; the reference's signatures have none).
 """
 
 from __future__ import annotations
@@ -48,13 +46,16 @@ def registerUDF(name: str, fn: Callable, batchSize: int = 64,
     (``(N, ...)`` float32 tensors on ``device``)."""
     from ..transformers.tensor import XlaTransformer
 
-    def apply(df, inputCol: str, outputCol: str):
-        t = XlaTransformer(inputCol=inputCol, outputCol=outputCol, fn=fn,
-                           batchSize=batchSize, device=device,
-                           **({"inputShape": inputShape} if inputShape
-                              else {}))
-        return t.transform(df)
+    def stage(inputCol: str, outputCol: str):
+        return XlaTransformer(inputCol=inputCol, outputCol=outputCol, fn=fn,
+                              batchSize=batchSize, device=device,
+                              **({"inputShape": inputShape} if inputShape
+                                 else {}))
 
+    def apply(df, inputCol: str, outputCol: str):
+        return stage(inputCol, outputCol).transform(df)
+
+    apply.stage = stage
     _UDF_REGISTRY[name] = apply
 
 
@@ -65,13 +66,16 @@ def registerImageUDF(name: str, fn: Callable, inputSize: tuple[int, int],
     (float32 NHWC in [0, 255], resized to ``inputSize``)."""
     from ..transformers.xla_image import XlaImageTransformer
 
-    def apply(df, inputCol: str, outputCol: str):
-        t = XlaImageTransformer(inputCol=inputCol, outputCol=outputCol,
-                                fn=fn, inputSize=inputSize,
-                                batchSize=batchSize,
-                                channelOrder=channelOrder, device=device)
-        return t.transform(df)
+    def stage(inputCol: str, outputCol: str):
+        return XlaImageTransformer(inputCol=inputCol, outputCol=outputCol,
+                                   fn=fn, inputSize=inputSize,
+                                   batchSize=batchSize,
+                                   channelOrder=channelOrder, device=device)
 
+    def apply(df, inputCol: str, outputCol: str):
+        return stage(inputCol, outputCol).transform(df)
+
+    apply.stage = stage
     _UDF_REGISTRY[name] = apply
 
 
@@ -81,28 +85,35 @@ def registerKerasImageUDF(udf_name: str, keras_model_or_file,
     """The reference's flagship UDF: image decode ∘ (``preprocessor``) ∘
     model, registered under ``udf_name``.
 
-    ``keras_model_or_file`` names a zoo model (``models.SUPPORTED_MODELS``,
-    e.g. ``"InceptionV3"``): built at random weights from seed 0, as the
-    reference's (nothing is downloaded), on ``device``, its logits over
-    its own preprocessing at its input size. ``preprocessor`` is a torch
-    NHWC → NHWC function run in front of the model in the same device
-    step. A Keras model object or a saved-model path raises
-    ``NotImplementedError`` (ROADMAP.md, Queue A 9)."""
+    ``keras_model_or_file``: a Keras-3 model object (torch backend, its
+    variables on ``device``), a saved-model path (loaded on ``device``
+    through ``transformers.keras_utils``), or a named zoo model
+    (``models.SUPPORTED_MODELS``, e.g. ``"InceptionV3"``: built at random
+    weights from seed 0, as the reference's — nothing is downloaded —
+    its logits over its own preprocessing at its input size). The input
+    size of a Keras model is its input layer's.
+    ``preprocessor`` is a torch NHWC → NHWC function run in front of the
+    model in the same device step."""
     from ..models.registry import SUPPORTED_MODELS
+    from ..transformers.keras_utils import (keras_model_to_fn,
+                                            load_keras_model)
     from ..utils.platform import resolve_device
 
-    if not (isinstance(keras_model_or_file, str)
-            and keras_model_or_file in SUPPORTED_MODELS):
-        raise NotImplementedError(
-            f"registerKerasImageUDF({keras_model_or_file!r}): Keras models "
-            f"and model files are not ported to sparkdl_tpu_torch yet "
-            f"(ROADMAP.md, Queue A 9); name one of "
-            f"{sorted(SUPPORTED_MODELS)}")
-    spec = SUPPORTED_MODELS[keras_model_or_file]
-    base_fn = spec.apply_fn(spec.build(seed=0,
-                                       device=resolve_device(device)))
+    if isinstance(keras_model_or_file, str) \
+            and keras_model_or_file in SUPPORTED_MODELS:
+        spec = SUPPORTED_MODELS[keras_model_or_file]
+        base_fn = spec.apply_fn(spec.build(seed=0,
+                                           device=resolve_device(device)))
+        input_hw = spec.input_size
+    else:
+        model = (load_keras_model(keras_model_or_file, device=device)
+                 if isinstance(keras_model_or_file, str)
+                 else keras_model_or_file)
+        base_fn = keras_model_to_fn(model, device=device)
+        shape = model.inputs[0].shape
+        input_hw = (int(shape[1]), int(shape[2]))
     fn = (lambda b: base_fn(preprocessor(b))) if preprocessor else base_fn
-    registerImageUDF(udf_name, fn, inputSize=spec.input_size,
+    registerImageUDF(udf_name, fn, inputSize=input_hw,
                      batchSize=batchSize, device=device)
 
 
@@ -409,6 +420,25 @@ def applyUDF(df, name: str, inputCol: str, outputCol: str):
         raise ValueError(f"UDF {name!r} is not registered; available: "
                          f"{sorted(_UDF_REGISTRY)}") from None
     return apply(df, inputCol, outputCol)
+
+
+def udfStage(name: str, inputCol: str, outputCol: str):
+    """The transformer stage a numeric or image UDF applies
+    (``registerUDF``, ``registerImageUDF`` and the UDFs made over them),
+    whose ``_get_runner()`` is the UDF's device step: ``.run(host
+    batches)`` drives it without a DataFrame (the card machine has no
+    pyarrow). The token-column UDFs have no stage and raise
+    ``ValueError``."""
+    try:
+        apply = _UDF_REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"UDF {name!r} is not registered; available: "
+                         f"{sorted(_UDF_REGISTRY)}") from None
+    stage = getattr(apply, "stage", None)
+    if stage is None:
+        raise ValueError(f"UDF {name!r} is a token-column UDF; it has no "
+                         f"transformer stage")
+    return stage(inputCol, outputCol)
 
 
 def listUDFs() -> list[str]:

@@ -1,6 +1,9 @@
-"""Shared utilities of the port (``Timer``: device-aware timing)."""
+"""Shared utilities of the port: tree path helpers (``trees``) and
+device-aware timing (``Timer``)."""
 
-__all__ = ["Timer"]
+from .trees import flatten_with_paths, path_str, tree_size_bytes
+
+__all__ = ["flatten_with_paths", "path_str", "tree_size_bytes", "Timer"]
 
 
 def __getattr__(name):

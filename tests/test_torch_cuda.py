@@ -1772,3 +1772,73 @@ def test_hf_round_trip_on_card(dev, tmp_path):
     with torch.no_grad():
         assert torch.equal(bn(ids, mask), bo(ids, mask))
     assert fa.flash_attention_fwd.launches - fa0 == 2 * bcfg.num_layers
+
+
+def test_graph_toolkit_on_card_matches_cpu(dev, tmp_path):
+    """Phase s's graph at a small size: a converter → conv module →
+    flattener GraphFunction on the card, its captured step (``jit``), its
+    ``.pt2`` round trip (exported on the card with a free batch, loaded
+    on the card, run at batches 5 and 2) and the UDF ``makeGraphUDF``
+    registers (its device step, ``udfStage``), each against the same
+    graph on the CPU, to the f32 rule (1e-5 of max|ref| + 1e-5·|ref|:
+    one conv in cuDNN's and in the CPU's order). A graph that launches
+    one of the kernels refuses to serialize."""
+    from sparkdl_tpu_torch.graph import (GraphFunction, buildFlattener,
+                                         buildSpImageConverter, makeGraphUDF)
+    from sparkdl_tpu_torch.udf import udfStage, unregisterUDF
+
+    def graph(device):
+        torch.manual_seed(0)
+        conv = torch.nn.Sequential(
+            torch.nn.Conv2d(3, 8, 3, padding=1), torch.nn.ReLU(),
+            torch.nn.AdaptiveAvgPool2d(2)).to(device)
+
+        class Nhwc(torch.nn.Module):
+            def forward(self, x):
+                return conv(x.permute(0, 3, 1, 2))
+
+        return GraphFunction.fromList([
+            buildSpImageConverter("BGR", scale=1 / 255.0, device=device),
+            GraphFunction.fromModule(Nhwc(), device=device),
+            buildFlattener(device=device)])
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (5, 16, 16, 3), dtype=np.uint8)
+    gpu, cpu = graph(dev), graph("cpu")
+    want = cpu(image=x)["flattened"].numpy()
+
+    def check(got, ref=want):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()))
+
+    live = gpu(image=x)["flattened"]
+    assert live.device.type == "cuda"
+    check(live)
+    jitted = gpu.jit()
+    for _ in range(2):  # capture, then replay
+        check(jitted(image=x)["flattened"])
+    path = str(tmp_path / "g.pt2")
+    gpu.dump(path, {"image": ((None, 16, 16, 3), "uint8")})
+    loaded = GraphFunction.load(path, device=dev)
+    check(loaded(image=x)["flattened"])
+    check(loaded(image=x[:2])["flattened"], want[:2])
+    from_cpu = GraphFunction.load(path, device="cpu")
+    check(from_cpu(image=x)["flattened"])
+    makeGraphUDF(gpu, "card_graph_udf", batchSize=4)
+    try:
+        runner = udfStage("card_graph_udf", "image", "f")._get_runner()
+        assert runner.device.type == "cuda"
+        check(np.concatenate(list(runner.run(
+            [x[:4].astype(np.float32), x[4:].astype(np.float32)]))))
+    finally:
+        unregisterUDF("card_graph_udf")
+
+    q = torch.randn(1, 2, 128, 64, device=dev)
+    attn = GraphFunction.fromTorch(
+        lambda q: fa.flash_attention(q, q, q, causal=True), ["q"], ["o"],
+        device=dev)
+    assert attn(q=q)["o"].shape == q.shape
+    with pytest.raises(ValueError, match="flash_attention's CUDA kernel"):
+        attn.serialize({"q": ((None, 2, 128, 64), "float32")})

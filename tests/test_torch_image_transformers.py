@@ -374,12 +374,16 @@ def test_out_of_slice_surfaces_raise_naming_their_queue(tmp_path):
         assert errs[0] == errs[1], errs
     import sparkdl_tpu_torch.estimators as E
     import sparkdl_tpu_torch.transformers as T
-    for mod, name, queue in ((T, "KerasTransformer", "A 9"),
-                             (T, "KerasImageFileTransformer", "A 9"),
-                             (T, "defaultImageLoader", "A 9"),
-                             (E, "KerasImageFileEstimator", "A 9")):
-        with pytest.raises(NotImplementedError, match=f"Queue {queue}"):
-            getattr(mod, name)
+    # Queue A 9's Keras names import now (the Keras path on Keras's torch
+    # backend; tests/test_torch_keras.py holds them against the reference)
+    from sparkdl_tpu_torch.estimators import keras_image_file_estimator
+    from sparkdl_tpu_torch.transformers import keras_image, tensor
+    for mod, name, home in ((T, "KerasTransformer", tensor),
+                            (T, "KerasImageFileTransformer", keras_image),
+                            (T, "defaultImageLoader", keras_image),
+                            (E, "KerasImageFileEstimator",
+                             keras_image_file_estimator)):
+        assert getattr(mod, name) is getattr(home, name)
     # Queue A 4's names import now (model selection, evaluators, the
     # feature stages, the tokenizer)
     from sparkdl_tpu_torch.core import tuning

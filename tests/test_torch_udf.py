@@ -367,12 +367,15 @@ def test_registration_checks_and_registry(llama):
         sdl.registerGenerationUDF("bad", model, eos_id="</s>")
     assert "bad" not in sdl.listUDFs()
     # the numeric and image UDFs register; a Keras model or model file
-    # names Queue A 9, and a zoo model without device= needs the card
+    # needs Keras on its torch backend, and this process runs keras on jax
+    # (tests/conftest.py), so the port refuses it before importing keras
+    # (tests/test_torch_keras.py registers one in a KERAS_BACKEND=torch
+    # process); a zoo model without device= needs the card
     reg.registerUDF("u1", len, device="cpu")
     reg.registerImageUDF("u2", len, (8, 8), device="cpu")
     assert {"u1", "u2"} <= set(sdl.listUDFs())
     for keras_model_or_file in ("model.keras", object()):
-        with pytest.raises(NotImplementedError, match="Queue A 9"):
+        with pytest.raises(RuntimeError, match="KERAS_BACKEND=torch"):
             reg.registerKerasImageUDF("u3", keras_model_or_file)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         reg.registerKerasImageUDF("u3", "ResNet50")
