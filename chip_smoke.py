@@ -536,6 +536,32 @@ s. graph — the graph toolkit over ``torch.export`` and the Keras path:
      on the card and the CPU (IMAGE_F32_RULE); where either does not
      import, the line says ``"ran": false`` and names it.
    A ``summary`` line gives the phase's seconds against PHASE_S_BUDGET_S.
+t. parallel — sequence parallelism over a one-rank NCCL gang (one card:
+   NCCL refuses two ranks of one communicator on it), joined through
+   ``XlaRunner(coordinator=, num_processes=1, process_id=0)`` with
+   ``make_mesh({"sp": 1})``:
+   - ``ulysses_flash``: ``ulysses_attention(local_attn="auto")`` at
+     llama3_8b's attention shape (ULYSSES_SHAPE, causal, bf16), forward
+     and gradient, bitwise to the bare flash kernel's call (the one-rank
+     all-to-alls are copies); at ULYSSES_CHECK_S held to the plain
+     version (phase b's rules); ms beside the bare call's, forward and
+     forward + backward, SDPA's and the bound;
+   - ``ring_generate``: llama3_8b widths, depth cut to RING_LAYERS,
+     bf16, seeded; RING_PROMPTS prompts of RING_LEN tokens, RING_NEW new
+     tokens through ``generate()`` with dense attention, the flash kernel
+     and ``partial(ring_attention, mesh=..., axis="sp")``: each arm's
+     prefill ms, peak memory and launches; the ring's last prefill
+     logits within RING_LOGIT_SHARE of the flash arm's (their shares
+     against dense reported); each arm's streams fed to the dense model (phase n's
+     top-2-gap rule): a token other than its argmax only where the
+     top-2 gap lies within 10 × BF16_LOGIT_RTOL × (1 + max |logit|);
+   - ``examples``: ``examples/torch_long_context_serving.py`` and
+     ``torch_distributed_training.py`` under ``python -m
+     sparkdl_tpu_torch.runner.launcher --np 1`` (one-rank NCCL gangs),
+     started together at their default sizes: exit 0 and their marker
+     lines, seconds each; the two DataFrame twins only where pyarrow and
+     pandas import (else ``"ran": false`` naming what is missing).
+   A ``summary`` line gives the phase's seconds against PHASE_T_BUDGET_S.
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
@@ -546,7 +572,8 @@ kernels add phase n's and phase o's launches leg by leg,
 ``phase_n_launches`` and ``phase_o_launches``; flash_attention and
 paged_flash_decode add phase r's, ``phase_r_launches``;
 paged_flash_decode adds its llama3_8b 32:8 S = 5 verify window,
-``llama3_8b_s5_case``) and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+``llama3_8b_s5_case``; flash_attention, flash_decode and
+flash_attention_bwd add phase t's, ``phase_t_launches``) and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
 """
@@ -6389,6 +6416,313 @@ def phase_graph(torch) -> dict:
     return recs
 
 
+# --- phase t: sequence parallelism, the mesh layer and the examples --------
+
+ULYSSES_SHAPE = (1, 32, 16384, 128)  # llama3_8b's attention: B, H, S, D
+ULYSSES_CHECK_S = 2048               # the plain version's check (its
+                                     # scores at 16384 would be 34 GB)
+RING_PROMPTS, RING_LEN, RING_NEW = 2, 4096, 8
+RING_LAYERS = 2                      # llama3_8b's 32 layers cut to 2
+# the ring's last prefill logits against the flash arm's (both keep the
+# softmax in f32; the dense bf16 path rounds its scores, and on the CPU
+# dry run sat 1.6e-2 from both), as a share of the largest dense logit:
+# the bf16 bound of tests/test_torch_cuda.py::GEN_BF16_BOUND
+RING_LOGIT_SHARE = 2.0 ** -6
+EXAMPLE_MARKERS = {
+    "torch_long_context_serving.py": ["bit-identical"],
+    "torch_distributed_training.py": ["-device DP: loss"],
+    "torch_transfer_learning.py": ["train accuracy"],
+    "torch_generation_serving.py": ["ONE prefill + ONE decode program",
+                                    "in-repo tokenizer only"],
+}
+PHASE_T_BUDGET_S = 90.0
+
+
+def attention_bound(b: int, h: int, s: int, d: int, causal: bool,
+                    elt: int) -> tuple:
+    """(bound ms, by, flops, bytes) of one unmasked attention forward:
+    q·kᵀ and p·v over the live pairs, q, k, v read and O written once,
+    the f32 lse written."""
+    pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+    flops = 4.0 * d * pairs
+    nbytes = 4 * b * h * s * d * elt + b * h * s * 4
+    return (*bound(flops, nbytes, "bfloat16" if elt == 2 else "float32"),
+            flops, nbytes)
+
+
+def ulysses_flash(torch, kernels, mesh, flush) -> dict:
+    """``ulysses_flash``: ``ulysses_attention(local_attn="auto")`` on the
+    one-rank NCCL mesh at llama3_8b's attention shape, forward and
+    gradient, against the bare flash kernel's call — bitwise, since the
+    one-rank exchanges are copies — then at S = ULYSSES_CHECK_S against
+    the plain version (fa.tc_bf16_tolerance forward, fa.bwd_tolerance
+    gradient)."""
+    import torch.nn.functional as F
+
+    from sparkdl_tpu_torch.parallel import ulysses_attention
+
+    fa = kernels[0]
+    b, h, s, d = ULYSSES_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(40)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def uly(a, b_, c):
+        return ulysses_attention(a, b_, c, mesh, axis="sp", causal=True,
+                                 local_attn="auto")
+
+    def bare(a, b_, c):
+        return fa.flash_attention(a, b_, c, causal=True)
+
+    def fwd_bwd(fn, xs, dout):
+        leaves = [x.detach().requires_grad_(True) for x in xs]
+        o = fn(*leaves)
+        return (o.detach(), *torch.autograd.grad(o, leaves, dout))
+
+    reset_counts(*kernels)
+    got = fwd_bwd(uly, (q, k, v), do)
+    torch.cuda.synchronize()
+    launches = read_counts(*kernels)
+    assert launches["flash_attention"] == 1, launches
+    assert launches["flash_attention_bwd"] == 1, launches
+    want = fwd_bwd(bare, (q, k, v), do)
+    bitwise = {n: bool(torch.equal(a, w)) for n, a, w in
+               zip(("o", "dq", "dk", "dv"), got, want)}
+    assert all(bitwise.values()), bitwise
+    del got, want
+
+    qs, ks, vs, dos = (x[:, :, :ULYSSES_CHECK_S].contiguous()
+                       for x in (q, k, v, do))
+    o_s, *g_s = fwd_bwd(uly, (qs, ks, vs), dos)
+    o_ref, lse_ref = fa.attention_plain(qs, ks, vs, True, None)
+    err = check_close(o_s, o_ref, "bfloat16", "ulysses_flash forward",
+                      fa.tc_bf16_tolerance(o_ref, fa.attention_abs_pv_plain(
+                          qs, ks, vs, True, None)))
+    o_k, lse_k = fa.flash_attention_fwd(qs, ks, vs, True)
+    bargs = (qs, ks, vs, o_k, lse_k, dos, True, None)
+    grad_err = max(check_close(gt, w, "bfloat16", f"ulysses_flash {n}",
+                               fa.bwd_tolerance(w, a))
+                   for n, gt, w, a in zip(
+                       ("dq", "dk", "dv"), g_s, fa.attention_bwd_plain(*bargs),
+                       fa.attention_bwd_abs_plain(*bargs)))
+    plain_ms = time_ms(torch, lambda: fa.attention_plain(qs, ks, vs, True,
+                                                         None), iters=3)
+    del o_s, g_s, o_ref, lse_ref, o_k, lse_k, bargs
+
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: uly(q, k, v), flush=flush)
+        bare_ms = time_ms(torch, lambda: bare(q, k, v), flush=flush)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), flush=flush)
+    fb_ms = time_ms(torch, lambda: fwd_bwd(uly, (q, k, v), do), iters=5,
+                    flush=flush)
+    bare_fb_ms = time_ms(torch, lambda: fwd_bwd(bare, (q, k, v), do),
+                         iters=5, flush=flush)
+    bms, by, flops, nbytes = attention_bound(b, h, s, d, True, 2)
+    rec = dict(phase="parallel", leg="ulysses_flash",
+               mesh={"sp": 1}, backend="nccl", local_attn="auto",
+               variant=fa.kernel_variant(torch.bfloat16), dtype="bfloat16",
+               shape=list(ULYSSES_SHAPE), causal=True,
+               bitwise_to_bare_kernel=bitwise, launches=launches,
+               check_s=ULYSSES_CHECK_S, max_abs_err=err,
+               grad_max_abs_err=grad_err,
+               tol_rule="forward fa.tc_bf16_tolerance, gradient "
+                        "fa.bwd_tolerance (phase b's rules)",
+               ms=ms, bare_ms=bare_ms, fwd_bwd_ms=fb_ms,
+               bare_fwd_bwd_ms=bare_fb_ms, plain_ms_at_check_s=plain_ms,
+               library_ms=library_ms,
+               library="F.scaled_dot_product_attention(is_causal=True)",
+               bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+               nvidia_smi=smi())
+    emit(rec)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rec
+
+
+def teacher_forced(torch, model, prompts: list, stream: list,
+                   new: int) -> dict:
+    """Phase n's top-2-gap rule for one arm's greedy streams: each stream
+    fed to ``model`` (one forward over prompt + stream, the dense arm);
+    wherever the stream's token is not that forward's argmax, the top-2
+    gap there must lie within the bf16 gate 10 × BF16_LOGIT_RTOL × (1 +
+    max |logit|) (phase o's)."""
+    compared, flips, identical = 0, [], 0
+    for r, (p, st) in enumerate(zip(prompts, stream)):
+        with torch.no_grad():
+            logits = model(torch.tensor([p + st], device=model.device))[
+                0, len(p) - 1:len(p) - 1 + new].float()
+        top2 = logits.topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        gates = (10 * BF16_LOGIT_RTOL * (1 + logits.abs().amax(-1))).tolist()
+        want = logits.argmax(-1).tolist()
+        del logits
+        identical += want == st
+        for j, (t, w) in enumerate(zip(st, want)):
+            compared += 1
+            if t != w:
+                assert gaps[j] <= gates[j], (
+                    f"prompt {r}: the stream leaves the dense argmax at "
+                    f"position {j} with a top-2 gap of {gaps[j]} > "
+                    f"{gates[j]}")
+                flips.append(dict(prompt=r, position=j, gap=gaps[j],
+                                  gate=gates[j]))
+    return dict(positions_compared=compared, dense_argmax_streams=identical,
+                near_tie_flips=flips)
+
+
+def ring_generate(torch, kernels, mesh) -> dict:
+    """``ring_generate``: llama3_8b's widths cut to RING_LAYERS layers,
+    bf16, seeded; RING_PROMPTS prompts of RING_LEN tokens, RING_NEW new,
+    through ``generate()`` with the dense in-model path, the flash kernel
+    and ring attention over the one-rank mesh. Each arm's prefill ms (one
+    prefill into a fresh cache, CUDA events, three times), peak memory
+    and launches; the ring's last prefill logits within RING_LOGIT_SHARE
+    of the flash arm's (each arm's share against dense reported); the
+    ring's and the flash arm's streams held to the dense model by
+    :func:`teacher_forced`."""
+    import dataclasses
+    import functools
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.parallel import ring_attention
+
+    fa = kernels[0]
+    cfg = dataclasses.replace(L.LlamaConfig.llama3_8b(),
+                              num_layers=RING_LAYERS)
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, attn_fn=None,
+                         device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(42))
+    ids = torch.randint(1, cfg.vocab_size, (RING_PROMPTS, RING_LEN),
+                        generator=torch.Generator().manual_seed(42)
+                        ).to("cuda")
+    arms = {"dense": None, "flash": fa.flash_attention,
+            "ring": functools.partial(ring_attention, mesh=mesh, axis="sp")}
+    rec = dict(phase="parallel", leg="ring_generate",
+               config="LlamaConfig.llama3_8b", layers=RING_LAYERS,
+               depth_cut=f"32 -> {RING_LAYERS}", dtype="bfloat16",
+               mesh={"sp": 1}, backend="nccl", prompts=RING_PROMPTS,
+               prompt_len=RING_LEN, new_tokens=RING_NEW,
+               ring_score_block_bytes=RING_PROMPTS * cfg.num_heads
+               * RING_LEN ** 2 * 4, logit_share_limit=RING_LOGIT_SHARE,
+               arms={})
+    streams, last = {}, {}
+    for arm, fn in arms.items():
+        model.attn_fn = fn
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(*kernels)
+        out = L.generate(model, ids, RING_NEW)
+        torch.cuda.synchronize()
+        launches = read_counts(*kernels)
+        streams[arm] = out[:, RING_LEN:].tolist()
+        peak = torch.cuda.max_memory_allocated() - base
+        pre = []
+        for _ in range(3):
+            cache = L.init_cache(model, RING_PROMPTS, RING_LEN + RING_NEW)
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            last[arm] = L._prefill(model, ids, cache, None).float()
+            e_ev.record()
+            torch.cuda.synchronize()
+            pre.append(s_ev.elapsed_time(e_ev))
+            del cache
+        rec["arms"][arm] = dict(prefill_ms=pre, peak_bytes_over_model=peak,
+                                launches=launches)
+        want_fa = RING_LAYERS if arm == "flash" else 0
+        assert launches["flash_attention"] == want_fa, (arm, launches)
+        torch.cuda.empty_cache()
+    scale = last["dense"].abs().max().item()
+    for arm in ("ring", "flash"):
+        rec["arms"][arm]["prefill_logit_share_vs_dense"] = (
+            last[arm] - last["dense"]).abs().max().item() / scale
+    share = (last["ring"] - last["flash"]).abs().max().item() / scale
+    rec["ring_vs_flash_logit_share"] = share
+    assert share <= RING_LOGIT_SHARE, rec
+    model.attn_fn = None
+    prompts = ids.tolist()
+    for arm in ("ring", "flash"):
+        rec[f"{arm}_tokens"] = teacher_forced(torch, model, prompts,
+                                              streams[arm], RING_NEW)
+        rec[f"{arm}_tokens"]["equal_dense_stream"] = [
+            a == b for a, b in zip(streams[arm], streams["dense"])]
+    rec.update(streams=streams, nvidia_smi=smi())
+    emit(rec)
+    del model, last
+    torch.cuda.empty_cache()
+    return rec
+
+
+def examples_leg() -> dict:
+    """``examples``: the two distributed example twins as one-rank NCCL
+    gangs (``python -m sparkdl_tpu_torch.runner.launcher --np 1``), started
+    together at their default sizes; exit 0 and their marker lines,
+    seconds each. The DataFrame twins run only where pyarrow and pandas
+    import."""
+    import importlib.util
+
+    launch = ["-m", "sparkdl_tpu_torch.runner.launcher", "--np", "1"]
+    cmds = {"torch_long_context_serving.py":
+            launch + ["examples/torch_long_context_serving.py"],
+            "torch_distributed_training.py":
+            launch + ["examples/torch_distributed_training.py"]}
+    missing = [m for m in ("pyarrow", "pandas")
+               if importlib.util.find_spec(m) is None]
+    rec = dict(phase="parallel", leg="examples", scripts={})
+    for name in ("torch_transfer_learning.py",
+                 "torch_generation_serving.py"):
+        if missing:
+            rec["scripts"][name] = dict(ran=False, missing=missing[0])
+        else:
+            cmds[name] = [f"examples/{name}"]
+    for name, (rc, so, se, secs) in run_scripts(cmds).items():
+        found = [m for m in EXAMPLE_MARKERS[name] if m in so]
+        rec["scripts"][name] = dict(ran=True, rc=rc, seconds=secs,
+                                    markers=found,
+                                    stdout=so.strip().splitlines()[-2:])
+        assert rc == 0 and found == EXAMPLE_MARKERS[name], (
+            name, rc, so[-2000:], se[-4000:])
+    rec["nvidia_smi"] = smi()
+    emit(rec)
+    return rec
+
+
+def phase_parallel(torch, kernels) -> dict:
+    """Phase t (module docstring): a one-rank NCCL gang joined through
+    ``XlaRunner``, ``make_mesh({"sp": 1})``, the ``ulysses_flash`` and
+    ``ring_generate`` legs, the gang left, then the ``examples`` leg. A
+    ``summary`` line gives the phase's seconds against
+    PHASE_T_BUDGET_S."""
+    from sparkdl_tpu_torch.core.runtime import make_mesh
+    from sparkdl_tpu_torch.runner import XlaRunner, launcher
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    t0 = time.perf_counter()
+    runner = XlaRunner(device="cuda", num_processes=1, process_id=0,
+                       coordinator=f"127.0.0.1:{launcher.free_port()}")
+    assert runner.gang.backend == "nccl", runner.gang
+    try:
+        mesh = make_mesh({"sp": 1})
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                            device="cuda")
+        recs = {"ulysses_flash": ulysses_flash(torch, kernels, mesh, flush)}
+        del flush
+        recs["ring_generate"] = ring_generate(torch, kernels, mesh)
+    finally:
+        leave_gang()
+    torch.cuda.empty_cache()
+    recs["examples"] = examples_leg()
+    seconds = time.perf_counter() - t0
+    emit(dict(phase="parallel", leg="summary", seconds=seconds,
+              budget_s=PHASE_T_BUDGET_S,
+              within_budget=seconds <= PHASE_T_BUDGET_S, nvidia_smi=smi()))
+    recs["seconds"] = seconds
+    return recs
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -6458,6 +6792,11 @@ def main() -> int:
     finally:
         shutil.rmtree(sup_root, ignore_errors=True)
     phase_graph(torch)
+    t = phase_parallel(torch, (fa, fd, pfd))
+    t_launches = {
+        "ulysses_flash": t["ulysses_flash"]["launches"],
+        **{f"ring_generate_{arm}": a["launches"]
+           for arm, a in t["ring_generate"]["arms"].items()}}
     r_launches = {
         f"import_llama3_8b_{arm}": c for arm, c in
         r["import_llama3_8b"]["launches"].items()}
@@ -6496,6 +6835,9 @@ def main() -> int:
                               for leg, rec in n_recs.items()},
             phase_o_launches={leg: rec["launches"][name]
                               for leg, rec in o.items()}))
+        if name in ("flash_attention", "flash_decode"):
+            kernels[-1]["phase_t_launches"] = {
+                leg: c[name] for leg, c in t_launches.items()}
         if name in ("flash_attention", "paged_flash_decode"):
             kernels[-1]["phase_r_launches"] = {
                 leg: c[name] for leg, c in r_launches.items()}
@@ -6563,6 +6905,8 @@ def main() -> int:
                           for arm, c in p_launches.items()},
         phase_q_launches={arm: c["flash_attention_bwd"]
                           for arm, c in q_launches.items()},
+        phase_t_launches={leg: c["flash_attention_bwd"]
+                          for leg, c in t_launches.items()},
         f32_variant=dict(variant=f32["variant"], route="cuda",
                          source="sparkdl_tpu_torch/csrc/"
                                 "flash_attention_bwd.cu",

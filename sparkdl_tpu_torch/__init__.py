@@ -38,7 +38,10 @@ safetensors) and the offline reports over a run's event dir
 ``XlaInputGraph``, ``makeGraphUDF``) and the Keras path on Keras's torch
 backend (``KerasTransformer``, ``KerasImageFileTransformer``,
 ``KerasImageFileEstimator``, ``registerKerasImageUDF`` over a Keras
-model or file), with the kernels they run: ``ops.flash_attention``
+model or file), sequence parallelism over a ``torch.distributed`` gang
+(``core.runtime.make_mesh``, ``parallel.ring_attention``,
+``parallel.ulysses_attention``) and the sharding rules placed as
+``DTensor``s (``parallel.shard_params``), with the kernels they run: ``ops.flash_attention``
 (prefill, the training forward and its backward, causal or padded),
 ``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
 (block-table decode and verify). ROADMAP.md lists what is still to port.

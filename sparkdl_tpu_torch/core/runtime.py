@@ -22,9 +22,12 @@ jax), in the parts the port's callers reach:
   signature, ``get`` captures it into one CUDA graph per signature and
   replays it (:class:`StepGraph`).
 
-The mesh (``make_mesh``, a sharded feed) waits for data parallelism
-(ROADMAP.md, Queue A 8); the persistent compile cache has no counterpart
-(nothing is compiled ahead of a call).
+- :func:`make_mesh`, a named ``DeviceMesh`` over the process's
+  ``torch.distributed`` gang (one process a device).
+
+The sharded feed (``BatchRunner(mesh=)``) waits for ROADMAP.md, Queue
+A 8 (c); the persistent compile cache has no counterpart (nothing is
+compiled ahead of a call).
 """
 
 from __future__ import annotations
@@ -40,6 +43,56 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 
 from . import ingest
+
+
+def make_mesh(axes: dict[str, int] | None = None):
+    """A named ``torch.distributed.device_mesh.DeviceMesh`` over the
+    process's gang — the group ``XlaRunner`` joined from
+    ``launcher.launch``'s env (NCCL on the card, gloo on the CPU).
+
+    ``axes`` maps axis name → size, e.g. ``{"sp": 8}`` or ``{"data": 2,
+    "model": 2, "sp": 2}``, outermost first; one size may be ``-1``,
+    "whatever is left". Default: one ``data`` axis over the gang. The
+    sizes must multiply to the gang's size (``ValueError`` otherwise, and
+    with no process group at all: one process drives one device here).
+    The mesh's device is ``cuda`` under NCCL and ``cpu`` under gloo.
+    Every rank must call it, in the same order as any other collective:
+    each axis's subgroup is made here."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "make_mesh needs a torch.distributed gang, one process a "
+            "device: start the processes with sparkdl_tpu_torch.runner."
+            "launcher.launch(script, np=N) and join it with XlaRunner() in "
+            "each (or pass XlaRunner coordinator=, num_processes=, "
+            "process_id=). One process driving several devices (the "
+            "reference's single controller) is not torch's form "
+            "(ROADMAP.md, Queue C 2)")
+    world = dist.get_world_size()
+    if axes is None:
+        axes = {"data": world}
+    names, sizes = list(axes.keys()), [int(s) for s in axes.values()]
+    if sizes.count(-1) > 1:
+        raise ValueError("At most one mesh axis may be -1")
+    if -1 in sizes:
+        known = math.prod(s for s in sizes if s != -1)
+        if world % known:
+            raise ValueError(f"{world} devices not divisible by {known}")
+        sizes[sizes.index(-1)] = world // known
+    total = math.prod(sizes)
+    if total != world:
+        raise ValueError(
+            f"Mesh axes {dict(zip(names, sizes))} need {total} devices, "
+            f"have {world}: the gang has {world} processes, one a device "
+            f"(start {total} with sparkdl_tpu_torch.runner.launcher."
+            f"launch(script, np={total}))")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(sizes),
+                            mesh_dim_names=tuple(names))
 
 
 def _events():
@@ -527,7 +580,8 @@ def _to_numpy(t):
 
 
 _runner_ids = itertools.count()
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A 8: data parallelism)"
+_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue A 8 (c): the sharded "
+               "feed)")
 
 
 class BatchRunner:

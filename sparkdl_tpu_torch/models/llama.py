@@ -8,8 +8,10 @@ branches, MLP, layer, model, ``generate``, the continuous-batching slot
 primitives, the paged block-table primitives, the block-quantized
 (int8 / fp8) KV pool, int8 projection weights (:func:`quantize_params`)
 and the LoRA training utilities (:func:`lora_mask`,
-:func:`lora_optimizer`, :func:`causal_lm_loss_fn`). The tensor-parallel
-kernel mesh is not ported yet (ROADMAP.md).
+:func:`lora_optimizer`, :func:`causal_lm_loss_fn`). Sequence-parallel
+prefill takes ``attn_fn=partial(parallel.ring_attention, mesh=...)``;
+the tensor-parallel kernel mesh is not ported yet (ROADMAP.md, Queue A 8
+(b)).
 
 Hazards the port keeps, each from the JAX module:
 

@@ -404,7 +404,8 @@ def decode_fn_for(attn_fn):
     in-model dense cache path. ``SPARKDL_FLASH_DECODE=0`` (or ``off``,
     ``false``; read by :func:`tri_state_env`) turns it off, the ablation
     lever. The tensor-parallel ``mesh=`` branch of the JAX resolver comes
-    with the multi-GPU slice."""
+    with the tensor-parallel serving backends (ROADMAP.md, Queue A 8
+    (b))."""
     if tri_state_env("SPARKDL_FLASH_DECODE") == "off":
         return None
     from .flash_attention import adaptive_attention, flash_attention

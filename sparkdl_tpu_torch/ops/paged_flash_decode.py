@@ -286,7 +286,7 @@ def paged_decode_fn_for(attn_fn):
     forces it. ``=0`` turns it off (the gathered view, the ablation
     lever). Returns :func:`paged_flash_decode` or None. The
     tensor-parallel ``mesh=`` branch of the JAX resolver comes with the
-    multi-GPU slice."""
+    tensor-parallel serving backends (ROADMAP.md, Queue A 8 (b))."""
     mode = tri_state_env(PAGED_KERNEL_ENV)  # one parser for both knobs
     if mode == "off":
         return None

@@ -41,7 +41,7 @@ the ``TrainState`` pytree; here a step is one ``torch.save`` file,
   nothing is re-laid out — and records ``checkpoint_resharded``: an
   elastic gang that shrank finishes from the larger gang's checkpoint.
   Resharding a sharded state across meshes comes with several cards
-  (ROADMAP.md, Queue A 8).
+  (ROADMAP.md, Queue A 8 (c)).
 - **In a gang** (``group=``, the gang's host-side process group): the
   state is the same on every rank, so rank 0 alone writes a step, and
   waits for it (file, manifest and CRC) whatever ``async_save`` says;
@@ -95,7 +95,7 @@ class CheckpointTopologyError(RuntimeError):
             f"({len(mismatches)} mismatch(es)): " + "; ".join(mismatches)
             + ". SPARKDL_ELASTIC=1 restores the replicated state across a "
             "world-size change alone; resharding a sharded state across "
-            "meshes is not ported yet (ROADMAP.md, Queue A 8).")
+            "meshes is not ported yet (ROADMAP.md, Queue A 8 (c)).")
         self.step = step
         self.mismatches = mismatches
 

@@ -958,7 +958,7 @@ class GenerationEngine:
 
         Not ported yet, and refused rather than dropped: ``tp`` > 1 /
         ``mesh`` / ``SPARKDL_SERVE_TP`` (tensor-parallel serving, ROADMAP
-        Queue A 8) raise ``NotImplementedError``."""
+        Queue A 8 (b)) raise ``NotImplementedError``."""
         from ..models.llama import load_flax_params
         from ..utils.platform import resolve_device
         num_slots = num_slots if num_slots is not None \
@@ -980,7 +980,7 @@ class GenerationEngine:
         if mesh is not None or (tp is not None and int(tp) > 1):
             raise NotImplementedError(
                 f"tensor-parallel serving (tp={tp}, mesh={mesh!r}, "
-                f"{TP_ENV}) is not ported yet (ROADMAP.md Queue A 8); "
+                f"{TP_ENV}) is not ported yet (ROADMAP.md Queue A 8 (b)); "
                 "the port serves on one device")
         if weight_dtype is None:
             weight_dtype = os.environ.get(WEIGHT_DTYPE_ENV) or None

@@ -12,7 +12,7 @@ Arrow encode. The name is kept for the reference's API; there is no XLA.
 The device step is the runner's: the input cast, the preprocess prologue
 (:meth:`XlaImageTransformer._make_preprocess`) and ``fn``, on the
 transformer's ``device`` (unset → the card; ``"cpu"`` must be asked for).
-``numDevices`` other than 1 raises (ROADMAP.md, Queue A 8).
+``numDevices`` other than 1 raises (ROADMAP.md, Queue A 8 (c)).
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ class XlaImageTransformer(PicklesCallableParams, Transformer, HasInputCol,
         if n != 1:
             raise NotImplementedError(
                 f"numDevices={n}: sharding a scoring stream over several "
-                "cards is not ported yet (ROADMAP.md, Queue A 8)")
+                "cards is not ported yet (ROADMAP.md, Queue A 8 (c))")
         return None
 
     def _feed_key(self) -> tuple:

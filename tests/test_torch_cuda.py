@@ -1842,3 +1842,51 @@ def test_graph_toolkit_on_card_matches_cpu(dev, tmp_path):
     assert attn(q=q)["o"].shape == q.shape
     with pytest.raises(ValueError, match="flash_attention's CUDA kernel"):
         attn.serialize({"q": ((None, 2, 128, 64), "float32")})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ulysses_flash_on_a_one_rank_nccl_mesh_is_the_bare_kernel(dev,
+                                                                  dtype):
+    """``ulysses_attention(local_attn="auto")`` on ``make_mesh({"sp":
+    1})`` over a one-rank NCCL gang: the all-to-alls are copies, so the
+    output and the gradient through the backward kernel are bitwise the
+    bare ``fa.flash_attention`` call's; one forward and one backward
+    launch. Ring attention on the same mesh runs no kernel and equals
+    dense attention within the f32 rule."""
+    from sparkdl_tpu_torch.core.runtime import make_mesh
+    from sparkdl_tpu_torch.parallel import (dense_attention, ring_attention,
+                                            ulysses_attention)
+    from sparkdl_tpu_torch.runner import XlaRunner, launcher
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    rng = np.random.default_rng(20)
+    q, k, v, do = (_randn(rng, (2, 4, 320, 128), dtype, dev)
+                   for _ in range(4))
+
+    def fwd_bwd(fn):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*leaves)
+        return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+    runner = XlaRunner(device="cuda", num_processes=1, process_id=0,
+                       coordinator=f"127.0.0.1:{launcher.free_port()}")
+    try:
+        assert runner.gang.backend == "nccl"
+        mesh = make_mesh({"sp": 1})
+        assert mesh.device_type == "cuda"
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        got = fwd_bwd(lambda a, b, c: ulysses_attention(
+            a, b, c, mesh, causal=True, local_attn="auto"))
+        assert (fa.flash_attention_fwd.launches,
+                fa.flash_attention_bwd.launches) == (1, 1)
+        want = fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c,
+                                                          causal=True))
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+        if dtype == torch.float32:
+            ring = ring_attention(q, k, v, mesh, causal=True)
+            ref = dense_attention(q, k, v, causal=True)
+            assert fa.flash_attention_fwd.launches == 2
+            assert torch.allclose(ring, ref, rtol=1e-5, atol=1e-5)
+    finally:
+        leave_gang()
