@@ -562,6 +562,37 @@ t. parallel — sequence parallelism over a one-rank NCCL gang (one card:
      lines, seconds each; the two DataFrame twins only where pyarrow and
      pandas import (else ``"ran": false`` naming what is missing).
    A ``summary`` line gives the phase's seconds against PHASE_T_BUDGET_S.
+u. Tensor-parallel serving, on a one-rank NCCL gang joined as phase t's,
+   with ``serving.backend.tp_mesh(1)`` (a ``{"tp": 1}`` mesh):
+   - ``tp_shards``: ``flash_decode`` at phase b's main-path first-decode
+     shape and at llama3_8b's 32:8 heads, ``paged_flash_decode`` at 32:8
+     with S = 1 and S = 5 over bf16 and int8 pools (scale planes): for
+     tp in TP_DEGREES and each rank r, the kernel on r's head shard,
+     taken by ``parallel.local_heads`` (what ``head_sharded_kernel``
+     runs), bitwise the full launch's heads, within phase b's TOL of the
+     plain version on the shard, and its block counter the plan's
+     (``split_blocks`` at Hkv/tp); the shard's ms beside the full
+     launch's;
+   - ``tp_collectives``: one eager ``all_reduce`` (a decode step's hidden
+     state) and one logits ``all_gather`` (a prefill chunk's) on the
+     one-rank mesh: host ms behind a queued device sleep (whether the
+     call waits for the device) and device ms, beside an ``add_``;
+   - ``tp_serve``: ``LlamaConfig.llama3_8b()`` at full width, depth cut to
+     TP_LAYERS, bf16, seeded; ``TensorParallelPagedLlamaSlotBackend``
+     (block 16, the radix cache) and ``TensorParallelLlamaSlotBackend``
+     built at tp = 1 on the mesh, each after its base backend on the same
+     model (flash attention: chunked prefill dense, decode through the
+     kernels, the tp arms' choices); TP_SLOTS seeded prompts of
+     TP_PROMPT_LENS tokens, TP_NEW new tokens each: the tp streams
+     bitwise the base arm's, each arm's streams held to the dense model
+     by phase n's top-2-gap rule; every decode launch through the
+     head-sharded dispatch (kernel launches = dispatch calls = TP_LAYERS
+     × steps, no flash_attention); new tokens/s, decode-iteration ms,
+     graph captures and replays (the tp step, its one-rank all-reduces
+     and gathers inside, is captured), peak memory, per-device pool
+     bytes equal to the base's; each prefill chunk's ms, and on the
+     unpaged arms 8 chunks at steady state and a profile of 4.
+   A ``summary`` line gives the phase's seconds against PHASE_U_BUDGET_S.
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
@@ -573,7 +604,9 @@ kernels add phase n's and phase o's launches leg by leg,
 paged_flash_decode add phase r's, ``phase_r_launches``;
 paged_flash_decode adds its llama3_8b 32:8 S = 5 verify window,
 ``llama3_8b_s5_case``; flash_attention, flash_decode and
-flash_attention_bwd add phase t's, ``phase_t_launches``) and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+flash_attention_bwd add phase t's, ``phase_t_launches``; flash_decode
+and paged_flash_decode add phase u's arms, ``phase_u_launches``) and,
+last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
 """
@@ -1733,24 +1766,27 @@ def read_counts(fa, fd, pfd) -> dict:
 
 def serve_leg(torch, model, kernels, *, leg, prompts, new=SERVE_NEW,
               max_len=2048, config="LlamaConfig.small", keep_streams=False,
-              **kw) -> tuple:
+              engine=None, **kw) -> tuple:
     """One fresh engine serving ``prompts`` (all submitted at once, ``new``
     tokens each) to the end; the launch counters are set to 0 just
-    before and read just after. Returns the leg's record (with every
-    request's tokens under ``streams`` when ``keep_streams``) and the
-    engine."""
+    before and read just after. ``engine``: one built by the caller (of 8
+    slots, on ``model``'s card), else ``from_model(model, **kw)``. Returns
+    the leg's record (with every request's tokens under ``streams`` when
+    ``keep_streams``) and the engine."""
     from sparkdl_tpu_torch import GenerationEngine
 
-    eng = GenerationEngine.from_model(model, num_slots=8, max_len=max_len,
-                                      device="cuda", **kw)
-    iter_s = []
-    for attr in ("step", "verify"):  # time each decode iteration
+    eng = engine if engine is not None else GenerationEngine.from_model(
+        model, num_slots=8, max_len=max_len, device="cuda", **kw)
+    iter_s, chunk_s = [], []
+    # time each decode iteration and each prefill chunk
+    for attr, acc in (("step", iter_s), ("verify", iter_s),
+                      ("prefill_chunk", chunk_s)):
         fn = getattr(eng.backend, attr)
 
-        def timed(*a, _fn=fn, **k):
+        def timed(*a, _fn=fn, _acc=acc, **k):
             t0 = time.perf_counter()
             out = _fn(*a, **k)  # returns host tokens: the device is done
-            iter_s.append(time.perf_counter() - t0)
+            _acc.append(time.perf_counter() - t0)
             return out
         setattr(eng.backend, attr, timed)
     torch.cuda.synchronize()
@@ -1784,6 +1820,9 @@ def serve_leg(torch, model, kernels, *, leg, prompts, new=SERVE_NEW,
                ttft_p95_s=ttft[max(0, -(-95 * len(ttft) // 100) - 1)],
                decode_iterations=len(iter_s),
                decode_iter_ms_mean=1e3 * sum(iter_s) / max(len(iter_s), 1),
+               prefill_chunk_ms_mean=1e3 * sum(chunk_s) / max(len(chunk_s),
+                                                              1),
+               prefill_chunk_ms=[1e3 * t for t in chunk_s],
                steps=st["steps"], prefills=st["prefills"],
                prefill_chunks=st["prefill_chunks"],
                preemptions=st["preemptions"],
@@ -6723,6 +6762,291 @@ def phase_parallel(torch, kernels) -> dict:
     return recs
 
 
+# --- phase u: tensor-parallel serving ------------------------------------
+
+TP_DEGREES = (2, 4, 8)         # the gangs whose ranks tp_shards emulates
+TP_LAYERS = 8                  # llama3_8b's 32 layers cut to 8
+TP_SLOTS, TP_NEW = 8, 32
+TP_PROMPT_LENS = (64, 1024)    # TP_SLOTS seeded lengths drawn in this range
+TP_CHUNK = 256                 # the stall-free prefill chunk
+PHASE_U_BUDGET_S = 120.0
+
+
+def tp_shard_cases(torch, kernels) -> list:
+    """The decode launches ``tp_shards`` cuts by heads: (name, kernel
+    name, wrapper, plain version, [q, K, V, scale plane or None], the
+    arguments after V, positions, query rows a KV head, live spans)."""
+    _, fd, pfd = kernels
+    b, s = len(PROMPT_LENS), PROMPT_LENS[0]
+    pads = [s - n for n in PROMPT_LENS]
+    length = s + NEW_TOKENS
+    spans = [(p, s + 1) for p in pads]
+    cases = []
+    for name, hq in (("decode_step1", 16), ("llama3_8b_gqa", 32)):
+        q, kc, vc, cur, pad = decode_inputs(
+            torch, b=b, hq=hq, hkv=8, length=length, d=128, cur=s + 1,
+            pads=pads, dtype="bfloat16")
+        cases.append((name, "flash_decode", fd.flash_decode,
+                      fd.flash_decode_plain, [q, kc, vc, None], (cur, pad),
+                      length, hq // 8, spans))
+    npos = PAGED_MB * PAGED_BS
+    for kv in ("same", "int8"):
+        for s_q in (1, 5):
+            q, kp, vp, tables, cur, pad, sc = paged_inputs(
+                torch, dtype="bfloat16", kv=kv, s_q=s_q, hq=32)
+            cases.append((f"paged_{kv}_s{s_q}_32_8", "paged_flash_decode",
+                          pfd.paged_flash_decode, pfd.paged_flash_decode_plain,
+                          [q, kp, vp, sc], (tables, cur, pad), npos, s_q * 4,
+                          [(p, min(c + s_q, npos))
+                           for c, p in zip(PAGED_CUR, PAGED_PADS)]))
+    return cases
+
+
+def tp_shards(torch, kernels, flush) -> dict:
+    """``tp_shards`` (module docstring): per case and tp, every rank's
+    shard launch checked; the rank-0 shard and the full launch timed."""
+    from sparkdl_tpu_torch.parallel import local_heads
+
+    recs = {}
+    for (name, kernel, fn, plain, heads, rest, npos, rows,
+         spans) in tp_shard_cases(torch, kernels):
+        def call(hs, **kw):
+            scales = () if hs[3] is None else (hs[3],)
+            if kernel == "paged_flash_decode":
+                return fn(*hs[:3], *rest, *scales, **kw)
+            return fn(*hs[:3], *rest, **kw)
+
+        def plain_call(hs):
+            if kernel == "paged_flash_decode":
+                return plain(*hs[:3], *rest, hs[3])
+            return plain(*hs[:3], *rest)
+
+        full = call(heads)
+        torch.cuda.synchronize()
+        rec = dict(phase="tp", leg="tp_shards", case=name, kernel=kernel,
+                   dtype="bfloat16", shape=[list(t.shape) for t in heads[:3]],
+                   scale_plane=heads[3] is not None,
+                   full_ms=time_ms(torch, lambda: call(heads), flush=flush),
+                   tp={})
+        tol, rtol = TOL["bfloat16"]
+        for tp in TP_DEGREES:
+            errs, bitwise, blocks = [], [], None
+            for r in range(tp):
+                hs = [None if t is None else local_heads(t, r, tp)
+                      for t in heads]
+                out = call(hs)
+                torch.cuda.synchronize()
+                bitwise.append(bool(torch.equal(out,
+                                                local_heads(full, r, tp))))
+                errs.append(check_close(out, plain_call(hs), "bfloat16",
+                                        f"{name} tp {tp} rank {r}"))
+                split = split_record(torch, lambda c: call(hs,
+                                                           block_counter=c),
+                                     npos, rows, spans, 8 // tp)
+                blocks = blocks or split
+            assert all(bitwise), (name, tp, bitwise)
+            hs = [None if t is None else local_heads(t, 0, tp)
+                  for t in heads]
+            rec["tp"][tp] = dict(
+                kv_heads=8 // tp, bitwise_to_full_heads=all(bitwise),
+                max_abs_err=max(errs), tol=tol, rtol=rtol,
+                shard_ms=time_ms(torch, lambda: call(hs), flush=flush),
+                **{k: blocks[k] for k in ("n_splits", "rows_per_block",
+                                          "grid_blocks", "live_blocks")})
+        rec["nvidia_smi"] = smi()
+        emit(rec)
+        recs[name] = rec
+    return recs
+
+
+def tp_collectives(torch, mesh) -> dict:
+    """``tp_collectives``: what one eager call of each collective the tp
+    model issues (``all_reduce`` of a decode step's hidden state, the
+    logits' ``all_gather`` of a prefill chunk) costs the host on the
+    one-rank mesh: the call's host ms right after a ~SLEEP_MS device
+    sleep was queued (a call that waits for the device takes about the
+    sleep), beside an ``add_`` on the same tensor; and the call's device
+    ms between CUDA events."""
+    import torch.distributed as dist
+
+    g = mesh.get_group("tp")
+    hidden = torch.zeros((8, 1, 4096), dtype=torch.bfloat16, device="cuda")
+    logits = torch.zeros((1, TP_CHUNK, 128256), device="cuda")
+    cycles = SLEEP_CYCLES * 20
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    sleep_ms = (time.perf_counter() - t0) * 1e3
+
+    def gather():
+        parts = [torch.empty_like(logits)]
+        dist.all_gather(parts, logits, group=g)
+
+    calls = {"add_": lambda: hidden.add_(0),
+             "all_reduce": lambda: dist.all_reduce(hidden, group=g),
+             "all_gather_logits": gather}
+    rec = dict(phase="tp", leg="tp_collectives", mesh={"tp": 1},
+               backend="nccl", sleep_ms=sleep_ms, calls={})
+    for name, fn in calls.items():
+        fn()
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        rec["calls"][name] = dict(host_ms_behind_sleep=host,
+                                  device_ms=time_ms(torch, fn))
+    rec["nvidia_smi"] = smi()
+    emit(rec)
+    return rec
+
+
+def tp_serve(torch, kernels, mesh) -> dict:
+    """``tp_serve`` (module docstring): per backend family the base arm,
+    then the tensor-parallel arm at tp = 1 on ``mesh``, on one model."""
+    import dataclasses
+    import gc
+
+    from sparkdl_tpu_torch import GenerationEngine
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.parallel import dispatch_counter
+    from sparkdl_tpu_torch.serving import backend as B
+
+    fa = kernels[0]
+    cfg = dataclasses.replace(L.LlamaConfig.llama3_8b(),
+                              num_layers=TP_LAYERS)
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16,
+                         attn_fn=fa.flash_attention, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(21))
+    g = torch.Generator().manual_seed(21)
+    lens = torch.randint(TP_PROMPT_LENS[0], TP_PROMPT_LENS[1] + 1,
+                         (TP_SLOTS,), generator=g).tolist()
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in lens]
+    max_len = TP_PROMPT_LENS[1] + TP_NEW
+    counters = {n: dispatch_counter(n)
+                for n in ("flash_decode", "paged_flash_decode")}
+    warm = GenerationEngine(B.PagedLlamaSlotBackend(model, TP_SLOTS, 128),
+                            prefill_chunk=TP_CHUNK)
+    serve_leg(torch, model, kernels, leg="tp_warm-up",
+              prompts=[prompts[0][:64]], new=4, engine=warm)
+    del warm
+    families = {
+        "paged": (B.PagedLlamaSlotBackend,
+                  B.TensorParallelPagedLlamaSlotBackend,
+                  dict(block_size=16), "paged_flash_decode"),
+        "unpaged": (B.LlamaSlotBackend, B.TensorParallelLlamaSlotBackend,
+                    {}, "flash_decode")}
+    out = {}
+    for fam, (base_cls, tp_cls, kw, kernel) in families.items():
+        arms = {}
+        for arm in ("base", "tp"):
+            if arm == "base":
+                be = base_cls(model, TP_SLOTS, max_len, **kw)
+            else:
+                be = tp_cls(model, TP_SLOTS, max_len, tp=1, mesh=mesh, **kw)
+            eng = GenerationEngine(be, prefill_chunk=TP_CHUNK)
+            for c in counters.values():
+                c.launches = 0
+            rec, eng = serve_leg(torch, model, kernels, leg=f"{fam}_{arm}",
+                                 prompts=prompts, new=TP_NEW,
+                                 max_len=max_len,
+                                 config="LlamaConfig.llama3_8b",
+                                 keep_streams=True, engine=eng)
+            rec.update(phase="tp", backend=type(be).__name__,
+                       tp_degree=eng.tp_degree,
+                       dispatch={n: c.launches for n, c in counters.items()},
+                       kv_pool_device_bytes=eng.kv_pool_device_bytes,
+                       prefill_chunk=TP_CHUNK)
+            steps = rec["steps"]
+            lc = rec["launches"]
+            assert lc[kernel] == TP_LAYERS * steps > 0, rec
+            assert lc["flash_attention"] == 0, rec
+            want = TP_LAYERS * steps if arm == "tp" else 0
+            assert rec["dispatch"][kernel] == want, rec
+            if fam == "unpaged":  # where a prefill chunk's time goes
+                chunk = prompts[0][:TP_CHUNK]
+                steady = []
+                for _ in range(8):  # host clock; each call ends synced
+                    t0 = time.perf_counter()
+                    be.prefill_chunk(0, chunk, 0, TP_CHUNK, TP_CHUNK)
+                    steady.append((time.perf_counter() - t0) * 1e3)
+                rec["chunk_steady_ms"] = steady
+                rec["chunk_profile"] = device_profile(
+                    torch, lambda: be.prefill_chunk(0, chunk, 0, TP_CHUNK,
+                                                    TP_CHUNK), 4,
+                    f"4 prefill chunks of {TP_CHUNK} into slot 0, {arm} "
+                    f"arm, llama3_8b widths, {TP_LAYERS} layers, bf16",
+                    match="nccl")
+            arms[arm] = rec
+            del eng, be
+            gc.collect()  # a backend and its graphs hold each other
+            torch.cuda.empty_cache()
+        base, tp = arms["base"], arms["tp"]
+        assert tp["streams"] == base["streams"], (fam, "streams differ")
+        assert tp["kv_pool_device_bytes"] == base["kv_pool_device_bytes"]
+        model.attn_fn = None
+        tokens = teacher_forced(torch, model, prompts, base["streams"],
+                                TP_NEW)
+        model.attn_fn = fa.flash_attention
+        for rec in (base, tp):
+            rec["dense_tokens"] = tokens
+            rec["streams_equal_base"] = rec["streams"] == base["streams"]
+            rec["nvidia_smi"] = smi()
+            emit({k: v for k, v in rec.items() if k != "streams"})
+        out[fam] = dict(arms=arms, iter_ms_tp_minus_base=(
+            tp["decode_iter_ms_mean"] - base["decode_iter_ms_mean"]),
+            chunk_ms_tp_minus_base=(tp["prefill_chunk_ms_mean"]
+                                    - base["prefill_chunk_ms_mean"]))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(torch, kernels) -> dict:
+    """Phase u (module docstring): a one-rank NCCL gang joined through
+    ``XlaRunner``, ``tp_mesh(1)``, the ``tp_shards`` and ``tp_serve``
+    legs, the gang left. A ``summary`` line gives the phase's seconds
+    against PHASE_U_BUDGET_S."""
+    from sparkdl_tpu_torch.runner import XlaRunner, launcher
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+    from sparkdl_tpu_torch.serving.backend import tp_mesh
+
+    t0 = time.perf_counter()
+    runner = XlaRunner(device="cuda", num_processes=1, process_id=0,
+                       coordinator=f"127.0.0.1:{launcher.free_port()}")
+    assert runner.gang.backend == "nccl", runner.gang
+    try:
+        mesh = tp_mesh(1)
+        assert mesh.device_type == "cuda" and mesh.size() == 1
+        flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                            device="cuda")
+        recs = {"tp_shards": tp_shards(torch, kernels, flush)}
+        del flush
+        recs["tp_collectives"] = tp_collectives(torch, mesh)
+        recs["tp_serve"] = tp_serve(torch, kernels, mesh)
+    finally:
+        leave_gang()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit(dict(phase="tp", leg="summary", seconds=seconds,
+              budget_s=PHASE_U_BUDGET_S,
+              within_budget=seconds <= PHASE_U_BUDGET_S,
+              iter_ms_tp_minus_base={
+                  f: r["iter_ms_tp_minus_base"]
+                  for f, r in recs["tp_serve"].items()},
+              chunk_ms_tp_minus_base={
+                  f: r["chunk_ms_tp_minus_base"]
+                  for f, r in recs["tp_serve"].items()},
+              nvidia_smi=smi()))
+    recs["seconds"] = seconds
+    return recs
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -6793,6 +7117,10 @@ def main() -> int:
         shutil.rmtree(sup_root, ignore_errors=True)
     phase_graph(torch)
     t = phase_parallel(torch, (fa, fd, pfd))
+    u = phase_tp(torch, (fa, fd, pfd))
+    u_launches = {f"{fam}_{arm}": rec["launches"]
+                  for fam, r_ in u["tp_serve"].items()
+                  for arm, rec in r_["arms"].items()}
     t_launches = {
         "ulysses_flash": t["ulysses_flash"]["launches"],
         **{f"ring_generate_{arm}": a["launches"]
@@ -6838,6 +7166,9 @@ def main() -> int:
         if name in ("flash_attention", "flash_decode"):
             kernels[-1]["phase_t_launches"] = {
                 leg: c[name] for leg, c in t_launches.items()}
+        if name in ("flash_decode", "paged_flash_decode"):
+            kernels[-1]["phase_u_launches"] = {
+                arm: c[name] for arm, c in u_launches.items()}
         if name in ("flash_attention", "paged_flash_decode"):
             kernels[-1]["phase_r_launches"] = {
                 leg: c[name] for leg, c in r_launches.items()}

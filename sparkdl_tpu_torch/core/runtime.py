@@ -33,6 +33,7 @@ compiled ahead of a call).
 from __future__ import annotations
 
 import collections
+import gc
 import itertools
 import os
 import queue as queue_mod
@@ -196,13 +197,23 @@ class StepGraph:
 
         with torch.cuda.device(self.device):
             first = self.fn(*self.static)
-            with _CAPTURE_LOCK, _build.capture_tally() as tally:
-                t0 = time.perf_counter()
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
-                    out = self.fn(*self.static)
-                self.capture_ms = (time.perf_counter() - t0) * 1e3
+            # No collection while capturing: a collection there may free
+            # an unreachable step's graph (a dropped engine's), whose
+            # reset the capturing thread may not call, and the capture is
+            # lost. Garbage waits for the next collection outside.
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with _CAPTURE_LOCK, _build.capture_tally() as tally:
+                    t0 = time.perf_counter()
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph,
+                                          capture_error_mode="thread_local"):
+                        out = self.fn(*self.static)
+                    self.capture_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                if collecting:
+                    gc.enable()
             self.launches = tuple(tally.get(c, 0) for c in self.counters)
         self.graph, self.out = graph, out
         return first

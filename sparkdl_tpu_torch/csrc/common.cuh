@@ -58,4 +58,23 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// Lets `kern` take dynamic shared memory up to the device's opt-in limit,
+// and checks that this launch's `smem` fits in it. The cap belongs to the
+// function, not to a launch: set to each launch's own size, a thread
+// launching at a shorter S could lower it between another thread's set
+// and that thread's launch, which then fails (too many resources
+// requested). Host code.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kern, size_t smem) {
+  int dev = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  if (err != cudaSuccess) return err;
+  if (smem > static_cast<size_t>(cap)) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              cap);
+}
+
 }  // namespace sdl

@@ -240,8 +240,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int S, int causal, cudaStream_t stream) {
   auto kern = fa_fwd_kernel<T, D>;
   const size_t smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = sdl::allow_dynamic_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   const float sm_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));

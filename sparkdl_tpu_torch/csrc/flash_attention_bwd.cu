@@ -464,13 +464,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int S, int causal, cudaStream_t stream) {
   auto kv_kern = fa_bwd_dkdv_kernel<T, D>;
   auto q_kern = fa_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(KVSmem<D>::bytes));
+  cudaError_t err = sdl::allow_dynamic_smem(kv_kern, KVSmem<D>::bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(q_kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(QSmem<D>::bytes));
+  err = sdl::allow_dynamic_smem(q_kern, QSmem<D>::bytes);
   if (err != cudaSuccess) return err;
   const float sm_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const auto* tq = static_cast<const T*>(q);

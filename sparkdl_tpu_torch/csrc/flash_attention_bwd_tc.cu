@@ -510,13 +510,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   const int n_t = (S + BQ - 1) / BQ;
   const size_t kv_smem = DkdvSmem<D>::bytes;
   const size_t q_smem = DqSmem<D>::bytes(n_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kv_smem));
+  cudaError_t err = sdl::allow_dynamic_smem(kv_kern, kv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(q_kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(q_smem));
+  err = sdl::allow_dynamic_smem(q_kern, q_smem);
   if (err != cudaSuccess) return err;
   const double sc = 1.0 / sqrt(static_cast<double>(D));
   const float scale = static_cast<float>(sc);

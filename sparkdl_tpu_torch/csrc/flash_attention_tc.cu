@@ -326,8 +326,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   auto kern = fa_fwd_tc_kernel<D>;
   const int n_qt = (S + BQ - 1) / BQ;
   const size_t smem = TcSmem<D>::bytes(n_qt);  // n_kt <= n_qt (BK == BQ)
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = sdl::allow_dynamic_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const float scale_log2 = static_cast<float>(
       1.4426950408889634074 / sqrt(static_cast<double>(D)));

@@ -9,9 +9,23 @@ primitives, the paged block-table primitives, the block-quantized
 (int8 / fp8) KV pool, int8 projection weights (:func:`quantize_params`)
 and the LoRA training utilities (:func:`lora_mask`,
 :func:`lora_optimizer`, :func:`causal_lm_loss_fn`). Sequence-parallel
-prefill takes ``attn_fn=partial(parallel.ring_attention, mesh=...)``;
-the tensor-parallel kernel mesh is not ported yet (ROADMAP.md, Queue A 8
-(b)).
+prefill takes ``attn_fn=partial(parallel.ring_attention, mesh=...)``.
+
+Tensor-parallel serving (the reference's ``kernel_mesh``): a model built
+with ``kernel_mesh=`` (a ``{"tp": n}`` ``DeviceMesh``, one process a
+device) holds one rank's shard — 1/n of the attention heads, of the MLP
+columns, of the embedding's hidden dim and of ``lm_head``'s vocabulary,
+where ``parallel.sharding.serving_tp_layout``'s rules split them (an
+indivisible dim stays whole, as ``divisible_rules`` leaves it) — and
+issues the collectives GSPMD inserted for the reference: one
+``all_reduce`` on the tp group after each row-parallel product (o_proj,
+down_proj), an ``all_gather`` of the embedding's hidden slices and of
+the logits' vocabulary slices, so every rank holds the same logits. Its
+decode kernels run on the local heads through ``parallel.sharding
+.head_sharded_kernel``. :func:`shard_model` makes it from the global
+model. The config stays the global one (its ``head_dim`` is
+``hidden_size // num_heads``); the modules take their local counts from
+the mesh.
 
 Hazards the port keeps, each from the JAX module:
 
@@ -62,6 +76,7 @@ from ..ops import flash_decode as fd
 from ..ops import paged_flash_decode as pfd
 from ..ops.flash_attention import flash_attention_fwd, resolve_attn_fn
 from ..parallel.ring_attention import NEG_INF
+from ..parallel.sharding import dispatch_counter
 from ..utils.platform import resolve_device
 
 
@@ -207,7 +222,7 @@ def _table_blocks(tables, bi, real):
     return torch.where(real, blk, 0)
 
 
-def _dense_slot_attention(q, k_all, v_all, qpos, pads, cfg, dtype):
+def _dense_slot_attention(q, k_all, v_all, qpos, pads, dtype):
     """Masked dense causal-vs-cache attention for the per-slot
     (``slot_cur``) serving paths — ONE definition shared by the paged
     and unpaged dense arms: query i of row r attends cache columns
@@ -216,16 +231,14 @@ def _dense_slot_attention(q, k_all, v_all, qpos, pads, cfg, dtype):
     zero probability (exp underflow of -1e30), so table-aliased garbage
     never perturbs live rows."""
     B, S = qpos.shape
-    hd = cfg.head_dim
-    rep = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(B, cfg.num_kv_heads, rep, S, hd)
+    hq, hkv, hd = q.shape[1], k_all.shape[1], q.shape[3]
+    qg = q.reshape(B, hkv, hq // hkv, S, hd)
     s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k_all) / math.sqrt(hd)
     col = torch.arange(k_all.shape[2], device=q.device)[None, None, :]
     valid = (col <= qpos[..., None]) & (col >= pads[:, None, None])
     s = torch.where(valid[:, None, None], s.float(), NEG_INF)
     p = torch.softmax(s, dim=-1).to(dtype)
-    return torch.einsum("bgrqk,bgkd->bgrqd", p, v_all).reshape(
-        B, cfg.num_heads, S, hd)
+    return torch.einsum("bgrqk,bgkd->bgrqd", p, v_all).reshape(B, hq, S, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +378,100 @@ def _slot_step(slot_cur, pad_lens, s: int, cache, tables) -> _SlotStep:
     return _SlotStep(cur, pads, qpos, pos, None, (rows[sel], qpos[sel]), sel)
 
 
+def _all_reduce(y, group):
+    """Sum ``y`` over the tensor-parallel ``group`` in place (a
+    row-parallel product's partial sums); ``y`` itself without one."""
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(y, group=group)
+    return y
+
+
+def _all_gather_last(x, group, n: int):
+    """The ``n`` ranks' slices of ``x``'s last dim, joined in rank order
+    (a hidden- or vocabulary-sharded output); ``x`` itself without a
+    group."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class _TpPlan:
+    """One rank's share of the model on a ``{"tp": size}`` mesh, as
+    ``divisible_rules(serving_tp_layout(size).rules, mesh)`` — the rules
+    ``shard_model`` places the weights by — decides it: the group each
+    split dim gathers or reduces over (None: the rules leave that dim
+    whole, an indivisible one, or no mesh at all)."""
+    size: int = 1
+    heads_group: object = None
+    mlp_group: object = None
+    embed_group: object = None
+    head_group: object = None
+    mesh: object = None
+
+    @classmethod
+    def of(cls, cfg: LlamaConfig, mesh) -> "_TpPlan":
+        if mesh is None:
+            return cls()
+        from ..parallel.sharding import divisible_rules, serving_tp_layout
+        names = list(mesh.mesh_dim_names)
+        if names != ["tp"]:
+            raise ValueError(f"the tensor-parallel model takes a one-axis "
+                             f"{{'tp': n}} mesh, got axes {tuple(names)}")
+        n = mesh.size(0)
+        # raises unless the heads split evenly
+        rules = divisible_rules(serving_tp_layout(n, cfg).rules, mesh)
+        g = mesh.get_group("tp")
+
+        def group(*leaves):
+            """``g`` when the rules split every ``(name, shape, dim)``
+            leaf on ``dim``, None when they split none of them; the
+            modules' collectives serve no other layout."""
+            on = [[i for i, ax in enumerate(rules(
+                (name,), torch.empty(shape, device="meta"))) if ax == "tp"]
+                for name, shape, _ in leaves]
+            if all(o == [d] for o, (_, _, d) in zip(on, leaves)):
+                return g
+            if not any(on):
+                return None
+            raise ValueError(f"the tensor-parallel model cannot serve the "
+                             f"rules' split dims "
+                             f"{dict(zip((x[0] for x in leaves), on))}")
+
+        q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+        attn, mlp = "layers.0.attn.", "layers.0.mlp."
+        return cls(
+            n,
+            group((attn + "q_proj.base.weight", (q, h), 0),
+                  (attn + "k_proj.base.weight", (kv, h), 0),
+                  (attn + "o_proj.base.weight", (h, q), 1)),
+            group((mlp + "gate_proj.base.weight", (f, h), 0),
+                  (mlp + "up_proj.base.weight", (f, h), 0),
+                  (mlp + "down_proj.base.weight", (h, f), 1)),
+            group(("embed_tokens.weight", (v, h), 1)),
+            group(("lm_head.weight", (v, h), 0)), mesh)
+
+    def part(self, width: int, group) -> int:
+        return width // self.size if group is not None else width
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None,
+                 plan: _TpPlan = _TpPlan()):
         super().__init__()
         self.cfg = cfg
         c, hd = cfg, cfg.head_dim
+        # this rank's heads (all of them without a mesh), the group the
+        # o_proj partial sums reduce over, the mesh of the decode dispatch
+        self.heads = plan.part(c.num_heads, plan.heads_group)
+        self.kv_heads = plan.part(c.num_kv_heads, plan.heads_group)
+        self.group, self.kernel_mesh = plan.heads_group, plan.mesh
 
         def proj(name, n_in, n_out):
             return LoRADense(n_in, n_out,
@@ -377,10 +479,10 @@ class LlamaAttention(nn.Module):
                              else 0, alpha=c.lora_alpha, dtype=dtype,
                              device=device)
 
-        self.q_proj = proj("q_proj", c.hidden_size, c.num_heads * hd)
-        self.k_proj = proj("k_proj", c.hidden_size, c.num_kv_heads * hd)
-        self.v_proj = proj("v_proj", c.hidden_size, c.num_kv_heads * hd)
-        self.o_proj = proj("o_proj", c.num_heads * hd, c.hidden_size)
+        self.q_proj = proj("q_proj", c.hidden_size, self.heads * hd)
+        self.k_proj = proj("k_proj", c.hidden_size, self.kv_heads * hd)
+        self.v_proj = proj("v_proj", c.hidden_size, self.kv_heads * hd)
+        self.o_proj = proj("o_proj", self.heads * hd, c.hidden_size)
 
     def forward(self, x, positions, attn_fn, kv=None, cur: int = 0,
                 pad_lens=None, first_chunk: bool = False, slots=None):
@@ -395,7 +497,7 @@ class LlamaAttention(nn.Module):
         pool's scale plane as a third entry."""
         c = self.cfg
         B, S, _ = x.shape
-        hd, hq, hkv = c.head_dim, c.num_heads, c.num_kv_heads
+        hd, hq, hkv = c.head_dim, self.heads, self.kv_heads
         rep = hq // hkv
         q = self.q_proj(x).view(B, S, hq, hd).transpose(1, 2)
         k = self.k_proj(x).view(B, S, hkv, hd).transpose(1, 2)
@@ -423,7 +525,7 @@ class LlamaAttention(nn.Module):
             o = self._cached(q, k, v, kv, attn_fn, cur, pad_lens,
                              first_chunk)
         o = o.transpose(1, 2).reshape(B, S, hq * hd)
-        return self.o_proj(o)
+        return _all_reduce(self.o_proj(o), self.group)
 
     def _slot(self, q, k, v, kv, attn_fn, st: _SlotStep):
         """The continuous-batching step / speculative verify window: row
@@ -442,7 +544,7 @@ class LlamaAttention(nn.Module):
         ``cur + 1`` when the model's attention pairs with it; a verify
         window attends densely, as in the JAX package."""
         c = self.cfg
-        hkv, hd = c.num_kv_heads, c.head_dim
+        hkv, hd = self.kv_heads, c.head_dim
         q = rope(q, st.pos, c.rope_theta)
         k = rope(k, st.pos, c.rope_theta)
         kr, vr = k.transpose(1, 2), v.transpose(1, 2)   # [B, S, Hkv, hd]
@@ -461,7 +563,7 @@ class LlamaAttention(nn.Module):
                                    kr.reshape(-1, hkv, hd))
                 _quant_insert_rows(v_cache, plane, 1, fb, fo,
                                    vr.reshape(-1, hkv, hd))
-            dec = pfd.paged_decode_fn_for(attn_fn)
+            dec = pfd.paged_decode_fn_for(attn_fn, self.kernel_mesh)
             if dec is not None:
                 return dec(q.contiguous(), k_cache, v_cache, st.tables,
                            st.cur, st.pads, plane)
@@ -470,19 +572,19 @@ class LlamaAttention(nn.Module):
             v_all = pfd.gathered_view(v_cache, st.tables, plane, 1).to(
                 q.dtype)
             return _dense_slot_attention(q, k_all, v_all, st.qpos, st.pads,
-                                         c, q.dtype)
+                                         q.dtype)
         rows, cols = st.where
         if st.sel is not None:
             kr, vr = kr[st.sel], vr[st.sel]
         k_cache[rows, :, cols] = kr.to(k_cache.dtype)
         v_cache[rows, :, cols] = vr.to(v_cache.dtype)
         if q.shape[2] == 1:
-            dec = fd.decode_fn_for(attn_fn)
+            dec = fd.decode_fn_for(attn_fn, self.kernel_mesh)
             if dec is not None:
                 # per-row cur: each slot reads only its own live slots
                 return dec(q, k_cache, v_cache, st.cur + 1, st.pads)
         return _dense_slot_attention(q, k_cache, v_cache, st.qpos, st.pads,
-                                     c, q.dtype)
+                                     q.dtype)
 
     def _cached(self, q, k, v, kv, attn_fn, cur, pad_lens, first_chunk):
         """``cur``: the host fill index, or for the S = 1 step the
@@ -490,7 +592,7 @@ class LlamaAttention(nn.Module):
         reads at every replay."""
         c = self.cfg
         B, hq, S, hd = q.shape
-        hkv = c.num_kv_heads
+        hkv = self.kv_heads
         rep = hq // hkv
         k_cache, v_cache = kv
         max_len = k_cache.shape[2]
@@ -526,7 +628,7 @@ class LlamaAttention(nn.Module):
                        >= pad_lens[:, None]).float()
             return fn(*args, causal=True, kv_mask=kv_mask)
         if S == 1:
-            dec = fd.decode_fn_for(attn_fn)
+            dec = fd.decode_fn_for(attn_fn, self.kernel_mesh)
             if dec is not None:
                 # slots < cur+1 are live (the step's own token attends to
                 # itself); left-pad slots masked per row. Inputs the kernel
@@ -550,9 +652,13 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None,
+                 plan: _TpPlan = _TpPlan()):
         super().__init__()
         c = cfg
+        # the group the down_proj partial sums reduce over (None: whole)
+        self.group = plan.mlp_group
+        inter = plan.part(c.intermediate_size, plan.mlp_group)
 
         def proj(name, n_in, n_out):
             return LoRADense(n_in, n_out,
@@ -560,21 +666,24 @@ class LlamaMLP(nn.Module):
                              else 0, alpha=c.lora_alpha, dtype=dtype,
                              device=device)
 
-        self.gate_proj = proj("gate_proj", c.hidden_size, c.intermediate_size)
-        self.up_proj = proj("up_proj", c.hidden_size, c.intermediate_size)
-        self.down_proj = proj("down_proj", c.intermediate_size, c.hidden_size)
+        self.gate_proj = proj("gate_proj", c.hidden_size, inter)
+        self.up_proj = proj("up_proj", c.hidden_size, inter)
+        self.down_proj = proj("down_proj", inter, c.hidden_size)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return _all_reduce(
+            self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
+            self.group)
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: LlamaConfig, dtype=torch.float32, device=None,
+                 plan: _TpPlan = _TpPlan()):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
-        self.attn = LlamaAttention(cfg, dtype, device)
+        self.attn = LlamaAttention(cfg, dtype, device, plan)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
-        self.mlp = LlamaMLP(cfg, dtype, device)
+        self.mlp = LlamaMLP(cfg, dtype, device, plan)
 
     def forward(self, x, positions, attn_fn, kv=None, cur: int = 0,
                 pad_lens=None, first_chunk: bool = False, slots=None):
@@ -624,20 +733,35 @@ class LlamaModel(nn.Module):
     ``cuda`` and raises without one — pass ``device="cpu"`` for the CPU.
     Weights are drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; default seed 0): projections N(0, 1/fan_in), embeddings
-    N(0, 1/hidden), LoRA A N(0, 0.02²) and B zero, norm scales one."""
+    N(0, 1/hidden), LoRA A N(0, 0.02²) and B zero, norm scales one.
+
+    ``kernel_mesh``: a ``{"tp": n}`` mesh makes this one rank's shard of
+    the tensor-parallel serving model (module doc; :func:`shard_model`
+    fills it from the global model). Its ``heads`` / ``kv_heads`` are the
+    rank's, and it serves only: its collectives carry no gradient."""
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32,
-                 attn_fn="auto", device=None, generator=None):
+                 attn_fn="auto", device=None, generator=None,
+                 kernel_mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg, self.dtype, self.attn_fn = cfg, dtype, attn_fn
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         dtype=dtype, device=device)
+        plan = _TpPlan.of(cfg, kernel_mesh)
+        self.kernel_mesh, self.tp_size = kernel_mesh, plan.size
+        self.embed_group, self.head_group = plan.embed_group, plan.head_group
+        # this rank's query and KV heads: the cache's and pool's head axis
+        self.heads = plan.part(cfg.num_heads, plan.heads_group)
+        self.kv_heads = plan.part(cfg.num_kv_heads, plan.heads_group)
+        self.embed_tokens = nn.Embedding(
+            cfg.vocab_size, plan.part(cfg.hidden_size, plan.embed_group),
+            dtype=dtype, device=device)
         self.layers = nn.ModuleList(
-            LlamaLayer(cfg, dtype, device) for _ in range(cfg.num_layers))
+            LlamaLayer(cfg, dtype, device, plan)
+            for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                 dtype=torch.float32, device=device)
+        self.lm_head = nn.Linear(
+            cfg.hidden_size, plan.part(cfg.vocab_size, plan.head_group),
+            bias=False, dtype=torch.float32, device=device)
         self.reset_parameters(generator)
 
     @property
@@ -707,7 +831,8 @@ class LlamaModel(nn.Module):
                 check_fill(cache, S, first_chunk)
             cur = cache.idx_dev if S == 1 and cache.idx_dev is not None \
                 else cache.idx
-        x = self.embed_tokens(input_ids).to(self.dtype)
+        x = _all_gather_last(self.embed_tokens(input_ids), self.embed_group,
+                             self.tp_size).to(self.dtype)
         for i, layer in enumerate(self.layers):
             kv = None if cache is None else cache.layer(i)
             x = layer(x, positions, attn_fn, kv, cur, pad_lens, first_chunk,
@@ -721,8 +846,9 @@ class LlamaModel(nn.Module):
                     cache.idx_dev.fill_(cache.idx)
         if last_only:
             x = x[:, -1:]
-        return F.linear(self.final_norm(x).float(),
-                        self.lm_head.weight.float())
+        return _all_gather_last(F.linear(self.final_norm(x).float(),
+                                         self.lm_head.weight.float()),
+                                self.head_group, self.tp_size)
 
 
 def check_fill(cache: KVCache, s: int, first_chunk: bool = False) -> None:
@@ -859,6 +985,62 @@ def flax_params(model: LlamaModel) -> dict:
     return tree
 
 
+@torch.no_grad()
+def load_state(model: LlamaModel, state) -> LlamaModel:
+    """Fill ``model`` from a ``state_dict``-named mapping of tensors of
+    its own shapes (a tensor-parallel rank's local shards): a projection
+    whose ``base.weight`` comes as int8 codes takes an int8 base with its
+    ``base.weight_scale``. Raises on a missing, unexpected or mis-shaped
+    entry. Returns the model."""
+    state = dict(state)
+    for name, mod in model.named_modules():
+        codes = state.get(f"{name}.base.weight")
+        if isinstance(mod, LoRADense) and codes is not None and \
+                codes.dtype == torch.int8 != mod.base.weight.dtype:
+            _set_base(mod, codes.detach().clone(),
+                      state[f"{name}.base.weight_scale"].detach().clone())
+    for name, t in model.state_dict().items():
+        if name not in state:
+            raise KeyError(f"the state lacks {name}")
+        src = state.pop(name)
+        if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
+            raise ValueError(f"{name}: {src.dtype} {tuple(src.shape)} does "
+                             f"not fit {t.dtype} {tuple(t.shape)}")
+        t.copy_(src)
+    if state:
+        raise ValueError(f"unexpected state entries: {sorted(state)}")
+    return model
+
+
+@torch.no_grad()
+def shard_model(model: LlamaModel, mesh) -> LlamaModel:
+    """This rank's tensor-parallel serving model of the global ``model``
+    on the ``{"tp": n}`` ``mesh`` (every rank of the group calls it, with
+    the same model): the global ``state_dict`` placed by
+    ``parallel.sharding.shard_params`` under ``divisible_rules(
+    serving_tp_layout(n).rules, mesh)`` — int8 codes and their scales
+    included, column scales split with their rows, row scales whole —
+    and each ``DTensor``'s local shard loaded into a model built with
+    ``kernel_mesh=mesh`` and dense prefill (``attn_fn=None``). So each
+    rank holds exactly the shard ``DTensor`` placement gives it, and
+    nothing global: the caller may drop ``model``. Quantize the global
+    model first (:func:`quantize_params`): a row-parallel shard holds
+    only part of each scale's row. The result takes no gradient."""
+    from ..parallel.sharding import (divisible_rules, serving_tp_layout,
+                                     shard_params)
+
+    if model.device.type != mesh.device_type:
+        raise ValueError(f"the model lies on {model.device}, the mesh's "
+                         f"devices are {mesh.device_type}")
+    local = LlamaModel(model.cfg, dtype=model.dtype, attn_fn=None,
+                       device=model.device, kernel_mesh=mesh)
+    rules = divisible_rules(serving_tp_layout(local.tp_size).rules, mesh)
+    placed = shard_params(dict(model.state_dict()), mesh, rules)
+    load_state(local, {k: t.to_local() for k, t in placed.items()})
+    del placed
+    return local.requires_grad_(False)
+
+
 # ---------------------------------------------------------------------------
 # int8 projection weights
 # ---------------------------------------------------------------------------
@@ -916,11 +1098,12 @@ def projection_bytes(model: LlamaModel) -> int:
 # ---------------------------------------------------------------------------
 
 def init_cache(model: LlamaModel, batch_size: int, max_len: int) -> KVCache:
-    """Zeroed KV cache, ``[batch, kv_heads, max_len, head_dim]`` per layer,
+    """Zeroed KV cache, ``[batch, kv_heads, max_len, head_dim]`` per layer
+    (the model's own ``kv_heads``: a tensor-parallel rank's share),
     in the model's dtype on the model's device, with its fill index on
     the host and on the device (``idx_dev``)."""
     c = model.cfg
-    shape = (batch_size, c.num_kv_heads, max_len, c.head_dim)
+    shape = (batch_size, model.kv_heads, max_len, c.head_dim)
 
     def zeros():
         return torch.zeros(shape, dtype=model.dtype, device=model.device)
@@ -931,10 +1114,14 @@ def init_cache(model: LlamaModel, batch_size: int, max_len: int) -> KVCache:
                                        device=model.device))
 
 
-#: the kernel wrappers whose ``launches`` count CUDA launches; a replayed
-#: step adds what its capture counted (``core.runtime.StepGraph``)
+#: the kernel wrappers whose ``launches`` count CUDA launches, and the
+#: tensor-parallel model's dispatch counts of the decode kernels
+#: (``parallel.sharding.head_sharded_kernel``); a replayed step adds what
+#: its capture counted (``core.runtime.StepGraph``)
 LAUNCH_COUNTED = (flash_attention_fwd, fd.flash_decode,
-                  pfd.paged_flash_decode)
+                  pfd.paged_flash_decode,
+                  dispatch_counter("flash_decode"),
+                  dispatch_counter("paged_flash_decode"))
 
 
 def _sample(logits, generator, temperature: float, top_k: int = 0,
@@ -1246,11 +1433,11 @@ def paged_pool_spec(model: LlamaModel, pool_blocks: int, block_size: int,
     dtype and every layer gains a ``kv_scale`` ``[pool_blocks, Hkv, 2]``
     f32 plane (``[..., 0]`` = K scales, ``[..., 1]`` = V)."""
     c = model.cfg
-    shape = (int(pool_blocks), c.num_kv_heads, int(block_size), c.head_dim)
+    shape = (int(pool_blocks), model.kv_heads, int(block_size), c.head_dim)
     dt = model.dtype if kv_quant is None else kv_quant_spec(kv_quant)[0]
     spec = [(shape, dt)] * (2 * c.num_layers)
     if kv_quant is not None:
-        spec += [((int(pool_blocks), c.num_kv_heads, 2),
+        spec += [((int(pool_blocks), model.kv_heads, 2),
                   torch.float32)] * c.num_layers
     return spec
 

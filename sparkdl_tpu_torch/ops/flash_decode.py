@@ -395,7 +395,7 @@ def tri_state_env(name: str) -> str:
     return "auto"
 
 
-def decode_fn_for(attn_fn):
+def decode_fn_for(attn_fn, mesh=None):
     """Call-site resolver (``models.llama.LlamaAttention``): the decode
     kernel pairs with the flash prefill — when the model's resolved
     ``attn_fn`` is :func:`ops.flash_attention.flash_attention` or
@@ -403,11 +403,18 @@ def decode_fn_for(attn_fn):
     run through :func:`flash_decode`; any other attention keeps the
     in-model dense cache path. ``SPARKDL_FLASH_DECODE=0`` (or ``off``,
     ``false``; read by :func:`tri_state_env`) turns it off, the ablation
-    lever. The tensor-parallel ``mesh=`` branch of the JAX resolver comes
-    with the tensor-parallel serving backends (ROADMAP.md, Queue A 8
-    (b))."""
+    lever, under a mesh too.
+
+    ``mesh`` (the tensor-parallel serving model's ``{"tp": n}`` mesh,
+    whose prefill is dense, ``attn_fn=None``): the kernel runs on each
+    rank's local heads through ``parallel.sharding.head_sharded_kernel``,
+    whatever ``attn_fn`` is (on a CPU gang the wrapper runs its plain
+    version, as it does for any CPU tensor)."""
     if tri_state_env("SPARKDL_FLASH_DECODE") == "off":
         return None
+    if mesh is not None:
+        from ..parallel.sharding import head_sharded_kernel
+        return head_sharded_kernel(flash_decode, mesh)
     from .flash_attention import adaptive_attention, flash_attention
     if attn_fn is flash_attention or attn_fn is adaptive_attention:
         return flash_decode

@@ -277,21 +277,27 @@ def paged_flash_decode(q, k_pool, v_pool, tables, slot_cur, pad_lens=None,
 paged_flash_decode.launches = 0
 
 
-def paged_decode_fn_for(attn_fn):
+def paged_decode_fn_for(attn_fn, mesh=None):
     """Call-site resolver (``models.llama`` paged ``slot_cur`` branch),
     the :func:`ops.flash_decode.decode_fn_for` twin for the block-table
     pool: the kernel runs when the model's resolved ``attn_fn`` is the
     flash kernel (the pairing the dense decode kernel uses), and also
     for any other ``attn_fn`` when ``SPARKDL_SERVE_PAGED_KERNEL=1``
     forces it. ``=0`` turns it off (the gathered view, the ablation
-    lever). Returns :func:`paged_flash_decode` or None. The
-    tensor-parallel ``mesh=`` branch of the JAX resolver comes with the
-    tensor-parallel serving backends (ROADMAP.md, Queue A 8 (b))."""
+    lever). Returns :func:`paged_flash_decode`, its head-sharded wrapper,
+    or None.
+
+    ``mesh`` (the tensor-parallel serving model's): the same rules, and
+    the kernel runs on each rank's local heads through ``parallel
+    .sharding.head_sharded_kernel``."""
     mode = tri_state_env(PAGED_KERNEL_ENV)  # one parser for both knobs
     if mode == "off":
         return None
     if mode == "auto":
         from .flash_decode import decode_fn_for
-        if decode_fn_for(attn_fn) is None:
+        if decode_fn_for(attn_fn, mesh) is None:
             return None
-    return paged_flash_decode
+    if mesh is None:
+        return paged_flash_decode
+    from ..parallel.sharding import head_sharded_kernel
+    return head_sharded_kernel(paged_flash_decode, mesh)

@@ -10,8 +10,9 @@ Pipeline parallelism (``gpipe`` and its helpers) and expert parallelism
 from .ring_attention import (NEG_INF, dense_attention, ring_attention,
                              ulysses_attention)
 from .sharding import (P, NamedSharding, SpecLayout, describe,
-                       divisible_rules, fsdp_rules, head_sharded_kernel,
-                       lora_rules, make_rules, path_str, placements,
+                       dispatch_counter, divisible_rules, fsdp_rules,
+                       head_sharded_kernel, local_heads, lora_rules,
+                       make_rules, path_str, placements,
                        serving_tp_layout, shard_params, sharding_pytree,
                        transformer_tp_rules)
 
@@ -41,5 +42,5 @@ __all__ = [
     "gpipe", "microbatch", "stack_stage_params", "stage_sharding",
     "SwitchMoE", "moe_rules", "moe_aux_loss",
     "NEG_INF", "P", "NamedSharding", "placements", "path_str",
-    "head_sharded_kernel",
+    "head_sharded_kernel", "local_heads", "dispatch_counter",
 ]

@@ -17,6 +17,10 @@ transposed spec (``q_proj/weight`` → ``P("model", None)``); embeddings
 are ``[vocab, hidden]`` in both. A ``mesh`` argument that only sizes axes
 (:func:`fsdp_rules`, :func:`divisible_rules`) may also be a ``{axis:
 size}`` mapping.
+
+:func:`head_sharded_kernel` runs a decode kernel on each tensor-parallel
+rank's own heads (the reference's ``shard_map`` dispatch), and
+:func:`serving_tp_layout` is the serving layout it serves.
 """
 
 from __future__ import annotations
@@ -273,13 +277,110 @@ def divisible_rules(base_rules: Callable, mesh) -> Callable:
     return rules
 
 
+def local_heads(x, rank: int, tp: int, dim: int = 1):
+    """Rank ``rank``'s block of ``x``'s heads (axis ``dim``) when ``tp``
+    ranks split them evenly, contiguous: the shard ``Shard(dim)`` gives
+    that rank. ``ValueError`` when the axis does not divide by ``tp``."""
+    n = x.shape[dim]
+    if tp < 1 or n % tp:
+        raise ValueError(f"{n} heads on dim {dim} do not split evenly "
+                         f"over tp={tp}")
+    return x.narrow(dim, rank * (n // tp), n // tp).contiguous()
+
+
+#: calls through :func:`head_sharded_kernel`'s wrappers, by the wrapped
+#: function's name: one object each, whose ``launches`` count like the
+#: kernel wrappers' (a captured step adds its count at every replay)
+DISPATCH_COUNTERS: dict = {}
+
+
+class _DispatchCount:
+    def __init__(self, name: str):
+        self.__name__ = f"head_sharded_{name}"
+        self.launches = 0
+
+
+def dispatch_counter(name: str) -> _DispatchCount:
+    """The dispatch count of the wrapped function ``name``."""
+    c = DISPATCH_COUNTERS.get(name)
+    if c is None:
+        c = DISPATCH_COUNTERS[name] = _DispatchCount(name)
+    return c
+
+
 def head_sharded_kernel(fn, mesh, axis: str = "tp"):
-    """The reference's per-rank dispatch of a decode kernel over the
-    tensor-parallel head axis. Not ported yet: it lands with the
-    tensor-parallel serving backends."""
-    raise NotImplementedError(
-        "parallel.head_sharded_kernel is not ported yet (ROADMAP.md, Queue "
-        "B 2 with Queue A 8 (b): the tensor-parallel serving backends)")
+    """Run a decode kernel on each rank's own heads of the tensor-parallel
+    head axis: the counterpart of the reference's ``shard_map`` over
+    ``axis``. Per-head attention needs no collective, so every rank runs
+    ``fn`` UNMODIFIED on its local shard.
+
+    Operands follow the reference's rules: q, K and V (the first three)
+    carry the heads on dim 1 (``[B, H, S, D]`` caches and ``[P, Hkv, bs,
+    D]`` pools alike); a trailing 3-D operand whose leading two dims match
+    K's is a quantized pool's ``[P, Hkv, 2]`` scale plane and shards with
+    its heads; every other operand (tables, fill indices, pads) is
+    replicated.
+
+    Two kinds of input. ``DTensor`` q / K / V sharded ``Shard(1)`` on
+    ``axis``: their local shards (``to_local``) go through ``fn``, a plain
+    scale plane is cut to the rank's heads (:func:`local_heads`), a
+    ``DTensor`` of any other operand gives its local tensor, and the
+    output comes back a ``DTensor`` placed as q. Plain tensors are
+    already the rank's local heads (the tensor-parallel serving model
+    holds nothing else) and go through ``fn`` as they are.
+
+    ``ValueError`` when the local head counts break the global Hq:Hkv
+    ratio (a GQA group split across ranks). Every call adds one to
+    ``dispatch_counter(fn.__name__).launches``."""
+    counter = dispatch_counter(getattr(fn, "__name__", "kernel"))
+    names = list(mesh.mesh_dim_names)
+    if axis not in names:
+        raise ValueError(f"axis {axis!r} is not an axis of the mesh "
+                         f"{tuple(names)}")
+
+    def wrapped(q, k, v, *rest, **kw):
+        from torch.distributed.tensor import DTensor, Shard
+
+        from ..ops import _build
+
+        if isinstance(q, DTensor):
+            for t in (q, k, v):
+                if not isinstance(t, DTensor) or \
+                        t.placements[names.index(axis)] != Shard(1):
+                    raise ValueError(
+                        f"head_sharded_kernel: q, K and V must all be "
+                        f"DTensors sharded Shard(1) on {axis!r}")
+            hq, hkv = q.shape[1], k.shape[1]
+            tp = mesh.size(names.index(axis))
+            rank = mesh.get_local_rank(axis)
+            ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+            local = []
+            for r in rest:
+                if isinstance(r, DTensor):
+                    r = r.to_local()
+                elif getattr(r, "ndim", 0) == 3 and \
+                        tuple(r.shape[:2]) == tuple(k.shape[:2]):
+                    r = local_heads(r, rank, tp)
+                local.append(r)
+        else:
+            hq, hkv = q.shape[1], k.shape[1]
+            ql, kl, vl, local = q, k, v, list(rest)
+        if kl.shape[1] == 0 or ql.shape[1] * hkv != kl.shape[1] * hq:
+            raise ValueError(
+                f"head_sharded_kernel: the local heads {ql.shape[1]}:"
+                f"{kl.shape[1]} break the global Hq:Hkv ratio {hq}:{hkv} "
+                f"(pick tp from the divisors of Hkv)")
+        out = fn(ql, kl, vl, *local, **kw)
+        _build.count_launch(counter)
+        if not isinstance(q, DTensor):
+            return out
+        return DTensor.from_local(out, q.device_mesh, q.placements,
+                                  run_check=False, shape=q.shape,
+                                  stride=q.stride())
+
+    wrapped.__name__ = wrapped.__qualname__ = counter.__name__
+    wrapped.__wrapped__ = fn
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

@@ -69,8 +69,20 @@ engine schedule, but not the draws ``generate()`` makes.
 ``weight_dtype="int8"`` quantizes the model's projection weights in
 place at construction (``models.llama.quantize_params``, the
 reference's ``_weight_quantize``): every later call, the captured decode
-step included, runs the int8 products. Not ported yet (ROADMAP.md): the
-tensor-parallel backends; ``GenerationEngine.from_model`` refuses them.
+step included, runs the int8 products.
+
+**Tensor-parallel variants** (:class:`TensorParallelLlamaSlotBackend`,
+:class:`TensorParallelPagedLlamaSlotBackend`): one process a device, the
+engine's tp group a ``{"tp": n}`` mesh of consecutive ranks
+(:func:`tp_mesh`). Each rank serves ``models.llama.shard_model``'s shard
+of the global model (1/n of the heads and MLP columns), with dense
+prefill and the decode kernels on its local heads through
+``parallel.sharding.head_sharded_kernel``, and holds 1/n of every cache
+row or pool block (its ``kv_heads``). Block ids stay logical: the block
+manager, radix trie, copy-on-write and preemption are the base classes'.
+Every rank of the group makes the same calls with the same arguments
+(the SPMD contract of every collective); logits are gathered, so every
+rank samples the same tokens from a generator seeded alike.
 """
 
 from __future__ import annotations
@@ -158,23 +170,23 @@ def _check_kernels(model, paged_dtype=None) -> None:
     engine should refuse before it admits a request."""
     if model.device.type != "cuda":
         return
-    c = model.cfg
+    c, mesh = model.cfg, model.kernel_mesh
     attn_fn = L.resolve_attn_fn(model.attn_fn)
-    q = torch.empty((1, c.num_heads, 1, c.head_dim), dtype=model.dtype,
+    q = torch.empty((1, model.heads, 1, c.head_dim), dtype=model.dtype,
                     device=model.device)
     if paged_dtype is None:
-        if fd.decode_fn_for(attn_fn) is not None:
-            kc = torch.empty((1, c.num_kv_heads, 1, c.head_dim),
+        if fd.decode_fn_for(attn_fn, mesh) is not None:
+            kc = torch.empty((1, model.kv_heads, 1, c.head_dim),
                              dtype=model.dtype, device=model.device)
             reason = fd.support_reason(q, kc)
             if reason is not None:
                 raise ValueError(f"flash_decode kernel: {reason}")
         return
-    if pfd.paged_decode_fn_for(attn_fn) is not None:
-        pool = torch.empty((1, c.num_kv_heads, 1, c.head_dim),
+    if pfd.paged_decode_fn_for(attn_fn, mesh) is not None:
+        pool = torch.empty((1, model.kv_heads, 1, c.head_dim),
                            dtype=paged_dtype, device=model.device)
         scales = None if paged_dtype == model.dtype else \
-            torch.empty((1, c.num_kv_heads, 2), device=model.device)
+            torch.empty((1, model.kv_heads, 2), device=model.device)
         reason = pfd.support_reason(q, pool, scales)
         if reason is not None:
             raise ValueError(f"paged_flash_decode kernel: {reason}")
@@ -191,7 +203,8 @@ class LlamaSlotBackend:
     the port's ``LlamaModel``; the cache lives on its device.
     """
 
-    #: tensor-parallel degree — 1: the port's backends are single-device
+    #: tensor-parallel degree: 1 here, the mesh's extent on the
+    #: tensor-parallel variants
     tp_degree = 1
 
     def __init__(self, model, num_slots: int, max_len: int, *,
@@ -243,7 +256,8 @@ class LlamaSlotBackend:
 
     def kv_pool_device_bytes(self) -> int:
         """Device bytes of the slot cache / paged pool: K/V plus a
-        quantized pool's scale planes. The engine exports it as the
+        quantized pool's scale planes — this rank's own (1/tp of the
+        whole under tensor parallelism). The engine exports it as the
         ``serving_kv_pool_device_bytes`` gauge."""
         return sum(t.numel() * t.element_size() for t in self.cache.tensors())
 
@@ -551,9 +565,13 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         _check_kernels(model, qdt)
-        per_blk = pool_bytes_per_block(model, self.block_size, kv_dtype)
+        # the model's own block bytes are what one block costs this
+        # device (1/tp of the whole under tensor parallelism), so
+        # kv_pool_mb is a per-device budget; pool_stats reports whole
+        # blocks
+        per_dev = pool_bytes_per_block(model, self.block_size, kv_dtype)
         if pool_blocks is None and kv_pool_mb is not None:
-            pool_blocks = max(2, int(kv_pool_mb * 2 ** 20) // per_blk)
+            pool_blocks = max(2, int(kv_pool_mb * 2 ** 20) // per_dev)
         budget = prefix_cache_budget_bytes() if prefix_cache_bytes is None \
             else max(0, int(prefix_cache_bytes))
         self.tables = np.zeros((self.num_slots, self.max_blocks),
@@ -571,12 +589,13 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
             for shape, dt in L.paged_pool_spec(model, 1, self.block_size,
                                                kv_dtype)
             if len(shape) == 3)
+        tp = self.tp_degree
         self.mgr.info = {
             "kv_dtype": kv_dtype or "float",
-            "kv_block_bytes": per_blk,
+            "kv_block_bytes": per_dev * tp,
             "kv_block_bytes_f32": pool_bytes_per_block(
-                model, self.block_size),
-            "kv_scale_bytes_per_block": scale_per_blk,
+                model, self.block_size) * tp,
+            "kv_scale_bytes_per_block": scale_per_blk * tp,
             "effective_blocks": self.pool_blocks,
         }
         self.graphs = CompileCache()
@@ -780,3 +799,102 @@ class PagedLlamaSlotBackend(LlamaSlotBackend):
         self._cur[:] = 0
         self._pads[:] = 0
         self._warned_commit = False
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel slot backends: one engine over a {"tp": n} group
+# ---------------------------------------------------------------------------
+
+def tp_mesh(tp: int):
+    """The ``{"tp": tp}`` mesh of this rank's engine group: ``tp``
+    consecutive ranks of the ``torch.distributed`` gang, rank r in group
+    ``r // tp`` (one process a device, rank r on ``cuda:r``, so the rank
+    fixes its group and no placement knob is needed). Every rank of the
+    gang must call it, in the same order as any other collective: the
+    gang is cut into ``world // tp`` groups (``core.runtime.make_mesh(
+    {"replica": world // tp, "tp": tp})``), and each rank takes its
+    own."""
+    import torch.distributed as dist
+
+    from ..core.runtime import make_mesh
+
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if not (dist.is_available() and dist.is_initialized()):
+        return make_mesh({"tp": tp})  # raises: no gang
+    world = dist.get_world_size()
+    if world % tp:
+        raise ValueError(f"tp={tp} does not divide the gang's {world} "
+                         f"ranks into engine groups (SPARKDL_SERVE_TP)")
+    return make_mesh({"replica": world // tp, "tp": tp})["tp"]
+
+
+def _tp_setup(self, model, tp: int, mesh, weight_dtype):
+    """The tensor-parallel delta over the base backends, run before their
+    ``__init__``: check the heads split (``parallel.sharding
+    .serving_tp_layout``), take or make the mesh (its extent must be
+    ``tp``), quantize the GLOBAL model when asked (a row-parallel shard
+    holds part of each scale's row, so scales come from the whole), and
+    return this rank's shard (``models.llama.shard_model``: dense
+    prefill, the head-sharded decode dispatch). The base ``__init__`` then
+    runs on the shard unchanged: its cache or pool holds the rank's
+    ``kv_heads``, its generator is seeded alike on every rank."""
+    from ..parallel.sharding import serving_tp_layout
+    self.layout = serving_tp_layout(tp, model.cfg)
+    self.mesh = mesh if mesh is not None else tp_mesh(tp)
+    if self.mesh.size() != tp:
+        raise ValueError(f"tp={tp} disagrees with the mesh's "
+                         f"{self.mesh.size()} rank(s)")
+    self.tp_degree = int(tp)
+    if weight_dtype is not None:
+        L.quantize_params(model, weight_dtype)
+    return L.shard_model(model, self.mesh)
+
+
+def _group_clock(self, t: float) -> float:
+    """The group's clock for one engine iteration: rank 0's reading
+    ``t``, broadcast to every rank of the tp group, so the scheduler's
+    deadline decisions agree on every rank (``GenerationEngine.step``
+    calls it once a step)."""
+    import torch.distributed as dist
+    g = self.mesh.get_group("tp")
+    x = torch.tensor([t], dtype=torch.float64,
+                     device=self.mesh.device_type)
+    dist.broadcast(x, src=dist.get_global_rank(g, 0), group=g)
+    return float(x.item())
+
+
+class TensorParallelLlamaSlotBackend(LlamaSlotBackend):
+    """Head-sharded :class:`LlamaSlotBackend` over a ``{"tp": n}`` mesh
+    (module doc): slot cache rows ``[slots, Hkv/n, max_len, hd]``, per-rank
+    cache bytes ``1/n`` of the whole (:meth:`kv_pool_device_bytes`). The
+    S = 1 step, its NCCL all-reduces and gathers included, is captured
+    into the backend's CUDA graph and replayed like the base backend's
+    (captured on the H100 with NCCL 2.27 at one rank: ``chip_smoke.py``
+    phase u); prefill chunks and verify windows issue them eagerly."""
+
+    def __init__(self, model, num_slots: int, max_len: int, *, tp: int,
+                 mesh=None, weight_dtype: str | None = None, **kw):
+        local = _tp_setup(self, model, tp, mesh, weight_dtype)
+        super().__init__(local, num_slots, max_len,
+                         weight_dtype=weight_dtype, **kw)
+
+    group_clock = _group_clock
+
+
+class TensorParallelPagedLlamaSlotBackend(PagedLlamaSlotBackend):
+    """Head-sharded :class:`PagedLlamaSlotBackend`: every pool block
+    ``[Hkv/n, block_size, hd]`` (and a quantized pool's scale plane
+    ``[Hkv/n, 2]``) holds this rank's heads, block ids stay logical, and
+    ``kv_pool_mb`` is a per-device budget — the same figure buys n times
+    the blocks of the one-device backend. The S = 1 step is captured into
+    the backend's CUDA graph with its collectives, as in
+    :class:`TensorParallelLlamaSlotBackend`."""
+
+    def __init__(self, model, num_slots: int, max_len: int, *, tp: int,
+                 mesh=None, weight_dtype: str | None = None, **kw):
+        local = _tp_setup(self, model, tp, mesh, weight_dtype)
+        super().__init__(local, num_slots, max_len,
+                         weight_dtype=weight_dtype, **kw)
+
+    group_clock = _group_clock

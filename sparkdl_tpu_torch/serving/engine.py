@@ -3,8 +3,15 @@ slotted KV cache.
 
 The port's copy of ``sparkdl_tpu/serving/engine.py``: the same
 scheduler; :meth:`GenerationEngine.from_model` builds the port's torch
-backends on a ``device``, and refuses the tensor-parallel and
-int8-weight options the port does not have yet.
+backends on a ``device``, the tensor-parallel ones over a ``{"tp": n}``
+group of a ``torch.distributed`` gang (one process a device). Every rank
+of such a group makes the same engine calls with the same arguments, and
+the scheduler decides alike on each: the one clock it reads for
+deadlines is the group's rank 0's, broadcast once an iteration
+(:meth:`GenerationEngine.step`) and at each
+:meth:`GenerationEngine.submit` that sets a deadline, whose limit runs
+from that reading. The background loop (:meth:`start`) takes requests as
+they come to each rank, so it serves one device only.
 
 The static ``models.llama.generate`` path is batch-job shaped: every row
 of a batch prefills together, decodes in lockstep, and a new request
@@ -174,13 +181,12 @@ KV_POOL_MB_ENV = "SPARKDL_SERVE_KV_POOL_MB"
 # verify -> greedy commit (always >= 1 token per slot per iteration).
 # SPEC_DRAFT names the draft provider (serving.draft.make_provider).
 SPEC_K_ENV = "SPARKDL_SERVE_SPEC_K"
-# Tensor-parallel serving. TP is the mesh extent one engine
-# spans: 1 (the default) constructs the EXACT single-device backends
-# (no mesh, no wrapper, zero overhead); > 1 selects the head-sharded
-# TensorParallel* backends whose weights/KV shard over Mesh(('tp',))
-# while this scheduler stays byte-for-byte unchanged. The launcher's
-# topology-aware placement gives each gang rank a disjoint device
-# group (SPARKDL_TP_DEVICE_OFFSET / per-rank visibility).
+# Tensor-parallel serving. TP is the number of ranks (one device each)
+# one engine spans: 1 (the default) constructs the EXACT single-device
+# backends (no mesh, no wrapper, zero overhead); > 1 selects the
+# head-sharded TensorParallel* backends over a {"tp": n} group of
+# consecutive gang ranks (rank r serves in group r // tp), while this
+# scheduler stays unchanged.
 TP_ENV = "SPARKDL_SERVE_TP"
 # Quantized serving. KV_DTYPE selects the paged pool's K/V
 # storage ("int8" / "fp8"): codes + a per-block [P, Hkv, 2] scale
@@ -204,9 +210,9 @@ WEIGHT_DTYPE_ENV = "SPARKDL_SERVE_WEIGHT_DTYPE"
 FAILOVER_BUDGET_ENV = "SPARKDL_SERVE_FAILOVER_BUDGET"
 FAILOVER_BACKOFF_ENV = "SPARKDL_SERVE_FAILOVER_BACKOFF_S"
 DEADLINE_ENV = "SPARKDL_SERVE_DEADLINE_S"
-# The launcher's per-rank device-offset knob (``runner/launcher.py`` of
-# the JAX package; the port has no launcher yet): scrubbed with the
-# serving knobs.
+# The JAX package's per-rank device-offset knob (its launcher's
+# placement; torch's form needs none, rank r serves in group r // tp):
+# scrubbed with the serving knobs.
 TP_OFFSET_ENV = "SPARKDL_TP_DEVICE_OFFSET"
 
 _DEFAULT_SLOTS = 8
@@ -911,6 +917,13 @@ class GenerationEngine:
             "spec_verifies": 0, "spec_tokens_accepted": 0,
             "spec_tokens_rejected": 0,
         }
+        # A tensor-parallel group's clock (backend.group_clock): rank
+        # 0's reading, broadcast at each step() and at each submit() that
+        # sets a deadline, is the one clock the deadline decisions read,
+        # so every rank ends a request at the same step; None on one
+        # device, where the wall clock is read.
+        self._group_clock = getattr(backend, "group_clock", None)
+        self._group_now = None
         # Live inspector: one weak-set add per engine BUILD
         # (never per token); introspect.serving_snapshot() reads
         # every registered engine via debug_state().
@@ -956,9 +969,17 @@ class GenerationEngine:
         (``models.llama.quantize_params``); any other name raises
         ``ValueError``.
 
-        Not ported yet, and refused rather than dropped: ``tp`` > 1 /
-        ``mesh`` / ``SPARKDL_SERVE_TP`` (tensor-parallel serving, ROADMAP
-        Queue A 8 (b)) raise ``NotImplementedError``."""
+        ``tp`` > 1 (or ``SPARKDL_SERVE_TP``) spans the engine over a
+        tensor-parallel group: every rank of the gang calls
+        ``from_model`` with the same global model and arguments, and
+        serves its shard of the heads, MLP columns and KV cache / pool
+        (``serving.backend.TensorParallel*``); ``mesh`` supplies the
+        ``{"tp": n}`` mesh, else ``serving.backend.tp_mesh`` cuts the
+        gang into groups of ``tp`` consecutive ranks (outside a gang it
+        raises ``make_mesh``'s ``ValueError``). A mesh with a defaulted
+        ``tp`` serves at its extent; an explicit ``tp`` that disagrees
+        with it raises. tp <= 1 builds exactly the single-device
+        classes. Paged + tp makes ``kv_pool_mb`` a per-device budget."""
         from ..models.llama import load_flax_params
         from ..utils.platform import resolve_device
         num_slots = num_slots if num_slots is not None \
@@ -967,21 +988,31 @@ class GenerationEngine:
             else _env_num(MAX_LEN_ENV, _DEFAULT_MAX_LEN)
         block_size = block_size if block_size is not None \
             else _env_num(BLOCK_SIZE_ENV, 0)
+        tp_explicit = tp is not None
         if tp is None:
             raw = os.environ.get(TP_ENV)
-            if raw not in (None, ""):
+            if raw in (None, ""):
+                tp = 1
+            else:
+                tp_explicit = True  # the operator pinned a degree
                 try:
                     tp = int(raw)
                 except ValueError:
                     raise ValueError(
                         f"{TP_ENV}={raw!r} is not an integer") from None
-        if tp is not None and int(tp) < 0:
+        if int(tp) < 0:
+            # checked before the mesh: a negative tp beside a mesh must
+            # not be overwritten by the mesh's extent
             raise ValueError(f"tp={tp} is negative (0/1 = single-device)")
-        if mesh is not None or (tp is not None and int(tp) > 1):
-            raise NotImplementedError(
-                f"tensor-parallel serving (tp={tp}, mesh={mesh!r}, "
-                f"{TP_ENV}) is not ported yet (ROADMAP.md Queue A 8 (b)); "
-                "the port serves on one device")
+        if mesh is not None:
+            extent = int(mesh.size())
+            if not tp_explicit:
+                # a passed mesh IS the tensor-parallel request: serve at
+                # its extent rather than drop it for one device
+                tp = extent
+            elif int(tp) != extent:
+                raise ValueError(f"tp={tp} disagrees with the passed "
+                                 f"mesh's {extent} rank(s)")
         if weight_dtype is None:
             weight_dtype = os.environ.get(WEIGHT_DTYPE_ENV) or None
         pbytes = None if prefix_cache_mb is None \
@@ -1004,24 +1035,30 @@ class GenerationEngine:
                 f"for {device}; build the model with device={device!s}")
         if variables is not None:
             load_flax_params(model, variables)
+        # tp_kw's truthiness SELECTS the TensorParallel class: keep it
+        # tp-only (weight_dtype rides the common arguments)
+        tp_kw = {"tp": int(tp), "mesh": mesh} if int(tp) > 1 else {}
+        common = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                      seed=seed, prefix_cache_bytes=pbytes,
+                      weight_dtype=weight_dtype)
         if block_size and block_size > 0:
-            from .backend import PagedLlamaSlotBackend
+            from .backend import (PagedLlamaSlotBackend,
+                                  TensorParallelPagedLlamaSlotBackend)
             kv_pool_mb = kv_pool_mb if kv_pool_mb is not None \
                 else _env_num(KV_POOL_MB_ENV, None, float)
-            backend = PagedLlamaSlotBackend(
+            klass = TensorParallelPagedLlamaSlotBackend if tp_kw \
+                else PagedLlamaSlotBackend
+            backend = klass(
                 model, num_slots, max_len,
                 block_size=int(block_size), pool_blocks=pool_blocks,
-                kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
-                temperature=temperature,
-                top_k=top_k, top_p=top_p, seed=seed,
-                prefix_cache_bytes=pbytes, weight_dtype=weight_dtype)
+                kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype, **common,
+                **tp_kw)
         else:
-            from .backend import LlamaSlotBackend
-            backend = LlamaSlotBackend(
-                model, num_slots, max_len,
-                temperature=temperature, top_k=top_k, top_p=top_p,
-                seed=seed, prefix_cache_bytes=pbytes,
-                weight_dtype=weight_dtype)
+            from .backend import (LlamaSlotBackend,
+                                  TensorParallelLlamaSlotBackend)
+            klass = TensorParallelLlamaSlotBackend if tp_kw \
+                else LlamaSlotBackend
+            backend = klass(model, num_slots, max_len, **common, **tp_kw)
         return cls(backend, eos_id=eos_id, **kw)
 
     # -- telemetry helpers ------------------------------------------------
@@ -1148,7 +1185,9 @@ class GenerationEngine:
             limit = deadline_s if deadline_s is not None \
                 else self.default_deadline_s
             if limit and limit > 0:
-                req.t_deadline = req.t_submit + float(limit)
+                start = req.t_submit if self._group_clock is None \
+                    else self._group_clock(req.t_submit)
+                req.t_deadline = start + float(limit)
             self._queue.append(req)
             self.stats["submitted"] += 1
             depth = len(self._queue)
@@ -1191,6 +1230,8 @@ class GenerationEngine:
         if self._fatal is not None:
             raise EngineStopped("engine died") from self._fatal
         self.t_heartbeat = time.time()
+        if self._group_clock is not None:
+            self._group_now = self._group_clock(self.t_heartbeat)
         try:
             return self._step_inner()
         except Exception as e:  # noqa: BLE001 — failover routing
@@ -1251,6 +1292,12 @@ class GenerationEngine:
         return True
 
     # -- deadlines / cancellation ------------------------------
+    def _now(self) -> float:
+        """The clock deadline decisions read: the wall clock, or a
+        tensor-parallel group's reading of this iteration."""
+        return time.time() if self._group_clock is None \
+            else self._group_now
+
     @staticmethod
     def _should_cancel(req: Request, now: float) -> bool:
         if req.state in (DONE, FAILED):
@@ -1266,7 +1313,7 @@ class GenerationEngine:
         entry, so there is nothing to roll back), and finish them
         FAILED with :class:`RequestCancelled` / :class:`DeadlineExceeded`
         — counted in ``cancelled``, never ``quarantined``."""
-        now = time.time()
+        now = self._now()
         victims = []
         with self._work:
             for r in list(self._queue):
@@ -1314,7 +1361,18 @@ class GenerationEngine:
             pass
 
     def start(self) -> "GenerationEngine":
-        """Run the scheduling loop in a daemon thread."""
+        """Run the scheduling loop in a daemon thread. One device only:
+        under tp > 1 it raises ``NotImplementedError``, since each rank's
+        loop would take requests as they come to that rank, and the
+        group's ranks must make the same calls (ROADMAP.md, Queue
+        A 8 (d): one front that broadcasts admissions to its group);
+        drive a group with :meth:`step` / :meth:`run_until_idle`."""
+        if self.tp_degree > 1:
+            raise NotImplementedError(
+                f"the background loop of a tp={self.tp_degree} engine is "
+                f"not ported yet (ROADMAP.md, Queue A 8 (d): one front "
+                f"that broadcasts admissions to its tp group); drive every "
+                f"rank with the same step() / run_until_idle() calls")
         with self._lock:
             if self._thread is not None:
                 return self
@@ -2153,7 +2211,7 @@ class GenerationEngine:
             delivered, last = 0, None
             for t in emit:
                 if req.state != RUNNING or \
-                        self._should_cancel(req, time.time()):
+                        self._should_cancel(req, self._now()):
                     # retired (EOS / length), cancelled, or past its
                     # deadline mid-verify-window: stop emitting — the
                     # reaper at the next iteration boundary finishes a

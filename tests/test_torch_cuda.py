@@ -187,6 +187,47 @@ def test_flash_attention_no_mask_and_wrapper_checks(dev):
                            v.transpose(1, 2))
 
 
+def test_flash_attention_from_threads_at_several_lengths(dev):
+    """Threads launching the bf16 forward at once at different lengths, as
+    a threaded fleet's prefills do. Each launch's dynamic shared memory
+    grows with S, and no launch may fail because another thread set the
+    kernel's shared-memory cap for its own S. Each thread's last output is
+    bitwise the one its launch gave alone."""
+    import threading
+
+    rng = np.random.default_rng(16)
+    cases = []
+    for s in (64, 200, 631, 1000, 1503, 4096):
+        q, k, v = (_randn(rng, (1, 2, s, 128), torch.bfloat16, dev)
+                   for _ in range(3))
+        cases.append((q, k, v, fa.flash_attention_fwd(q, k, v, True)[0]))
+    torch.cuda.synchronize()
+    errors, outs = [], [None] * len(cases)
+    start = threading.Barrier(len(cases))
+
+    def run(i):
+        q, k, v, _ = cases[i]
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                start.wait()
+                for _ in range(1000):
+                    o = fa.flash_attention_fwd(q, k, v, True)[0]
+                torch.cuda.current_stream().synchronize()
+                outs[i] = o
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:3]
+    for (_, _, _, want), got in zip(cases, outs):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
@@ -1890,3 +1931,99 @@ def test_ulysses_flash_on_a_one_rank_nccl_mesh_is_the_bare_kernel(dev,
             assert torch.allclose(ring, ref, rtol=1e-5, atol=1e-5)
     finally:
         leave_gang()
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_head_shards_are_the_full_launch_heads(dev, tp):
+    """What rank r of a tp gang launches: each decode kernel on the head
+    shard ``parallel.local_heads`` takes (the helper
+    ``head_sharded_kernel`` uses) is bitwise the full launch's heads —
+    the split plan depends on positions and S·rep only, and GQA's ratio
+    holds per shard — and runs the blocks ``fd.split_blocks`` gives at
+    Hkv/tp. One shape: llama3_8b's 32:8 heads, D 128, bf16; the paged
+    pool int8 with its scale plane, S 5."""
+    from sparkdl_tpu_torch.parallel import local_heads
+
+    rng = np.random.default_rng(21)
+    curs, pads = [500, 301, 77, 16, 15, 1, 0, 200], [0, 3, 40, 0, 15, 0,
+                                                      0, 190]
+    q, kp, vp, sc, tables, cur, pad = _paged_case(
+        rng, dev, dtype=torch.bfloat16, kv="int8", b=8, hkv=8, rep=4,
+        s_q=5, d=128, bs=16, mb=33, curs=curs, pads=pads)
+    full = pfd.paged_flash_decode(q, kp, vp, tables, cur, pad, sc)
+    length = 33 * 16
+    qd = _randn(rng, (4, 32, 1, 128), torch.bfloat16, dev)
+    kd = _randn(rng, (4, 8, length, 128), torch.bfloat16, dev)
+    vd = _randn(rng, (4, 8, length, 128), torch.bfloat16, dev)
+    dcur = torch.tensor([length, 300, 17, 1], dtype=torch.int32, device=dev)
+    dpad = torch.tensor([0, 40, 0, 0], dtype=torch.int32, device=dev)
+    dfull = fd.flash_decode(qd, kd, vd, dcur, dpad)
+    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+    for r in range(tp):
+        sh = [local_heads(x, r, tp) for x in (q, kp, vp, sc)]
+        cnt.zero_()
+        got = pfd.paged_flash_decode(*sh[:3], tables, cur, pad, sh[3],
+                                     block_counter=cnt)
+        assert torch.equal(got, local_heads(full, r, tp)), r
+        plan = fd.split_blocks(length, 5 * 4, 8 // tp,
+                               [(p, min(c + 5, length))
+                                for c, p in zip(curs, pads)])
+        assert cnt.tolist() == [plan["grid_blocks"], plan["live_blocks"]]
+        want = pfd.paged_flash_decode_plain(*sh[:3], tables, cur, pad,
+                                            sh[3])
+        atol, rtol = _tol(torch.bfloat16, "int8")
+        np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                                   atol=atol, rtol=rtol)
+        sh = [local_heads(x, r, tp) for x in (qd, kd, vd)]
+        got = fd.flash_decode(*sh, dcur, dpad)
+        assert torch.equal(got, local_heads(dfull, r, tp)), r
+
+
+def test_step_graph_capture_survives_a_collection(dev):
+    """A collection while a step is being captured must not reset another
+    step's graph (a dropped engine's, unreachable until collected): the
+    capturing thread may not call that reset, and the capture would be
+    lost. Here the dropped step becomes garbage inside the new step's
+    capture, which then allocates enough to set off full collections:
+    one at nearly every allocation, with the live objects of the process
+    frozen out of the collector's count, so that a full collection is not
+    put off for them. The new step still captures and replays, and the
+    dropped one is collected after."""
+    import gc
+    import weakref
+
+    from sparkdl_tpu_torch.core.runtime import StepGraph
+
+    x = torch.ones(4, device=dev)
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.freeze()
+    gc.collect()
+    try:
+        old = StepGraph(lambda t: t * 2, (x,))
+        old((x,))
+        old((x,))
+        assert old.graph is not None
+        old.cycle = old  # freed only by a collection
+        gone = weakref.ref(old)
+        box = [old]
+        del old
+
+        def step(t):
+            if torch.cuda.is_current_stream_capturing():
+                box.clear()  # the dropped step is garbage from here on
+                junk = [[] for _ in range(256)]
+                del junk
+            return t + 1
+
+        gc.set_threshold(1, 1, 1)
+        new = StepGraph(step, (x,))
+        first = new((x,)).clone()
+        out = new((x,)).clone()
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.unfreeze()
+    assert not box and new.graph is not None
+    assert torch.equal(first, x + 1) and torch.equal(out, x + 1)
+    gc.collect()
+    assert gone() is None

@@ -52,8 +52,7 @@ from sparkdl_tpu.parallel import (describe as jax_describe,
 from sparkdl_tpu_torch.core.runtime import make_mesh
 from sparkdl_tpu_torch.models import llama as L
 from sparkdl_tpu_torch.parallel import (P, describe, divisible_rules,
-                                        fsdp_rules, head_sharded_kernel,
-                                        lora_rules, make_rules,
+                                        fsdp_rules, lora_rules, make_rules,
                                         serving_tp_layout,
                                         transformer_tp_rules)
 from sparkdl_tpu_torch.runner import launcher
@@ -505,8 +504,6 @@ class TestSpecLayout:
 
 def test_unported_parts_name_the_roadmap():
     from sparkdl_tpu_torch import parallel
-    with pytest.raises(NotImplementedError, match="Queue B 2"):
-        head_sharded_kernel(None, None)
     for name in ("gpipe", "microbatch", "stack_stage_params",
                  "stage_sharding", "SwitchMoE", "moe_rules",
                  "moe_aux_loss"):

@@ -159,11 +159,14 @@ def test_stub_backend_scenario_matches_jax_engine():
 
 
 def test_from_model_refuses_what_is_not_ported(models, monkeypatch):
-    """Tensor-parallel serving still raises naming A 8; int8 projection
-    weights and the registry-paired draft (A 2's first half) now build;
-    a weight mode other than int8 raises the reference's ValueError."""
+    """Tensor-parallel serving outside a gang raises make_mesh's
+    ValueError (a tp engine is a group of processes, one a device); int8
+    projection weights and the registry-paired draft (A 2's first half)
+    now build; a weight mode other than int8 raises the reference's
+    ValueError."""
     _, _, tm = models
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
+    with pytest.raises(ValueError, match="make_mesh needs a "
+                                         "torch.distributed gang"):
         GenerationEngine.from_model(tm, device="cpu", tp=2)
     fresh = L.LlamaModel(L.LlamaConfig.tiny(), device="cpu")
     eng = GenerationEngine.from_model(fresh, device="cpu",
@@ -176,7 +179,8 @@ def test_from_model_refuses_what_is_not_ported(models, monkeypatch):
             L.LlamaModel(L.LlamaConfig.tiny(), device="cpu"), device="cpu",
             weight_dtype="fp8", num_slots=1, max_len=32)
     monkeypatch.setenv("SPARKDL_SERVE_TP", "2")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="make_mesh needs a "
+                                         "torch.distributed gang"):
         GenerationEngine.from_model(tm, device="cpu")
     monkeypatch.delenv("SPARKDL_SERVE_TP")
     with pytest.raises(ValueError, match="requires the paged"):
