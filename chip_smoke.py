@@ -593,6 +593,40 @@ u. Tensor-parallel serving, on a one-rank NCCL gang joined as phase t's,
      bytes equal to the base's; each prefill chunk's ms, and on the
      unpaged arms 8 chunks at steady state and a profile of 4.
    A ``summary`` line gives the phase's seconds against PHASE_U_BUDGET_S.
+v. Sharded training (FSDP×TP, MoE, GPipe, the sharded feed), on a
+   one-rank NCCL gang joined as phase t's, each leg on its one-rank
+   mesh:
+   - ``fsdp_tp_train``: ``LlamaConfig.llama3_8b()`` at full width, depth
+     cut to FSDP_LAYERS, bf16, full-parameter ``sgd(FSDP_LR)``, phase g's
+     batch (2 x 2048), FSDP_STEPS steps, flash kernels (``"auto"``): the
+     unsharded ``make_train_step`` arm, then the FSDP×TP arm
+     (``models.llama.shard_model`` on ``{"data": 1, "model": 1}``,
+     ``make_train_step(mesh=, param_rules=)``) from the same seeded
+     weights; every gathered parameter after the steps bitwise the
+     unsharded arm's, the losses equal, each arm's flash forward and
+     backward launches FSDP_LAYERS x FSDP_STEPS, the sharded arm's peak
+     less than half the model's bytes above the unsharded arm's (ZeRO-3
+     keeps no gathered weight from the forward to the backward); per arm
+     the step ms, tokens/s, peak GB and collectives a step (the sharded
+     arm's counted by ``parallel.fsdp``: all-gathers, reduce-scatters,
+     all-reduces);
+   - ``sharded_ckpt``: that sharded state saved (global tensors; the
+     manifest names the mesh) and restored into a freshly placed model
+     through ``restore(mesh=, rules=)``: bit-identical; bytes, save s,
+     restore s;
+   - ``moe``: ``parallel.SwitchMoE`` at Switch-Base-8's widths (MOE_*),
+     8 x 512 tokens, bf16, on ``{"ep": 1}`` (``shard_moe``) against the
+     unsharded module: output and gradients bitwise; forward + backward
+     ms of each;
+   - ``gpipe``: ``parallel.gpipe`` on ``{"pp": 1}``, the stage one
+     llama3_8b-width decoder block (flash forward), GPIPE_MICRO
+     microbatches of 1 x GPIPE_SEQ: bitwise the block applied in turn,
+     one flash launch a microbatch; ms of each;
+   - ``batch_runner_mesh``: the ResNet50 featurizer's step through
+     ``BatchRunner(mesh={"data": 1})`` against ``mesh=None``, 4 batches
+     of 64 at 224: outputs bitwise; rows/s of each.
+   A ``summary`` line gives the phase's seconds (and each leg's) against
+   PHASE_V_BUDGET_S.
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
@@ -605,7 +639,9 @@ paged_flash_decode add phase r's, ``phase_r_launches``;
 paged_flash_decode adds its llama3_8b 32:8 S = 5 verify window,
 ``llama3_8b_s5_case``; flash_attention, flash_decode and
 flash_attention_bwd add phase t's, ``phase_t_launches``; flash_decode
-and paged_flash_decode add phase u's arms, ``phase_u_launches``) and,
+and paged_flash_decode add phase u's arms, ``phase_u_launches``;
+flash_attention and flash_attention_bwd add phase v's,
+``phase_v_launches``) and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
@@ -7047,6 +7083,354 @@ def phase_tp(torch, kernels) -> dict:
     return recs
 
 
+# --- phase v: sharded training ---------------------------------------------
+
+FSDP_LAYERS, FSDP_STEPS, FSDP_LR = 4, 3, 1e-3  # llama3_8b widths, 4 layers
+# Switch-Base-8 (Fedus et al. 2021; HF google/switch-base-8): d_model 768,
+# d_ff 3072, 8 experts, capacity factor 1.25; 8 x 512 tokens
+MOE_D, MOE_FF, MOE_E, MOE_CF = 768, 3072, 8, 1.25
+MOE_BATCH, MOE_SEQ = 8, 512
+GPIPE_MICRO, GPIPE_SEQ = 4, 2048  # microbatches of 1 x 2048
+RUNNER_BATCHES, RUNNER_BATCH = 4, 64  # ResNet50 at 224
+PHASE_V_BUDGET_S = 90.0
+
+
+def sharded_arm(torch, kernels, cfg, ids, mesh) -> tuple:
+    """One arm of ``fsdp_tp_train``: the seeded bf16 model (placed on
+    ``mesh`` through ``shard_model`` when given), full-parameter sgd,
+    FSDP_STEPS steps of phase g's batch. Returns (record, state)."""
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.parallel import fsdp
+    from sparkdl_tpu_torch.runner.train_state import (TrainState,
+                                                      make_train_step, sgd)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = L.LlamaModel(cfg, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    if mesh is not None:
+        model = L.shard_model(model, mesh)
+        step = make_train_step(L.causal_lm_loss_fn(), mesh=mesh,
+                               param_rules=L.training_rules(mesh))
+    else:
+        step = make_train_step(L.causal_lm_loss_fn())
+    state = TrainState.create(model, sgd(FSDP_LR))
+    batch = {"input_ids": torch.as_tensor(ids).cuda()}
+    reset_counts(*kernels)
+    fsdp.reset_collectives()
+    losses, step_ms = [], []
+    for _ in range(FSDP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(*kernels)
+    colls = {k: v / FSDP_STEPS for k, v in fsdp.COLLECTIVES.items()}
+    nl = cfg.num_layers
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["flash_attention"] == nl * FSDP_STEPS, launches
+    assert launches["flash_attention_bwd"] == nl * FSDP_STEPS, launches
+    if mesh is not None:
+        # 2 + 7 a layer data-sharded weights: gathered once a step each
+        # in the forward and, but the embedding, again in the backward
+        # (parallel.fsdp.linear keeps only the shard between), embed and
+        # logits gathered over model, the reduce-scatters
+        assert colls["all_gather"] == 2 + 7 * nl + 2 + 7 * nl + 1, colls
+        assert colls["reduce_scatter"] == 2 + 7 * nl, colls
+    med = sorted(step_ms)[len(step_ms) // 2]
+    rec = dict(arm="sharded" if mesh is not None else "unsharded",
+               mesh=None if mesh is None else dict(zip(
+                   mesh.mesh_dim_names, mesh.mesh.shape)),
+               losses=losses, step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               param_gb=sum(p.numel() * p.element_size()
+                            for p in state.model.parameters()) / 1e9,
+               launches=launches, collectives_per_step=colls)
+    return rec, state
+
+
+def fsdp_tp_train(torch, kernels, mesh) -> tuple:
+    """``fsdp_tp_train`` (module docstring). Returns (record, the sharded
+    arm's state)."""
+    import dataclasses
+
+    from sparkdl_tpu_torch.parallel import fsdp
+
+    cfg = dataclasses.replace(L_cfg(), num_layers=FSDP_LAYERS)
+    ids = train_ids(torch, cfg)
+    base, base_state = sharded_arm(torch, kernels, cfg, ids, None)
+    # held on the host, so each arm's peak is its own
+    want = {k: v.detach().cpu()
+            for k, v in base_state.model.state_dict().items()}
+    del base_state
+    torch.cuda.empty_cache()
+    arm, state = sharded_arm(torch, kernels, cfg, ids, mesh)
+    got = fsdp.full_state_dict(state.model, sink=lambda t: t.cpu())
+    assert set(got) == set(want)
+    diff = max((got[k].float() - want[k].float()).abs().max().item()
+               for k in want)
+    bitwise = all(torch.equal(got[k], want[k]) for k in want)
+    assert arm["losses"] == base["losses"], (arm["losses"], base["losses"])
+    assert bitwise, f"sharded params differ from the unsharded: {diff}"
+    del got, want
+    # ZeRO-3 keeps no gathered weight from the forward to the backward:
+    # held, they would add the whole model to the sharded arm's peak
+    over = arm["peak_gb"] - base["peak_gb"]
+    assert over < 0.5 * arm["param_gb"], (over, arm["param_gb"])
+    rec = dict(phase="sharded", leg="fsdp_tp_train",
+               config=f"LlamaConfig.llama3_8b(), {FSDP_LAYERS} layers",
+               dtype="bfloat16", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=FSDP_STEPS, optimizer=f"sgd({FSDP_LR})",
+               attn="flash kernels (auto)", arms=[base, arm],
+               params_bitwise=bitwise, params_max_abs_diff=diff,
+               peak_over_unsharded_gb=over, nvidia_smi=smi())
+    emit(rec)
+    return rec, state
+
+
+def L_cfg():
+    from sparkdl_tpu_torch.models import llama as L
+    return L.LlamaConfig.llama3_8b()
+
+
+def sharded_ckpt(torch, state, mesh) -> dict:
+    """``sharded_ckpt``: ``fsdp_tp_train``'s sharded state saved (global
+    tensors) and restored into a freshly placed model through
+    ``restore(mesh=, rules=)``; bit-identical."""
+    import os
+    import shutil
+    import tempfile
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.parallel import fsdp
+    from sparkdl_tpu_torch.runner.checkpoint import CheckpointManager
+    from sparkdl_tpu_torch.runner.train_state import TrainState, sgd
+
+    root = tempfile.mkdtemp(prefix="sparkdl_sharded_ckpt_")
+    try:
+        man = CheckpointManager(root, async_save=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        man.save(state.step, state, wait=True)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(root, str(state.step),
+                                              "state.pt"))
+        fresh = TrainState.create(L.shard_model(L.LlamaModel(
+            state.model.cfg, dtype=torch.bfloat16, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1)),
+            mesh), sgd(FSDP_LR))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        man.restore(fresh, mesh=mesh, rules=L.training_rules(mesh))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        man.close()
+        a, b = (fsdp.placement(s.model).locals for s in (state, fresh))
+        equal = all(torch.equal(a[k], b[k]) for k in a)
+        assert equal and fresh.step == state.step
+        with open(os.path.join(root, f"manifest_step_{state.step}.json")
+                  ) as f:
+            topo = json.load(f)["topology"]
+        assert topo["mesh_shape"] == {"data": 1, "model": 1}, topo
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = dict(phase="sharded", leg="sharded_ckpt", bytes=nbytes,
+               save_s=save_s, restore_s=restore_s, bit_identical=equal,
+               mesh=topo["mesh_shape"], nvidia_smi=smi())
+    emit(rec)
+    return rec
+
+
+def moe_leg(torch, mesh) -> dict:
+    """``moe``: SwitchMoE at Switch-Base-8's widths on ``{"ep": 1}``
+    against the unsharded module from the same seeded weights: output
+    and gradients (parameters and input) bitwise; forward + backward
+    ms of each, timed in turns (unsharded, ep, ep, unsharded)."""
+    from sparkdl_tpu_torch.parallel import moe as M
+
+    glob = M.SwitchMoE(MOE_D, MOE_E, MOE_FF, capacity_factor=MOE_CF,
+                       dtype=torch.bfloat16, device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(0))
+    local = M.shard_moe(glob, mesh)
+    x = torch.randn((MOE_BATCH, MOE_SEQ, MOE_D), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1)
+                    ).to(torch.bfloat16)
+
+    def run(m):
+        xi = x.detach().clone().requires_grad_(True)
+        m.zero_grad(set_to_none=True)
+        inter = {}
+        y = m(xi, intermediates=inter)
+        ((y.float() ** 2).sum() + M.moe_aux_loss(inter)).backward()
+        return y, xi.grad, {n: p.grad for n, p in m.named_parameters()}
+
+    y0, gx0, g0 = run(glob)
+    y1, gx1, g1 = run(local)
+    assert torch.equal(y0, y1) and torch.equal(gx0, gx1)
+    assert all(torch.equal(g0[n], g1[n]) for n in g0), {
+        n: (g0[n] - g1[n]).abs().max().item() for n in g0}
+    assert torch.isfinite(y1).all()
+    cap = glob.capacity(MOE_BATCH * MOE_SEQ)
+    rec = dict(phase="sharded", leg="moe",
+               config="Switch-Base-8 (d_model 768, d_ff 3072, 8 experts, "
+                      "capacity factor 1.25)", dtype="bfloat16",
+               tokens=MOE_BATCH * MOE_SEQ, capacity=cap, mesh={"ep": 1},
+               output_and_grads_bitwise=True, nvidia_smi=smi())
+    for arm in ("unsharded", "ep", "ep", "unsharded"):
+        m = glob if arm == "unsharded" else local
+        rec.setdefault(f"fwd_bwd_ms_{arm}", []).append(
+            time_ms(torch, lambda: run(m), 5))
+    emit(rec)
+    return rec
+
+
+def gpipe_leg(torch, kernels, mesh) -> dict:
+    """``gpipe``: one llama3_8b-width decoder block as the stage on
+    ``{"pp": 1}``, GPIPE_MICRO microbatches of 1 x GPIPE_SEQ, forward:
+    bitwise the block applied to each microbatch in turn; one flash
+    launch a microbatch."""
+    from torch.func import functional_call
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.ops.flash_attention import resolve_attn_fn
+    from sparkdl_tpu_torch.parallel import (gpipe, microbatch,
+                                            stack_stage_params,
+                                            stage_sharding)
+
+    cfg = L_cfg()
+    layer = L.LlamaLayer(cfg, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if not name.endswith("scale"):
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        / math.sqrt(p.shape[1]))
+    attn = resolve_attn_fn("auto")
+    pos = torch.arange(GPIPE_SEQ, device="cuda")
+
+    def stage_fn(params, h):
+        return functional_call(layer, params, (h, pos, attn))
+
+    stacked = stage_sharding(mesh, stack_stage_params(
+        [{k: v.detach() for k, v in layer.named_parameters()}]), "pp")
+    x = microbatch(torch.randn((GPIPE_MICRO, GPIPE_SEQ, cfg.hidden_size),
+                               device="cuda", generator=g)
+                   .to(torch.bfloat16), GPIPE_MICRO)
+    apply = gpipe(stage_fn, mesh, "pp", remat=False)
+    with torch.no_grad():
+        reset_counts(*kernels)
+        y = apply(stacked, x)
+        launches = read_counts(*kernels)
+        ref = torch.stack([layer(x[i], pos, attn)
+                           for i in range(GPIPE_MICRO)])
+        assert torch.equal(y, ref), (y.float() - ref.float()).abs().max()
+        assert launches["flash_attention"] == GPIPE_MICRO, launches
+        rec = dict(phase="sharded", leg="gpipe", mesh={"pp": 1},
+                   stage="LlamaLayer at llama3_8b widths",
+                   microbatches=GPIPE_MICRO, microbatch_shape=[1, GPIPE_SEQ],
+                   dtype="bfloat16", bitwise_to_sequential=True,
+                   launches=launches,
+                   gpipe_ms=time_ms(torch, lambda: apply(stacked, x), 5),
+                   sequential_ms=time_ms(torch, lambda: [
+                       layer(x[i], pos, attn) for i in range(GPIPE_MICRO)],
+                       5), nvidia_smi=smi())
+    emit(rec)
+    return rec
+
+
+def batch_runner_mesh(torch, mesh) -> dict:
+    """``batch_runner_mesh``: the ResNet50 featurizer's device step through
+    ``BatchRunner(mesh={"data": 1})`` and ``mesh=None``, RUNNER_BATCHES
+    seeded uint8 batches of RUNNER_BATCH at 224: outputs bitwise; rows/s
+    of each, in turns (single, mesh, mesh, single), each runner warmed
+    by one batch first."""
+    import numpy as np
+
+    from sparkdl_tpu_torch.core.runtime import BatchRunner
+    from sparkdl_tpu_torch.transformers import DeepImageFeaturizer
+
+    f = DeepImageFeaturizer(modelName="ResNet50", computeDtype="bfloat16",
+                            batchSize=RUNNER_BATCH, seed=0)
+    inner = f._get_runner()
+    rng = np.random.default_rng(5)
+    wire = [rng.integers(0, 256, (RUNNER_BATCH, 224, 224, 3), np.uint8)
+            for _ in range(RUNNER_BATCHES)]
+    outs, rate = {}, {"single": [], "mesh": []}
+    runners = {arm: BatchRunner(inner._fn, RUNNER_BATCH, mesh=m,
+                                input_cast=inner._input_cast,
+                                preprocess=inner._preprocess, device="cuda")
+               for arm, m in (("single", None), ("mesh", mesh))}
+    for r in runners.values():
+        list(r.run(wire[:1]))
+    for arm in ("single", "mesh", "mesh", "single"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[arm] = list(runners[arm].run(wire))
+        rate[arm].append(RUNNER_BATCHES * RUNNER_BATCH
+                         / (time.perf_counter() - t0))
+    for a, b in zip(outs["single"], outs["mesh"]):
+        assert np.array_equal(a, b)
+    rec = dict(phase="sharded", leg="batch_runner_mesh", model="ResNet50",
+               dtype="bfloat16", batches=RUNNER_BATCHES,
+               batch=RUNNER_BATCH, mesh={"data": 1}, bitwise=True,
+               rows_per_s=rate, nvidia_smi=smi())
+    emit(rec)
+    return rec
+
+
+def phase_sharded(torch, kernels) -> dict:
+    """Phase v (module docstring): a one-rank NCCL gang joined as phase
+    t's, the five legs on one-rank meshes, the gang left. A ``summary``
+    line gives the phase's seconds against PHASE_V_BUDGET_S."""
+    import gc
+
+    from sparkdl_tpu_torch.core.runtime import make_mesh
+    from sparkdl_tpu_torch.runner import XlaRunner, launcher
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    legs_s = {}
+    runner = XlaRunner(device="cuda", num_processes=1, process_id=0,
+                       coordinator=f"127.0.0.1:{launcher.free_port()}")
+    assert runner.gang.backend == "nccl", runner.gang
+    try:
+        mesh = make_mesh({"data": 1, "model": 1})
+        t = time.perf_counter()
+        recs = {}
+        recs["fsdp_tp_train"], state = fsdp_tp_train(torch, kernels, mesh)
+        legs_s["fsdp_tp_train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        recs["sharded_ckpt"] = sharded_ckpt(torch, state, mesh)
+        legs_s["sharded_ckpt"] = time.perf_counter() - t
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for leg, fn, axes in (("moe", moe_leg, {"ep": 1}),
+                              ("gpipe", lambda t_, m: gpipe_leg(
+                                  t_, kernels, m), {"pp": 1}),
+                              ("batch_runner_mesh", batch_runner_mesh,
+                               {"data": 1})):
+            t = time.perf_counter()
+            recs[leg] = fn(torch, make_mesh(axes))
+            legs_s[leg] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        leave_gang()
+    seconds = time.perf_counter() - t0
+    emit(dict(phase="sharded", leg="summary", seconds=seconds,
+              legs_s=legs_s, budget_s=PHASE_V_BUDGET_S,
+              within_budget=seconds <= PHASE_V_BUDGET_S, nvidia_smi=smi()))
+    recs["seconds"] = seconds
+    return recs
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -7118,6 +7502,10 @@ def main() -> int:
     phase_graph(torch)
     t = phase_parallel(torch, (fa, fd, pfd))
     u = phase_tp(torch, (fa, fd, pfd))
+    v = phase_sharded(torch, (fa, fd, pfd))
+    v_launches = {f"fsdp_tp_train_{a['arm']}": a["launches"]
+                  for a in v["fsdp_tp_train"]["arms"]}
+    v_launches["gpipe"] = v["gpipe"]["launches"]
     u_launches = {f"{fam}_{arm}": rec["launches"]
                   for fam, r_ in u["tp_serve"].items()
                   for arm, rec in r_["arms"].items()}
@@ -7166,6 +7554,9 @@ def main() -> int:
         if name in ("flash_attention", "flash_decode"):
             kernels[-1]["phase_t_launches"] = {
                 leg: c[name] for leg, c in t_launches.items()}
+        if name == "flash_attention":
+            kernels[-1]["phase_v_launches"] = {
+                leg: c[name] for leg, c in v_launches.items()}
         if name in ("flash_decode", "paged_flash_decode"):
             kernels[-1]["phase_u_launches"] = {
                 arm: c[name] for arm, c in u_launches.items()}
@@ -7238,6 +7629,9 @@ def main() -> int:
                           for arm, c in q_launches.items()},
         phase_t_launches={leg: c["flash_attention_bwd"]
                           for leg, c in t_launches.items()},
+        phase_v_launches={leg: c["flash_attention_bwd"]
+                          for leg, c in v_launches.items()
+                          if leg.startswith("fsdp")},
         f32_variant=dict(variant=f32["variant"], route="cuda",
                          source="sparkdl_tpu_torch/csrc/"
                                 "flash_attention_bwd.cu",

@@ -25,9 +25,11 @@ jax), in the parts the port's callers reach:
 - :func:`make_mesh`, a named ``DeviceMesh`` over the process's
   ``torch.distributed`` gang (one process a device).
 
-The sharded feed (``BatchRunner(mesh=)``) waits for ROADMAP.md, Queue
-A 8 (c); the persistent compile cache has no counterpart (nothing is
-compiled ahead of a call).
+The sharded feed (``BatchRunner(mesh=)``): every rank of a ``{"data":
+n}`` mesh runs its contiguous share of each padded batch, and the
+outputs are all-gathered, so every rank yields the whole batch (the
+reference's global array). The persistent compile cache has no
+counterpart (nothing is compiled ahead of a call).
 """
 
 from __future__ import annotations
@@ -591,8 +593,6 @@ def _to_numpy(t):
 
 
 _runner_ids = itertools.count()
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue A 8 (c): the sharded "
-               "feed)")
 
 
 class BatchRunner:
@@ -628,7 +628,8 @@ class BatchRunner:
     def __init__(self, fn: Callable, batch_size: int,
                  donate: bool = False,
                  prefetch: int = 2, mesh=None, input_cast=None,
-                 preprocess: Callable | None = None, device=None):
+                 preprocess: Callable | None = None, device=None,
+                 data_axis: str = "data"):
         """``device``: where the step runs; ``None`` → the card
         (``utils.platform.resolve_device``, which raises without one);
         ``"cpu"`` must be asked for.
@@ -646,21 +647,41 @@ class BatchRunner:
         the wire size differs from the model size); each distinct wire
         shape is a new signature, visible as a ``recompile`` event.
 
-        ``mesh`` and ``donate`` belong to the multi-device feed and raise
-        ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError(f"BatchRunner(mesh=) {_NOT_PORTED}")
-        if donate:
-            raise NotImplementedError(f"BatchRunner(donate=) {_NOT_PORTED}")
+        ``mesh``: a ``DeviceMesh`` over the gang (``make_mesh``) with a
+        ``data_axis`` axis of n ranks: ``batch_size`` is rounded up to a
+        multiple of n, every rank (each passes the same batches) runs the
+        step on its contiguous ``batch_size / n`` rows of each padded
+        batch, and the outputs are all-gathered over the axis in rank
+        order, so every rank yields the whole batch. The device is the
+        mesh's (``cuda`` under NCCL, ``cpu`` under gloo) unless
+        ``device`` names one.
+
+        ``donate``: the runner keeps no reference to the device batch once
+        the step is dispatched — the step receives the only one, so the
+        input's memory returns to the caching allocator as soon as the
+        step's cast or prologue lets go of it. PyTorch has no aliasing of
+        an input buffer into an output (ROADMAP.md, Queue C 2)."""
         import torch
         from ..utils.platform import resolve_device
+        self.mesh, self.donate = mesh, bool(donate)
+        self._group, self._n, self._coord = None, 1, 0
+        if mesh is not None:
+            names = list(mesh.mesh_dim_names)
+            if data_axis not in names:
+                raise ValueError(f"axis {data_axis!r} is not an axis of the "
+                                 f"mesh {tuple(names)}")
+            self._n = mesh.size(names.index(data_axis))
+            self._group = mesh.get_group(data_axis)
+            self._coord = mesh.get_local_rank(data_axis)
+            if device is None:
+                device = "cuda" if mesh.device_type == "cuda" else "cpu"
         self.device = resolve_device(device)
         # Per-runner identity for recompile accounting: each runner owns
         # its own plans, so the same shapes through a NEW runner are a new
         # signature, not a hit.
         self._sig_name = (f"BatchRunner:{getattr(fn, '__name__', 'fn')}"
                           f":{next(_runner_ids)}")
-        self.batch_size = int(batch_size)
+        self.batch_size = -(-int(batch_size) // self._n) * self._n
         self.prefetch = prefetch
         self._fn = fn
         self._input_cast = input_cast
@@ -668,14 +689,32 @@ class BatchRunner:
         self._h2d_stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
 
-    def _step(self, batch):
+    def _step(self, box: list):
+        """Run the step on the batch in ``box`` (popped when donating,
+        so the step holds the only reference)."""
         import torch
+        batch = box.pop() if self.donate else box[0]
         with torch.inference_mode():
             if self._input_cast is not None:
                 batch = _tree_map(lambda t: t.to(self._input_cast), batch)
             if self._preprocess is not None:
                 batch = self._preprocess(batch)
-            return self._fn(batch)
+            out = self._fn(batch)
+            if self._group is not None:
+                out = _tree_map(self._gather_rows, out)
+            return out
+
+    def _gather_rows(self, t):
+        """The mesh's ranks' rows of an output joined in rank order."""
+        from ..parallel.fsdp import all_gather
+        return all_gather(t, 0, self._group, self._n)
+
+    def _share(self, t):
+        """This rank's contiguous rows of a padded batch leaf."""
+        if self._group is None:
+            return t
+        w = self.batch_size // self._n
+        return t[self._coord * w:(self._coord + 1) * w]
 
     def _stage(self, host):
         """Pad a host batch to ``batch_size`` rows, the pad rows
@@ -694,29 +733,34 @@ class BatchRunner:
         return staged, n, sum(leaf.nbytes for leaf in _tree_leaves(staged))
 
     def _put(self, staged):
-        """Staged batch → ``(device_batch, ready_event_or_None)``."""
+        """Staged batch → ``(device_batch, ready_event_or_None)``; under a
+        mesh, the rank's share of it."""
         import torch
         if self.device.type != "cuda":
-            return _tree_map(_host_tensor, staged), None
+            return _tree_map(lambda a: self._share(_host_tensor(a)),
+                             staged), None
         with torch.cuda.stream(self._h2d_stream):
             dev = _tree_map(
-                lambda t: t.to(self.device, non_blocking=True), staged)
+                lambda t: self._share(t).to(self.device, non_blocking=True),
+                staged)
             ready = torch.cuda.Event()
             ready.record(self._h2d_stream)
         return dev, ready
 
-    def _launch(self, dev_batch, ready):
-        """Run the step; on the card, start the outputs' copy to pinned
-        host buffers. Returns ``(outputs, done_event_or_None)``."""
+    def _launch(self, box: list, ready):
+        """Run the step on the device batch in ``box`` (a one-item list
+        the step may empty: ``donate``); on the card, start the outputs'
+        copy to pinned host buffers. Returns ``(outputs,
+        done_event_or_None)``."""
         import torch
         if ready is None:
-            return self._step(dev_batch), None
+            return self._step(box), None
         with torch.cuda.device(self.device):
             compute = torch.cuda.current_stream()
             compute.wait_event(ready)
             # allocated on the side stream, read on this one
-            _tree_map(lambda t: t.record_stream(compute), dev_batch)
-            out = self._step(dev_batch)
+            _tree_map(lambda t: t.record_stream(compute), box[0])
+            out = self._step(box)
             host = _tree_map(
                 lambda t: torch.empty(t.shape, dtype=t.dtype,
                                       pin_memory=True).copy_(
@@ -789,20 +833,22 @@ class BatchRunner:
             nbytes = sum(leaf.nbytes for leaf in _tree_leaves(padded))
             with ev.span("put", rows=n, bytes=nbytes):
                 dev, ready = self._put(padded)
-            return dev, ready, (b if retries else None), n, meta, idx
+            # the device batch rides in a box the step may empty
+            # (donate): nothing of the window holds it then
+            return [dev], ready, (b if retries else None), n, meta, idx
 
         def put_stream():
             # inline (no put threads): puts are issued in stream order
             return _windowed_apply(put_slot, enumerate(batches),
                                    self.prefetch, 0, "sparkdl-put")
 
-        def dispatch_once(dev_batch, ready, n, idx):
+        def dispatch_once(box, ready, n, idx):
             # Signature accounting BEFORE the dispatch: a pad bug or
             # mixed-shape stream shows up as `recompile` events.
             GLOBAL_COMPILE_CACHE.note(self._sig_name, (
-                _tree_structure(dev_batch),
+                _tree_structure(box[0]),
                 tuple((tuple(leaf.shape), str(leaf.dtype))
-                      for leaf in _tree_leaves(dev_batch))))
+                      for leaf in _tree_leaves(box[0]))))
             with ev.span("dispatch", rows=n):
                 chaos.fire("dispatch", step=idx)
                 if stall_s > 0:
@@ -810,9 +856,9 @@ class BatchRunner:
                     # never reaches the fetch — the armed watchdog covers
                     # both ends of the window.
                     return _call_with_timeout(
-                        lambda: self._launch(dev_batch, ready), stall_s,
+                        lambda: self._launch(box, ready), stall_s,
                         "dispatch")
-                return self._launch(dev_batch, ready)
+                return self._launch(box, ready)
 
         def retry_or_raise(stage, exc, host, n, idx, state):
             """One retry decision + (on retry) the serial re-put +
@@ -846,7 +892,7 @@ class BatchRunner:
                     # host copy, then re-dispatch.
                     with ev.span("put"):
                         dev, ready = self._put(self._stage(host)[0])
-                    return dispatch_once(dev, ready, n, idx)
+                    return dispatch_once([dev], ready, n, idx)
                 except failures.ScoringStallError:
                     # The retry itself wedged: surface it NOW instead of
                     # burning the remaining budget stall_s at a time.
@@ -888,10 +934,10 @@ class BatchRunner:
                                                state)
 
         window: collections.deque = collections.deque()
-        for dev_batch, ready, host, n, meta, idx in put_stream():
+        for box, ready, host, n, meta, idx in put_stream():
             state = {"attempts": 1}
             try:
-                launched = dispatch_once(dev_batch, ready, n, idx)
+                launched = dispatch_once(box, ready, n, idx)
             except _failures().ScoringStallError:
                 # A wedged dispatch is not fixed by re-dispatching onto
                 # the same wedged device (same rule as the fetch stall).
@@ -901,7 +947,7 @@ class BatchRunner:
             except Exception as e:  # noqa: BLE001 — reclassified
                 launched = retry_or_raise("dispatch", e, host, n, idx,
                                           state)
-            del dev_batch
+            del box
             window.append((launched, host, n, meta, idx, state))
             oldest = window.popleft() if len(window) > self.prefetch \
                 else None

@@ -27,6 +27,13 @@ model. The config stays the global one (its ``head_dim`` is
 ``hidden_size // num_heads``); the modules take their local counts from
 the mesh.
 
+Sharded training (the reference's FSDP×TP step): :func:`shard_model` on
+a ``{"data": d, "model": m}`` mesh builds the same split over ``model``
+with collectives that carry gradients (``parallel.fsdp``: the copy into
+q/k/v, gate/up and ``lm_head`` all-reduces backward, the row sums are the
+identity backward, the gathers keep the rank's slice) and keeps only the
+``data`` shard of each weight the rules split there, gathered at use.
+
 Hazards the port keeps, each from the JAX module:
 
 - :func:`rope` rotates INTERLEAVED pairs (``x[..., 0::2]``,
@@ -75,6 +82,7 @@ from ..core.runtime import CompileCache
 from ..ops import flash_decode as fd
 from ..ops import paged_flash_decode as pfd
 from ..ops.flash_attention import flash_attention_fwd, resolve_attn_fn
+from ..parallel.fsdp import copy_in, gather_block, linear, reduce_out
 from ..parallel.ring_attention import NEG_INF
 from ..parallel.sharding import dispatch_counter
 from ..utils.platform import resolve_device
@@ -152,6 +160,9 @@ class LoRADense(nn.Module):
                  alpha: float = 16.0, dtype=torch.float32, device=None):
         super().__init__()
         self.rank, self.alpha, self.dtype = rank, alpha, dtype
+        # (adapter, group) of a training tensor-parallel projection: the
+        # adapter replicated over the group enters it through copy_in
+        self.adapter_copy = None
         kw = dict(bias=False, dtype=dtype, device=device)
         self.base = nn.Linear(in_features, features, **kw)
         if rank > 0:
@@ -166,12 +177,35 @@ class LoRADense(nn.Module):
             y = (F.linear(x, w.to(d)).float()
                  * self.base.weight_scale).to(d)
         else:
-            y = F.linear(x, w.to(d))
+            y = linear(x, w, d)
         if self.rank > 0:
-            a = F.linear(x, self.lora_a.weight.to(d))
-            y = y + (self.alpha / self.rank) * F.linear(
-                a, self.lora_b.weight.to(d))
+            wa, wb = self.lora_a.weight, self.lora_b.weight
+            if self.adapter_copy is not None:
+                which, group = self.adapter_copy
+                if which == "lora_a":
+                    wa = copy_in(wa, group)
+                else:
+                    wb = copy_in(wb, group)
+            a = F.linear(x, wa.to(d))
+            y = y + (self.alpha / self.rank) * F.linear(a, wb.to(d))
         return y
+
+
+_COLUMN_PROJ = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+
+
+def _tp_proj(c, name, n_in, n_out, dtype, device, plan, group):
+    """One projection of a layer; under a training plan a LoRA adapter the
+    rules replicate over the group (A of a column-parallel projection, B
+    of a row-parallel one) enters it through ``copy_in``, so its partial
+    gradients are summed."""
+    m = LoRADense(n_in, n_out,
+                  rank=c.lora_rank if name in c.lora_targets else 0,
+                  alpha=c.lora_alpha, dtype=dtype, device=device)
+    if plan.train and group is not None and m.rank > 0:
+        m.adapter_copy = ("lora_a" if name in _COLUMN_PROJ else "lora_b",
+                          group)
+    return m
 
 
 def rope(x, positions, theta: float):
@@ -379,61 +413,82 @@ def _slot_step(slot_cur, pad_lens, s: int, cache, tables) -> _SlotStep:
 
 
 def _all_reduce(y, group):
-    """Sum ``y`` over the tensor-parallel ``group`` in place (a
-    row-parallel product's partial sums); ``y`` itself without one."""
-    if group is not None:
-        import torch.distributed as dist
-        dist.all_reduce(y, group=group)
+    """Sum ``y`` over the tensor-parallel ``group`` (a row-parallel
+    product's partial sums): in place when no gradient is taken, through
+    ``parallel.fsdp.reduce_out`` (the identity backward) when one is;
+    ``y`` itself without a group."""
+    if group is None:
+        return y
+    if torch.is_grad_enabled() and y.requires_grad:
+        return reduce_out(y, group)
+    import torch.distributed as dist
+    dist.all_reduce(y, group=group)
     return y
 
 
 def _all_gather_last(x, group, n: int):
     """The ``n`` ranks' slices of ``x``'s last dim, joined in rank order
-    (a hidden- or vocabulary-sharded output); ``x`` itself without a
-    group."""
+    (a hidden- or vocabulary-sharded output; the gradient keeps the
+    rank's slice); ``x`` itself without a group."""
     if group is None:
         return x
-    import torch.distributed as dist
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=-1)
+    return gather_block(x, -1, group, n)
 
 
 @dataclasses.dataclass(frozen=True)
 class _TpPlan:
-    """One rank's share of the model on a ``{"tp": size}`` mesh, as
-    ``divisible_rules(serving_tp_layout(size).rules, mesh)`` — the rules
-    ``shard_model`` places the weights by — decides it: the group each
-    split dim gathers or reduces over (None: the rules leave that dim
-    whole, an indivisible one, or no mesh at all)."""
+    """One rank's share of the model on a mesh, as the rules ``shard_model``
+    places the weights by decide it: the group each split dim gathers or
+    reduces over (None: the rules leave that dim whole, an indivisible
+    one, or no mesh at all).
+
+    A ``{"tp": size}`` mesh is the serving model's, under
+    ``divisible_rules(serving_tp_layout(size).rules, mesh)``. A training
+    mesh (its axes among ``data`` / ``model``, e.g. ``{"data": 2,
+    "model": 2}``) splits over ``model`` by ``rules`` (default
+    :func:`training_rules` at the mesh, the rules ``shard_model`` places
+    a training model by); ``train`` is then set and the modules'
+    collectives carry gradients (Megatron's conjugate pairs,
+    ``parallel.fsdp``). A mesh without ``model`` splits nothing."""
     size: int = 1
     heads_group: object = None
     mlp_group: object = None
     embed_group: object = None
     head_group: object = None
     mesh: object = None
+    train: bool = False
 
     @classmethod
-    def of(cls, cfg: LlamaConfig, mesh) -> "_TpPlan":
+    def of(cls, cfg: LlamaConfig, mesh, rules=None) -> "_TpPlan":
         if mesh is None:
             return cls()
         from ..parallel.sharding import divisible_rules, serving_tp_layout
         names = list(mesh.mesh_dim_names)
-        if names != ["tp"]:
+        if names == ["tp"]:
+            axis = "tp"
+        elif "tp" in names or not set(names) <= {"data", "model"}:
             raise ValueError(f"the tensor-parallel model takes a one-axis "
-                             f"{{'tp': n}} mesh, got axes {tuple(names)}")
-        n = mesh.size(0)
+                             f"{{'tp': n}} mesh (serving) or a training mesh "
+                             f"over 'data' and 'model', got axes "
+                             f"{tuple(names)}")
+        elif "model" in names:
+            axis = "model"
+        else:
+            return cls(train=True)
+        n = mesh.size(names.index(axis))
         # raises unless the heads split evenly
-        rules = divisible_rules(serving_tp_layout(n, cfg).rules, mesh)
-        g = mesh.get_group("tp")
+        layout = serving_tp_layout(n, cfg, axis=axis)
+        if rules is None:
+            rules = layout.rules if axis == "tp" else training_rules(mesh)
+        rules = divisible_rules(rules, mesh)
+        g = mesh.get_group(axis)
 
         def group(*leaves):
             """``g`` when the rules split every ``(name, shape, dim)``
             leaf on ``dim``, None when they split none of them; the
             modules' collectives serve no other layout."""
             on = [[i for i, ax in enumerate(rules(
-                (name,), torch.empty(shape, device="meta"))) if ax == "tp"]
+                (name,), torch.empty(shape, device="meta"))) if ax == axis]
                 for name, shape, _ in leaves]
             if all(o == [d] for o, (_, _, d) in zip(on, leaves)):
                 return g
@@ -455,7 +510,8 @@ class _TpPlan:
                   (mlp + "up_proj.base.weight", (f, h), 0),
                   (mlp + "down_proj.base.weight", (h, f), 1)),
             group(("embed_tokens.weight", (v, h), 1)),
-            group(("lm_head.weight", (v, h), 0)), mesh)
+            group(("lm_head.weight", (v, h), 0)),
+            mesh if axis == "tp" else None, axis == "model")
 
     def part(self, width: int, group) -> int:
         return width // self.size if group is not None else width
@@ -472,12 +528,11 @@ class LlamaAttention(nn.Module):
         self.heads = plan.part(c.num_heads, plan.heads_group)
         self.kv_heads = plan.part(c.num_kv_heads, plan.heads_group)
         self.group, self.kernel_mesh = plan.heads_group, plan.mesh
+        self.train_tp = plan.train
 
         def proj(name, n_in, n_out):
-            return LoRADense(n_in, n_out,
-                             rank=c.lora_rank if name in c.lora_targets
-                             else 0, alpha=c.lora_alpha, dtype=dtype,
-                             device=device)
+            return _tp_proj(c, name, n_in, n_out, dtype, device, plan,
+                            self.group)
 
         self.q_proj = proj("q_proj", c.hidden_size, self.heads * hd)
         self.k_proj = proj("k_proj", c.hidden_size, self.kv_heads * hd)
@@ -499,6 +554,8 @@ class LlamaAttention(nn.Module):
         B, S, _ = x.shape
         hd, hq, hkv = c.head_dim, self.heads, self.kv_heads
         rep = hq // hkv
+        if self.train_tp:
+            x = copy_in(x, self.group)
         q = self.q_proj(x).view(B, S, hq, hd).transpose(1, 2)
         k = self.k_proj(x).view(B, S, hkv, hd).transpose(1, 2)
         v = self.v_proj(x).view(B, S, hkv, hd).transpose(1, 2)
@@ -658,19 +715,20 @@ class LlamaMLP(nn.Module):
         c = cfg
         # the group the down_proj partial sums reduce over (None: whole)
         self.group = plan.mlp_group
+        self.train_tp = plan.train
         inter = plan.part(c.intermediate_size, plan.mlp_group)
 
         def proj(name, n_in, n_out):
-            return LoRADense(n_in, n_out,
-                             rank=c.lora_rank if name in c.lora_targets
-                             else 0, alpha=c.lora_alpha, dtype=dtype,
-                             device=device)
+            return _tp_proj(c, name, n_in, n_out, dtype, device, plan,
+                            self.group)
 
         self.gate_proj = proj("gate_proj", c.hidden_size, inter)
         self.up_proj = proj("up_proj", c.hidden_size, inter)
         self.down_proj = proj("down_proj", inter, c.hidden_size)
 
     def forward(self, x):
+        if self.train_tp:
+            x = copy_in(x, self.group)
         return _all_reduce(
             self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
             self.group)
@@ -738,16 +796,22 @@ class LlamaModel(nn.Module):
     ``kernel_mesh``: a ``{"tp": n}`` mesh makes this one rank's shard of
     the tensor-parallel serving model (module doc; :func:`shard_model`
     fills it from the global model). Its ``heads`` / ``kv_heads`` are the
-    rank's, and it serves only: its collectives carry no gradient."""
+    rank's. A training mesh (axes among ``data`` / ``model``) makes one
+    rank's Megatron split over ``model`` by ``tp_rules`` (default
+    :func:`training_rules` at the mesh, which ``shard_model`` places the
+    weights by), whose collectives carry gradients; its
+    ``kernel_mesh`` is then None (no decode dispatch).
+    :func:`shard_model` builds it and shards it over ``data``."""
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32,
                  attn_fn="auto", device=None, generator=None,
-                 kernel_mesh=None):
+                 kernel_mesh=None, tp_rules=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg, self.dtype, self.attn_fn = cfg, dtype, attn_fn
-        plan = _TpPlan.of(cfg, kernel_mesh)
-        self.kernel_mesh, self.tp_size = kernel_mesh, plan.size
+        plan = _TpPlan.of(cfg, kernel_mesh, tp_rules)
+        self.kernel_mesh, self.tp_size = plan.mesh, plan.size
+        self.train_tp = plan.train
         self.embed_group, self.head_group = plan.embed_group, plan.head_group
         # this rank's query and KV heads: the cache's and pool's head axis
         self.heads = plan.part(cfg.num_heads, plan.heads_group)
@@ -766,7 +830,8 @@ class LlamaModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        # a norm scale: never sharded, so reading it gathers nothing
+        return self.final_norm.scale.device
 
     @property
     def weight_quant(self) -> str | None:
@@ -846,8 +911,10 @@ class LlamaModel(nn.Module):
                     cache.idx_dev.fill_(cache.idx)
         if last_only:
             x = x[:, -1:]
-        return _all_gather_last(F.linear(self.final_norm(x).float(),
-                                         self.lm_head.weight.float()),
+        h = self.final_norm(x).float()
+        if self.train_tp:
+            h = copy_in(h, self.head_group)
+        return _all_gather_last(linear(h, self.lm_head.weight, torch.float32),
                                 self.head_group, self.tp_size)
 
 
@@ -1013,10 +1080,25 @@ def load_state(model: LlamaModel, state) -> LlamaModel:
 
 
 @torch.no_grad()
-def shard_model(model: LlamaModel, mesh) -> LlamaModel:
-    """This rank's tensor-parallel serving model of the global ``model``
-    on the ``{"tp": n}`` ``mesh`` (every rank of the group calls it, with
-    the same model): the global ``state_dict`` placed by
+def shard_model(model: LlamaModel, mesh, rules=None) -> LlamaModel:
+    """This rank's shard of the global ``model`` on ``mesh`` (every rank of
+    the mesh calls it, with the same model).
+
+    A training mesh (axes among ``data`` / ``model``, e.g. ``{"data": 2,
+    "model": 2}``): the FSDP×TP model the sharded train step trains
+    (``runner.train_state.make_train_step(mesh=)``). ``rules`` (default
+    ``lora_rules(transformer_tp_rules(data_axis="data", mesh=mesh))``,
+    axes the mesh lacks dropped) place every parameter;
+    the model is built with the Megatron split over ``model`` those rules
+    give (local heads, MLP columns, embedding hidden slice, ``lm_head``
+    vocabulary slice, the conjugate collectives) and the ``attn_fn`` of
+    ``model``, and each parameter the rules shard over ``data`` keeps
+    only its ``data`` shard, all-gathered at each use and its gradient
+    reduce-scattered (``parallel.fsdp.shard_module``, ZeRO-3). The result
+    trains; build its optimizer after this call.
+
+    A ``{"tp": n}`` mesh: the tensor-parallel serving model, the global
+    ``state_dict`` placed by
     ``parallel.sharding.shard_params`` under ``divisible_rules(
     serving_tp_layout(n).rules, mesh)`` — int8 codes and their scales
     included, column scales split with their rows, row scales whole —
@@ -1032,6 +1114,8 @@ def shard_model(model: LlamaModel, mesh) -> LlamaModel:
     if model.device.type != mesh.device_type:
         raise ValueError(f"the model lies on {model.device}, the mesh's "
                          f"devices are {mesh.device_type}")
+    if list(mesh.mesh_dim_names) != ["tp"]:
+        return _shard_for_training(model, mesh, rules)
     local = LlamaModel(model.cfg, dtype=model.dtype, attn_fn=None,
                        device=model.device, kernel_mesh=mesh)
     rules = divisible_rules(serving_tp_layout(local.tp_size).rules, mesh)
@@ -1039,6 +1123,43 @@ def shard_model(model: LlamaModel, mesh) -> LlamaModel:
     load_state(local, {k: t.to_local() for k, t in placed.items()})
     del placed
     return local.requires_grad_(False)
+
+
+def training_rules(mesh):
+    """The FSDP×TP rules of a training mesh: ``lora_rules(
+    transformer_tp_rules(data_axis="data", mesh=mesh))`` at its extents,
+    the axes the mesh lacks dropped (a ``{"data": n}`` mesh is FSDP
+    alone, a ``{"model": n}`` one the Megatron split alone)."""
+    from ..parallel.sharding import P, lora_rules, transformer_tp_rules
+
+    names = set(mesh.mesh_dim_names)
+    base = lora_rules(transformer_tp_rules(
+        data_axis="data" if "data" in names else None,
+        mesh=mesh if "data" in names else None))
+
+    def rules(path, leaf):
+        return P(*(a if a in names else None for a in base(path, leaf)))
+
+    return rules
+
+
+def _shard_for_training(model: LlamaModel, mesh, rules):
+    from ..parallel.fsdp import shard_module
+    from ..parallel.sharding import divisible_rules
+
+    if model.weight_quant is not None:
+        raise ValueError("the sharded train step trains float weights; "
+                         "this model holds int8 codes")
+    rules = divisible_rules(training_rules(mesh) if rules is None
+                            else rules, mesh)
+    local = LlamaModel(model.cfg, dtype=model.dtype, attn_fn=model.attn_fn,
+                       device=model.device, kernel_mesh=mesh,
+                       tp_rules=rules)
+    shard_module(local, mesh, rules, state=model.state_dict(),
+                 gather_axes=("data",))
+    for name, p in local.sparkdl_placement.locals.items():
+        p.requires_grad_(dict(model.named_parameters())[name].requires_grad)
+    return local
 
 
 # ---------------------------------------------------------------------------

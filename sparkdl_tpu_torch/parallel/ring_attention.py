@@ -39,6 +39,8 @@ import math
 import torch
 import torch.distributed as dist
 
+from . import fsdp
+
 NEG_INF = -1e30  # large-but-finite: -inf breaks the streaming-softmax max
 
 
@@ -111,9 +113,7 @@ class _Axis:
     def all_gather(self, x, dim: int):
         """The blocks of every rank of the axis, concatenated along
         ``dim`` in the axis's order."""
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=dim)
+        return fsdp.all_gather(x, dim, self.group, self.size)
 
     def block(self, x, dim: int):
         """This rank's block of ``x`` along ``dim``."""
@@ -173,25 +173,6 @@ class _Scatter(torch.autograd.Function):
         return (None, *out)
 
 
-class _Gather(torch.autograd.Function):
-    """This rank's block → the global tensor on every rank. The loss that
-    follows is the same on every rank, so the gradient of the block is
-    the block of the (replicated) global gradient."""
-
-    @staticmethod
-    def forward(ctx, layout, x):
-        ctx.layout = layout
-        for d, ax in reversed(layout):
-            x = ax.all_gather(x, d)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        for d, ax in ctx.layout:
-            g = ax.block(g, d)
-        return None, g.contiguous()
-
-
 def _run(body, q, k, v, mesh, layout):
     """Run ``body(q, k, v)`` on this rank's blocks (module docstring's
     input and output contract)."""
@@ -207,7 +188,13 @@ def _run(body, q, k, v, mesh, layout):
                                   stride=q.stride())
     if any(ax.size > 1 for _, ax in layout):
         q, k, v = _Scatter.apply(layout, q, k, v)
-        return _Gather.apply(layout, body(q, k, v))
+        # the global output on every rank: the loss that follows is the
+        # same on every rank, so a block's gradient is the block of the
+        # (replicated) global gradient
+        o = body(q, k, v)
+        for d, ax in reversed(layout):
+            o = fsdp.gather_block(o, d, ax.group, ax.size)
+        return o
     return body(q, k, v)
 
 

@@ -30,18 +30,27 @@ the ``TrainState`` pytree; here a step is one ``torch.save`` file,
 - **Topology.** The manifest fingerprints the world size (one device a
   process, so the world size is also the number of devices the run
   trained on; the cards a host happens to show do not bind a restore)
-  and each tensor's shape and dtype. A restore into a
-  different world size, or into tensors of other names, shapes or dtypes,
-  raises :class:`CheckpointTopologyError` naming every mismatch in one
-  error. One exception is kept from the reference: a checkpoint saved
-  without a model's buffers (BatchNorm statistics) restores into a model
-  that has them, and the model keeps its own. Under ``SPARKDL_ELASTIC=1``
-  (``failures.elastic_enabled``) a checkpoint whose only mismatch is the
-  world size restores as it is — the gang's state is replicated, so
-  nothing is re-laid out — and records ``checkpoint_resharded``: an
-  elastic gang that shrank finishes from the larger gang's checkpoint.
-  Resharding a sharded state across meshes comes with several cards
-  (ROADMAP.md, Queue A 8 (c)).
+  and each tensor's global shape and dtype; a model placed on a mesh
+  (``parallel.fsdp.shard_module``, ``models.llama.shard_model``) adds
+  the mesh's shape and each parameter's spec (``mesh_shape``,
+  ``leaf_specs``, the reference's ``_payload_topology``). A restore into a
+  different world size or mesh, or into tensors of other names, shapes or
+  dtypes, raises :class:`CheckpointTopologyError` naming every mismatch
+  in one error. One exception is kept from the reference: a checkpoint
+  saved without a model's buffers (BatchNorm statistics) restores into a
+  model that has them, and the model keeps its own. Under
+  ``SPARKDL_ELASTIC=1`` (``failures.elastic_enabled``) a checkpoint whose
+  only mismatches are the world size and the mesh restores, and records
+  ``checkpoint_resharded``: the file holds global tensors, so a
+  replicated state loads as it is and a placed template takes the rank's
+  block of each at its own mesh, bit for bit (``restore(mesh=,
+  rules=)``).
+- **Sharded states.** ``save`` gathers a placed model's parameters (and
+  optimizer state shaped like them) to their global tensors — a
+  collective, every rank of the mesh calls it — so the file does not
+  depend on the mesh the run trained on. It gathers one leaf at a time:
+  rank 0 copies each to the host before the next, the other ranks drop
+  theirs, so a card never holds the whole gathered state.
 - **In a gang** (``group=``, the gang's host-side process group): the
   state is the same on every rank, so rank 0 alone writes a step, and
   waits for it (file, manifest and CRC) whatever ``async_save`` says;
@@ -67,6 +76,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from ..parallel import fsdp
 from . import chaos, events, failures
 from . import metrics as metrics_lib
 # Damage the newest step as a torn write would: the chaos kind ``corrupt``
@@ -86,16 +96,20 @@ class CheckpointCorruptionError(RuntimeError):
 
 class CheckpointTopologyError(RuntimeError):
     """The checkpoint does not fit the state it is restored into: another
-    world size, or tensors of other names, shapes or dtypes. Raised before
-    any tensor is copied, naming every mismatch."""
+    world size or mesh (and ``SPARKDL_ELASTIC`` unset), or tensors of
+    other names, shapes or dtypes. Raised before any tensor is copied,
+    naming every mismatch."""
 
     def __init__(self, step: int, mismatches: list[str]):
         super().__init__(
-            f"checkpoint step {step} does not fit the state restoring it "
-            f"({len(mismatches)} mismatch(es)): " + "; ".join(mismatches)
-            + ". SPARKDL_ELASTIC=1 restores the replicated state across a "
-            "world-size change alone; resharding a sharded state across "
-            "meshes is not ported yet (ROADMAP.md, Queue A 8 (c)).")
+            f"checkpoint step {step} topology mismatch: it does not fit the "
+            f"state restoring it ({len(mismatches)} mismatch(es)): "
+            + "; ".join(mismatches)
+            + ". The save-time layout cannot be placed here as-is; set "
+            "SPARKDL_ELASTIC=1 to restore the global tensors and re-lay "
+            "them out at the current mesh (restore(mesh=..., rules=...) "
+            "controls the new layout); names, shapes and dtypes must match "
+            "either way.")
         self.step = step
         self.mismatches = mismatches
 
@@ -143,16 +157,34 @@ def _to_host(tree):
     return tree
 
 
+def _drop(t) -> None:
+    """A gathered tensor a rank other than 0 took part in and drops."""
+    return None
+
+
 def _spec(t: torch.Tensor) -> list:
     return [list(t.shape), str(t.dtype).replace("torch.", "")]
 
 
-def _topology(model_sd: dict, world_size: int) -> dict:
+def _topology(model_sd: dict, world_size: int, model=None) -> dict:
     """The save-time fingerprint the manifest keeps: the world size (one
-    device a process, so also the devices the run trained on) and each
-    tensor's shape and dtype."""
-    return {"world_size": int(world_size),
+    device a process, so also the devices the run trained on), each
+    tensor's (global) shape and dtype, and for a placed model the mesh's
+    shape and each parameter's spec."""
+    topo = {"world_size": int(world_size),
             "tensors": {k: _spec(v) for k, v in model_sd.items()}}
+    pl = fsdp.placement(model) if model is not None else None
+    if pl is not None:
+        topo["mesh_shape"] = pl.mesh_shape()
+        topo["leaf_specs"] = {k: str(v) for k, v in pl.specs.items()}
+    return topo
+
+
+def _mesh_shape(mesh) -> dict | None:
+    if mesh is None:
+        return None
+    return {str(n): int(mesh.size(i))
+            for i, n in enumerate(mesh.mesh_dim_names)}
 
 
 class CheckpointManager:
@@ -380,12 +412,35 @@ class CheckpointManager:
         with events.span("checkpoint_save", step=step, wait=wait):
             chaos.fire("checkpoint_save", step=step)
             self._join()
+            pl = fsdp.placement(state.model)
+            placed = pl is not None
+            if placed and pl.mesh.size() > 1 and self.group is None:
+                raise ValueError(
+                    "a state placed on a mesh of several ranks saves "
+                    "through a manager over the gang (group=): every rank "
+                    "gathers and rank 0 writes")
+            if placed:
+                # a collective: every rank gathers, one leaf at a time;
+                # rank 0 copies each to the host before the next is
+                # gathered, the others drop it, so no card holds more
+                # than one gathered leaf beside its shards
+                sink = _to_host if self.rank == 0 else _drop
+                model_sd = fsdp.full_state_dict(state.model, sink)
+                opt_sd = fsdp.full_optimizer_state(state.optimizer,
+                                                   state.model, sink)
             if self.rank == 0:
-                model_sd = state.model.state_dict()
-                payload = _to_host({"model": model_sd,
-                                    "optimizer": state.optimizer.state_dict(),
-                                    "step": int(state.step)})
-                topology = _topology(model_sd, self.world_size)
+                if placed:
+                    payload = {"model": model_sd, "optimizer": {
+                        "state": opt_sd["state"],
+                        "param_groups": _to_host(opt_sd["param_groups"])},
+                        "step": int(state.step)}
+                else:
+                    model_sd = state.model.state_dict()
+                    payload = _to_host({
+                        "model": model_sd,
+                        "optimizer": state.optimizer.state_dict(),
+                        "step": int(state.step)})
+                topology = _topology(model_sd, self.world_size, state.model)
                 args = (int(step), payload, data_cursor, topology)
                 if self.async_save and not wait and self.group is None:
                     self._writer = threading.Thread(
@@ -402,18 +457,31 @@ class CheckpointManager:
         return torch.load(os.path.join(self._step_dir(step), _STATE_FILE),
                           map_location="cpu", weights_only=True)
 
-    def _mismatches(self, step: int, payload: dict, state: Any) -> list:
-        """Every way the checkpoint does not fit ``state``'s model: the
-        manifest's world size, missing and unexpected tensors, shapes,
-        dtypes. Buffers absent from the checkpoint are not a mismatch
-        (the legacy path: the model keeps its own)."""
+    def _topology_mismatches(self, step: int, state: Any, mesh) -> list:
+        """How the manifest's world size and mesh differ from where the
+        restore runs (the mesh: ``mesh``, else the template's placement;
+        compared only when the save recorded one)."""
         out = []
         topo = (self._read_manifest(step) or {}).get("topology") or {}
         ws = topo.get("world_size")
         if ws is not None and int(ws) != self.world_size:
             out.append(f"saved at world size {ws}, restoring at "
                        f"{self.world_size}")
-        own = state.model.state_dict()
+        pl = fsdp.placement(state.model)
+        cur = _mesh_shape(mesh if mesh is not None
+                          else pl.mesh if pl is not None else None)
+        old = topo.get("mesh_shape")
+        if old and cur is not None and old != cur:
+            out.append(f"saved on mesh {old}, restoring on mesh {cur}")
+        return out
+
+    def _mismatches(self, payload: dict, state: Any) -> list:
+        """Every way the checkpoint's tensors do not fit ``state``'s model
+        (global names, shapes and dtypes): missing and unexpected
+        tensors, shapes, dtypes. Buffers absent from the checkpoint are
+        not a mismatch (the legacy path: the model keeps its own)."""
+        out = []
+        own = fsdp.global_specs(state.model)
         saved = payload["model"]
         buffers = {k for k, _ in state.model.named_buffers()}
         for k in sorted(set(own) - set(saved) - buffers):
@@ -421,37 +489,53 @@ class CheckpointManager:
         for k in sorted(set(saved) - set(own)):
             out.append(f"unexpected {k}")
         for k in sorted(set(own) & set(saved)):
-            a, b = _spec(saved[k]), _spec(own[k])
+            a = _spec(saved[k])
+            b = [list(own[k][0]), str(own[k][1]).replace("torch.", "")]
             if a != b:
                 out.append(f"{k}: saved {tuple(a[0])} {a[1]}, model "
                            f"{tuple(b[0])} {b[1]}")
         return out
 
-    def _restore_step(self, step: int, state: Any) -> Any:
+    def _restore_step(self, step: int, state: Any, mesh=None,
+                      rules=None) -> Any:
         with events.span("checkpoint_restore", step=step):
+            topo = self._topology_mismatches(step, state, mesh)
             payload = self._load(step)
-            mism = self._mismatches(step, payload, state)
-            # the gang's state is replicated, the same on every rank: a
-            # checkpoint from another world size and nothing else fits
-            # as it is, and an elastic run takes it
-            resized = len(mism) == 1 and mism[0].startswith(
-                "saved at world size") and failures.elastic_enabled()
-            if mism and not resized:
-                raise CheckpointTopologyError(step, mism)
-            state.model.load_state_dict(payload["model"], strict=False)
-            state.optimizer.load_state_dict(payload["optimizer"])
+            mism = self._mismatches(payload, state)
+            if mism or (topo and not failures.elastic_enabled()):
+                raise CheckpointTopologyError(step, topo + mism)
+            # the file holds global tensors: a replicated model loads
+            # them as they are, a placed one takes its blocks at its mesh
+            fsdp.load_full_state_dict(state.model, payload["model"], rules)
+            state.optimizer.load_state_dict(fsdp.local_optimizer_state(
+                payload["optimizer"], state.optimizer, state.model))
             state.step = int(payload["step"])
-        if resized:
+        if topo:
+            mismatch = "; ".join(topo)
             events.event("checkpoint_resharded", step=step,
-                         mismatch=mism[0])
+                         mismatch=mismatch,
+                         resharded_rules=rules is not None)
             log.warning("checkpoint step %d restored across a topology "
-                        "change (%s); the replicated state loads as it is",
-                        step, mism[0])
+                        "change (%s); the global tensors were laid out at "
+                        "the current mesh", step, mismatch)
         return state
 
-    def restore(self, state_template: Any, step: int | None = None) -> Any:
+    def restore(self, state_template: Any, step: int | None = None,
+                mesh: Any = None, rules: Any = None) -> Any:
         """Load a step into ``state_template`` (a fresh ``TrainState``: its
         model and optimizer are updated in place) and return it.
+
+        ``mesh`` / ``rules`` (the reference's): the mesh the restore runs
+        on (default: the template model's placement's) is compared with
+        the manifest's save-time mesh; a different world size or mesh
+        raises :class:`CheckpointTopologyError` naming both unless
+        ``SPARKDL_ELASTIC=1``, which lays the saved global tensors out at
+        the template's placement (``rules``, when given, must be the
+        rules it was placed by; ``divisible_rules`` at its mesh) and
+        records ``checkpoint_resharded``. A template placed on a mesh is
+        a model :func:`~..parallel.fsdp.shard_module` (or
+        ``models.llama.shard_model``) placed there, its optimizer built
+        after.
 
         With manifests present the step is verified first. A corrupt or
         uncommitted step is quarantined, and when ``step`` was not named
@@ -464,7 +548,8 @@ class CheckpointManager:
         self._join()
         chaos.fire("checkpoint_restore", step=step, path=self.directory)
         if self.group is None:
-            return self._restore_step(self._choose(step), state_template)
+            return self._restore_step(self._choose(step), state_template,
+                                      mesh, rules)
         chosen: list = [None]
         if self.rank == 0:
             try:
@@ -474,7 +559,7 @@ class CheckpointManager:
         dist.broadcast_object_list(chosen, src=0, group=self.group)
         if isinstance(chosen[0], Exception):
             raise chosen[0]
-        return self._restore_step(chosen[0], state_template)
+        return self._restore_step(chosen[0], state_template, mesh, rules)
 
     def _choose(self, step: int | None) -> int:
         """The step a restore loads: ``step`` (or the newest), verified

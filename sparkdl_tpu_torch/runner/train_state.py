@@ -44,6 +44,23 @@ Either way a step makes one all-reduce of one flat f32 buffer
 (:func:`_gang_mean`) after its backward, besides synchronised BatchNorm's
 two a layer.
 
+**The FSDP×TP step** (``mesh=``, a named ``DeviceMesh`` from
+``core.runtime.make_mesh``; the reference's ``make_train_step(loss_fn,
+mesh, data_axis=, param_rules=, batch_spec=)``). The model is placed on
+the mesh first (``models.llama.shard_model`` for Llama,
+``parallel.fsdp.shard_module`` for any module): each rank holds its
+shard of each parameter, gathers a layer's ``data``-sharded weights at
+use and reduce-scatters their gradients in the backward, and the
+``model`` axis runs Megatron's split with its conjugate collectives.
+Every rank passes the GLOBAL batch (the reference's global array); the
+step keeps the rank's block of each dim ``batch_spec`` (default
+``P(data_axis)``, truncated to each leaf's rank) puts on ``data_axis``
+and the whole of every other dim, so a spec naming another axis
+(``P("data", "sp")``) leaves the loss that of the global batch. The
+gradients of ``data``-sharded parameters come out of the reduce-scatter
+summed and are divided by the axis's extent; the others, the loss and
+the aux are averaged over ``data`` (:func:`_gang_mean`).
+
 Dropout in a gang (``with_rng=True``) keeps the reference's keys. The
 implicit step is the step of the global batch, so rank r draws rows r of
 the masks one process would draw over it: every rank seeds the step's
@@ -215,7 +232,9 @@ def _split(batch, k: int) -> list:
 def make_train_step(loss_fn: Callable, mutable: bool = False,
                     with_rng: bool = False, rng_seed: int = 0,
                     remat: bool = False, accum_steps: int = 1,
-                    group=None) -> Callable:
+                    group=None, *, mesh=None, data_axis: str = "data",
+                    param_rules: Callable | None = None,
+                    batch_spec=None) -> Callable:
     """A train step: ``step(state, batch) -> (state, metrics)``, metrics
     ``{"loss": ..., **aux}`` as 0-d tensors on the model's device (read
     them with ``float()``, which waits for the device). The step's
@@ -260,7 +279,20 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
     gang's global batch: each rank passes its own rows, BatchNorm pools
     its statistics over the gang (so the new running statistics come out
     equal on every rank), and the gradients (after ``accum_steps``), the
-    loss and the aux are averaged over the ranks."""
+    loss and the aux are averaged over the ranks.
+
+    ``mesh`` makes it the FSDP×TP step over a placed model (module doc):
+    every rank passes the global batch, ``batch_spec`` (a ``P``; default
+    ``P(data_axis)``) says which dims are split over ``data_axis``, and
+    ``accum_steps`` splits the rank's rows (the reference's shard-aligned
+    split); BatchNorm pools over ``data_axis`` and ``with_rng`` windows
+    the rank's rows of the global masks, as ``group`` does.
+    ``param_rules`` pins the layout: the first step raises
+    ``ValueError`` unless the model was placed by those rules at this
+    mesh."""
+    if mesh is not None and group is not None:
+        raise ValueError("pass group= (a data-parallel gang) or mesh= (the "
+                         "FSDP×TP step), not both")
     if accum_steps > 1 and mutable:
         raise ValueError(
             "accum_steps > 1 with mutable=True is not supported: BatchNorm "
@@ -268,8 +300,86 @@ def make_train_step(loss_fn: Callable, mutable: bool = False,
             "changing the model's normalization semantics")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if mesh is not None:
+        return _make_step(loss_fn, mutable, with_rng, rng_seed, remat,
+                          accum_steps, None, implicit=True,
+                          on_mesh=_MeshStep(mesh, data_axis, param_rules,
+                                            batch_spec))
     return _make_step(loss_fn, mutable, with_rng, rng_seed, remat,
                       accum_steps, group, implicit=True)
+
+
+class _MeshStep:
+    """What the FSDP×TP step knows of its mesh: the ``data_axis`` group
+    (None when the mesh has no such axis), the rank's place on it, the
+    batch's split and the layout the model must have."""
+
+    def __init__(self, mesh, data_axis, param_rules, batch_spec):
+        from ..parallel.sharding import P
+        names = list(mesh.mesh_dim_names)
+        self.mesh, self.data_axis = mesh, data_axis
+        self.param_rules = param_rules
+        self.spec = batch_spec if batch_spec is not None else P(data_axis)
+        if data_axis in names:
+            self.group = mesh.get_group(data_axis)
+            self.n = mesh.size(names.index(data_axis))
+            self.coord = mesh.get_local_rank(data_axis)
+        else:
+            self.group, self.n, self.coord = None, 1, 0
+        self.checked = False
+
+    def rows(self, batch):
+        """The rank's block of every dim the spec puts on the data axis."""
+        def cut(x):
+            if not torch.is_tensor(x):
+                x = torch.as_tensor(np.asarray(x))
+            for dim, ax in enumerate(tuple(self.spec)[:x.dim()]):
+                axes = ax if isinstance(ax, tuple) else (ax,)
+                if self.data_axis not in axes:
+                    continue
+                if x.shape[dim] % self.n:
+                    raise ValueError(
+                        f"batch dim {dim} of {tuple(x.shape)} does not split "
+                        f"over {self.data_axis!r} ({self.n})")
+                w = x.shape[dim] // self.n
+                x = x.narrow(dim, self.coord * w, w)
+            return x
+        return {k: cut(v) for k, v in batch.items()}
+
+    def sharded(self, model) -> set:
+        """ids of the parameters whose gradients arrive reduce-scattered
+        (placed sharded over the data axis), after checking the layout."""
+        from ..parallel import fsdp
+        from ..parallel.sharding import divisible_rules
+        pl = fsdp.placement(model)
+        if not self.checked:
+            if pl is not None and pl.mesh is not self.mesh and \
+                    pl.mesh_shape() != {str(n): int(self.mesh.size(i))
+                                        for i, n in enumerate(
+                                            self.mesh.mesh_dim_names)}:
+                raise ValueError(f"the model is placed on the mesh "
+                                 f"{pl.mesh_shape()}, the step's is another")
+            if self.param_rules is not None:
+                if pl is None:
+                    raise ValueError(
+                        "param_rules pins a placed model's layout: place it "
+                        "first (models.llama.shard_model or parallel.fsdp."
+                        "shard_module)")
+                rules = divisible_rules(self.param_rules, self.mesh)
+                for name, spec in pl.specs.items():
+                    want = rules((name,), torch.empty(pl.shapes[name],
+                                                      device="meta"))
+                    if tuple(want) != tuple(spec):
+                        raise ValueError(
+                            f"{name} is placed {spec}, param_rules give "
+                            f"{want} at this mesh")
+            self.checked = True
+        if pl is None or self.group is None:
+            return set()
+        return {id(p) for n, p in pl.locals.items()
+                if any(self.data_axis in (ax if isinstance(ax, tuple)
+                                          else (ax,))
+                       for ax in pl.specs[n])}
 
 
 def make_shard_map_step(loss_fn: Callable, group=None,
@@ -301,8 +411,10 @@ def make_shard_map_step(loss_fn: Callable, group=None,
 def _gang_mean(tensors: list, group) -> list:
     """Each tensor's mean over the ranks of ``group``: one all-reduce of
     one flat f32 buffer, each tensor back in its own dtype and shape."""
+    from ..parallel.fsdp import count
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, group=group)
+    count("all_reduce")
     flat /= dist.get_world_size(group)
     out, i = [], 0
     for t in tensors:
@@ -312,8 +424,11 @@ def _gang_mean(tensors: list, group) -> list:
 
 
 def _make_step(loss_fn, mutable, with_rng, rng_seed, remat, accum_steps,
-               group, implicit: bool) -> Callable:
+               group, implicit: bool, on_mesh: _MeshStep | None = None
+               ) -> Callable:
     rank = world = None
+    if on_mesh is not None:
+        group = on_mesh.group
     if group is not None:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
 
@@ -367,6 +482,10 @@ def _make_step(loss_fn, mutable, with_rng, rng_seed, remat, accum_steps,
         return loss, aux, None, grads
 
     def step(state: TrainState, batch):
+        sharded = set()
+        if on_mesh is not None:
+            sharded = on_mesh.sharded(state.model)
+            batch = on_mesh.rows(batch)
         synced = (sync_batch_stats(state.model, group)
                   if group is not None and implicit
                   else contextlib.nullcontext())
@@ -375,11 +494,19 @@ def _make_step(loss_fn, mutable, with_rng, rng_seed, remat, accum_steps,
         loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
         if group is not None:
             # synchronised statistics are equal on every rank already;
-            # the explicit step's own ones are averaged with the rest
+            # the explicit step's own ones are averaged with the rest.
+            # A data-sharded parameter's gradient came out of its
+            # reduce-scatter summed over the ranks: divided here.
             own = list(new_ms) if new_ms and not implicit else []
-            out = iter(_gang_mean([*grads, loss, *aux.values(),
+            params = state.trainable()
+            whole = [i for i, p in enumerate(params) if id(p) not in sharded]
+            out = iter(_gang_mean([*(grads[i] for i in whole), loss,
+                                   *aux.values(),
                                    *(new_ms[k] for k in own)], group))
-            grads = [next(out) for _ in grads]
+            grads = [g.div_(world) if id(p) in sharded and world > 1
+                     else g for p, g in zip(params, grads)]
+            for i in whole:
+                grads[i] = next(out)
             loss = next(out)
             aux = {k: next(out) for k in aux}
             new_ms = {**new_ms, **{k: next(out) for k in own}} \

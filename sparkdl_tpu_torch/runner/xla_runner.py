@@ -180,6 +180,7 @@ class RunnerContext:
     checkpoint_dir: str | None = None
     gang: Gang | None = None
     _ckpt: CheckpointManager | None = field(default=None, repr=False)
+    _mesh: Any = field(default=None, repr=False)
 
     # -- hvd-compat identity --------------------------------------------
     @property
@@ -242,11 +243,28 @@ class RunnerContext:
         return model
 
     # -- steps ------------------------------------------------------------
+    @property
+    def mesh(self):
+        """The gang's one-axis ``{"data": size}`` mesh (``core.runtime.
+        make_mesh``), made at first use; ``ValueError`` outside a gang."""
+        if self._mesh is None:
+            from ..core.runtime import make_mesh
+            self._mesh = make_mesh({"data": self.size})
+        return self._mesh
+
     def make_train_step(self, loss_fn, explicit_collectives: bool = False,
                         **kw):
         """:func:`~.train_state.make_train_step` over the gang (None in
         one process), or with ``explicit_collectives``
-        :func:`~.train_state.make_shard_map_step`."""
+        :func:`~.train_state.make_shard_map_step`. ``mesh=``,
+        ``param_rules=`` or ``batch_spec=`` make it the FSDP×TP step over
+        ``mesh`` (default: the context's :attr:`mesh`, as the reference
+        passes the runner's)."""
+        if not explicit_collectives and (
+                kw.get("mesh") is not None
+                or {"param_rules", "batch_spec"} & set(kw)):
+            kw["mesh"] = kw.get("mesh") or self.mesh
+            return make_train_step(loss_fn, **kw)
         group = self.gang.group if self.gang else None
         if explicit_collectives:
             return make_shard_map_step(loss_fn, group=group, **kw)

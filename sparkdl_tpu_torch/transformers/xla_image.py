@@ -12,7 +12,11 @@ Arrow encode. The name is kept for the reference's API; there is no XLA.
 The device step is the runner's: the input cast, the preprocess prologue
 (:meth:`XlaImageTransformer._make_preprocess`) and ``fn``, on the
 transformer's ``device`` (unset → the card; ``"cpu"`` must be asked for).
-``numDevices`` other than 1 raises (ROADMAP.md, Queue A 8 (c)).
+``numDevices`` > 1 (or -1, every device) shards the scoring stream over
+a ``{"data": n}`` mesh of the process's gang, one device a process
+(``core.runtime.BatchRunner(mesh=)``): every rank transforms the same
+DataFrame, runs its share of each batch and holds the whole output.
+Outside a gang there is one device.
 """
 
 from __future__ import annotations
@@ -117,12 +121,23 @@ class XlaImageTransformer(PicklesCallableParams, Transformer, HasInputCol,
                 id(self._paramMap.get(self.fn)) if self.hasParam("fn") else 0)
 
     def _mesh(self):
+        """The ``{"data": n}`` mesh of ``numDevices`` (-1: the gang's
+        size), None for one device. ``ValueError`` when it asks for more
+        devices than the gang has (one a process; 1 outside a gang)."""
         n = self._num_devices()
-        if n != 1:
-            raise NotImplementedError(
-                f"numDevices={n}: sharding a scoring stream over several "
-                "cards is not ported yet (ROADMAP.md, Queue A 8 (c))")
-        return None
+        if n == 1:
+            return None
+        import torch.distributed as dist
+        world = dist.get_world_size() if dist.is_available() and \
+            dist.is_initialized() else 1
+        n = world if n == -1 else n
+        if n > world:
+            raise ValueError(f"numDevices={n} but only {world} visible (one "
+                             f"device a process of the gang)")
+        if n == 1:
+            return None
+        from ..core.runtime import make_mesh
+        return make_mesh({"data": n})
 
     def _feed_key(self) -> tuple:
         """The feed-side configuration the compiled program depends on:

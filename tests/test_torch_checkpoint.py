@@ -361,7 +361,8 @@ def test_topology_mismatch_names_every_difference(tmp_path):
         m.restore(other)
     msg = str(ei.value)
     assert "w: saved (4, 3) float32, model (4, 5) float64" in msg
-    assert "missing b" in msg and "Queue A 8" in msg
+    assert "missing b" in msg and "topology mismatch" in msg
+    assert "SPARKDL_ELASTIC" in msg
     assert np.all(other.model.w.detach().numpy() == 0)
     m.close()
 

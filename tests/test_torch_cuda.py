@@ -2027,3 +2027,99 @@ def test_step_graph_capture_survives_a_collection(dev):
     assert torch.equal(first, x + 1) and torch.equal(out, x + 1)
     gc.collect()
     assert gone() is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fsdp_tp_step_on_a_one_rank_nccl_mesh_is_the_unsharded_step(dev,
+                                                                    dtype):
+    """One FSDP×TP step (``shard_model`` on ``{"data": 1, "model": 1}``,
+    ``make_train_step(mesh=, param_rules=)``) of a 2-layer head-dim-64
+    Llama through the flash kernels, against the unsharded step from the
+    same seeded weights: the loss and every gathered parameter bitwise
+    (at one rank the collectives are copies); two forward and two
+    backward launches an arm."""
+    from sparkdl_tpu_torch.core.runtime import make_mesh
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.parallel import fsdp
+    from sparkdl_tpu_torch.runner import XlaRunner, launcher
+    from sparkdl_tpu_torch.runner.train_state import (TrainState,
+                                                      make_train_step, sgd)
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, intermediate_size=512,
+                        rope_theta=10000.0)
+    ids = torch.as_tensor(np.random.default_rng(21).integers(
+        0, 512, (4, 128)), device=dev)
+
+    def model():
+        return L.LlamaModel(cfg, dtype=dtype, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+
+    def one_step(m, step):
+        st = TrainState.create(m, sgd(1e-2))
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        _, metrics = step(st, {"input_ids": ids})
+        assert (fa.flash_attention_fwd.launches,
+                fa.flash_attention_bwd.launches) == (2, 2)
+        return metrics["loss"]
+
+    base = model()
+    want_loss = one_step(base, make_train_step(L.causal_lm_loss_fn()))
+    runner = XlaRunner(device="cuda", num_processes=1, process_id=0,
+                       coordinator=f"127.0.0.1:{launcher.free_port()}")
+    try:
+        assert runner.gang.backend == "nccl"
+        mesh = make_mesh({"data": 1, "model": 1})
+        sharded = L.shard_model(model(), mesh)
+        got_loss = one_step(sharded, make_train_step(
+            L.causal_lm_loss_fn(), mesh=mesh,
+            param_rules=L.training_rules(mesh)))
+        got = fsdp.full_state_dict(sharded)
+    finally:
+        leave_gang()
+    assert torch.equal(got_loss, want_loss)
+    want = base.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_switch_moe_on_the_card_matches_its_cpu_run(dev):
+    """``SwitchMoE`` forward and backward (the aux loss in the loss) on the
+    card against the same module on the CPU, f32 with TF32 off: output,
+    input and parameter gradients within rtol 1e-5, atol 1e-5 (the two
+    sum in other orders); the expert-parallel module on a one-rank NCCL
+    ``{"ep": 1}`` mesh bitwise the card's unsharded run."""
+    from sparkdl_tpu_torch.core.runtime import make_mesh
+    from sparkdl_tpu_torch.parallel import moe as M
+    from sparkdl_tpu_torch.runner import XlaRunner, launcher
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (2, 64, 32)).astype(np.float32))
+
+    def run(m, device):
+        xi = x.clone().to(device).requires_grad_(True)
+        inter = {}
+        y = m(xi, intermediates=inter)
+        ((y ** 2).sum() + M.moe_aux_loss(inter)).backward()
+        return [y.detach().cpu(), xi.grad.cpu(),
+                *(p.grad.cpu() for _, p in m.named_parameters())]
+
+    cpu = M.SwitchMoE(32, 4, 64, device="cpu")
+    card = M.SwitchMoE(32, 4, 64, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    want, got = run(cpu, "cpu"), run(card, dev)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    runner = XlaRunner(device="cuda", num_processes=1, process_id=0,
+                       coordinator=f"127.0.0.1:{launcher.free_port()}")
+    try:
+        assert runner.gang.backend == "nccl"
+        ep = run(M.shard_moe(card, make_mesh({"ep": 1})), dev)
+    finally:
+        leave_gang()
+    card.zero_grad(set_to_none=True)
+    for a, w in zip(ep, run(card, dev)):
+        assert torch.equal(a, w)

@@ -268,8 +268,8 @@ def test_gang_fit_checkpoints_on_rank_0_and_resumes_bitwise(fit_gang):
 
 def test_gang_checkpoint_refuses_a_one_process_restore(fit_gang):
     """A checkpoint written by a gang of 2 raises
-    ``CheckpointTopologyError`` (naming A 8) when one process restores
-    it."""
+    ``CheckpointTopologyError`` (naming both world sizes and
+    ``SPARKDL_ELASTIC``) when one process restores it."""
     d, _ = fit_gang
     model = R.ResNet(stage_sizes=[2, 2, 2, 2], block=R.BasicBlock,
                      width=WIDTH, num_classes=CLASSES)
@@ -277,7 +277,8 @@ def test_gang_checkpoint_refuses_a_one_process_restore(fit_gang):
                        match="world size 2, restoring at 1") as ei:
         CheckpointManager(str(d / "straight")).restore(
             TrainState.create(model, sgd(LR, momentum=0.9)))
-    assert "Queue A 8" in str(ei.value)
+    assert "topology mismatch" in str(ei.value)
+    assert "SPARKDL_ELASTIC" in str(ei.value)
 
 
 # --- synchronised BatchNorm at world size 1, in this process ----------------

@@ -175,10 +175,43 @@ def test_all_stages_emit_spans():
 
 
 def test_mesh_and_donate_are_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        runner(lambda b: b, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        runner(lambda b: b, donate=True)
+    """``donate`` and ``mesh`` run now: a donating runner gives the same
+    outputs, and while its step runs nothing else holds the device batch
+    it was given (its input cast made a new one); a runner that does not
+    donate still holds it. A mesh without the data axis is refused. (The
+    multi-rank feed is held in tests/test_torch_moe_pipeline.py.)"""
+    import gc
+    import weakref
+
+    batches = [np.arange(6, dtype=np.uint8).reshape(3, 2)] * 3
+    want = [o for o in runner(lambda b: b * 2.0,
+                              input_cast=torch.float32).run(batches)]
+    for donate in (False, True):
+        r = runner(lambda b: b, donate=donate, input_cast=torch.float32)
+        assert r.donate == donate
+        put, refs, alive = r._put, [], []
+
+        def spy(staged):
+            dev, ready = put(staged)
+            refs.append(weakref.ref(dev))
+            return dev, ready
+
+        def fn(b):
+            gc.collect()
+            alive.append(refs[len(alive)]() is not None)
+            return b * 2.0
+
+        r._put, r._fn = spy, fn
+        got = [o for o in r.run(batches)]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert alive == [not donate] * 3
+
+    class NoData:
+        mesh_dim_names = ("tp",)
+
+    with pytest.raises(ValueError, match="not an axis"):
+        runner(lambda b: b, mesh=NoData())
 
 
 def test_default_device_is_the_card(monkeypatch):
