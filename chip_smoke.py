@@ -591,7 +591,21 @@ u. Tensor-parallel serving, on a one-rank NCCL gang joined as phase t's,
      graph captures and replays (the tp step, its one-rank all-reduces
      and gathers inside, is captured), peak memory, per-device pool
      bytes equal to the base's; each prefill chunk's ms, and on the
-     unpaged arms 8 chunks at steady state and a profile of 4.
+     unpaged arms 8 chunks at steady state and a profile of 4;
+   - ``tp_front``: after each tp arm, its engine started (the group's
+     front, ``serving.group``, on the one-rank gloo control group) with
+     TP_CLIENTS closed-loop client threads over the same prompts: the
+     streams bitwise the inline tp arm's, every decode launch through the
+     dispatch (TP_LAYERS × steps); new tokens/s beside the inline arm's,
+     decode-iteration ms, the control channel's ms an iteration (the
+     message's all-reduce and, where it has one, its payload's
+     broadcast; p50 / p95), messages and idle messages;
+     then one cancel and one 50 ms deadline (each ended so, no slot left
+     busy) and one drain → resume mid-stream: the resumed streams bitwise
+     the uninterrupted ones up to the drain and, from there, up to the
+     first near tie (phase o's rule, ``fleet_vs_clean``: a resume
+     re-prefills prompt + delivered tokens, whose bf16 K/V is not the
+     decode step's bit for bit).
    A ``summary`` line gives the phase's seconds against PHASE_U_BUDGET_S.
 v. Sharded training (FSDP×TP, MoE, GPipe, the sharded feed), on a
    one-rank NCCL gang joined as phase t's, each leg on its one-rank
@@ -639,7 +653,8 @@ paged_flash_decode add phase r's, ``phase_r_launches``;
 paged_flash_decode adds its llama3_8b 32:8 S = 5 verify window,
 ``llama3_8b_s5_case``; flash_attention, flash_decode and
 flash_attention_bwd add phase t's, ``phase_t_launches``; flash_decode
-and paged_flash_decode add phase u's arms, ``phase_u_launches``;
+and paged_flash_decode add phase u's arms and its ``tp_front`` legs
+(``<family>_front``), ``phase_u_launches``;
 flash_attention and flash_attention_bwd add phase v's,
 ``phase_v_launches``) and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -6805,6 +6820,7 @@ TP_LAYERS = 8                  # llama3_8b's 32 layers cut to 8
 TP_SLOTS, TP_NEW = 8, 32
 TP_PROMPT_LENS = (64, 1024)    # TP_SLOTS seeded lengths drawn in this range
 TP_CHUNK = 256                 # the stall-free prefill chunk
+TP_CLIENTS = 4                 # tp_front's closed-loop client threads
 PHASE_U_BUDGET_S = 120.0
 
 
@@ -7018,12 +7034,16 @@ def tp_serve(torch, kernels, mesh) -> dict:
                     f"4 prefill chunks of {TP_CHUNK} into slot 0, {arm} "
                     f"arm, llama3_8b widths, {TP_LAYERS} layers, bf16",
                     match="nccl")
+            if arm == "tp":
+                arms["front"] = tp_front(torch, kernels, fam, model, eng,
+                                         prompts, rec, kernel)
             arms[arm] = rec
             del eng, be
             gc.collect()  # a backend and its graphs hold each other
             torch.cuda.empty_cache()
         base, tp = arms["base"], arms["tp"]
         assert tp["streams"] == base["streams"], (fam, "streams differ")
+        front = arms.pop("front")
         assert tp["kv_pool_device_bytes"] == base["kv_pool_device_bytes"]
         model.attn_fn = None
         tokens = teacher_forced(torch, model, prompts, base["streams"],
@@ -7034,13 +7054,162 @@ def tp_serve(torch, kernels, mesh) -> dict:
             rec["streams_equal_base"] = rec["streams"] == base["streams"]
             rec["nvidia_smi"] = smi()
             emit({k: v for k, v in rec.items() if k != "streams"})
-        out[fam] = dict(arms=arms, iter_ms_tp_minus_base=(
+        out[fam] = dict(arms=arms, front=front, iter_ms_tp_minus_base=(
             tp["decode_iter_ms_mean"] - base["decode_iter_ms_mean"]),
             chunk_ms_tp_minus_base=(tp["prefill_chunk_ms_mean"]
                                     - base["prefill_chunk_ms_mean"]))
     del model
     torch.cuda.empty_cache()
     return out
+
+
+def _pct(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def tp_front(torch, kernels, fam: str, model, eng, prompts: list,
+             inline: dict, kernel: str) -> dict:
+    """``tp_front`` (module docstring) on the tp arm's engine ``eng`` over
+    ``model``, which ``inline`` (its ``serve_leg`` record) drove
+    inline."""
+    import threading
+
+    from sparkdl_tpu_torch.parallel import dispatch_counter
+
+    front = eng._front
+    assert front is not None and front.leader, "no front on the tp arm"
+    iter_s, ctl = [], []
+    inner, message = eng._step_inner, front.channel.message
+
+    def timed_iter():
+        t0 = time.perf_counter()
+        out = inner()  # returns after the host has the tokens
+        iter_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_message(head, payload=b""):
+        t0 = time.perf_counter()
+        out = message(head, payload)
+        ctl.append((out[0], time.perf_counter() - t0))
+        return out
+
+    eng._step_inner = timed_iter
+    front.channel.message = timed_message
+
+    def started(fn):
+        eng.start()
+        try:
+            return fn()
+        finally:
+            eng.stop(drain=True, timeout=60)
+
+    def clients():
+        hs = [None] * len(prompts)
+
+        def client(k):
+            for i in range(k, len(prompts), TP_CLIENTS):
+                hs[i] = eng.submit(prompts[i], max_new_tokens=TP_NEW)
+                hs[i].result(120)
+
+        ts = [threading.Thread(target=client, args=(k,))
+              for k in range(TP_CLIENTS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        return hs
+
+    counter = dispatch_counter(kernel)
+    steps0, msgs0 = eng.stats["steps"], dict(front.stats)
+    torch.cuda.synchronize()
+    counter.launches = 0
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    hs = started(clients)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(*kernels)
+    dispatched = counter.launches
+    steps = eng.stats["steps"] - steps0
+    streams = [h.result(1) for h in hs]
+    assert streams == inline["streams"], (fam, "tp_front streams differ")
+    assert launches[kernel] == dispatched == TP_LAYERS * steps > 0, (
+        launches, dispatched, steps)
+    assert launches["flash_attention"] == 0, launches
+    n_new = sum(len(t) for t in streams)
+    step_ctl = [1e3 * dt for kind, dt in ctl if kind == 1]
+    rec = dict(
+        phase="tp", leg="tp_front", family=fam,
+        backend=type(eng.backend).__name__, clients=TP_CLIENTS,
+        requests=len(prompts), new_tokens=n_new, wall_s=wall,
+        new_tokens_per_s=n_new / wall,
+        inline_new_tokens_per_s=inline["new_tokens_per_s"],
+        started_over_inline=(n_new / wall) / inline["new_tokens_per_s"],
+        iterations=len(iter_s), steps=steps,
+        iter_ms_mean=1e3 * sum(iter_s) / max(len(iter_s), 1),
+        iter_ms_p50=1e3 * _pct(iter_s, 0.5),
+        inline_decode_iter_ms_mean=inline["decode_iter_ms_mean"],
+        control_ms_p50=_pct(step_ctl, 0.5),
+        control_ms_p95=_pct(step_ctl, 0.95),
+        control_ms_max=max(step_ctl),
+        messages=front.stats["messages"] - msgs0["messages"],
+        idle_messages=front.stats["idle_messages"]
+        - msgs0["idle_messages"],
+        launches=launches, dispatch={kernel: dispatched},
+        streams_bitwise_inline=True)
+
+    # one cancel and one deadline, in one started run
+    def cancel_deadline():
+        hc = eng.submit(prompts[0], max_new_tokens=TP_NEW)
+        hd = eng.submit(prompts[1], max_new_tokens=TP_NEW, deadline_s=0.05)
+        t_end = time.time() + 120
+        while len(hc.tokens) < 2 and not hc.done:
+            assert time.time() < t_end, (fam, "no token to cancel after")
+            time.sleep(0.001)
+        threading.Thread(target=hc.cancel).start()
+        hc.wait(60)
+        hd.wait(60)
+        return hc, hd
+    cancelled0 = eng.stats["cancelled"]
+    hc, hd = started(cancel_deadline)
+    assert hc.finish_reason == "cancelled" and \
+        hd.finish_reason == "deadline", (hc, hd)
+    assert eng.stats["cancelled"] - cancelled0 == 2
+    assert not eng._queue and all(r is None for r in eng._slots)
+    rec["cancel"] = dict(reason=hc.finish_reason, tokens=len(hc.tokens))
+    rec["deadline"] = dict(reason=hd.finish_reason, tokens=len(hd.tokens),
+                           deadline_s=0.05)
+
+    # drain mid-stream, then resume on the restarted engine
+    eng.start()
+    hs = [eng.submit(p, max_new_tokens=TP_NEW) for p in prompts[2:4]]
+    t_end = time.time() + 120
+    while sum(len(h.tokens) for h in hs) < 4:
+        assert time.time() < t_end, (fam, "no token before the drain")
+        time.sleep(0.001)
+    snaps = eng.drain(timeout=60)
+    at_drain = {s_.id: len(s_.tokens) for s_ in snaps}
+
+    def resume():
+        for s_ in snaps:
+            eng.resume(s_)
+        for h in hs:
+            h.wait(120)
+    started(resume)
+    assert snaps, (fam, "the drain caught no live request")
+    got, clean = [h.result(1) for h in hs], inline["streams"][2:4]
+    rec["drain_resume"] = dict(
+        snapshots=len(snaps), tokens_at_drain=list(at_drain.values()),
+        resumed_bitwise_uninterrupted=got == clean,
+        **fleet_vs_clean(got, clean, fleet_gaps(
+            torch, model, prompts[2:4], clean, TP_NEW),
+            [at_drain.get(h.id) for h in hs]))
+    eng._step_inner = inner
+    front.channel.message = message
+    rec["nvidia_smi"] = smi()
+    emit(rec)
+    return rec
 
 
 def phase_tp(torch, kernels) -> dict:
@@ -7077,6 +7246,12 @@ def phase_tp(torch, kernels) -> dict:
                   for f, r in recs["tp_serve"].items()},
               chunk_ms_tp_minus_base={
                   f: r["chunk_ms_tp_minus_base"]
+                  for f, r in recs["tp_serve"].items()},
+              front_control_ms_p50={
+                  f: r["front"]["control_ms_p50"]
+                  for f, r in recs["tp_serve"].items()},
+              front_started_over_inline={
+                  f: r["front"]["started_over_inline"]
                   for f, r in recs["tp_serve"].items()},
               nvidia_smi=smi()))
     recs["seconds"] = seconds
@@ -7509,6 +7684,8 @@ def main() -> int:
     u_launches = {f"{fam}_{arm}": rec["launches"]
                   for fam, r_ in u["tp_serve"].items()
                   for arm, rec in r_["arms"].items()}
+    u_launches.update({f"{fam}_front": r_["front"]["launches"]
+                       for fam, r_ in u["tp_serve"].items()})
     t_launches = {
         "ulysses_flash": t["ulysses_flash"]["launches"],
         **{f"ring_generate_{arm}": a["launches"]

@@ -391,13 +391,46 @@ def compile_cache_summary() -> dict | None:
     return snap if snap["hits"] or snap["misses"] else None
 
 
+_TB_WARNED = []  # one warning a process when no TensorBoard writer imports
+
+
+def _summary_writer(log_dir: str):
+    """A TensorBoard ``SummaryWriter`` over ``log_dir``: tensorboardX's,
+    else ``torch.utils.tensorboard``'s (the same event files); None, with
+    one warning a process, when neither imports."""
+    import importlib
+
+    for name in ("tensorboardX", "torch.utils.tensorboard"):
+        try:
+            return importlib.import_module(name).SummaryWriter(log_dir)
+        except Exception:  # noqa: BLE001 — an optional writer
+            continue
+    if not _TB_WARNED:
+        _TB_WARNED.append(True)
+        log.warning("neither tensorboardX nor torch.utils.tensorboard "
+                    "imports; metrics to the log only")
+    return None
+
+
 class MetricsLogger:
     """Scalar metrics sink: the ``sparkdl_tpu_torch.runner`` logger, one
-    JSON line a call."""
+    JSON line a call, and TensorBoard event files when a ``log_dir`` is
+    given (:func:`_summary_writer`), as the reference's."""
+
+    def __init__(self, log_dir: str | None = None):
+        self._tb = _summary_writer(log_dir) if log_dir else None
 
     def log(self, step: int, metrics: dict):
-        """Emit one line. Cadence is the caller's job (fit() gates on
-        log_every). Non-numeric values pass through as text."""
+        """Emit to TensorBoard and the text log. Cadence is the caller's
+        job (fit() gates on log_every). Non-numeric values pass through
+        to the text line; TensorBoard takes the scalars."""
+        if self._tb is not None:
+            for k, v in metrics.items():
+                try:
+                    self._tb.add_scalar(k, float(v), step)
+                except (TypeError, ValueError, RuntimeError):
+                    pass
+
         def _fmt(v):
             if isinstance(v, (int, float)) or hasattr(v, "item"):
                 try:
@@ -423,6 +456,13 @@ class MetricsLogger:
 
         _flatten("", summary)
         self.log(step, flat)
+
+    def close(self):
+        """Idempotent: ``fit()`` closes on the success path and callers
+        close again in their own cleanup."""
+        tb, self._tb = self._tb, None
+        if tb is not None:
+            tb.close()
 
 
 # -- profiler traces ------------------------------------------------------

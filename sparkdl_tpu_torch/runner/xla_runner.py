@@ -179,6 +179,8 @@ class RunnerContext:
     device: torch.device
     checkpoint_dir: str | None = None
     gang: Gang | None = None
+    axes: dict | None = None
+    log_dir: str | None = None
     _ckpt: CheckpointManager | None = field(default=None, repr=False)
     _mesh: Any = field(default=None, repr=False)
 
@@ -244,12 +246,19 @@ class RunnerContext:
 
     # -- steps ------------------------------------------------------------
     @property
+    def data_axis(self) -> str:
+        """The mesh axis the batch is split over: the first of ``axes``."""
+        return next(iter(self.axes)) if self.axes else "data"
+
+    @property
     def mesh(self):
-        """The gang's one-axis ``{"data": size}`` mesh (``core.runtime.
-        make_mesh``), made at first use; ``ValueError`` outside a gang."""
+        """The gang's mesh over ``axes`` (default one ``{"data": size}``
+        axis; ``core.runtime.make_mesh``), made at first use;
+        ``ValueError`` outside a gang or when the axes do not multiply to
+        the gang's size."""
         if self._mesh is None:
             from ..core.runtime import make_mesh
-            self._mesh = make_mesh({"data": self.size})
+            self._mesh = make_mesh(self.axes or {"data": self.size})
         return self._mesh
 
     def make_train_step(self, loss_fn, explicit_collectives: bool = False,
@@ -264,6 +273,7 @@ class RunnerContext:
                 kw.get("mesh") is not None
                 or {"param_rules", "batch_spec"} & set(kw)):
             kw["mesh"] = kw.get("mesh") or self.mesh
+            kw.setdefault("data_axis", self.data_axis)
             return make_train_step(loss_fn, **kw)
         group = self.gang.group if self.gang else None
         if explicit_collectives:
@@ -273,10 +283,16 @@ class RunnerContext:
     def make_eval_step(self, eval_fn):
         return make_eval_step(eval_fn)
 
-    def trace(self, log_dir: str):
+    def trace(self, log_dir: str | None = None):
         """``with ctx.trace(dir): ...`` — a ``torch.profiler`` trace of
         the region (``metrics.trace``; CUDA too when the context trains on
-        the card), written to ``dir/trace_rank{i}.json``."""
+        the card), written to ``dir/trace_rank{i}.json``; ``dir`` defaults
+        to the runner's ``log_dir``, else ``sparkdl_tb`` in the temporary
+        directory."""
+        if log_dir is None:
+            import tempfile
+            log_dir = self.log_dir or os.path.join(tempfile.gettempdir(),
+                                                   "sparkdl_tb")
         return metrics_lib.trace(log_dir, cuda=self.device.type == "cuda")
 
     def meter(self, warmup_steps: int = 1) -> metrics_lib.ThroughputMeter:
@@ -440,7 +456,9 @@ class RunnerContext:
         eval_step = self.make_eval_step(eval_fn) if eval_fn else None
         meter = self.meter()
         meter.flops_per_step = flops_per_step
-        logger = metrics_lib.MetricsLogger()
+        # TensorBoard's scalars from rank 0 alone; every rank logs text
+        logger = metrics_lib.MetricsLogger(self.log_dir if self.rank == 0
+                                           else None)
         telemetry_lib.maybe_start_from_env()
         sentinel_lib.maybe_arm_from_env()
         events.event("fit_start", start_step=start_step,
@@ -562,6 +580,7 @@ class RunnerContext:
             raise
         summary = meter.summary()
         logger.log_summary(state.step, summary)
+        logger.close()
         events.event("fit_end", final_step=state.step, steps=meter.steps,
                      mfu=summary.get("mfu"))
         # exact at the boundary, not one export interval stale
@@ -691,7 +710,11 @@ class XlaRunner:
 
     ``device``: where the context trains; None means ``cuda`` (and raises
     without a card), ``"cpu"`` asks for the CPU. ``checkpoint_dir``: where
-    ``fit`` saves and resumes (none without it).
+    ``fit`` saves and resumes (none without it). ``axes``: the context's
+    mesh over the gang (``core.runtime.make_mesh``, e.g. ``{"data": 2,
+    "model": 2}``; the first axis is the data axis), default one ``data``
+    axis. ``log_dir``: where ``fit`` writes TensorBoard scalars (rank 0;
+    ``metrics.MetricsLogger``) and ``RunnerContext.trace`` its traces.
 
     ``np``: the devices to span, one a process; -1 (the default) means
     the gang's size, or 1 without a gang. A gang comes from
@@ -703,12 +726,15 @@ class XlaRunner:
     rendezvous; gloo on the CPU. ``np > 1`` without a rendezvous raises
     ``ValueError``: one process drives one device here."""
 
-    def __init__(self, np: int = -1, device=None,
-                 checkpoint_dir: str | None = None,
+    def __init__(self, np: int = -1, axes: dict[str, int] | None = None,
+                 device=None, checkpoint_dir: str | None = None,
+                 log_dir: str | None = None,
                  coordinator: str | None = None,
                  num_processes: int | None = None,
                  process_id: int | None = None):
         self.checkpoint_dir = checkpoint_dir
+        self.axes = dict(axes) if axes else None
+        self.log_dir = log_dir
         want = None if np in (-1, None) else int(np)
         rdv = _rendezvous(coordinator, num_processes, process_id)
         if rdv is None:
@@ -749,7 +775,8 @@ class XlaRunner:
     def make_context(self) -> RunnerContext:
         return RunnerContext(device=self.device,
                              checkpoint_dir=self.checkpoint_dir,
-                             gang=self.gang)
+                             gang=self.gang, axes=self.axes,
+                             log_dir=self.log_dir)
 
     def run(self, main_fn: Callable, **kwargs) -> Any:
         """Invoke ``main_fn(ctx, **kwargs)`` with a fresh context (the

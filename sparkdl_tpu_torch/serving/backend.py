@@ -82,7 +82,9 @@ row or pool block (its ``kv_heads``). Block ids stay logical: the block
 manager, radix trie, copy-on-write and preemption are the base classes'.
 Every rank of the group makes the same calls with the same arguments
 (the SPMD contract of every collective); logits are gathered, so every
-rank samples the same tokens from a generator seeded alike.
+rank samples the same tokens from a generator seeded alike. A started
+engine keeps that contract through its front (``serving.group``), whose
+control channel the backend holds as ``control``.
 """
 
 from __future__ import annotations
@@ -838,13 +840,18 @@ def _tp_setup(self, model, tp: int, mesh, weight_dtype):
     return this rank's shard (``models.llama.shard_model``: dense
     prefill, the head-sharded decode dispatch). The base ``__init__`` then
     runs on the shard unchanged: its cache or pool holds the rank's
-    ``kv_heads``, its generator is seeded alike on every rank."""
+    ``kv_heads``, its generator is seeded alike on every rank. Beside the
+    mesh it takes the group's control channel (``serving.group
+    .control_group``, a gloo group over the mesh's ranks), over which a
+    started engine's front sends its messages."""
     from ..parallel.sharding import serving_tp_layout
+    from .group import control_group
     self.layout = serving_tp_layout(tp, model.cfg)
     self.mesh = mesh if mesh is not None else tp_mesh(tp)
     if self.mesh.size() != tp:
         raise ValueError(f"tp={tp} disagrees with the mesh's "
                          f"{self.mesh.size()} rank(s)")
+    self.control = control_group(self.mesh)
     self.tp_degree = int(tp)
     if weight_dtype is not None:
         L.quantize_params(model, weight_dtype)
@@ -852,10 +859,11 @@ def _tp_setup(self, model, tp: int, mesh, weight_dtype):
 
 
 def _group_clock(self, t: float) -> float:
-    """The group's clock for one engine iteration: rank 0's reading
-    ``t``, broadcast to every rank of the tp group, so the scheduler's
-    deadline decisions agree on every rank (``GenerationEngine.step``
-    calls it once a step)."""
+    """The group's clock for one engine iteration driven inline: rank 0's
+    reading ``t``, broadcast to every rank of the tp group, so the
+    scheduler's deadline decisions agree on every rank
+    (``GenerationEngine.step`` calls it once a step; a started engine's
+    front carries the reading in its message instead)."""
     import torch.distributed as dist
     g = self.mesh.get_group("tp")
     x = torch.tensor([t], dtype=torch.float64,

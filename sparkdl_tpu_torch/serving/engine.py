@@ -4,14 +4,16 @@ slotted KV cache.
 The port's copy of ``sparkdl_tpu/serving/engine.py``: the same
 scheduler; :meth:`GenerationEngine.from_model` builds the port's torch
 backends on a ``device``, the tensor-parallel ones over a ``{"tp": n}``
-group of a ``torch.distributed`` gang (one process a device). Every rank
-of such a group makes the same engine calls with the same arguments, and
-the scheduler decides alike on each: the one clock it reads for
-deadlines is the group's rank 0's, broadcast once an iteration
-(:meth:`GenerationEngine.step`) and at each
+group of a ``torch.distributed`` gang (one process a device). Driven
+inline, every rank of such a group makes the same engine calls with the
+same arguments, and the scheduler decides alike on each: the one clock
+it reads for deadlines is the group's rank 0's, broadcast once an
+iteration (:meth:`GenerationEngine.step`) and at each
 :meth:`GenerationEngine.submit` that sets a deadline, whose limit runs
-from that reading. The background loop (:meth:`start`) takes requests as
-they come to each rank, so it serves one device only.
+from that reading. Started (:meth:`GenerationEngine.start`), the group's
+rank 0 is its front (``serving.group``): it takes requests from any
+thread and sends every rank each iteration's admissions, cancels, stop
+and clock in one message over the group's control channel.
 
 The static ``models.llama.generate`` path is batch-job shaped: every row
 of a batch prefills together, decodes in lockstep, and a new request
@@ -924,6 +926,14 @@ class GenerationEngine:
         # device, where the wall clock is read.
         self._group_clock = getattr(backend, "group_clock", None)
         self._group_now = None
+        # The group's front (serving.group.GroupFront), made when the
+        # backend carries the group's control channel: it serves start(),
+        # submit() from any thread of rank 0 and stop() across the group.
+        self._front = None
+        control = getattr(backend, "control", None)
+        if control is not None:
+            from .group import GroupFront
+            self._front = GroupFront(self, control)
         # Live inspector: one weak-set add per engine BUILD
         # (never per token); introspect.serving_snapshot() reads
         # every registered engine via debug_state().
@@ -1110,6 +1120,11 @@ class GenerationEngine:
         past it the engine aborts the request at the next iteration
         boundary, freeing its slot and KV blocks, and ``result()``
         raises :class:`DeadlineExceeded`.
+
+        On a started tensor-parallel engine only rank 0 takes requests
+        (its front; the limit then runs from rank 0's clock at submit,
+        and no collective is issued here); another rank raises
+        ``ValueError``.
         """
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
@@ -1161,6 +1176,9 @@ class GenerationEngine:
                 self._reject(
                     f"request needs {need} KV blocks (block_size {bs}); "
                     f"the whole pool holds {total} — can never fit")
+        if self._front is not None and self._front.fronting():
+            return self._front.submit(prompt, int(max_new_tokens), bucket,
+                                      stream_cb, block, timeout, deadline_s)
         deadline = None if timeout is None else time.time() + timeout
         with self._work:
             if self._stop_mode is not None or self._fatal is not None:
@@ -1360,19 +1378,24 @@ class GenerationEngine:
         while self.step():
             pass
 
-    def start(self) -> "GenerationEngine":
-        """Run the scheduling loop in a daemon thread. One device only:
-        under tp > 1 it raises ``NotImplementedError``, since each rank's
-        loop would take requests as they come to that rank, and the
-        group's ranks must make the same calls (ROADMAP.md, Queue
-        A 8 (d): one front that broadcasts admissions to its group);
-        drive a group with :meth:`step` / :meth:`run_until_idle`."""
-        if self.tp_degree > 1:
-            raise NotImplementedError(
-                f"the background loop of a tp={self.tp_degree} engine is "
-                f"not ported yet (ROADMAP.md, Queue A 8 (d): one front "
-                f"that broadcasts admissions to its tp group); drive every "
-                f"rank with the same step() / run_until_idle() calls")
+    def start(self, on_request=None) -> "GenerationEngine":
+        """Run the scheduling loop in a daemon thread.
+
+        On a tensor-parallel engine every rank of the group calls it:
+        rank 0 runs the group's front, whose loop sends each iteration's
+        admissions, cancels, stop and clock to the others, and every
+        other rank follows (``serving.group``). Only rank 0 then takes
+        ``submit()`` and ``resume()``; a follower's ``stop()`` /
+        ``drain()`` wait for rank 0's stop and return the same
+        snapshots. ``on_request(req)`` is called on every rank with each
+        request its group admits or resumes (a follower's handle, named
+        by rank 0's id, streams what rank 0 was asked); one device has no
+        such hook."""
+        if self._front is not None:
+            return self._front.start(on_request)
+        if on_request is not None:
+            raise ValueError("on_request= serves a tensor-parallel group's "
+                             "ranks; this engine has no group")
         with self._lock:
             if self._thread is not None:
                 return self
@@ -1408,6 +1431,10 @@ class GenerationEngine:
         (finish everything, degrade to snapshot past the stall budget),
         "snapshot" (immediate preempt-and-return), "now" (fail
         pending)."""
+        if self._front is not None:
+            snaps = self._front.shutdown(mode, timeout)
+            if snaps is not None:
+                return snaps
         with self._work:
             self._stop_mode = "drain" if mode == "drain" else "now"
             self._work.notify_all()
@@ -1487,6 +1514,8 @@ class GenerationEngine:
         if req.state in (DONE, FAILED):
             return req
         req.bucket = self._resume_bucket(req)
+        if self._front is not None and self._front.fronting():
+            return self._front.resume(req)
         with self._work:
             if self._stop_mode is not None or self._fatal is not None:
                 raise EngineStopped("engine is stopped")
@@ -2712,6 +2741,8 @@ class GenerationEngine:
                 **dict(self.stats),
             }
             snap["failover"] = dict(self._failover_info)
+            if self._front is not None:
+                snap["front"] = dict(self._front.stats)
         ps = getattr(self.backend, "prefix_stats", None)
         if callable(ps):
             st = ps()

@@ -725,8 +725,9 @@ def _logged(caplog, logger_name, fn):
 
 
 class TestMetricsLoggerSatellite:
-    """The port's logger is the text sink alone (no TensorBoard): each
-    twin holds its line to the reference's with TensorBoard absent."""
+    """The port's text line: each twin holds it to the reference's,
+    with TensorBoard absent or beside it (``TestMetricsLoggerTensorBoard``
+    reads the event files back)."""
 
     def test_tb_unavailable_falls_back_to_log(self, tmp_path, monkeypatch,
                                               caplog):
@@ -752,9 +753,8 @@ class TestMetricsLoggerSatellite:
             json.loads(want[0].split(" ", 2)[2]), t=2.5)
 
     def test_close_is_idempotent(self, monkeypatch, caplog):
-        """The reference closes its writer once however often it is
-        closed and then keeps logging text; the port, which has no writer
-        to close, logs the same text line."""
+        """Both packages close their writer once however often they are
+        closed and then keep logging the same text line."""
         closes = []
 
         class _FakeWriter:
@@ -774,10 +774,14 @@ class TestMetricsLoggerSatellite:
         ref.close()
         ref.close()
         assert closes == [1] and ref._tb is None
+        port = MetricsLogger("tb")
+        port.close()
+        port.close()
+        assert closes == [1, 1] and port._tb is None
         want = _logged(caplog, "sparkdl_tpu.runner",
                        lambda: ref.log(1, {"loss": 1.0}))
         got = _logged(caplog, "sparkdl_tpu_torch.runner",
-                      lambda: MetricsLogger().log(1, {"loss": 1.0}))
+                      lambda: port.log(1, {"loss": 1.0}))
         assert got == want
 
     def test_log_summary_flattens_nested_blocks(self, caplog):
@@ -793,6 +797,119 @@ class TestMetricsLoggerSatellite:
         assert "step_time_p50_s" in got[0]
         assert "fault_tolerance_checkpoint_rollbacks" in got[0]
         assert "mfu" not in got[0]
+
+
+# tensorboard reads its files without TensorFlow where this module
+# imports (its no-TensorFlow build's switch): TensorFlow, where installed,
+# would take seconds to import and stay in the test process
+_NO_TF = {"tensorboard.compat.notf": types.ModuleType(
+    "tensorboard.compat.notf")}
+
+
+def _tb_scalars(log_dir) -> dict:
+    """``{tag: [(step, value), ...]}`` of every event file under
+    ``log_dir``, read with tensorboard's own reader."""
+    from pathlib import Path
+    from unittest import mock
+
+    with mock.patch.dict(sys.modules, _NO_TF):
+        from tensorboard.backend.event_processing.event_file_loader \
+            import EventFileLoader
+        from tensorboard.util import tensor_util
+
+        out: dict = {}
+        for f in sorted(Path(log_dir).glob("events.out.tfevents.*")):
+            for ev in EventFileLoader(str(f)).Load():
+                for v in ev.summary.value:
+                    out.setdefault(v.tag, []).append(
+                        (ev.step, tensor_util.make_ndarray(v.tensor).item()))
+    return out
+
+
+_F32 = lambda v: float(np.float32(v))  # noqa: E731 — TensorBoard's scalars
+
+
+class TestMetricsLoggerTensorBoard:
+    """``MetricsLogger(log_dir)`` writes TensorBoard event files, through
+    tensorboardX, else ``torch.utils.tensorboard``, read back here with
+    tensorboard's reader; without either it warns once and logs text."""
+
+    def test_scalars_read_back(self, tmp_path, caplog):
+        d = tmp_path / "tb"
+        m = MetricsLogger(str(d))
+        got = _logged(caplog, "sparkdl_tpu_torch.runner", lambda: (
+            m.log(1, {"loss": 0.5, "acc": np.float32(0.25),
+                      "t": torch.tensor(2.5), "note": "warmup",
+                      "arr": np.ones(3)}),
+            m.log(2, {"loss": 0.125}),
+            m.log_summary(3, {"step_time": {"p50_s": 0.1}, "mfu": None})))
+        m.close()
+        assert len(got) == 3 and "warmup" in got[0]
+        assert _tb_scalars(d) == {
+            "loss": [(1, 0.5), (2, 0.125)], "acc": [(1, 0.25)],
+            "t": [(1, 2.5)], "step_time_p50_s": [(3, _F32(0.1))]}
+
+    def test_torch_writer_when_tensorboardx_is_absent(self, tmp_path):
+        """With tensorboardX blocked the same files come from
+        ``torch.utils.tensorboard`` (in a subprocess, so the block holds
+        from its first import)."""
+        d = tmp_path / "tb"
+        code = (
+            "import sys, types; sys.modules['tensorboardX'] = None\n"
+            "sys.modules['tensorboard.compat.notf'] = "
+            "types.ModuleType('notf')\n"
+            "from sparkdl_tpu_torch.runner.metrics import MetricsLogger\n"
+            f"m = MetricsLogger({str(d)!r})\n"
+            "assert type(m._tb).__module__.startswith('torch.utils')\n"
+            "m.log(1, {'loss': 0.5}); m.log(2, {'loss': 0.125})\n"
+            "m.close()\n")
+        import subprocess
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+             os.environ.get("PYTHONPATH", "")]))
+        subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                       capture_output=True, timeout=120)
+        assert _tb_scalars(d) == {"loss": [(1, 0.5), (2, 0.125)]}
+
+    def test_no_writer_warns_once_and_logs_text(self, tmp_path,
+                                                monkeypatch, caplog):
+        monkeypatch.setitem(sys.modules, "tensorboardX", None)
+        monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+        monkeypatch.setattr(metrics_lib, "_TB_WARNED", [])
+        with caplog.at_level("WARNING", logger="sparkdl_tpu_torch.runner"):
+            loggers = [MetricsLogger(str(tmp_path / f"tb{i}"))
+                       for i in range(2)]
+        warned = [r for r in caplog.records if "tensorboard" in
+                  r.getMessage().lower()]
+        assert len(warned) == 1
+        assert all(m._tb is None for m in loggers)
+        got = _logged(caplog, "sparkdl_tpu_torch.runner",
+                      lambda: loggers[0].log(1, {"loss": 0.5}))
+        assert "loss" in got[0]
+        assert not list(tmp_path.glob("tb*/events.*"))
+
+    def test_fit_writes_its_losses(self, tmp_path):
+        """``XlaRunner(log_dir=)``: ``fit`` writes each logged step's
+        metrics and the summary to TensorBoard."""
+        d = tmp_path / "tb"
+        res = XlaRunner(device="cpu", log_dir=str(d)).run(
+            lambda ctx: _fit(ctx, num_steps=3, log_every=1))
+        got = _tb_scalars(d)
+        assert got["loss"] == [(h["step"], _F32(h["loss"]))
+                               for h in res["history"]]
+        assert [s for s, _ in got["loss"]] == [1, 2, 3]
+        assert "examples_per_sec" in got or "steps" in got
+
+    def test_trace_defaults_to_the_log_dir(self, fake_profiler, tmp_path):
+        """``ctx.trace()`` with no directory traces into the runner's
+        ``log_dir``, as the reference's."""
+        d = str(tmp_path / "tb")
+        rec = events.reset()
+        with XlaRunner(device="cpu", log_dir=d).make_context().trace():
+            pass
+        ev = [e for e in rec.tail() if e["name"] == "profile_trace"]
+        assert ev[0]["trace_dir"] == d
+        assert JaxRunner(np=1, log_dir=d).make_context().log_dir == d
 
 
 # --- TestTraceSatellite ------------------------------------------------------

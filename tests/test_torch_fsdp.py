@@ -263,6 +263,19 @@ class TestFSDP:
         _assert_tree_close(got, jax_step, **STEP)
 
 
+def test_runner_axes_name_the_context_mesh(gang):
+    """``XlaRunner(axes={"data": 2, "model": 2})`` names its context's
+    mesh (the first axis the data axis, as the reference's
+    ``make_context``): the context's step runs the FSDP×TP path over it
+    and is bitwise the explicit ``make_train_step(mesh=)`` step on the
+    same mesh, on every rank."""
+    for o in gang["outs"]:
+        assert o["axes_mesh"] == [{"data": 2, "model": 2}, "data"]
+        assert torch.equal(o["axes_loss"], o["full"]["loss"])
+        for k, v in o["full"]["params"].items():
+            assert torch.equal(o["axes_params"][k], v), k
+
+
 def test_train_step_batch_spec_rank_truncation(gang):
     """One batch_spec ``P("data", "sp")`` truncated to each leaf's rank: the
     ``[B]`` weight leaf splits as ``P("data")``, the ``sp`` dim stays

@@ -12,6 +12,12 @@ Llama's flax variables are the reference tests' (``_tiny_model``,
 this process: its ``GenerationEngine.from_model(tp=2)`` on the
 conftest's 8 virtual CPU devices and its static ``generate()``.
 
+The started engine's front (``serving.group``) runs in the same gang:
+rank 0 alone is asked, from client threads, and every rank's streams
+are held to each other, to the reference's ``from_model(tp=2)`` engine
+started the same way (``start()``, three client threads, ``stop(drain=
+True)``) and to its static ``generate()``.
+
 Tolerances: none for streams — greedy tokens are compared for equality,
 port against the reference and every rank against every other. The
 head-sharded dispatch against the unsharded call: bitwise. Its paged
@@ -25,6 +31,7 @@ reference's does.
 """
 
 import json
+import threading
 from pathlib import Path
 
 import jax
@@ -42,6 +49,7 @@ from sparkdl_tpu_torch.runner import launcher
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).with_name("torch_tp_worker.py")
 F32 = dict(rtol=2e-4, atol=2e-5)
+FRONT_NEW = 16
 
 
 def _tiny_model():
@@ -157,6 +165,9 @@ def gang(tmp_path_factory):
     rng = np.random.RandomState(23)
     iprompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                 for n in (4, 9, 13)]
+    rng = np.random.RandomState(41)
+    fprompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+                for n in (5, 11, 8, 14, 3, 9)]
     cases = {
         "lean": dict(pa=pa, pb=pb, new=10,
                      refs=_static_refs(model, variables, [pa, pb], 10)),
@@ -169,7 +180,10 @@ def gang(tmp_path_factory):
                              num_heads=4, num_kv_heads=2,
                              intermediate_size=251, rope_theta=10000.0),
                     refs=_static_refs(omodel, ovars, oprompts, 6)),
-        "pool": _pool_case(), "dense": _dense_case()}
+        "pool": _pool_case(), "dense": _dense_case(),
+        "front": dict(prompts=fprompts, new=FRONT_NEW, long=40,
+                      refs=_static_refs(model, variables, fprompts,
+                                        FRONT_NEW))}
     torch.save(cases, d / "cases.pt")
     outs = _launch(d, "tp2", 2)
     return {"outs": outs, "cases": cases, "model": model,
@@ -527,8 +541,111 @@ class TestTpEngineOnCpu:
             assert o["clock_idle_local"] == ["length", 2], o
         assert _same(gang, "clock_idle_tp2") == ["length", 2]
 
-    def test_start_raises_under_tp_naming_the_roadmap(self, gang):
-        assert "A 8 (d)" in _same(gang, "start_tp2")
+    @staticmethod
+    def _finished(gang, key, refs, prompts):
+        """Every rank's ``[finish_reason, tokens]`` by prompt, alike; the
+        ones that finished are the reference's streams."""
+        got = _same(gang, key)
+        for (reason, toks), p in zip(got, prompts):
+            if reason in ("length", "eos"):
+                assert toks == refs[prompts.index(p)], (key, p)
+        return got
+
+    def test_front_serves_client_threads_of_rank0(self, gang):
+        """``start()`` on both ranks, three client threads on rank 0:
+        rank 1 submits nothing (its ``submit()`` raises naming the front)
+        yet streams what rank 0 was asked, under rank 0's ids; both equal
+        the reference's tp = 2 engine started the same way and its static
+        generate(), token for token. Every collective came from the
+        ranks' loops, none from a client thread; both ranks counted the
+        same messages."""
+        c = gang["cases"]["front"]
+        prompts, refs = c["prompts"], c["refs"]
+        jeng = JEngine.from_model(
+            gang["model"], gang["variables"], num_slots=2, max_len=64,
+            prefill_chunk=8, block_size=8, tp=2)
+        jeng.start()
+        hs = [None] * len(prompts)
+
+        def client(k):
+            for i in range(k, len(prompts), 3):
+                hs[i] = jeng.submit(prompts[i], max_new_tokens=FRONT_NEW)
+                hs[i].result(120)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        jeng.stop(drain=True)
+        assert [h.result(1) for h in hs] == refs
+        got = _same(gang, "front_streams")
+        assert got == [["length", r] for r in refs]
+        ids = _same(gang, "front_ids")
+        assert len(set(ids)) == len(prompts)
+        assert [o["front_seen"] for o in gang["outs"]] == [ids, ids]
+        assert "rank 0 is the group's front" in \
+            gang["outs"][1]["front_follower_submit"]
+        assert [o["front_threads"] for o in gang["outs"]] == [
+            ["sparkdl-serve-front"], ["sparkdl-serve-follower"]]
+        messages, idle, completed = _same(gang, "front_stats")
+        assert messages > idle >= 0 and completed == len(prompts)
+
+    def test_front_cancel_and_deadline_agree(self, gang):
+        """A cancel from a client thread of rank 0 and a 20 ms deadline:
+        both ranks end both requests alike (same reason, same tokens),
+        report the same cancelled count and, once idle, the same free
+        blocks and no busy slot; the third request is the reference's."""
+        c = gang["cases"]["front"]
+        got = self._finished(gang, "cancel_streams", c["refs"],
+                             c["prompts"][:3])
+        assert [g[0] for g in got] == ["cancelled", "deadline", "length"]
+        assert len(got[0][1]) >= 2
+        cancelled, completed, free, busy, queued = _same(gang,
+                                                         "cancel_state")
+        assert (cancelled, completed, busy, queued) == (2, 1, 0, 0)
+        assert free > 0
+
+    def test_front_drain_then_resume(self, gang):
+        """``drain()`` on rank 0 mid-stream returns the same snapshots on
+        both ranks (ids, tokens, cursors); resumed on the restarted
+        engine, every stream equals the uninterrupted one."""
+        c = gang["cases"]["front"]
+        snaps = _same(gang, "drain_snaps")
+        assert snaps and all(s[1] == "queued" for s in snaps)
+        assert any(0 < len(s[2]) < FRONT_NEW for s in snaps)
+        got = self._finished(gang, "drain_streams", c["refs"],
+                             c["prompts"][:3])
+        assert got == [["length", r] for r in c["refs"][:3]]
+
+    def test_front_planned_failover_on_both_ranks(self, gang):
+        """A planned ``cache_lost`` at the first decode step fires on both
+        ranks (the chaos site counts the same backend calls): both fail
+        over once, neither fails closed, and the streams are the
+        reference's."""
+        c = gang["cases"]["front"]
+        failovers, resumed, completed, alive = _same(gang, "failover_stats")
+        assert (failovers, completed, alive) == (1, 4, True)
+        assert resumed >= 1
+        assert _same(gang, "failover_streams") == [
+            ["length", r] for r in c["refs"][:4]]
+
+    def test_front_is_a_fleet_replica(self, gang):
+        """An ``EngineFleet`` on rank 0 over [the fronted tp engine, a
+        one-device engine]: the tp replica drained mid-stream returns
+        the same snapshots on both ranks, its requests re-admit on the
+        other replica, and every stream is the reference's greedy
+        stream."""
+        c = gang["cases"]["front"]
+        o = gang["outs"][0]
+        drained = _same(gang, "fleet_drained")
+        assert drained
+        assert o["fleet_streams"] == c["refs"][:4]
+        drains, readmits, completed = o["fleet_stats"]
+        assert drains == 1 and completed == 4
+        assert readmits == len(drained)
+        assert o["fleet_replicas"].count("one") == 4
 
     @pytest.mark.slow
     def test_tp_full_matrix(self, tmp_path):

@@ -16,7 +16,8 @@ Usage: ``torch_sharded_worker.py <mode> <in_dir> <out_dir>``, ``mode``
   shapes, the gathered parameters after one sgd step, the param_rules
   refusal), the same for the LoRA model against one process's step, the
   batch_spec truncation on ``{"data": 2, "sp": 2}`` (accum 1 and 2), the
-  context's ``make_train_step(mesh=)``, and the checkpoint resharding
+  context's ``make_train_step(mesh=)`` (on the runner's default mesh and
+  on ``XlaRunner(axes=)``'s), and the checkpoint resharding
   cases (world 4 → 2 → 1 and 2 → 4 on ``data`` sub-meshes, a tp 4 → 2
   serving layout, the refusal without ``SPARKDL_ELASTIC``, the same
   topology, a placed Llama's state through save and restore);
@@ -235,6 +236,20 @@ def fsdp_mode(in_dir: str, out_dir: str, runner) -> dict:
     out["ctx_loss"] = m["loss"]
     out["ctx_params"] = fsdp.full_state_dict(local)
     out["ctx_mesh"] = fsdp.placement(local).mesh_shape()
+    # XlaRunner(axes=) names the context's mesh: the FSDP×TP step over
+    # {"data": 2, "model": 2} through the context alone
+    from sparkdl_tpu_torch.runner import XlaRunner
+    actx = XlaRunner(axes={"data": 2, "model": 2},
+                     device="cpu").make_context()
+    local = L.shard_model(L.load_flax_params(
+        L.LlamaModel(L.LlamaConfig.tiny(), device="cpu"), flax), actx.mesh)
+    st = TrainState.create(local, sgd(1e-2))
+    _, m = actx.make_train_step(L.causal_lm_loss_fn(), param_rules=L.
+                                training_rules(actx.mesh))(
+        st, {"input_ids": ids})
+    out["axes_loss"] = m["loss"]
+    out["axes_params"] = fsdp.full_state_dict(local)
+    out["axes_mesh"] = [fsdp.placement(local).mesh_shape(), actx.data_axis]
 
     # batch_spec: one spec truncated to each leaf's rank
     smesh = make_mesh({"data": 2, "sp": 2})

@@ -19,13 +19,17 @@ Usage: ``torch_tp_worker.py <mode> <in_dir> <out_dir>``, ``mode``:
   and scales), the per-device ``kv_pool_mb`` budget, odd MLP and
   vocabulary widths left whole, the decode
   resolvers' mesh gating, ``head_sharded_kernel`` over ``DTensor``
-  inputs, the rank-0 clock, ``start()``'s refusal;
+  inputs, the rank-0 clock; the started engine's front
+  (``serving.group``): threaded clients on rank 0 alone, a cancel and a
+  deadline, drain and resume, a planned failover, an ``EngineFleet``
+  replica drained mid-stream;
 - ``matrix`` (4 ranks): ``tp_mesh``'s groups, tp 1/2/4 × paged +
   speculation / unpaged on the ``num_kv_heads=4`` model.
 """
 
 import os
 import sys
+import threading
 import time as _time
 
 import torch
@@ -76,7 +80,6 @@ def from_model_cases(out, L, flax, GenerationEngine):
     for tp in (4, 1):
         out[f"disagree_tp{tp}"] = refusal(lambda: GenerationEngine.from_model(
             model, num_slots=2, max_len=32, tp=tp, mesh=mesh, device="cpu"))
-    out["start_tp2"] = refusal(eng.start, NotImplementedError)
 
 
 def lean_case(out, L, flax, cases, GenerationEngine):
@@ -347,6 +350,203 @@ def clock_case(out, L, flax, rank, GenerationEngine):
         E.time = real
 
 
+def _front_engine(L, flax, GenerationEngine, **kw):
+    model = model_of(L, flax, L.LlamaConfig.tiny())
+    return GenerationEngine.from_model(
+        model, num_slots=2, max_len=64, prefill_chunk=8, block_size=8,
+        tp=2, device="cpu", **kw)
+
+
+def _clients(submit, prompts, new, n=3) -> list:
+    """``n`` closed-loop client threads over ``prompts`` (client k takes
+    every n-th); the handles in prompt order."""
+    hs = [None] * len(prompts)
+
+    def client(k):
+        for i in range(k, len(prompts), n):
+            hs[i] = submit(prompts[i], new)
+            hs[i].result(60)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return hs
+
+
+def _by_prompt(handles, prompts) -> list:
+    """``[finish_reason, tokens]`` of each prompt's request, the handles
+    named by rank 0's ids on every rank."""
+    got = {tuple(h.prompt): h for h in handles}
+    return [[got[tuple(p)].finish_reason, list(got[tuple(p)].tokens)]
+            for p in prompts]
+
+
+def _until(pred, timeout=30.0):
+    t0 = _time.time()
+    while not pred():
+        assert _time.time() - t0 < timeout, "timed out"
+        _time.sleep(0.001)
+
+
+def _threads_of_collectives(out, key, fn):
+    """Run ``fn`` recording the threads that issue a collective."""
+    import torch.distributed as dist
+    names = set()
+    saved = {n: getattr(dist, n) for n in (
+        "broadcast", "all_reduce", "all_gather", "all_gather_into_tensor")}
+
+    def wrap(f):
+        def call(*a, **k):
+            names.add(threading.current_thread().name)
+            return f(*a, **k)
+        return call
+    for n, f in saved.items():
+        setattr(dist, n, wrap(f))
+    try:
+        return fn()
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+        out[key] = sorted(names)
+
+
+def front_cases(out, L, flax, cases, rank, GenerationEngine):
+    """The started engine's front: only rank 0 is asked, every rank
+    streams what it was asked."""
+    from sparkdl_tpu_torch.runner import chaos
+    from sparkdl_tpu_torch.serving import EngineFleet
+
+    c = cases["front"]
+    prompts, new = c["prompts"], c["new"]
+    lead = rank == 0
+
+    # (a) three client threads on rank 0; rank 1 submits nothing
+    eng = _front_engine(L, flax, GenerationEngine)
+    seen = []
+
+    def serve_a():
+        eng.start(on_request=seen.append)
+        if lead:
+            hs = _clients(lambda p, n: eng.submit(p, max_new_tokens=n),
+                          prompts, new)
+            eng.stop(drain=True)
+            return hs
+        out["front_follower_submit"] = refusal(
+            lambda: eng.submit(prompts[0], max_new_tokens=2))
+        eng.stop()
+        return seen
+    hs = _threads_of_collectives(out, "front_threads", serve_a)
+    out["front_streams"] = _by_prompt(hs, prompts)
+    out["front_ids"] = sorted(h.id for h in hs)
+    out["front_seen"] = sorted(h.id for h in seen)
+    st = eng.snapshot()
+    out["front_stats"] = [st["front"]["messages"],
+                          st["front"]["idle_messages"], st["completed"]]
+
+    # (b) a cancel and an expired deadline beside a request that completes
+    eng = _front_engine(L, flax, GenerationEngine)
+    seen = []
+    eng.start(on_request=seen.append)
+    if lead:
+        long_, short = prompts[0], prompts[1]
+        hc = eng.submit(long_, max_new_tokens=c["long"])
+        hd = eng.submit(short, max_new_tokens=c["long"], deadline_s=0.02)
+        hk = eng.submit(prompts[2], max_new_tokens=new)
+        _until(lambda: len(hc.tokens) >= 2)
+        threading.Thread(target=hc.cancel).start()
+        hk.wait(60)
+        eng.stop(drain=True)
+        seen = [hc, hd, hk]
+    else:
+        eng.stop()
+    out["cancel_streams"] = _by_prompt(seen, prompts[:3])
+    out["cancel_state"] = [
+        eng.stats["cancelled"], eng.stats["completed"],
+        eng.backend.allocator.stats()["blocks_free"],
+        sum(r is not None for r in eng._slots), len(eng._queue)]
+
+    # (c) drain mid-stream, then resume on the same engine
+    eng = _front_engine(L, flax, GenerationEngine)
+    seen = []
+    eng.start(on_request=seen.append)
+    if lead:
+        hs = [eng.submit(p, max_new_tokens=new) for p in prompts[:3]]
+        _until(lambda: sum(len(h.tokens) for h in hs) >= 3)
+        snaps = eng.drain()
+    else:
+        snaps = eng.drain()
+    out["drain_snaps"] = [[s.id, s.state, list(s.tokens), s.delivered]
+                          for s in snaps]
+    eng.start(on_request=seen.append)
+    if lead:
+        for s in snaps:
+            eng.resume(s)
+        for h in hs:
+            h.wait(60)
+        eng.stop(drain=True)
+    else:
+        eng.stop()
+    out["drain_streams"] = _by_prompt(seen, prompts[:3])
+
+    # (d) a planned serving fault: the first decode step raises a lost
+    # slot cache on every rank
+    eng = _front_engine(L, flax, GenerationEngine)
+    seen = []
+    chaos.install(chaos.FaultPlan([chaos.Fault("serve_decode",
+                                               "cache_lost", prob=1.0)]))
+    try:
+        eng.start(on_request=seen.append)
+        if lead:
+            seen = _clients(lambda p, n: eng.submit(p, max_new_tokens=n),
+                            prompts[:4], new)
+            eng.stop(drain=True)
+        else:
+            eng.stop()
+    finally:
+        chaos.uninstall()
+    out["failover_streams"] = _by_prompt(seen, prompts[:4])
+    out["failover_stats"] = [eng.stats["failovers"],
+                             eng.stats["failover_resumed"],
+                             eng.stats["completed"], eng._fatal is None]
+
+    # (e) rank 0's fleet over [the fronted tp engine, a one-device engine]:
+    # the tp replica drained mid-stream, its requests re-admitted
+    eng = _front_engine(L, flax, GenerationEngine)
+    drained = []
+    if lead:
+        one = GenerationEngine.from_model(
+            model_of(L, flax, L.LlamaConfig.tiny()), num_slots=2,
+            max_len=64, prefill_chunk=8, block_size=8, device="cpu")
+        drain = eng.drain
+
+        def record(timeout=None):
+            snaps = drain(timeout)
+            drained.extend([s.id, list(s.tokens)] for s in snaps)
+            return snaps
+        eng.drain = record
+        fleet = EngineFleet([eng, one], names=["tp", "one"],
+                            routing="round_robin")
+        fleet.start()
+        frs = [fleet.submit(p, max_new_tokens=new) for p in prompts[:4]]
+        _until(lambda: any(len(f.tokens) >= 2 and f.replica == "tp"
+                           for f in frs))
+        fleet.doom_replica("tp")
+        for f in frs:
+            f.wait(60)
+        fleet.stop()
+        out["fleet_streams"] = [list(f.tokens) for f in frs]
+        out["fleet_replicas"] = [f.replica for f in frs]
+        out["fleet_stats"] = [fleet.stats["drains"],
+                              fleet.stats["readmissions"],
+                              fleet.stats["completed"]]
+    else:
+        eng.start()
+        drained = [[s.id, list(s.tokens)] for s in eng.drain()]
+    out["fleet_drained"] = drained
+
+
 def tp2_mode(in_dir: str, rank: int) -> dict:
     from sparkdl_tpu_torch import GenerationEngine
     from sparkdl_tpu_torch.models import llama as L
@@ -366,6 +566,7 @@ def tp2_mode(in_dir: str, rank: int) -> dict:
     gating_case(out)
     head_sharded_case(out, cases)
     clock_case(out, L, flax, rank, GenerationEngine)
+    front_cases(out, L, flax, cases, rank, GenerationEngine)
     return out
 
 
