@@ -42,7 +42,10 @@ b. kernels — each kernel against its plain PyTorch version on the same
    record's variant against ``fa.attention_bwd_plain``, and a second call
    bitwise equal to the first; each record gives TFLOP/s on the bound's
    five products and on the seven the two stages issue; the yardstick is
-   the backward alone of SDPA under autograd on the same inputs.
+   the backward alone of SDPA under autograd on the same inputs, with the
+   backend SDPA picked for them (``library_backend``), the torch, CUDA
+   and cuDNN versions, and the backward with the forward pinned to each
+   backend in turn (``library_pinned_ms``; a refused backend's reason).
    At phase h's shapes (B=32, H=12, D=64, not causal, right pads from its
    length draw with one row of 128 and one of 1): flash_attention and
    flash_attention_bwd at S=128 and at a ragged S=77, bf16; every masked
@@ -641,6 +644,32 @@ v. Sharded training (FSDP×TP, MoE, GPipe, the sharded feed), on a
      of 64 at 224: outputs bitwise; rows/s of each.
    A ``summary`` line gives the phase's seconds (and each leg's) against
    PHASE_V_BUDGET_S.
+w. A fleet of tensor-parallel groups in other processes
+   (``serving.remote``), after this process's models are freed: three
+   one-rank groups, each ``launcher.launch(np=1)`` of ``chip_smoke.py
+   --fleet-group-worker <dir> <name>`` (its own one-rank NCCL gang on
+   ``cuda:0``; the three processes share the card, time-sliced), each
+   building phase u's model (``LlamaConfig.llama3_8b()`` at full width,
+   depth TP_LAYERS, bf16, seed 21) and ``GenerationEngine.from_model(
+   model, mesh=tp_mesh(1))`` — groups a and b paged (block 16, the radix
+   cache, ``paged_flash_decode``), c unpaged (``flash_decode``) — started
+   behind a ``FrontServer``; each group checks after every iteration that
+   its decode launches = dispatch calls = TP_LAYERS × steps with no
+   flash-forward launch, and writes its counts. This process puts
+   ``EngineFleet`` (radix) over the three ``RemoteEngine`` proxies,
+   ``fleet.start()``, and runs three legs of TP_CLIENTS closed-loop client
+   threads over phase u's TP_SLOTS prompts (TP_NEW new tokens): clean;
+   ``doom_replica("a")`` mid-stream (drain, re-admission on b or c); a
+   SIGKILL of b's process mid-stream (b DEAD through its lost channel,
+   its requests re-admitted from shadow on c; b's ``GangFailure`` is the
+   expected outcome, asserted). Every stream delivered exactly once and
+   held to a clean engine's of its first replica's family (group c runs
+   both clean engines once the fleet stops) by phase o's rule
+   (``fleet_vs_clean``). Recorded: new tokens/s and TTFT p50/p95 a leg,
+   the channel's submit round trip and token-batch lag (p50/p95, one
+   host's clock on both ends), kill → DEAD seconds, each group's peak
+   memory. A ``summary`` line gives the phase's seconds against
+   PHASE_W_BUDGET_S.
 
 Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
 flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
@@ -656,7 +685,8 @@ flash_attention_bwd add phase t's, ``phase_t_launches``; flash_decode
 and paged_flash_decode add phase u's arms and its ``tp_front`` legs
 (``<family>_front``), ``phase_u_launches``;
 flash_attention and flash_attention_bwd add phase v's,
-``phase_v_launches``) and,
+``phase_v_launches``; flash_decode and paged_flash_decode add phase w's
+groups, ``phase_w_launches``) and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it prints no result and exits 2. Imports
 nothing of JAX, and no pyarrow or pandas.
@@ -1120,6 +1150,8 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype,
         fa.flash_attention_bwd(q, k, v, o_, lse_, do, causal, mask)
 
     out = sdpa()
+    library = sdpa_bwd_backends(torch, sdpa, leaves, do, sdpa_mask,
+                                causal and mask is None, flush)
     tol, rtol = (fa.TC_BWD_RULE if variant == "tc_mma_bf16"
                  else fa.BWD_RULE[dt])
     rec = dict(phase="kernels", kernel="flash_attention_bwd", case=name,
@@ -1137,6 +1169,7 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype,
                library_ms=time_ms(torch, lambda: torch.autograd.grad(
                    out, leaves, do, retain_graph=True), flush=flush),
                library="F.scaled_dot_product_attention backward",
+               **library,
                fwd_bwd_ms=time_ms(torch, kernel_fwd_bwd, flush=flush),
                library_fwd_bwd_ms=time_ms(torch, sdpa_fwd_bwd, flush=flush),
                bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
@@ -1146,6 +1179,40 @@ def bwd_case(torch, fa, flush, *, name, b, h, s, d, causal, pads, dtype,
     rec["bound_share"] = bms / rec["ms"]
     emit(rec)
     return rec
+
+
+def sdpa_bwd_backends(torch, sdpa, leaves, do, attn_mask, is_causal: bool,
+                      flush) -> dict:
+    """Which backend ``F.scaled_dot_product_attention`` picks for these
+    inputs (``torch._fused_sdp_choice``, the dispatcher's own choice), the
+    torch, CUDA and cuDNN versions, and the backward's ms with the
+    forward pinned to each backend in turn (``sdpa_kernel``; the
+    backward runs the backend its forward ran): a number, or why the
+    backend refused these inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = {int(v.value): k for k, v in SDPBackend.__members__.items()}
+    try:
+        picked = names.get(int(torch._fused_sdp_choice(
+            *leaves, attn_mask=attn_mask, dropout_p=0.0,
+            is_causal=is_causal)), "?")
+    except (AttributeError, RuntimeError, TypeError) as e:
+        picked = f"unread ({type(e).__name__}: {e})"[:200]
+    pinned = {}
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(be):
+                out = sdpa()
+            pinned[be.name] = time_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), flush=flush)
+            del out
+        except RuntimeError as e:
+            pinned[be.name] = "not admissible: " + \
+                str(e).strip().splitlines()[0][:200]
+    return dict(library_backend=picked, library_pinned_ms=pinned,
+                torch=torch.__version__, cuda=torch.version.cuda,
+                cudnn=torch.backends.cudnn.version())
 
 
 def tile_pairs(torch, live_cols, causal: bool, variant: str) -> dict:
@@ -4624,7 +4691,8 @@ def fleet_threaded(torch, model, prompts, kernels, nl: int,
         parts = (t["queue_s"] + t["prefill_s"] + t["prefill_wait_s"]
                  + t["decode_s"] + t["unattributed_s"])
         assert abs(parts - t["latency_s"]) <= 1e-4, t
-        assert abs(t["unattributed_s"]) <= 0.05 * t["latency_s"], t
+        assert abs(t["unattributed_s"]) <= 0.05 * t["latency_s"], (
+            t, transitions, rec["fleet_stats"])
         worst = max(worst, abs(t["unattributed_s"]) / t["latency_s"])
     ttft_slo = snap["slo"]["objectives"]["ttft"]
     assert ttft_slo["compliance"] is not None, snap["slo"]
@@ -6956,29 +7024,42 @@ def tp_collectives(torch, mesh) -> dict:
     return rec
 
 
+def tp_model(torch, fa):
+    """Phase u's model: llama3_8b widths, TP_LAYERS layers, bf16, seed
+    21, the flash kernels as its attention."""
+    import dataclasses
+
+    from sparkdl_tpu_torch.models import llama as L
+
+    cfg = dataclasses.replace(L.LlamaConfig.llama3_8b(),
+                              num_layers=TP_LAYERS)
+    return L.LlamaModel(cfg, dtype=torch.bfloat16,
+                        attn_fn=fa.flash_attention, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(21))
+
+
+def tp_prompts(torch, cfg) -> list:
+    """Phase u's TP_SLOTS seeded prompts of TP_PROMPT_LENS tokens."""
+    g = torch.Generator().manual_seed(21)
+    lens = torch.randint(TP_PROMPT_LENS[0], TP_PROMPT_LENS[1] + 1,
+                         (TP_SLOTS,), generator=g).tolist()
+    return [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in lens]
+
+
 def tp_serve(torch, kernels, mesh) -> dict:
     """``tp_serve`` (module docstring): per backend family the base arm,
     then the tensor-parallel arm at tp = 1 on ``mesh``, on one model."""
-    import dataclasses
     import gc
 
     from sparkdl_tpu_torch import GenerationEngine
-    from sparkdl_tpu_torch.models import llama as L
     from sparkdl_tpu_torch.parallel import dispatch_counter
     from sparkdl_tpu_torch.serving import backend as B
 
     fa = kernels[0]
-    cfg = dataclasses.replace(L.LlamaConfig.llama3_8b(),
-                              num_layers=TP_LAYERS)
-    model = L.LlamaModel(cfg, dtype=torch.bfloat16,
-                         attn_fn=fa.flash_attention, device="cuda",
-                         generator=torch.Generator(device="cuda")
-                         .manual_seed(21))
-    g = torch.Generator().manual_seed(21)
-    lens = torch.randint(TP_PROMPT_LENS[0], TP_PROMPT_LENS[1] + 1,
-                         (TP_SLOTS,), generator=g).tolist()
-    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
-               for n in lens]
+    model = tp_model(torch, fa)
+    prompts = tp_prompts(torch, model.cfg)
     max_len = TP_PROMPT_LENS[1] + TP_NEW
     counters = {n: dispatch_counter(n)
                 for n in ("flash_decode", "paged_flash_decode")}
@@ -7606,6 +7687,361 @@ def phase_sharded(torch, kernels) -> dict:
     return recs
 
 
+# --- phase w: a fleet of tensor-parallel groups in other processes -------
+
+W_GROUPS = {"a": "paged", "b": "paged", "c": "unpaged"}
+W_REF_GROUP = "c"              # survives both faults: runs the clean engines
+W_CHANNEL_TIMEOUT_S = 30.0     # a RemoteEngine's read and round-trip limit
+W_WAIT_S = 300.0               # the longest any wait of phase w may take
+W_WRITE_S = 0.25               # how often a group writes its counts
+PHASE_W_BUDGET_S = 90.0
+
+
+def w_engine(torch, model, family: str):
+    """A group's engine: phase u's arm of ``family`` built through
+    ``from_model`` on the one-rank ``tp_mesh(1)``."""
+    from sparkdl_tpu_torch import GenerationEngine
+    from sparkdl_tpu_torch.serving.backend import tp_mesh
+
+    kw = dict(block_size=16) if family == "paged" else {}
+    return GenerationEngine.from_model(
+        model, mesh=tp_mesh(1), num_slots=TP_SLOTS,
+        max_len=TP_PROMPT_LENS[1] + TP_NEW, prefill_chunk=TP_CHUNK,
+        device="cuda", **kw)
+
+
+def fleet_group_worker(d: str, name: str) -> int:
+    """Phase w's group (``chip_smoke.py --fleet-group-worker <dir>
+    <name>``, a one-rank gang of ``launcher.launch``): joins its NCCL gang,
+    builds phase u's model and its family's engine on ``tp_mesh(1)``,
+    warms it (one short request inline: the decode graph's capture), then
+    serves the fleet behind a ``FrontServer`` (its address and pid in
+    ``<dir>/<name>.addr``). After every engine iteration it checks that
+    the family's kernel launches = dispatch calls = TP_LAYERS × steps and
+    that nothing else launched, and writes its counts to
+    ``<dir>/<name>.json`` every W_WRITE_S and at the end. Group
+    W_REF_GROUP then serves both families' clean engines the prompts
+    inline and writes their streams and phase o's gaps to
+    ``<dir>/clean.json``."""
+    import os
+    import threading
+
+    import torch
+
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.ops import flash_decode as fd
+    from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
+    from sparkdl_tpu_torch.parallel import dispatch_counter
+    from sparkdl_tpu_torch.runner import XlaRunner
+    from sparkdl_tpu_torch.runner.events import atomic_write_json
+    from sparkdl_tpu_torch.runner.xla_runner import leave_gang
+    from sparkdl_tpu_torch.serving.remote import FrontServer
+
+    spec = json.loads((Path(d) / "spec.json").read_text())
+    family = W_GROUPS[name]
+    kernel = "paged_flash_decode" if family == "paged" else "flash_decode"
+    kernels = (fa, fd, pfd)
+    runner = XlaRunner(device="cuda")
+    assert runner.gang.backend == "nccl", runner.gang
+    model = tp_model(torch, fa)
+    prompts = spec["prompts"]
+    eng = w_engine(torch, model, family)
+    warm = eng.submit(prompts[0][:64], max_new_tokens=4)
+    eng.run_until_idle()
+    warm.result(1)
+    counter = dispatch_counter(kernel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = eng.stats["steps"]
+    counter.launches = 0
+    reset_counts(*kernels)
+    rec = dict(group=name, family=family, kernel=kernel, pid=os.getpid(),
+               consistent=True, violation=None)
+    lock = threading.Lock()
+
+    def counts():
+        c = read_counts(*kernels)
+        return dict(c, dispatch=counter.launches,
+                    steps=eng.stats["steps"] - steps0)
+
+    def check(c) -> bool:
+        want = TP_LAYERS * c["steps"]
+        others = {k: v for k, v in c.items() if k not in (
+            kernel, "dispatch", "steps")}
+        return c[kernel] == c["dispatch"] == want and not any(
+            others.values())
+
+    inner = eng._step_inner
+    last = [0.0]
+
+    def step_inner():
+        out = inner()  # the step's host tokens are in: its launches ran
+        c = counts()
+        with lock:
+            if rec["consistent"] and not check(c):
+                rec.update(consistent=False, violation=c)
+            if time.time() - last[0] >= W_WRITE_S:
+                last[0] = time.time()
+                write(c)
+        return out
+
+    def write(c):
+        atomic_write_json(Path(d) / f"{name}.json", dict(
+            rec, counts=c, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            engine_stats=dict(eng.stats)))
+
+    eng._step_inner = step_inner
+    srv = FrontServer(eng, ("127.0.0.1", 0), bytes.fromhex(spec["authkey"]),
+                      accept_timeout_s=W_WAIT_S)
+    atomic_write_json(Path(d) / f"{name}.addr",
+                      dict(address=list(srv.address), pid=os.getpid()))
+    snaps = srv.serve()
+    torch.cuda.synchronize()
+    with lock:
+        rec["drained"] = len(snaps)
+        write(counts())
+    if name == W_REF_GROUP:
+        del eng, snaps, srv
+        free_engines(torch)
+        clean = {}
+        for fam in ("paged", "unpaged"):
+            ref = w_engine(torch, model, fam)
+            hs = [ref.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+            ref.run_until_idle()
+            streams = [h.result(1) for h in hs]
+            del ref, hs
+            free_engines(torch)
+            clean[fam] = dict(streams=streams, gaps=fleet_gaps(
+                torch, model, prompts, streams, TP_NEW))
+        atomic_write_json(Path(d) / "clean.json", clean)
+    leave_gang()
+    return 0
+
+
+def _w_launch(d: str, name: str, box: dict) -> None:
+    """One group's gang, on a thread: what ``launch`` returned or
+    raised lands in ``box``."""
+    from sparkdl_tpu_torch.runner import launcher
+
+    try:
+        box["result"] = launcher.launch(
+            str(ROOT / "chip_smoke.py"), np=1,
+            args=["--fleet-group-worker", d, name], timeout_s=W_WAIT_S,
+            capture=True)
+    except BaseException as e:  # noqa: BLE001 — read by phase w
+        box["error"] = e
+
+
+def _w_until(pred, what: str, poll_s: float = 0.001) -> float:
+    """Wait for ``pred`` (at most W_WAIT_S); returns when it held."""
+    t_end = time.time() + W_WAIT_S
+    while not pred():
+        assert time.time() < t_end, f"phase w: timed out waiting for {what}"
+        time.sleep(poll_s)
+    return time.perf_counter()
+
+
+def w_leg(fleet, prompts: list, *, leg: str, fault=None) -> dict:
+    """One leg: TP_CLIENTS closed-loop client threads over ``prompts``
+    through ``fleet``, every token recorded. ``fault(frs)`` runs on this
+    thread once the clients run, and returns the hop positions it caused
+    ({fleet request id: tokens delivered when it left its replica})."""
+    import threading
+
+    streams: dict = {}
+    frs, first = [None] * len(prompts), [None] * len(prompts)
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, len(prompts), TP_CLIENTS):
+                frs[i] = fleet.submit(
+                    prompts[i], TP_NEW, stream_cb=lambda fr, t: streams
+                    .setdefault(fr.id, []).append(t))
+                first[i] = frs[i].replica
+                frs[i].result(W_WAIT_S)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(k,))
+          for k in range(TP_CLIENTS)]
+    for t in ts:
+        t.start()
+    extra = fault(frs) if fault is not None else {}
+    for t in ts:
+        t.join(W_WAIT_S)
+    wall = time.perf_counter() - t0
+    assert not errors and not any(t.is_alive() for t in ts), (leg, errors)
+    for fr in frs:  # the exactly-once audit
+        assert streams.get(fr.id) == fr.tokens, fr
+        assert fr.delivered == len(fr.tokens) == TP_NEW, fr
+    ttft = [fr.t_first_token - fr.t_submit for fr in frs]
+    n_new = sum(len(fr.tokens) for fr in frs)
+    return dict(leg=leg, frs=frs, wall_s=wall, new_tokens=n_new,
+                new_tokens_per_s=n_new / wall,
+                ttft_p50_s=_pct(ttft, 0.5), ttft_p95_s=_pct(ttft, 0.95),
+                placed=first, ended=[fr.replica for fr in frs], **extra)
+
+
+def phase_fleet_remote(torch, kernels) -> dict:
+    """Phase w (module docstring): three one-rank groups in processes of
+    their own, this process's ``EngineFleet`` over their proxies, the
+    clean, doom and kill legs; the groups' counts and the clean streams
+    read back and held. A ``summary`` line gives the phase's seconds
+    against PHASE_W_BUDGET_S."""
+    import gc
+    import os
+    import secrets
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.runner.events import atomic_write_json
+    from sparkdl_tpu_torch.runner.launcher import GangFailure
+    from sparkdl_tpu_torch.serving import (DEAD, DEGRADED, HEALTHY,
+                                           EngineFleet)
+    from sparkdl_tpu_torch.serving.remote import RemoteEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the card is the groups' now
+    t0 = time.perf_counter()
+    main_gb = torch.cuda.memory_allocated() / 1e9
+    d = tempfile.mkdtemp(prefix="sparkdl_fleet_w_")
+    prompts = tp_prompts(torch, L.LlamaConfig.llama3_8b())
+    authkey = secrets.token_bytes(16)
+    atomic_write_json(Path(d) / "spec.json", dict(prompts=prompts,
+                                            authkey=authkey.hex()))
+    boxes = {n: {} for n in W_GROUPS}
+    threads = {n: threading.Thread(target=_w_launch, args=(d, n, boxes[n]),
+                                   daemon=True) for n in W_GROUPS}
+    for t in threads.values():
+        t.start()
+    fleet = None
+    try:
+        addrs = {}
+        for n in W_GROUPS:
+            p = Path(d) / f"{n}.addr"
+            _w_until(lambda: p.exists() or boxes[n], f"group {n}'s address",
+                     0.05)
+            assert p.exists(), (n, boxes[n])
+            addrs[n] = json.loads(p.read_text())
+        up_s = time.perf_counter() - t0
+        proxies = {n: RemoteEngine(tuple(a["address"]), authkey,
+                                   timeout_s=W_CHANNEL_TIMEOUT_S)
+                   for n, a in addrs.items()}
+        fleet = EngineFleet(list(proxies.values()), names=list(proxies),
+                            min_replicas=1)
+        fleet.start()
+        legs = [w_leg(fleet, prompts, leg="clean")]
+
+        def hop_fault(victim, act):
+            def fault(frs):
+                _w_until(lambda: any(
+                    f is not None and f.replica == victim
+                    and len(f.tokens) >= 2 for f in frs),
+                    f"tokens on group {victim}")
+                at = {f.id: f.delivered for f in frs
+                      if f is not None and f.replica == victim}
+                return dict(hop_at=at, **act())
+            return fault
+
+        def doom():
+            fleet.doom_replica("a", "chip_smoke phase w")
+            return {}
+
+        def kill():
+            t_kill, t0_kill = time.time(), time.perf_counter()
+            os.kill(addrs["b"]["pid"], signal.SIGKILL)
+            t_dead = _w_until(lambda: fleet.replica_state("b") == DEAD,
+                              "group b DEAD")
+            # the channel's end of file (proxy) and the router's verdict
+            return dict(dead_s=t_dead - t0_kill,
+                        lost_s=proxies["b"].t_lost - t_kill)
+
+        legs.append(w_leg(fleet, prompts, leg="doom",
+                          fault=hop_fault("a", doom)))
+        legs.append(w_leg(fleet, prompts, leg="kill",
+                          fault=hop_fault("b", kill)))
+        states = {n: fleet.replica_state(n) for n in W_GROUPS}
+        stats = dict(fleet.stats)
+        fleet.stop(drain=True, timeout=W_WAIT_S)
+        fleet = None
+    finally:
+        if fleet is not None:
+            fleet.stop(drain=False, timeout=60)
+        for t in threads.values():
+            t.join(W_WAIT_S)
+    try:
+        assert not any(t.is_alive() for t in threads.values()), boxes
+        # b's gang ends through the kill: its failure is the kill's
+        err = boxes["b"].get("error")
+        assert isinstance(err, GangFailure) and "rc=-9" in str(err), \
+            boxes["b"]
+        for n in ("a", "c"):
+            assert "error" not in boxes[n], (n, boxes[n].get("error"))
+        groups = {n: json.loads((Path(d) / f"{n}.json").read_text())
+                  for n in W_GROUPS}
+        clean = json.loads((Path(d) / "clean.json").read_text())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    assert states["a"] == "doomed" and states["b"] == DEAD, states
+    assert states["c"] in (HEALTHY, DEGRADED), states
+    assert stats["drains"] == 1 and stats["replica_deaths"] == 1, stats
+    for n, g in groups.items():
+        c = g["counts"]
+        assert g["consistent"], (n, g["violation"])
+        assert c[g["kernel"]] == c["dispatch"] == TP_LAYERS * c["steps"] \
+            > 0, (n, c)
+        assert c["flash_attention"] == 0, (n, c)
+    recs = []
+    for lg in legs:
+        frs = lg.pop("frs")
+        got = [list(fr.tokens) for fr in frs]
+        hop = lg.get("hop_at", {})
+        ref = [clean[W_GROUPS[p]] for p in lg["placed"]]
+        lg.update(fleet_vs_clean(
+            got, [r["streams"][i] for i, r in enumerate(ref)],
+            [r["gaps"][i] for i, r in enumerate(ref)],
+            [hop.get(fr.id) for fr in frs]))
+        lg["hop_at"] = sorted(hop.values())
+        lg["hops"] = sum(fr.hops for fr in frs)
+        if lg["leg"] != "clean":
+            assert lg["hops"] >= 1, lg
+        recs.append(lg)
+    rtt = [1e3 * x for p in proxies.values()
+           for x in p.stats["submit_rtt_s"]]
+    lag = [1e3 * x for p in proxies.values()
+           for x in p.stats["batch_lag_s"]]
+    seconds = time.perf_counter() - t0
+    rec = dict(
+        phase="fleet_remote", leg="fleet_of_groups",
+        config=f"LlamaConfig.llama3_8b(), {TP_LAYERS} layers, bf16",
+        groups={n: dict(family=g["family"], kernel=g["kernel"],
+                        counts=g["counts"], drained=g.get("drained"),
+                        peak_gb=g["peak_gb"],
+                        steps=g["counts"]["steps"])
+                for n, g in groups.items()},
+        note="three one-rank groups time-sliced on one card: not a "
+             "fleet's rate on three cards",
+        clients=TP_CLIENTS, requests=len(prompts), new=TP_NEW,
+        legs=recs, states=states, fleet_stats=stats, groups_up_s=up_s,
+        submit_rtt_ms_p50=_pct(rtt, 0.5), submit_rtt_ms_p95=_pct(rtt, 0.95),
+        submits=len(rtt), batch_lag_ms_p50=_pct(lag, 0.5),
+        batch_lag_ms_p95=_pct(lag, 0.95), token_batches=len(lag),
+        dead_s=recs[2]["dead_s"], lost_s=recs[2]["lost_s"],
+        main_allocated_at_start_gb=main_gb,
+        nvidia_smi=smi())
+    emit(rec)
+    emit(dict(phase="fleet_remote", leg="summary", seconds=seconds,
+              budget_s=PHASE_W_BUDGET_S,
+              within_budget=seconds <= PHASE_W_BUDGET_S, nvidia_smi=smi()))
+    rec["seconds"] = seconds
+    return rec
+
+
 def bert_case(r: dict) -> dict:
     """The ``kernels`` line's summary of a phase-b BERT case."""
     keys = ("case", "variant", "dtype", "shape", "causal", "max_abs_err",
@@ -7636,6 +8072,8 @@ def main() -> int:
         return sup_worker(sys.argv[2], sys.argv[3], t_torch)
     if sys.argv[1:2] == ["--keras-leg"]:
         return keras_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--fleet-group-worker"]:
+        return fleet_group_worker(sys.argv[2], sys.argv[3])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from sparkdl_tpu_torch.ops import _build
@@ -7678,6 +8116,7 @@ def main() -> int:
     t = phase_parallel(torch, (fa, fd, pfd))
     u = phase_tp(torch, (fa, fd, pfd))
     v = phase_sharded(torch, (fa, fd, pfd))
+    w = phase_fleet_remote(torch, (fa, fd, pfd))
     v_launches = {f"fsdp_tp_train_{a['arm']}": a["launches"]
                   for a in v["fsdp_tp_train"]["arms"]}
     v_launches["gpipe"] = v["gpipe"]["launches"]
@@ -7737,6 +8176,9 @@ def main() -> int:
         if name in ("flash_decode", "paged_flash_decode"):
             kernels[-1]["phase_u_launches"] = {
                 arm: c[name] for arm, c in u_launches.items()}
+            # each group's own count (b's as last written before its kill)
+            kernels[-1]["phase_w_launches"] = {
+                g: r["counts"][name] for g, r in w["groups"].items()}
         if name in ("flash_attention", "paged_flash_decode"):
             kernels[-1]["phase_r_launches"] = {
                 leg: c[name] for leg, c in r_launches.items()}
@@ -7790,6 +8232,8 @@ def main() -> int:
         tol_rule=r["tol_rule"], case=r["case"], dtype=r["dtype"],
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
+        library_backend=r["library_backend"],
+        library_pinned_ms=r["library_pinned_ms"], torch=r["torch"],
         variant=r["variant"], tflops=r["tflops"],
         tflops_issued=r["tflops_issued"],
         bwd_variant_launches=train["bwd_variant_launches"],

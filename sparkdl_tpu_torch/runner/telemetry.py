@@ -472,7 +472,12 @@ class RequestTraceCollector:
     with ``draft_s`` / ``block_stall_s`` sub-phase attrs and the
     per-request speculation ledger folded in). Retry/preempt/quarantine
     point events tally counts; a quarantine finalizes the trace with
-    ``finish="error"``.
+    ``finish="error"``. A stint that ends without its span — a
+    preemption's decode (``serve_request_preempted``), or what a drain or
+    a failover cut (``serve_request_detached``: decode, or a chunked
+    prefill's compute and wait) — rides its point event's attrs and is
+    added to its phase, so a request resumed elsewhere under its id keeps
+    one whole trace.
 
     A completed trace's phases **provably sum to its measured
     latency**: ``latency_s = t_done - t_submit`` and
@@ -573,11 +578,18 @@ class RequestTraceCollector:
                           "serve_prefill_chunk_retry",
                           "serve_reserve_retry"):
                 tr["retries"] += 1
-            elif name == "serve_request_preempted":
-                tr["preemptions"] += 1
-                d = rec.get("decode_s")  # the aborted stint's decode wall
-                if isinstance(d, (int, float)) and d > 0:
-                    tr["decode_s"] += float(d)
+            elif name in ("serve_request_preempted",
+                          "serve_request_detached"):
+                # the aborted stint's walls: a preemption's decode, or
+                # what a drain or failover cut (decode, or a chunked
+                # prefill's compute and wait)
+                tr["preemptions"] += name == "serve_request_preempted"
+                for k, into in (("decode_s", "decode_s"),
+                                ("prefill_s", "prefill_s"),
+                                ("wait_s", "prefill_wait_s")):
+                    v = rec.get(k)
+                    if isinstance(v, (int, float)) and v > 0:
+                        tr[into] += float(v)
             elif name == "serve_request_quarantined":
                 self._finalize(tr, t, "error")
 

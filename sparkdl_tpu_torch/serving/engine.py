@@ -361,6 +361,7 @@ REQUEST_SCOPED_EVENTS = frozenset({
     "serve_request_quarantined", "serve_request_preempted",
     "serve_admission_block_wait", "serve_request",
     "serve_request_failover", "serve_request_cancelled",
+    "serve_request_detached",
 })
 ENGINE_SCOPED_EVENTS = frozenset({
     "serve_reject", "serve_step_retry", "serve_decode_stall",
@@ -988,8 +989,12 @@ class GenerationEngine:
         gang into groups of ``tp`` consecutive ranks (outside a gang it
         raises ``make_mesh``'s ``ValueError``). A mesh with a defaulted
         ``tp`` serves at its extent; an explicit ``tp`` that disagrees
-        with it raises. tp <= 1 builds exactly the single-device
-        classes. Paged + tp makes ``kv_pool_mb`` a per-device budget."""
+        with it raises. Without a mesh, tp <= 1 builds exactly the
+        single-device classes; a passed mesh builds the tensor-parallel
+        ones at its extent, one rank included (a group of one, started
+        behind its front: a fleet's replica in a process of its own,
+        ``serving.remote``). Paged + tp makes ``kv_pool_mb`` a
+        per-device budget."""
         from ..models.llama import load_flax_params
         from ..utils.platform import resolve_device
         num_slots = num_slots if num_slots is not None \
@@ -1047,7 +1052,8 @@ class GenerationEngine:
             load_flax_params(model, variables)
         # tp_kw's truthiness SELECTS the TensorParallel class: keep it
         # tp-only (weight_dtype rides the common arguments)
-        tp_kw = {"tp": int(tp), "mesh": mesh} if int(tp) > 1 else {}
+        tp_kw = {"tp": int(tp), "mesh": mesh} \
+            if int(tp) > 1 or mesh is not None else {}
         common = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                       seed=seed, prefix_cache_bytes=pbytes,
                       weight_dtype=weight_dtype)
@@ -2684,6 +2690,7 @@ class GenerationEngine:
             self._release_slot(slot)
             if r.state in (DONE, FAILED):
                 continue
+            self._close_stint(r, now)
             r.state = QUEUED
             r.chunk_plan = None
             r._block_stalled = False
@@ -2694,6 +2701,28 @@ class GenerationEngine:
             if r.state not in (DONE, FAILED):
                 live.append(r)
         return live
+
+    @staticmethod
+    def _close_stint(req: Request, now: float):
+        """Book the stint a detach cuts: a RUNNING request's decode wall
+        since its prefill, a PREFILLING one's chunk compute and the rest
+        of its wall since admission as the prefill's wait. Without it a
+        request resumed elsewhere (a fleet's re-admission keeps the
+        request and its id) leaves that time unattributed in its trace:
+        its next serve_prefill and serve_decode cover only the new
+        stint."""
+        attrs: dict = {}
+        if req.state == RUNNING:
+            attrs["decode_s"] = round(max(0.0, now - getattr(
+                req, "t_decode_start", now)), 6)
+        elif req.state == PREFILLING:
+            wall = max(0.0, now - (req.t_admit or now))
+            attrs["prefill_s"] = round(req.prefill_spent_s, 6)
+            attrs["wait_s"] = round(max(0.0, wall - req.prefill_spent_s), 6)
+        if attrs:
+            events.event("serve_request_detached", request=req.id,
+                         generated=len(req.tokens), **attrs,
+                         **_req_trace(req))
 
     def _fail_pending(self, err: EngineStopped):
         with self._work:

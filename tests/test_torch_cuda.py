@@ -2123,3 +2123,93 @@ def test_switch_moe_on_the_card_matches_its_cpu_run(dev):
     card.zero_grad(set_to_none=True)
     for a, w in zip(ep, run(card, dev)):
         assert torch.equal(a, w)
+
+
+def test_fleet_of_remote_one_rank_groups_matches_the_one_process_fleet(
+        dev, tmp_path):
+    """Two one-rank groups, each ``launcher.launch(np=1)`` of
+    ``tests/torch_tp_worker.py card_fleet`` (its own NCCL gang on this
+    card, a ``from_model(mesh=tp_mesh(1))`` paged engine started behind a
+    ``FrontServer``), under an ``EngineFleet`` of ``RemoteEngine``
+    proxies in this process, against a fleet of two engines in this
+    process: the same f32 seeded model (TF32 off), the same prompts,
+    every stream equal, each delivered exactly once."""
+    import json
+    import os
+    import threading
+    import time
+
+    from sparkdl_tpu_torch import GenerationEngine
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.runner import launcher
+    from sparkdl_tpu_torch.serving import EngineFleet
+    from sparkdl_tpu_torch.serving.remote import RemoteEngine
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+               num_kv_heads=2, intermediate_size=512, rope_theta=10000.0)
+    engine = dict(num_slots=2, max_len=128, prefill_chunk=16, block_size=16)
+    authkey = os.urandom(16)
+    rng = np.random.default_rng(47)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (7, 19, 33, 12)]
+    dirs = [tmp_path / g for g in ("a", "b")]
+    boxes = [{}, {}]
+
+    def group(d, box):
+        try:
+            launcher.launch(
+                os.path.join(root, "tests", "torch_tp_worker.py"), np=1,
+                args=["card_fleet", str(d), str(d)],
+                env={"PYTHONPATH": root + os.pathsep
+                     + os.path.join(root, "tests")},
+                timeout_s=300.0, capture=True)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            box["error"] = e
+
+    threads = []
+    for d, box in zip(dirs, boxes):
+        d.mkdir()
+        torch.save({"fleet": dict(cfg=cfg, seed=5, engine=engine,
+                                  rounds=["clean"],
+                                  authkey=authkey.hex())}, d / "cases.pt")
+        threads.append(threading.Thread(target=group, args=(d, box),
+                                        daemon=True))
+        threads[-1].start()
+
+    def serve(engines):
+        fleet = EngineFleet(engines, names=["a", "b"], routing="round_robin")
+        fleet.start()
+        got: dict = {}
+        frs = [fleet.submit(p, 12, stream_cb=lambda fr, t: got.setdefault(
+            fr.id, []).append(t)) for p in prompts]
+        assert all(fr.wait(300) for fr in frs)
+        fleet.stop(timeout=60)
+        assert all(got[fr.id] == fr.tokens for fr in frs)
+        return [fr.result(1) for fr in frs], [fr.replica for fr in frs]
+
+    try:
+        addrs = []
+        for d, box in zip(dirs, boxes):
+            f = d / "clean_0.addr"
+            t_end = time.time() + 300
+            while not f.exists() and not box and time.time() < t_end:
+                time.sleep(0.05)
+            assert f.exists(), box
+            addrs.append(tuple(json.loads(f.read_text())))
+        remote, placed = serve([RemoteEngine(a, authkey, timeout_s=60)
+                                for a in addrs])
+    finally:
+        for t in threads:
+            t.join(300)
+    assert not any(t.is_alive() for t in threads)
+    assert not any(boxes), boxes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = L.LlamaModel(L.LlamaConfig(**cfg), device="cuda",
+                         attn_fn=fa.flash_attention,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(5))
+    local, _ = serve([GenerationEngine.from_model(model, device="cuda",
+                                                  **engine)
+                      for _ in range(2)])
+    assert placed == ["a", "b", "a", "b"]
+    assert remote == local

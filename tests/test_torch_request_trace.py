@@ -31,7 +31,7 @@ from sparkdl_tpu.runner import telemetry as jtelemetry
 from sparkdl_tpu.serving import GenerationEngine as JEngine
 from sparkdl_tpu.serving import StubBackend as JStub
 from sparkdl_tpu_torch.runner import events, slo, telemetry
-from sparkdl_tpu_torch.serving import (ENGINE_SCOPED_EVENTS,
+from sparkdl_tpu_torch.serving import (ENGINE_SCOPED_EVENTS, PREFILLING,
                                        REQUEST_SCOPED_EVENTS,
                                        GenerationEngine, StubBackend,
                                        introspect)
@@ -646,3 +646,33 @@ def test_two_engines_in_one_process_keep_their_traces_apart():
         assert abs(t["unattributed_s"]) <= 0.05 * t["latency_s"]
     ref = traces(JEngine, JStub, jtelemetry)
     assert sum(bool(t.get("partial")) for t in ref) == 3
+
+
+@pytest.mark.parametrize("stint", ["decode", "prefill"])
+def test_a_drained_request_resumed_elsewhere_keeps_its_time(stint):
+    """A request drained from one engine mid-stint and resumed on another
+    (a fleet's re-admission, which keeps the request and its id): its
+    one trace still sums to its latency within 5 %. The stint the drain
+    cut (decode steps, or chunks of a prefill and their waits) is booked
+    at the drain; without that it was unattributed."""
+    telemetry.start()
+    try:
+        a, b = (GenerationEngine(StubBackend(2, 256, step_s=0.01,
+                                             prefill_tok_s=0.002),
+                                 prefill_chunk=8) for _ in range(2))
+        h = a.submit(list(range(1, 41)), max_new_tokens=12)
+        while (len(h.tokens) < 6 if stint == "decode"
+               else h.next_chunk < 3):
+            a.step()
+        assert h.state == ("running" if stint == "decode" else PREFILLING)
+        snaps = a.drain()
+        assert snaps == [h]
+        b.resume(h)
+        b.run_until_idle()
+        assert h.wait(30) and len(h.tokens) == 12
+        tr = [t for t in telemetry.request_traces().traces()
+              if t["request"] == h.id]
+    finally:
+        telemetry.stop()
+    assert len(tr) == 1 and not tr[0].get("partial"), tr
+    assert abs(tr[0]["unattributed_s"]) <= 0.05 * tr[0]["latency_s"], tr

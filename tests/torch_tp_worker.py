@@ -24,7 +24,12 @@ Usage: ``torch_tp_worker.py <mode> <in_dir> <out_dir>``, ``mode``:
   deadline, drain and resume, a planned failover, an ``EngineFleet``
   replica drained mid-stream;
 - ``matrix`` (4 ranks): ``tp_mesh``'s groups, tp 1/2/4 × paged +
-  speculation / unpaged on the ``num_kv_heads=4`` model.
+  speculation / unpaged on the ``num_kv_heads=4`` model;
+- ``fleet`` (4 ranks): two tp = 2 groups (ranks 0-1 and 2-3), each
+  serving the parent's ``EngineFleet`` from its rank 0
+  (``serving.remote.FrontServer``) round after round (``serve_rounds``);
+- ``card_fleet`` (1 rank, on the card): the same for one one-rank group
+  of an f32 model made from a seed (``cases.pt`` holds no flax tree).
 """
 
 import os
@@ -547,6 +552,95 @@ def front_cases(out, L, flax, cases, rank, GenerationEngine):
     out["fleet_drained"] = drained
 
 
+def _close_on(cue: str, srv, done: threading.Event) -> None:
+    """Drop ``srv``'s channel without a drain once ``cue`` exists."""
+    while not done.is_set():
+        if os.path.exists(cue):
+            srv.close()
+            return
+        _time.sleep(0.005)
+
+
+def serve_rounds(out, make_engine, rank: int, tp: int, d: str, rounds,
+                 authkey: bytes) -> None:
+    """Each round a fresh engine on every rank. Rank 0 of group g serves
+    one fleet (``FrontServer``), its address in ``<d>/<round>_<g>.addr``,
+    and drops its channel without a drain if ``<d>/<round>_<g>.close``
+    appears; the other ranks start and wait for rank 0's stop. Every rank
+    records the snapshots the round's stop gave it and its engine's
+    counts."""
+    from sparkdl_tpu_torch.runner.events import atomic_write_json
+    from sparkdl_tpu_torch.serving.remote import FrontServer
+
+    group = rank // tp
+    for rnd in rounds:
+        eng = make_engine()
+        if rank % tp == 0:
+            srv = FrontServer(eng, ("127.0.0.1", 0), authkey,
+                              accept_timeout_s=120.0)
+            done = threading.Event()
+            threading.Thread(target=_close_on, daemon=True, args=(
+                os.path.join(d, f"{rnd}_{group}.close"), srv, done)).start()
+            atomic_write_json(os.path.join(d, f"{rnd}_{group}.addr"),
+                              list(srv.address))
+            try:
+                snaps = srv.serve()
+            finally:
+                done.set()
+        else:
+            eng.start()
+            snaps = eng.drain()
+        out[f"{rnd}_snaps"] = [[s.id, list(s.tokens), s.delivered]
+                               for s in snaps]
+        out[f"{rnd}_end"] = [eng.stats["cancelled"], eng.stats["completed"],
+                             sum(r is not None for r in eng._slots),
+                             len(eng._queue), eng._fatal is None]
+
+
+def fleet_mode(in_dir: str, rank: int) -> dict:
+    from sparkdl_tpu_torch import GenerationEngine
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.serving.backend import tp_mesh
+
+    flax = torch.load(os.path.join(in_dir, "tiny.pt"), weights_only=False)
+    c = torch.load(os.path.join(in_dir, "cases.pt"),
+                   weights_only=False)["fleet"]
+    model = model_of(L, flax, L.LlamaConfig.tiny())
+    mesh = tp_mesh(2)
+
+    def make():
+        return GenerationEngine.from_model(
+            model, mesh=mesh, device="cpu", **c["engine"])
+    out = {}
+    serve_rounds(out, make, rank, 2, in_dir, c["rounds"],
+                 bytes.fromhex(c["authkey"]))
+    return out
+
+
+def card_fleet_mode(in_dir: str, rank: int) -> dict:
+    from sparkdl_tpu_torch import GenerationEngine
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.serving.backend import tp_mesh
+
+    c = torch.load(os.path.join(in_dir, "cases.pt"),
+                   weights_only=False)["fleet"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = L.LlamaModel(L.LlamaConfig(**c["cfg"]), device="cuda",
+                         attn_fn=fa.flash_attention,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(c["seed"]))
+    mesh = tp_mesh(1)
+
+    def make():
+        return GenerationEngine.from_model(model, mesh=mesh, device="cuda",
+                                           **c["engine"])
+    out = {}
+    serve_rounds(out, make, rank, 1, in_dir, c["rounds"],
+                 bytes.fromhex(c["authkey"]))
+    return out
+
+
 def tp2_mode(in_dir: str, rank: int) -> dict:
     from sparkdl_tpu_torch import GenerationEngine
     from sparkdl_tpu_torch.models import llama as L
@@ -608,9 +702,10 @@ def main(argv) -> int:
     from sparkdl_tpu_torch.runner import XlaRunner
     from sparkdl_tpu_torch.runner.xla_runner import leave_gang
 
-    runner = XlaRunner(device="cpu")
+    runner = XlaRunner(device="cuda" if mode == "card_fleet" else "cpu")
     rank = runner.gang.rank
-    out = {"tp2": tp2_mode, "matrix": matrix_mode}[mode](in_dir, rank)
+    out = {"tp2": tp2_mode, "matrix": matrix_mode, "fleet": fleet_mode,
+           "card_fleet": card_fleet_mode}[mode](in_dir, rank)
     out = {k: v.detach().clone() if torch.is_tensor(v) else v
            for k, v in out.items()}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
