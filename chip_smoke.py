@@ -128,9 +128,15 @@ g. train — ``XlaRunner(np=1).run(lambda ctx: ctx.fit(...))`` with
    ``LlamaConfig.llama3_8b(lora_rank=16)`` at full width and depth (32
    layers, 4096 hidden, 32/8 heads, head_dim 128, FFN 14336, vocab
    128256), bf16, seeded random weights on the card, 6 steps of one
-   seeded 2 x 2048 batch, ``log_every=1``. One ``train`` line: step ms
+   seeded 2 x 2048 batch, ``log_every=1``, no ``flops_per_step`` under
+   ``SPARKDL_MFU_ESTIMATE=1`` (the fit counts its first step's FLOPs,
+   the flash kernels reporting theirs). One ``train`` line: step ms
    (median after the first step), tokens/s, MFU from ``train_flops``
-   against the bf16 peak, peak device memory, the losses; the launch
+   against the bf16 peak, the meter's MFU from the count, the count
+   beside ``train_flops`` (``estimate_fields``: their ratio, the
+   counting step's wall time, and the residual once the formula's work
+   the step does not do is taken off, which must be 0: layer 0's q, k
+   and v take no input gradient), peak device memory, the losses; the launch
    counters, set to 0 just before the fit and read just after, must show
    32 flash_attention and 32 flash_attention_bwd launches a step, all of
    the backward's of the ``tc_mma_bf16`` variant; the losses finite and
@@ -149,9 +155,14 @@ h. glue — BASELINE configuration 4, the BERT-base GLUE fine-tune:
    ..., with_rng=True))`` with Adam for ``GLUE_STEPS`` steps of the BERT
    paper's GLUE recipe (batch 32, max length 128): seeded numpy batches
    through a ``FactoryDataset``, row lengths in 8-128, right padded,
-   labels from a learnable rule on the first token. One ``glue`` line:
-   step ms (median after the first step), examples/s, live tokens/s, MFU
-   (``glue_flops``; its formula printed beside it), peak memory, the
+   labels from a learnable rule on the first token; no
+   ``flops_per_step``, under ``SPARKDL_MFU_ESTIMATE=1``. One ``glue``
+   line: step ms (median after the first step), examples/s, live
+   tokens/s, MFU (``glue_flops``; its formula printed beside it), the
+   count of the first step beside ``glue_flops`` of its batch (residual
+   0 once the pooler and classifier are counted on the B [CLS] rows),
+   the same step counted on the CPU (f32, flash's plain versions, the
+   fit's first weights), which must equal the card's, peak memory, the
    losses (finite, the last five's mean below the first five's), and the
    launch counters, set to 0 just before the fit and read just after:
    12 flash_attention and 12 flash_attention_bwd (all ``tc_mma_bf16``)
@@ -215,7 +226,11 @@ k. ResNet-50 training — BASELINE configuration 3 at ``np=1``:
      then 20 timed ones (from a step's loss call to the next's, each
      step ending in the loss's read): img/s (BASELINE's metric), step ms
      (median, p10/p90, min/max), MFU against 989 TFLOP/s with forward +
-     backward = 3 × ``image_flops`` a row, peak memory; the losses finite
+     backward = 3 × ``image_flops`` a row, peak memory (arm 0 runs
+     under ``SPARKDL_MFU_ESTIMATE=1`` with no ``flops_per_step``: its
+     count beside the formula, residual 0 once the stem's input gradient
+     is taken off and the head the formula leaves out is added); the
+     losses finite
      and the last five's mean below the first five's; every BatchNorm
      statistic moved. Four such arms, inline and with
      ``feed_lookahead=2`` (each batch pinned and copied on a side stream
@@ -694,6 +709,7 @@ nothing of JAX, and no pyarrow or pandas.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -2192,6 +2208,65 @@ def train_flops(model, b: int, s: int) -> float:
     return 4.0 * n_proj * t + 6.0 * n_lora * t + 7 * 2.0 * cfg.head_dim * pairs
 
 
+@contextlib.contextmanager
+def flops_estimate():
+    """``SPARKDL_MFU_ESTIMATE=1`` around one fit given no
+    ``flops_per_step`` (the fit reads the knob when it starts; the
+    variable is restored after): yields the list that receives the fit's
+    ``flops_estimate`` event."""
+    import os
+
+    from sparkdl_tpu_torch.runner import events
+
+    got: list = []
+
+    def tee(rec):
+        if rec.get("name") == "flops_estimate":
+            got.append(rec)
+
+    old = os.environ.get("SPARKDL_MFU_ESTIMATE")
+    os.environ["SPARKDL_MFU_ESTIMATE"] = "1"
+    events.add_tee(tee)
+    try:
+        yield got
+    finally:
+        events.remove_tee(tee)
+        if old is None:
+            del os.environ["SPARKDL_MFU_ESTIMATE"]
+        else:
+            os.environ["SPARKDL_MFU_ESTIMATE"] = old
+
+
+def estimate_fields(est: list, meter, formula: float,
+                    not_done: float) -> dict:
+    """A phase line's FLOP-count fields: the fit's own count of its first
+    step (``flops_estimate``, the kernels reporting theirs), the hand
+    formula the phase passed before (``flops_formula``) and their ratio,
+    the counting step's wall time, the formula's work the step does not
+    do, from the model's shapes (``formula_not_done``), and the residual
+    ``estimate - (formula - not_done)``, 0 when the two agree on every
+    product. The meter's FLOPs must be the count, and its MFU a number."""
+    assert len(est) == 1 and est[0]["flops"], est
+    f = est[0]["flops"]
+    assert meter.flops_per_step == f, (meter.flops_per_step, f)
+    assert meter.summary()["mfu"] is not None, "the estimate gave no MFU"
+    return dict(flops_estimate=f, flops_formula=formula,
+                estimate_over_formula=f / formula,
+                counting_step_s=est[0]["dur_s"], formula_not_done=not_done,
+                estimate_residual=f - (formula - not_done))
+
+
+def lora_not_done(model, tokens: int) -> float:
+    """``train_flops``'s work the LoRA step does not do: layer 0's q, k
+    and v projections (base weight and adapter A) take no input gradient,
+    since the frozen embedding below them needs none: 2·T a weight."""
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if name.startswith("layers.0.attn.")
+            and name.split(".")[3] in ("q_proj", "k_proj", "v_proj")
+            and name.endswith(("base.weight", "lora_a.weight")))
+    return 2.0 * tokens * n
+
+
 def train_ids(torch, cfg):
     g = torch.Generator().manual_seed(11)
     return torch.randint(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
@@ -2230,11 +2305,12 @@ def phase_train(torch, kernels) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*kernels)
     t0 = time.perf_counter()
-    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
-        loss_fn=L.causal_lm_loss_fn(), model=model,
-        tx=L.lora_optimizer(TRAIN_LR),
-        data=[{"input_ids": ids}] * TRAIN_STEPS, num_steps=TRAIN_STEPS,
-        log_every=1, flops_per_step=flops))
+    with flops_estimate() as est:  # the fit counts its first step itself
+        res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+            loss_fn=L.causal_lm_loss_fn(), model=model,
+            tx=L.lora_optimizer(TRAIN_LR),
+            data=[{"input_ids": ids}] * TRAIN_STEPS, num_steps=TRAIN_STEPS,
+            log_every=1))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = read_counts(*kernels)
@@ -2271,6 +2347,8 @@ def phase_train(torch, kernels) -> dict:
                flops_per_step=flops,
                mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
                meter_mfu=summ["mfu"], peak_mem_gb=peak_gb,
+               **estimate_fields(est, res["meter"], flops, lora_not_done(
+                   model, TRAIN_BATCH * TRAIN_SEQ)),
                launches=launches, bwd_variant_launches=bwd_variants,
                base_checksum_unchanged=True,
                adapters_moved=moved, init_s=init_s, fit_s=fit_s,
@@ -2393,6 +2471,39 @@ def glue_flops(model, batch) -> float:
             * cfg.num_layers)
 
 
+def glue_not_done(model, batch) -> float:
+    """``glue_flops``'s work the BERT step does not do: the pooler and the
+    classifier run on the B [CLS] rows, not on all B·S tokens."""
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if name.endswith("weight")
+            and name.startswith(("bert.pooler.", "classifier.")))
+    b, s = batch["input_ids"].shape
+    return 6.0 * n * b * (s - 1)
+
+
+def glue_cpu_count(torch, B, fa, state: dict, batch: dict) -> tuple:
+    """Phase h's first step counted on the CPU: BertConfig.base() in f32
+    with ``state``'s weights and flash attention's plain versions (which
+    report the same FLOPs the kernels report), one
+    ``fit(with_rng=True)`` step under ``SPARKDL_MFU_ESTIMATE=1``:
+    (the count, seconds)."""
+    from sparkdl_tpu_torch.runner import XlaRunner
+    from sparkdl_tpu_torch.runner.train_state import adam
+
+    t0 = time.perf_counter()
+    cpu = B.BertForSequenceClassification(
+        B.BertConfig.base(), num_classes=2, dtype=torch.float32,
+        device="cpu", attn_fn=fa.flash_attention)
+    cpu.load_state_dict(state)
+    with flops_estimate() as est:
+        res = XlaRunner(np=1, device="cpu").run(lambda ctx: ctx.fit(
+            loss_fn=B.bert_finetune_loss(cpu), model=cpu,
+            tx=adam(GLUE_LR), data=[batch], num_steps=1, with_rng=True))
+    assert len(est) == 1, est
+    del res, cpu
+    return est[0]["flops"], time.perf_counter() - t0
+
+
 GLUE_MFU_FORMULA = ("6·N·T (N Dense weights, all trainable, embeddings "
                     "out; T = B·S, pads in) + 7·2·D·H·layers·Σ_b S·L_b")
 
@@ -2426,15 +2537,18 @@ def phase_glue(torch, kernels) -> tuple:
     flops = [glue_flops(model, b) for b in batches]
     mean_flops = sum(flops[1:]) / (GLUE_STEPS - 1)  # the steps timed
     live = [int(b["attention_mask"].sum()) for b in batches]
+    # the weights the fit starts from, for the CPU count of its first step
+    state0 = {k: v.detach().to("cpu", copy=True)
+              for k, v in model.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*kernels)
     t0 = time.perf_counter()
-    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
-        loss_fn=B.bert_finetune_loss(model), model=model,
-        tx=adam(GLUE_LR), data=FactoryDataset(lambda: iter(batches)),
-        num_steps=GLUE_STEPS, log_every=1, with_rng=True,
-        flops_per_step=mean_flops))
+    with flops_estimate() as est:  # the fit counts its first step itself
+        res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+            loss_fn=B.bert_finetune_loss(model), model=model,
+            tx=adam(GLUE_LR), data=FactoryDataset(lambda: iter(batches)),
+            num_steps=GLUE_STEPS, log_every=1, with_rng=True))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = read_counts(*kernels)
@@ -2454,6 +2568,14 @@ def phase_glue(torch, kernels) -> tuple:
     assert bwd_variants == {"fma_f32": 0, "tc_mma_bf16": nl * GLUE_STEPS}, (
         bwd_variants)
     assert launches["flash_decode"] == launches["paged_flash_decode"] == 0
+    counted = estimate_fields(est, res["meter"], flops[0],
+                              glue_not_done(model, batches[0]))
+    # the card's count (the kernels reporting) is the CPU's (the plain
+    # versions reporting): a kernel that went uncounted fails here
+    cpu_flops, cpu_s = glue_cpu_count(torch, B, fa, state0, batches[0])
+    del state0
+    assert cpu_flops == counted["flops_estimate"], (
+        cpu_flops, counted["flops_estimate"])
     st = res["meter"].summary()["step_time"]
     step_s = st["p50_s"]
     rec = dict(phase="glue", config="BertConfig.base()", num_classes=2,
@@ -2470,6 +2592,8 @@ def phase_glue(torch, kernels) -> tuple:
                live_tokens_per_s=sum(live[1:]) / (GLUE_STEPS - 1) / step_s,
                flops_per_step=mean_flops, mfu=mean_flops / step_s
                / PEAK_FLOPS["bfloat16"], mfu_formula=GLUE_MFU_FORMULA,
+               **counted, cpu_flops_estimate=cpu_flops, cpu_count_s=cpu_s,
+               meter_mfu=res["meter"].summary()["mfu"],
                peak_mem_gb=peak_gb, loss_first=losses[0],
                loss_last=losses[-1], loss_first5_mean=first,
                loss_last5_mean=last, losses=losses,
@@ -2666,20 +2790,22 @@ def phase_classify(torch, kernels, model) -> dict:
     return rec
 
 
-def image_flops(torch, model, h: int, w: int) -> int:
+def image_flops(torch, model, h: int, w: int, per_layer: bool = False):
     """FLOPs a row of ``model``'s features from its own conv and dense
     shapes (2 per multiply-add; BatchNorm, pools and the prologue are not
-    counted), read by forward hooks on one row at ``h`` x ``w``."""
+    counted), read by forward hooks on one row at ``h`` x ``w``; with
+    ``per_layer`` the list of each conv's and dense's, in the order they
+    ran."""
     from sparkdl_tpu_torch.models.image_layers import Conv, Dense
 
-    total = [0]
+    total = []
 
     def conv(m, inp, out):
-        total[0] += 2 * out[0].numel() * m.weight.shape[1] * m.kernel[0] \
-            * m.kernel[1]
+        total.append(2 * out[0].numel() * m.weight.shape[1] * m.kernel[0]
+                     * m.kernel[1])
 
     def dense(m, inp, out):
-        total[0] += 2 * out[0].numel() * m.weight.shape[1]
+        total.append(2 * out[0].numel() * m.weight.shape[1])
 
     hooks = [m.register_forward_hook(conv if isinstance(m, Conv) else dense)
              for m in model.modules() if isinstance(m, (Conv, Dense))]
@@ -2688,7 +2814,7 @@ def image_flops(torch, model, h: int, w: int) -> int:
         model(torch.zeros(1, h, w, 3, device=dev), features_only=True)
     for hk in hooks:
         hk.remove()
-    return total[0]
+    return total if per_layer else sum(total)
 
 
 def wire_batches(name: str, labels, seed: int) -> list:
@@ -2970,7 +3096,7 @@ def pageable_copy_ms(torch, batch) -> float:
 
 
 def resnet_fit(torch, spec, model, batches, steps: int,
-               lookahead: int = 0) -> tuple:
+               lookahead: int = 0, estimate: bool = False) -> tuple:
     """``XlaRunner(np=1).run(ctx.fit(bn_classifier_loss, sgd,
     mutable=True, log_every=1, feed_lookahead=lookahead))`` over
     ``steps`` batches cycled from ``batches``: (result, step seconds, fit
@@ -2978,7 +3104,11 @@ def resnet_fit(torch, spec, model, batches, steps: int,
     (the last to the end of the fit): with ``log_every=1`` a step ends in
     a wait, so that is one step as the user sees it, device work, the
     host's launches and whatever of the batch's copy is not hidden. (The
-    time between two draws is not: a lookahead draws ahead.)"""
+    time between two draws is not: a lookahead draws ahead.) With
+    ``estimate`` the fit gets no ``flops_per_step`` and counts its first
+    step itself (``SPARKDL_MFU_ESTIMATE=1``); its ``flops_estimate``
+    event is in the result's ``"flops_estimate"``."""
+
     from sparkdl_tpu_torch.runner import XlaRunner, bn_classifier_loss, sgd
 
     flops = 3 * image_flops(torch, model, RESNET_SIZE, RESNET_SIZE) \
@@ -2992,13 +3122,18 @@ def resnet_fit(torch, spec, model, batches, steps: int,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
-        loss_fn=stamped, model=model, tx=sgd(RESNET_LR, momentum=0.9),
-        data=(batches[i % len(batches)] for i in range(steps)),
-        num_steps=steps, log_every=1, mutable=True, flops_per_step=flops,
-        feed_lookahead=lookahead))
+    with (flops_estimate() if estimate
+          else contextlib.nullcontext(None)) as est:
+        res = XlaRunner(np=1).run(lambda ctx: ctx.fit(
+            loss_fn=stamped, model=model, tx=sgd(RESNET_LR, momentum=0.9),
+            data=(batches[i % len(batches)] for i in range(steps)),
+            num_steps=steps, log_every=1, mutable=True,
+            flops_per_step=None if estimate else flops,
+            feed_lookahead=lookahead))
     torch.cuda.synchronize()
     end = time.perf_counter()
+    if estimate:
+        res["flops_estimate"] = est
     stamps.append(end)
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     return res, step_s, end - t0, flops
@@ -3048,8 +3183,9 @@ def resnet_train(torch, kernels) -> list:
         stats0 = {k: b.clone() for k, b in model.named_buffers()}
         torch.cuda.reset_peak_memory_stats()
         reset_counts(*kernels)
+        # arm 0 counts its own first step (SPARKDL_MFU_ESTIMATE)
         res, step_s, fit_s, flops = resnet_fit(torch, spec, model, wire, n,
-                                               ahead)
+                                               ahead, estimate=arm == 0)
         launches = read_counts(*kernels)
         losses = [h["loss"] for h in res["history"]]
         assert len(losses) == n and all(math.isfinite(x) for x in losses), \
@@ -3076,6 +3212,18 @@ def resnet_train(torch, kernels) -> list:
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             losses=losses, statistics_moved=moved, fit_s=fit_s,
             launches=launches, nvidia_smi=smi())
+        if arm == 0:
+            # the formula's work the step does not do: the stem's input
+            # gradient (the images need none), less the head's 3 products
+            # a row, which the formula (features only) leaves out
+            from sparkdl_tpu_torch.models.image_layers import Dense
+            stem = image_flops(torch, model, RESNET_SIZE, RESNET_SIZE,
+                               per_layer=True)[0]
+            head = sum(2 * m.weight.numel() for m in model.modules()
+                       if isinstance(m, Dense))
+            rec.update(estimate_fields(res["flops_estimate"], res["meter"],
+                                       flops,
+                                       (stem - 3 * head) * RESNET_BATCH))
         if ahead:
             rec["inline_copy_ms"] = pageable_copy_ms(torch, wire[0])
         emit(rec)

@@ -44,7 +44,11 @@ model or file), sequence parallelism over a ``torch.distributed`` gang
 ``DTensor``s (``parallel.shard_params``), with the kernels they run: ``ops.flash_attention``
 (prefill, the training forward and its backward, causal or padded),
 ``ops.flash_decode`` (per-token decode) and ``ops.paged_flash_decode``
-(block-table decode and verify). ROADMAP.md lists what is still to port.
+(block-table decode and verify); the flash attention kernels report their
+own FLOPs to a step's count (``utils.flops``; ``fit`` under
+``SPARKDL_MFU_ESTIMATE``). Every name the JAX package exports resolves
+here too, but for ROADMAP.md's recorded differences (Queue C 2).
+ROADMAP.md lists what is still to port.
 
 ``DataFrame`` and ``Row`` need pyarrow and pandas; they load on first
 access, so ``import sparkdl_tpu_torch`` works without them.
@@ -74,6 +78,10 @@ from .image.imageIO import (createResizeImageUDF,  # noqa: E402
                             nhwcToImageColumn, readImages,
                             readImagesWithCustomFn)
 from .models import ByteBPETokenizer, load_pretrained  # noqa: E402
+from .ops.flash_attention import flash_attention  # noqa: E402
+from .runner import (CheckpointManager, RunnerContext,  # noqa: E402
+                     TrainState, XlaRunner, make_shard_map_step,
+                     make_train_step)
 from .serving import (DEAD, DEGRADED, DOOMED, HEALTHY,  # noqa: E402
                       EngineFleet, FleetDegradedError, FleetRequest,
                       FleetRoutingError, GenerationEngine,
@@ -120,7 +128,9 @@ __all__ = ["GenerationEngine", "EngineFleet", "FleetRequest",
            "KerasImageFileEstimator", "defaultImageLoader",
            "GraphFunction", "IsolatedSession", "IsolatedGraph",
            "XlaInputGraph", "TFInputGraph", "buildSpImageConverter",
-           "buildFlattener", "makeGraphUDF"]
+           "buildFlattener", "makeGraphUDF", "XlaRunner", "RunnerContext",
+           "TrainState", "CheckpointManager", "make_train_step",
+           "make_shard_map_step", "flash_attention"]
 
 
 def __getattr__(name):

@@ -626,7 +626,7 @@ class BatchRunner:
     """
 
     def __init__(self, fn: Callable, batch_size: int,
-                 donate: bool = False,
+                 donate: bool | None = None,
                  prefetch: int = 2, mesh=None, input_cast=None,
                  preprocess: Callable | None = None, device=None,
                  data_axis: str = "data"):
@@ -660,9 +660,14 @@ class BatchRunner:
         the step is dispatched — the step receives the only one, so the
         input's memory returns to the caching allocator as soon as the
         step's cast or prologue lets go of it. PyTorch has no aliasing of
-        an input buffer into an output (ROADMAP.md, Queue C 2)."""
+        an input buffer into an output (ROADMAP.md, Queue C 2). Default
+        from ``SPARKDL_INFER_DONATE`` (``1``, ``true`` or ``yes``; off
+        otherwise)."""
         import torch
         from ..utils.platform import resolve_device
+        if donate is None:
+            donate = os.environ.get("SPARKDL_INFER_DONATE", "") in (
+                "1", "true", "yes")
         self.mesh, self.donate = mesh, bool(donate)
         self._group, self._n, self._coord = None, 1, 0
         if mesh is not None:

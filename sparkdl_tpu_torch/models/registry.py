@@ -16,7 +16,8 @@ weight bridge); :func:`state_dict_to_flax` is its inverse. The
 reference's two native weight formats read into that flax layout with
 no flax at hand: flax msgpack (:func:`load_flax_msgpack`, ``msgpack``
 only, chunked arrays included) and safetensors keyed by flax path
-(:func:`load_safetensors`).
+(:func:`load_safetensors`, and :func:`save_safetensors`, which writes
+that file from a port model or a flax-layout tree).
 
 The LLM half: :func:`llm_config` names the Llama configs and
 :data:`DRAFT_PAIRS` / :func:`draft_for` / :func:`register_draft_pair`
@@ -436,3 +437,23 @@ def load_safetensors(variables_template, path: str) -> dict:
             node = node.setdefault(m, {})
         node[leaf] = arr
     return out
+
+
+def save_safetensors(model_or_variables, path: str):
+    """Write a safetensors file keyed by '/'-joined flax paths, the file
+    the reference's ``save_safetensors`` writes and :func:`load_safetensors`
+    (either package's) reads. ``model_or_variables``: a port module, whose
+    ``state_dict`` goes through :func:`state_dict_to_flax` (f32, flax
+    layouts), or a flax-layout tree of numpy arrays or tensors (nested
+    dicts), written as it is."""
+    from safetensors.torch import save_file
+
+    tree = (state_dict_to_flax(model_or_variables.state_dict())
+            if isinstance(model_or_variables, nn.Module)
+            else model_or_variables)
+    flat = {}
+    for p, leaf in _flatten(tree):
+        t = leaf.detach().cpu() if isinstance(leaf, torch.Tensor) else \
+            torch.from_numpy(np.array(leaf))
+        flat["/".join(map(str, p))] = t.contiguous()
+    save_file(flat, path)

@@ -5,5 +5,11 @@ block tables). Kernels build on first launch (``_build.py``), never at
 import.
 
 Import the submodules themselves (``from sparkdl_tpu_torch.ops import
-flash_attention as fa``): this package re-exports no function, so no
-function name shadows the module of the same name."""
+flash_attention as fa``): this package re-exports no function named as a
+submodule, so ``ops.flash_attention`` is the module (the function is
+``sparkdl_tpu_torch.flash_attention``). It re-exports the attention
+policy, :func:`auto_attn_fn` and :func:`resolve_attn_fn`."""
+
+from .flash_attention import auto_attn_fn, resolve_attn_fn
+
+__all__ = ["auto_attn_fn", "resolve_attn_fn"]

@@ -51,6 +51,7 @@ import os
 import torch
 
 from ..parallel.ring_attention import NEG_INF, dense_attention
+from ..utils import flops
 from ..utils.platform import is_cuda_backend
 
 #: what the CUDA kernel takes (its plain version takes anything)
@@ -64,6 +65,34 @@ TC_BF16_RULE = (1e-5, 2.0 ** -7, 2.0 ** -8)
 # dS to bf16
 BWD_RULE = {torch.float32: (1e-5, 1e-5)}
 TC_BWD_RULE = (2.0 ** -8, 2.0 ** -7)
+
+
+# products a live (query row, key) pair: q·kᵀ and P·V forward; q·kᵀ
+# again, dV, dP, dK and dQ backward
+FWD_PRODUCTS, BWD_PRODUCTS = 2, 5
+
+
+def attention_flops(q, causal: bool = False, kv_mask=None,
+                    products: int = FWD_PRODUCTS) -> int:
+    """The FLOPs flash attention does at ``q``'s shape ``[B, H, S, D]``:
+    2·D a product for each live (query row, key) pair and head,
+    ``products`` products a pair (:data:`FWD_PRODUCTS` or
+    :data:`BWD_PRODUCTS`). A pair is live where the kernels keep its
+    score: ``kv_mask[col] > 0`` and, causal, ``col <= row``; a padded
+    key is dead for every row, a padded query row still attends its live
+    keys. What the wrappers report to a FLOP counter. With a ``kv_mask``
+    it reads the mask's live keys (a wait for the device)."""
+    _, h, s, d = q.shape
+    if kv_mask is None:
+        pairs = q.shape[0] * (s * (s + 1) // 2 if causal else s * s)
+    else:
+        live = (kv_mask.float() > 0).to(torch.int64)
+        if causal:  # key col is live for the S - col rows at or after it
+            live = live * torch.arange(s, 0, -1, device=live.device)
+            pairs = int(live.sum())
+        else:
+            pairs = s * int(live.sum())
+    return products * 2 * d * h * pairs
 
 
 def kernel_variant(dtype) -> str:
@@ -265,7 +294,17 @@ def flash_attention_fwd(q, k, v, causal: bool = False, *, kv_mask=None,
     ``tile_counter``: an optional one-element int32 tensor on q's device;
     the tensor-core kernel adds to it the (64-row Q tile, 64-row K tile)
     pairs it computed, the f32 kernel leaves it as it is. For checks of
-    the dead-tile skip; it costs one atomic a block."""
+    the dead-tile skip; it costs one atomic a block.
+
+    Under a FLOP counter (``utils.flops.count_flops``) it reports
+    :func:`attention_flops` with the forward's 2 products, once, on the
+    CPU as on the card."""
+    with flops.kernel_work(
+            lambda: attention_flops(q, causal, kv_mask, FWD_PRODUCTS)):
+        return _fwd(q, k, v, causal, kv_mask, tile_counter)
+
+
+def _fwd(q, k, v, causal, kv_mask, tile_counter):
     _check(q, k, v, kv_mask)
     if tile_counter is not None and (
             tile_counter.dtype != torch.int32
@@ -317,7 +356,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     CUDA tensors → the kernel :func:`kernel_variant` picks, after the
     forward's checks, which raise on what it does not take. Counts its
     launches in ``flash_attention_bwd.launches``, and by variant in
-    ``flash_attention_bwd.variant_launches``."""
+    ``flash_attention_bwd.variant_launches``. Under a FLOP counter it
+    reports :func:`attention_flops` with the backward's 5 products."""
+    with flops.kernel_work(
+            lambda: attention_flops(q, causal, kv_mask, BWD_PRODUCTS)):
+        return _bwd(q, k, v, o, lse, do, causal, kv_mask)
+
+
+def _bwd(q, k, v, o, lse, do, causal, kv_mask):
     _check(q, k, v, kv_mask)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

@@ -27,19 +27,31 @@ from .data import (ArrowDataset, CheckpointableDataset, FactoryDataset,
                    ListDataset, as_dataset)
 from .events import FlightRecorder, Timer, enable_flight_recorder, \
     merge_timeline
-from .failures import TrainingDivergedError, classify_exception, \
-    exception_summary
+from .failures import PoisonDataError, QuarantineOverflowError, \
+    ScoringStageError, ScoringStallError, TrainingDivergedError, \
+    classify_exception, classify_text, diagnose_context, \
+    exception_summary, is_retryable
 from .launcher import GangFailure, SuperviseResult, launch, supervise
 from .metrics import MetricsLogger, StepTimeStats, ThroughputMeter, \
     debug_mode, global_step_stats, peak_flops_per_chip, run_stats, \
     touch_heartbeat, trace
+from .telemetry import MetricsRegistry, StageAccountant, \
+    aggregate_snapshots, render_prometheus
 from .telemetry import start as enable_telemetry
 from .train_state import (TrainState, adam, adamw, bn_classifier_loss,
-                          make_shard_map_step, make_train_step, rmsprop,
-                          sgd, softmax_cross_entropy_loss)
+                          make_eval_step, make_shard_map_step,
+                          make_train_step, rmsprop, sgd,
+                          softmax_cross_entropy_loss, state_sharding)
 from .xla_runner import RunnerContext, XlaRunner, current_context
 
-__all__ = ["CheckpointCorruptionError", "CheckpointManager",
+HorovodRunner = XlaRunner
+
+__all__ = ["HorovodRunner", "make_eval_step", "state_sharding",
+           "classify_text", "is_retryable", "diagnose_context",
+           "QuarantineOverflowError", "ScoringStallError",
+           "ScoringStageError", "PoisonDataError", "MetricsRegistry",
+           "StageAccountant", "aggregate_snapshots", "render_prometheus",
+           "CheckpointCorruptionError", "CheckpointManager",
            "CheckpointableDataset", "ArrowDataset", "FactoryDataset",
            "Fault", "FaultPlan", "FlightRecorder", "GangFailure",
            "InjectedFatal", "InjectedFault", "InjectedPreemption",

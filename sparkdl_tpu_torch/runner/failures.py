@@ -10,12 +10,15 @@ re-raises anyway).
 path (``core.runtime.BatchRunner.run_stream``) routes through it. On the
 card, a CUDA out-of-memory error and an illegal memory access are fatal:
 the first reproduces on retry with the same batch, and the second leaves
-the CUDA context unusable, so nothing in the process can retry. The JAX
-package's ``diagnose_context`` (a TPU diagnostics hook) is not ported.
+the CUDA context unusable, so nothing in the process can retry.
+:func:`diagnose_context` collects thread stack traces around a run with
+the standard library's ``faulthandler`` (the JAX package's uses the TPU
+diagnostics package).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import re
@@ -294,3 +297,52 @@ def classify_text(text: str) -> str:
     # Everything else — recognized retryable patterns and unknown text
     # alike — restarts; a wasted restart is cheap next to a lost job.
     return "retryable"
+
+
+@contextlib.contextmanager
+def diagnose_context(interval_s: int = 10):
+    """Collect every thread's stack trace inside the block, for a
+    postmortem of what a classified exception cannot show (hangs,
+    signals): on a fatal signal (SIGSEGV, SIGFPE, SIGABRT, SIGBUS,
+    SIGILL), on SIGTERM (a preemption's or the supervisor's stop; the
+    signal's previous handling follows) and every ``interval_s`` seconds,
+    appended by ``faulthandler`` to ``stack_traces_rank{i}.txt`` in
+    ``SPARKDL_EVENT_DIR`` or, without one, in ``sparkdl_debugging`` under
+    the temporary directory. Emits a ``diagnose`` event (``interval_s``,
+    ``stack_trace_dir``, ``path``) once armed and yields the file's
+    path. On exit the timer is cancelled, SIGTERM's handler restored, and
+    the fatal-signal dump disabled or, when it was on before, re-armed on
+    stderr."""
+    import faulthandler
+    import signal
+    import sys
+    import tempfile
+
+    from . import events
+    out_dir = os.environ.get(events.RECORDER_DIR_ENV) or os.path.join(
+        tempfile.gettempdir(), "sparkdl_debugging")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"stack_traces_rank{events._rank()}.txt")
+    was_enabled = faulthandler.is_enabled()
+    with open(path, "a") as f:
+        faulthandler.enable(file=f, all_threads=True)
+        faulthandler.register(signal.SIGTERM, file=f, all_threads=True,
+                              chain=True)
+        if interval_s > 0:
+            faulthandler.dump_traceback_later(interval_s, repeat=True,
+                                              file=f)
+        events.event("diagnose", interval_s=interval_s,
+                     stack_trace_dir=out_dir, path=path)
+        try:
+            yield path
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+            faulthandler.unregister(signal.SIGTERM)
+            faulthandler.disable()
+            if was_enabled and sys.__stderr__ is not None:
+                try:
+                    faulthandler.enable(file=sys.__stderr__,
+                                        all_threads=True)
+                except (ValueError, OSError):
+                    log.debug("faulthandler not re-armed on stderr",
+                              exc_info=True)

@@ -111,6 +111,17 @@ class TrainState:
         return self
 
 
+def state_sharding(state: TrainState, mesh, rules: Callable | None = None):
+    """Where each entry of the state's ``model.state_dict()`` lies on
+    ``mesh``: a ``{name: parallel.sharding.NamedSharding}`` dict,
+    replicated by default (pure data parallelism) or from ``rules(path,
+    leaf) -> P`` (``parallel.sharding.make_rules``, ``fsdp_rules``) for
+    TP/FSDP. The optimizer's state follows its parameter."""
+    from ..parallel.sharding import P, sharding_pytree
+    return sharding_pytree(state.model.state_dict(), mesh,
+                           rules or (lambda path, leaf: P()))
+
+
 def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8):
     """``optax.adam`` as the optimizer factory :class:`TrainState` calls:

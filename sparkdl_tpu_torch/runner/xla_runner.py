@@ -41,6 +41,7 @@ single-controller form (one process driving N devices) is not torch's:
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import os
 import time
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.flops import count_flops
 from ..utils.platform import resolve_device
 from . import chaos
 from . import data as data_lib
@@ -261,6 +263,18 @@ class RunnerContext:
             self._mesh = make_mesh(self.axes or {"data": self.size})
         return self._mesh
 
+    def data_sharding(self):
+        """The batch's placement on the gang's :attr:`mesh`: split over
+        :attr:`data_axis` (``parallel.sharding.NamedSharding``, whose
+        ``placements`` are its ``DTensor`` spelling)."""
+        from ..parallel.sharding import NamedSharding, P
+        return NamedSharding(self.mesh, P(self.data_axis))
+
+    def replicated(self):
+        """The same on every device of the gang's :attr:`mesh`."""
+        from ..parallel.sharding import NamedSharding, P
+        return NamedSharding(self.mesh, P())
+
     def make_train_step(self, loss_fn, explicit_collectives: bool = False,
                         **kw):
         """:func:`~.train_state.make_train_step` over the gang (None in
@@ -334,7 +348,7 @@ class RunnerContext:
             flops_per_step: float | None = None,
             checkpoint_every: int = 0, resume: bool = True,
             profile_dir: str | None = None,
-            feed_lookahead: int = 0,
+            feed_lookahead: int | None = None,
             explicit_collectives: bool = False) -> dict:
         """Run a training loop; returns ``{state, meter, history}``.
 
@@ -369,8 +383,15 @@ class RunnerContext:
         (:class:`TrainingDivergedError` if not), logged and appended to
         ``history`` with ``examples_per_sec_per_chip``. With
         ``log_every=1`` every step waits, so the meter's step times are
-        device step times. ``flops_per_step`` feeds the meter's MFU
-        against ``metrics.peak_flops_per_chip()``.
+        device step times. ``flops_per_step`` (the gang's FLOPs a step)
+        feeds the meter's MFU against ``metrics.peak_flops_per_chip()``.
+        Without it, ``SPARKDL_MFU_ESTIMATE=1`` (``true``, ``yes``; anything
+        else is off) counts the first step's FLOPs while it runs
+        (``utils.flops.count_flops``: the aten ops' and the kernels' own
+        counts), times ``size`` for the gang, and emits a
+        ``flops_estimate`` event with the count and the step's wall time;
+        a count of 0 leaves ``flops_per_step`` None (MFU null). The first
+        step is the ``compile`` step, outside the step-time statistics.
 
         **Checkpoints** (the context's ``checkpoint_dir``): every
         ``checkpoint_every`` steps the loss is checked to be finite and
@@ -383,7 +404,8 @@ class RunnerContext:
         in-flight save lands) and the error re-raised.
 
         ``feed_lookahead`` > 0 moves batches that many steps ahead to the
-        device from worker threads (0, the default, moves each inline),
+        device from worker threads (0 moves each inline; None, the
+        default, reads ``SPARKDL_FEED_LOOKAHEAD``, default 0),
         never drawing past the steps the loop will run; on the card the
         workers copy on a stream of their own, so a copy overlaps the
         steps before it.
@@ -394,12 +416,12 @@ class RunnerContext:
         Flight-recorded (``runner.events``): ``fit_start``, ``train_resume``,
         per-step ``data_fetch`` / ``shard_put`` / ``step_compute`` spans,
         ``compile`` (the first step's wall time: allocation, autotuning,
-        the first launches), ``checkpoint_save`` / ``checkpoint_restore``
-        and ``eval`` spans and ``fit_end`` with the meter's summary. The
-        env-armed layers start here: the telemetry plane
-        (``SPARKDL_METRICS_DIR`` / ``SPARKDL_METRICS_PORT``, its snapshot
-        flushed at the end and on a failure) and the sentinel
-        (``SPARKDL_SENTINEL``). After each step call ``fit`` beats the
+        the first launches), ``flops_estimate``, ``checkpoint_save`` /
+        ``checkpoint_restore`` and ``eval`` spans and ``fit_end`` with
+        the meter's summary. The env-armed layers start here: the
+        telemetry plane (``SPARKDL_METRICS_DIR`` /
+        ``SPARKDL_METRICS_PORT``, its snapshot flushed at the end and on
+        a failure) and the sentinel (``SPARKDL_SENTINEL``). After each step call ``fit`` beats the
         heartbeat (``metrics.touch_heartbeat``, ``SPARKDL_HEARTBEAT_DIR``)
         and, with a dataset, appends the step's batch to the ledger
         (``data.append_ledger``, ``SPARKDL_BATCH_LEDGER``). The step call
@@ -456,6 +478,11 @@ class RunnerContext:
         eval_step = self.make_eval_step(eval_fn) if eval_fn else None
         meter = self.meter()
         meter.flops_per_step = flops_per_step
+        estimate_flops = (flops_per_step is None
+                          and _env_flag("SPARKDL_MFU_ESTIMATE"))
+        if feed_lookahead is None:
+            feed_lookahead = int(os.environ.get("SPARKDL_FEED_LOOKAHEAD",
+                                                "0"))
         # TensorBoard's scalars from rank 0 alone; every rank logs text
         logger = metrics_lib.MetricsLogger(self.log_dir if self.rank == 0
                                            else None)
@@ -509,11 +536,20 @@ class RunnerContext:
                 # from worker threads, and collectives must keep one order
                 self._check_rows(n_local)
                 n = n_local * self.size  # the gang's rows this step
+                counter = (count_flops() if estimate_flops
+                           else contextlib.nullcontext())
                 with metrics_lib.step_annotation(i), \
-                        events.span("step_compute", step=i) as sp:
+                        events.span("step_compute", step=i) as sp, counter:
                     state, m = step_fn(state, dev_batch)
                 if i == start_step:
                     events.event("compile", step=i,
+                                 dur_s=round(sp.seconds, 6))
+                if estimate_flops:
+                    estimate_flops = False
+                    meter.flops_per_step = (
+                        float(counter.total * self.size) or None)
+                    events.event("flops_estimate",
+                                 flops=meter.flops_per_step,
                                  dur_s=round(sp.seconds, 6))
                 metrics_lib.touch_heartbeat(i)
                 if cur_cursor is not None:
@@ -661,6 +697,13 @@ def _staged(ctx: RunnerContext, data_it, crop, limit: int, start_step: int,
         pool.shutdown(wait=False, cancel_futures=True)
 
 
+def _env_flag(name: str) -> bool:
+    """A boolean knob, the reference's truth table: ``1``, ``true`` or
+    ``yes`` (any case, spaces stripped) is on; anything else, ``0``
+    included, is off."""
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes")
+
+
 def _mark_postmortemed(e: BaseException) -> None:
     """Mark ``e`` as already postmortemed by ``fit`` (with its step), so
     ``run_with_restarts`` does not overwrite the record."""
@@ -792,7 +835,7 @@ class XlaRunner:
 
     def run_with_restarts(self, main_fn: Callable, max_restarts: int = 2,
                           backoff_s: float = 1.0, retry_all: bool = False,
-                          **kwargs) -> Any:
+                          diagnose: bool = False, **kwargs) -> Any:
         """Checkpoint-and-restart supervision: re-invoke ``main_fn`` on a
         failure, with a fresh context each time; with a ``checkpoint_dir``
         its ``fit`` resumes from the last saved step, so a restart loses
@@ -805,10 +848,15 @@ class XlaRunner:
         retries everything. Attempt ``k`` waits ``backoff_s·k`` seconds
         first. A failure it re-raises gets a crash postmortem (site
         ``run_with_restarts``) unless ``fit`` already wrote one naming
-        its step."""
+        its step. ``diagnose=True`` runs each attempt inside
+        ``failures.diagnose_context`` (thread stacks on a fault and every
+        10 s)."""
         attempt = 0
         while True:
             try:
+                if diagnose:
+                    with failures.diagnose_context():
+                        return self.run(main_fn, **kwargs)
                 return self.run(main_fn, **kwargs)
             except Exception as e:
                 kind = failures.classify_exception(e)

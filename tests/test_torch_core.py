@@ -632,3 +632,42 @@ def test_torch_dist_store_error_type_is_retryable():
     exc = dist.DistStoreError("Timed out after 901 seconds waiting for "
                               "clients. 1/2 clients joined.")
     assert classify_exception(exc) == "retryable"
+
+
+# --- stack traces around a run (tests/test_failures.py) --------------------
+
+def test_diagnose_context_runs(tmp_path, monkeypatch):
+    """Twin of tests/test_failures.py's ``test_diagnose_context_runs``,
+    which also reads what it wrote: armed, the context emits ``diagnose``
+    with its file under the event directory, and after an interval of 1 s
+    the file holds this thread's stack; on exit the timer is cancelled
+    (the file stops growing) and ``run_with_restarts(diagnose=True)``
+    returns ``main_fn``'s result from inside it."""
+    import os
+    import time
+
+    from sparkdl_tpu_torch.runner import XlaRunner, events
+    from sparkdl_tpu_torch.runner.failures import diagnose_context
+
+    monkeypatch.setenv("SPARKDL_EVENT_DIR", str(tmp_path))
+    monkeypatch.delenv("SPARKDL_PROCESS_ID", raising=False)
+    rec = events.reset()
+    with diagnose_context(interval_s=1) as path:
+        x = 1 + 1
+        time.sleep(1.4)
+    assert x == 2
+    assert path == str(tmp_path / "stack_traces_rank0.txt")
+    text = open(path).read()
+    assert "Timeout (0:00:01)!" in text
+    assert "test_diagnose_context_runs" in text
+    ev = [e for e in rec.tail() if e["name"] == "diagnose"]
+    assert ev and ev[0]["path"] == path and ev[0]["interval_s"] == 1
+    size = os.path.getsize(path)
+    time.sleep(1.2)
+    assert os.path.getsize(path) == size
+    out = XlaRunner(device="cpu").run_with_restarts(
+        lambda ctx: "ok", diagnose=True)
+    assert out == "ok"
+    assert sum(e["name"] == "diagnose" for e in rec.tail()) == 2
+    monkeypatch.delenv("SPARKDL_EVENT_DIR")
+    events.reset()  # the next test's recorder streams nowhere

@@ -172,6 +172,32 @@ def test_flash_attention_bf16_dead_tiles(dev, d, case):
         assert torch.all(lse[:, :, :64] == NEG_INF)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_flop_count_on_card_equals_cpu(dev, d, causal):
+    """Under ``utils.flops.count_flops`` the kernels report the FLOPs their
+    plain versions report on the CPU, forward and backward through
+    autograd, with left and right pads: the same count, exactly."""
+    from sparkdl_tpu_torch.utils.flops import count_flops
+
+    rng = np.random.default_rng(d)
+    b, h, s = 2, 4, 200
+    m = np.ones((b, s), np.float32)
+    m[0, 150:] = 0
+    m[1, :30] = 0
+    counts = []
+    for device in (dev, torch.device("cpu")):
+        q, k, v = (_randn(rng, (b, h, s, d), torch.bfloat16, device)
+                   .requires_grad_() for _ in range(3))
+        with count_flops() as c:
+            o = fa.flash_attention(q, k, v, causal,
+                                   kv_mask=torch.from_numpy(m).to(device))
+            o.float().sum().backward()
+        counts.append(c.total)
+    assert counts[0] == counts[1] == fa.attention_flops(
+        q, causal, torch.from_numpy(m), fa.FWD_PRODUCTS + fa.BWD_PRODUCTS)
+
+
 def test_flash_attention_no_mask_and_wrapper_checks(dev):
     rng = np.random.default_rng(0)
     q, k, v = (_randn(rng, (2, 4, 130, 64), torch.float32, dev)

@@ -72,11 +72,13 @@ def _gang(mode, in_dir, out_dir, np_=2):
 # --- the linear classifier: twin of test_two_process_train_and_collectives --
 
 def test_two_rank_gang_trains_like_one_process_over_the_global_batch(
-        tmp_path):
+        tmp_path, monkeypatch):
     """Two gloo ranks, each on its half of every batch, end where one
     process over the global batch ends (the reference, JAX); then
     ``api.allreduce`` sums to 3.0 and averages to 1.5, and
-    ``broadcast(root_rank=1)`` gives 17.0 on both ranks."""
+    ``broadcast(root_rank=1)`` gives 17.0 on both ranks. A gang fit's
+    ``SPARKDL_MFU_ESTIMATE`` count (the rank's count times the gang's
+    size) equals one process's count over the global batch."""
     rng = np.random.RandomState(0)
     dim, classes, gbs = 4, 3, 8
     w = rng.randn(dim, classes).astype(np.float32)
@@ -107,6 +109,14 @@ def test_two_rank_gang_trains_like_one_process_over_the_global_batch(
     assert [o["hvd_rank"] for o in outs] == [0, 1]
     # the step's loss is the gang's mean: the same on both ranks
     assert torch.equal(outs[0]["losses"], outs[1]["losses"])
+    from sparkdl_tpu_torch.runner import softmax_cross_entropy_loss
+    monkeypatch.setenv("SPARKDL_MFU_ESTIMATE", "1")
+    one = XlaRunner(device="cpu").run(lambda ctx: ctx.fit(
+        loss_fn=softmax_cross_entropy_loss(),
+        model=torch.nn.Linear(dim, classes), tx=sgd(0.1), num_steps=1,
+        data=[{"image": xs[0], "label": ys[0]}]))
+    assert one["meter"].flops_per_step == 2 * 2 * gbs * dim * classes
+    assert [o["fit_flops"] for o in outs] == [one["meter"].flops_per_step] * 2
 
 
 # --- narrow ResNet18: the two gang steps against their references ----------

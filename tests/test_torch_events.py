@@ -41,7 +41,8 @@ from sparkdl_tpu_torch.runner.metrics import MetricsLogger
 
 _ENV = ("SPARKDL_EVENT_DIR", "SPARKDL_EVENT_RING", "SPARKDL_PEAK_FLOPS",
         "SPARKDL_HEARTBEAT_DIR", "SPARKDL_BATCH_LEDGER",
-        "SPARKDL_EVENT_MAX_MB", "SPARKDL_PROCESS_ID", "SPARKDL_TRACE_ID")
+        "SPARKDL_EVENT_MAX_MB", "SPARKDL_PROCESS_ID", "SPARKDL_TRACE_ID",
+        "SPARKDL_MFU_ESTIMATE", "SPARKDL_FEED_LOOKAHEAD")
 
 
 def _reset_both():
@@ -339,14 +340,216 @@ class TestStepTimeStats:
         assert counts == [3, 3]
 
     def test_fit_mfu_from_flops_per_step(self, monkeypatch):
-        """The port has no cost-analysis estimate (SPARKDL_MFU_ESTIMATE):
-        a FLOP count given to ``fit`` gives the MFU in both packages."""
+        """A FLOP count given to ``fit`` gives the MFU in both packages
+        (without one, ``SPARKDL_MFU_ESTIMATE`` counts it: TestFlopEstimate
+        below)."""
         monkeypatch.setenv("SPARKDL_PEAK_FLOPS", "1e12")
         for run, fit in ((_port_run, _fit), (_ref_run, _jax_fit)):
             m = run(lambda ctx: fit(ctx, flops_per_step=1e6))["meter"]
             assert m.flops_per_step == 1e6
             assert m.summary()["mfu"] is not None
 
+
+# --- TestFlopEstimate --------------------------------------------------------
+#
+# SPARKDL_MFU_ESTIMATE: the reference asks XLA's cost analysis for the
+# step's FLOPs, the port counts the first step's aten ops
+# (FlopCounterMode) and its kernels' own reports (utils.flops).
+
+MLP_BATCH, MLP_IN, MLP_HIDDEN, MLP_OUT = 256, 512, 1024, 10
+
+
+class MLP(torch.nn.Module):
+    def __init__(self, p):
+        super().__init__()
+        for k, v in p.items():
+            setattr(self, k, torch.nn.Parameter(torch.from_numpy(v.copy())))
+
+    def forward(self, x):
+        return torch.relu(x @ self.w1 + self.b1) @ self.w2 + self.b2
+
+
+def _mlp_params(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"w1": (rng.randn(MLP_IN, MLP_HIDDEN) / np.sqrt(MLP_IN)
+                   ).astype(np.float32),
+            "b1": np.zeros(MLP_HIDDEN, np.float32),
+            "w2": (rng.randn(MLP_HIDDEN, MLP_OUT) / np.sqrt(MLP_HIDDEN)
+                   ).astype(np.float32),
+            "b2": np.zeros(MLP_OUT, np.float32)}
+
+
+def _mlp_data(n=2, seed=1):
+    rng = np.random.RandomState(seed)
+    return [{"image": rng.randn(MLP_BATCH, MLP_IN).astype(np.float32),
+             "label": rng.randint(0, MLP_OUT, MLP_BATCH)} for _ in range(n)]
+
+
+def _mlp_port_fit(ctx):
+    return ctx.fit(loss_fn=softmax_cross_entropy_loss(),
+                   model=MLP(_mlp_params()), tx=sgd(0.1), data=_mlp_data(),
+                   num_steps=2, log_every=1)
+
+
+def _mlp_jax_fit(ctx):
+    def apply(p, x):
+        return jax.nn.relu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    return ctx.fit(loss_fn=jax_sce(), params=_mlp_params(),
+                   tx=optax.sgd(0.1), apply_fn=apply, data=_mlp_data(),
+                   num_steps=2, log_every=1)
+
+
+def _live_pairs(mask, causal):
+    """Live (query row, key) pairs by brute force: key col is live for
+    row when mask[b, col] > 0 and, causal, col <= row."""
+    b, s = mask.shape
+    return sum(1 for i in range(b) for row in range(s) for col in range(s)
+               if mask[i, col] > 0 and (not causal or col <= row))
+
+
+class TestFlopEstimate:
+    def test_mlp_estimate_matches_xla_cost_analysis(self, monkeypatch):
+        """(a) A model whose FLOPs are matmuls: the port's estimate is the
+        step's matmuls exactly (the forward's two, then dW1, dW2 and dH;
+        the input takes no gradient), at most the reference's and within
+        1 % of it: XLA also counts the bias adds, the ReLU, the softmax
+        and SGD's update (measured 552,599,552 against 555,040,512,
+        0.44 % apart)."""
+        monkeypatch.setenv("SPARKDL_MFU_ESTIMATE", "1")
+        port = _port_run(_mlp_port_fit)["meter"].flops_per_step
+        ref = _ref_run(_mlp_jax_fit)["meter"].flops_per_step
+        b, i, h, o = MLP_BATCH, MLP_IN, MLP_HIDDEN, MLP_OUT
+        assert port == 2 * (2 * b * i * h + 3 * b * h * o)
+        assert port <= ref
+        assert (ref - port) / ref < 0.01, (port, ref)
+
+    @pytest.mark.parametrize("value,on", [(None, False), ("0", False),
+                                          ("1", True), ("true", True),
+                                          ("YES ", True), ("on", False)])
+    def test_knob_truth_table(self, monkeypatch, value, on):
+        """(d) Twin of tests/test_events.py's cost-analysis test: the
+        knob's truth table is the reference's (``1``, ``true``, ``yes``
+        on; ``0``, unset and the rest off). On, both packages set the
+        meter's FLOPs and MFU; off, both stay None."""
+        monkeypatch.setenv("SPARKDL_PEAK_FLOPS", "1e12")
+        if value is not None:
+            monkeypatch.setenv("SPARKDL_MFU_ESTIMATE", value)
+        for run, fit in ((_port_run, _fit), (_ref_run, _jax_fit)):
+            m = run(fit)["meter"]
+            mfu = m.summary()["mfu"]
+            if on:
+                assert m.flops_per_step > 0 and mfu is not None
+            else:
+                assert m.flops_per_step is None and mfu is None
+
+    def test_counted_step_changes_nothing_and_emits_the_event(
+            self, monkeypatch):
+        """The count comes from the first step as it runs, no extra step:
+        the fit's losses and parameters equal an uncounted fit's bit for
+        bit; ``flops_estimate`` follows ``compile`` with the count and the
+        step's wall time; the counted step stays out of the step times."""
+        out = []
+        for value in ("1", "0"):
+            monkeypatch.setenv("SPARKDL_MFU_ESTIMATE", value)
+            rec = events.reset()
+            res = _port_run(_mlp_port_fit)
+            names = [e["name"] for e in rec.tail()]
+            est = [e for e in rec.tail() if e["name"] == "flops_estimate"]
+            if value == "1":
+                assert est and est[0]["flops"] == \
+                    res["meter"].flops_per_step and est[0]["dur_s"] > 0
+                assert names.index("compile") < names.index("flops_estimate")
+            else:
+                assert not est
+            assert res["state"].step == 2
+            assert res["meter"].summary()["step_time"]["n"] == 1
+            out.append(([h["loss"] for h in res["history"]],
+                        {k: v.clone() for k, v in
+                         res["state"].model.state_dict().items()}))
+        assert out[0][0] == out[1][0]
+        for k, v in out[0][1].items():
+            assert torch.equal(v, out[1][1][k]), k
+
+    def test_a_count_of_zero_leaves_the_mfu_null(self, monkeypatch):
+        """A step without a counted op (an elementwise model) counts 0:
+        ``flops_per_step`` stays None and MFU null, as the reference's
+        ``or None``."""
+        class Scale(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.w = torch.nn.Parameter(torch.ones(4))
+
+            def forward(self, x):
+                return x * self.w
+
+        monkeypatch.setenv("SPARKDL_MFU_ESTIMATE", "1")
+        monkeypatch.setenv("SPARKDL_PEAK_FLOPS", "1e12")
+        data = [{"image": np.ones((2, 4), np.float32),
+                 "label": np.zeros(2, np.int64)}] * 2
+        m = _port_run(lambda ctx: ctx.fit(
+            loss_fn=softmax_cross_entropy_loss(), model=Scale(),
+            tx=sgd(0.1), data=data, num_steps=2))["meter"]
+        assert m.flops_per_step is None and m.summary()["mfu"] is None
+
+    @pytest.mark.parametrize("value,want", [(None, 0), ("2", 2)])
+    def test_feed_lookahead_knob_is_the_default(self, monkeypatch, value,
+                                                want):
+        """``SPARKDL_FEED_LOOKAHEAD`` is ``fit(feed_lookahead=)``'s
+        default, 0 unset, as in the reference; an explicit argument
+        wins."""
+        from sparkdl_tpu_torch.runner import xla_runner
+
+        seen = []
+        staged = xla_runner._staged
+
+        def spy(ctx, data_it, crop, limit, start_step, lookahead):
+            seen.append(lookahead)
+            return staged(ctx, data_it, crop, limit, start_step, lookahead)
+
+        monkeypatch.setattr(xla_runner, "_staged", spy)
+        if value is not None:
+            monkeypatch.setenv("SPARKDL_FEED_LOOKAHEAD", value)
+        losses = [[h["loss"] for h in _port_run(
+            lambda ctx: _fit(ctx, log_every=1, **kw))["history"]]
+            for kw in ({}, {"feed_lookahead": 1})]
+        assert seen == [want, 1]
+        assert losses[0] == losses[1]
+
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("case", ["causal", "padded", "causal_padded"])
+    def test_flash_count_is_the_formula_once(self, case, d):
+        """(c) Under the counter the flash wrappers report 2·D FLOPs a
+        product for each live (row, key) pair and head, 2 products
+        forward and 5 backward, counted from the mask by brute force
+        here; exactly, so the plain version's matmuls, which the mode
+        sees on the CPU, are left out."""
+        from sparkdl_tpu_torch.ops import flash_attention as fa
+        from sparkdl_tpu_torch.utils.flops import count_flops
+
+        b, h, s = 2, 3, 24
+        causal = case.startswith("causal")
+        mask = None
+        if case.endswith("padded"):
+            m = np.ones((b, s), np.float32)
+            m[0, 17:] = 0          # right pads
+            m[1, :5] = 0           # left pads
+            mask = torch.from_numpy(m)
+        g = torch.Generator().manual_seed(d)
+        q, k, v = (torch.randn(b, h, s, d, generator=g, requires_grad=True)
+                   for _ in range(3))
+        pairs = _live_pairs(np.ones((b, s)) if mask is None
+                            else mask.numpy(), causal)
+        per_product = 2 * d * h * pairs
+        with count_flops() as fwd:
+            fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                   causal, kv_mask=mask)
+        assert fwd.total == 2 * per_product
+        with count_flops() as both:
+            o = fa.flash_attention(q, k, v, causal, kv_mask=mask)
+            (o * o.detach()).sum().backward()
+        assert both.total == both.kernel_flops == 7 * per_product
+        # the plain versions' matmuls were seen by the mode, then left out
+        assert both.mode.get_total_flops() > both.total
 
 # --- TestPostmortem ----------------------------------------------------------
 

@@ -98,9 +98,19 @@ def linear(ctx, in_dir):
                        ctx.size)
         state, m = step(state, ctx.shard_batch(local))
         losses.append(float(m["loss"]))
+    # the gang's FLOP count of its first step (SPARKDL_MFU_ESTIMATE): the
+    # rank's count times the gang's size
+    os.environ["SPARKDL_MFU_ESTIMATE"] = "1"
+    fit = ctx.fit(loss_fn=softmax_cross_entropy_loss(),
+                  model=torch.nn.Linear(d["w"].shape[0], d["w"].shape[1]),
+                  tx=sgd(0.1), num_steps=1,
+                  data=[_local({"image": d["x"][0], "label": d["y"][0]},
+                               ctx.rank, ctx.size)])
+    del os.environ["SPARKDL_MFU_ESTIMATE"]
     return {"w": model.weight.detach().T.clone(),
             "b": model.bias.detach().clone(),
             "losses": torch.tensor(losses),
+            "fit_flops": fit["meter"].flops_per_step,
             "hvd_sum": api.allreduce(np.float32(ctx.rank + 1), average=False),
             "hvd_mean": api.allreduce(np.float32(ctx.rank + 1)),
             "hvd_bcast": api.broadcast(np.float32(ctx.rank * 10 + 7),

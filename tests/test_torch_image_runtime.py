@@ -174,6 +174,20 @@ def test_all_stages_emit_spans():
     assert put["bytes"] == 4 * 2 * 4 and put["rows"] == 3
 
 
+@pytest.mark.parametrize("value,donate", [(None, False), ("0", False),
+                                          ("1", True), ("true", True),
+                                          ("yes", True)])
+def test_infer_donate_knob_is_the_default(monkeypatch, value, donate):
+    """``SPARKDL_INFER_DONATE`` sets ``donate``'s default with the
+    reference's truth table (``1``, ``true``, ``yes``); an explicit
+    argument wins."""
+    monkeypatch.delenv("SPARKDL_INFER_DONATE", raising=False)
+    if value is not None:
+        monkeypatch.setenv("SPARKDL_INFER_DONATE", value)
+    assert runner(lambda b: b).donate == donate
+    assert runner(lambda b: b, donate=not donate).donate == (not donate)
+
+
 def test_mesh_and_donate_are_not_ported():
     """``donate`` and ``mesh`` run now: a donating runner gives the same
     outputs, and while its step runs nothing else holds the device batch

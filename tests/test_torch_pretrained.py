@@ -568,6 +568,39 @@ def test_flax_path_safetensors_equals_reference(tmp_path):
         assert msgs[0] == msgs[1], msgs
 
 
+def test_save_safetensors_round_trips_with_the_reference(tmp_path):
+    """The port's ``save_safetensors`` writes the reference's file: a
+    seeded flax tree and a port model (through ``state_dict_to_flax``)
+    saved by the port read back bitwise through the reference's
+    ``load_safetensors``, and the reference's file reads back bitwise
+    through the port's; a file that lacks a key raises "missing" in both
+    loaders (tests/test_models.py's weight round trip, on a narrow
+    ResNet)."""
+    from sparkdl_tpu_torch.models import resnet, save_safetensors
+    model = resnet.ResNet(stage_sizes=[1, 1, 1, 1], block=resnet.BasicBlock,
+                          width=8, num_classes=10)
+    template = R.state_dict_to_flax(model.state_dict())
+    variables = _seeded_like(template, 12)
+    f_port = str(tmp_path / "port.safetensors")
+    save_safetensors(variables, f_port)
+    assert_trees_bitwise(_np_tree(JR.load_safetensors(template, f_port)),
+                         variables)
+    f_ref = str(tmp_path / "ref.safetensors")
+    JR.save_safetensors(variables, f_ref)
+    assert_trees_bitwise(R.load_safetensors(template, f_port), variables)
+    assert_trees_bitwise(R.load_safetensors(template, f_ref), variables)
+    R.load_flax_variables(model, variables)
+    f_model = str(tmp_path / "model.safetensors")
+    save_safetensors(model, f_model)
+    assert_trees_bitwise(_np_tree(JR.load_safetensors(template, f_model)),
+                         variables)
+    bad = str(tmp_path / "bad.safetensors")
+    save_safetensors({"params": {"w": np.ones(2, np.float32)}}, bad)
+    for load in (JR.load_safetensors, R.load_safetensors):
+        with pytest.raises(ValueError, match="missing"):
+            load(template, bad)
+
+
 def _np_tree(t):
     return {k: _np_tree(v) if isinstance(v, dict) else np.asarray(v)
             for k, v in t.items()}
