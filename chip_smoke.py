@@ -686,10 +686,13 @@ w. A fleet of tensor-parallel groups in other processes
    memory. A ``summary`` line gives the phase's seconds against
    PHASE_W_BUDGET_S.
 
-Then a ``{"kernels": [...]}`` line (four kernels: flash_attention,
-flash_decode, paged_flash_decode, flash_attention_bwd; the two flash
-entries add their BERT case and phase h's launches, phase m's gang
-launches, phase p's, ``phase_p_launches``, and phase q's
+Then a ``{"phase_walls": {...}}`` line: each phase's wall seconds, keyed
+by its letter and name (``a_build`` ... ``w_fleet_remote``; the parity
+halves of g and h apart), and ``total``, the script's seconds from its
+start to that line. Then a ``{"kernels": [...]}`` line (four kernels:
+flash_attention, flash_decode, paged_flash_decode, flash_attention_bwd;
+the two flash entries add their BERT case and phase h's launches, phase
+m's gang launches, phase p's, ``phase_p_launches``, and phase q's
 ``sup_bert_kill`` attempts, ``phase_q_launches``; the three forward
 kernels add phase n's and phase o's launches leg by leg,
 ``phase_n_launches`` and ``phase_o_launches``; flash_attention and
@@ -719,6 +722,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()  # phase_walls' total counts from here
 
 H100_BYTES_S = 3.35e12            # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
@@ -8229,42 +8233,52 @@ def main() -> int:
     from sparkdl_tpu_torch.ops import flash_decode as fd
     from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
 
-    phase_build(_build)
-    main_recs = phase_kernels(torch, fa, fd, pfd)
-    mp = phase_main(torch, fa, fd)
-    phase_parity(torch)
-    legs = phase_serve(torch, (fa, fd, pfd))
-    phase_serve_parity(torch, (fa, fd, pfd))
-    train = phase_train(torch, (fa, fd, pfd))
-    phase_train_parity(torch)
-    glue, bert = phase_glue(torch, (fa, fd, pfd))
-    phase_glue_parity(torch, (fa, fd, pfd))
-    phase_classify(torch, (fa, fd, pfd), bert)
+    walls = {}
+
+    def timed(key, phase, *args):
+        """``phase(*args)``, its wall seconds kept under ``key``."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        walls[key] = time.perf_counter() - t0
+        return out
+
+    kern = (fa, fd, pfd)
+    timed("a_build", phase_build, _build)
+    main_recs = timed("b_kernels", phase_kernels, torch, fa, fd, pfd)
+    mp = timed("c_main", phase_main, torch, fa, fd)
+    timed("d_parity", phase_parity, torch)
+    legs = timed("e_serve", phase_serve, torch, kern)
+    timed("f_serve_parity", phase_serve_parity, torch, kern)
+    train = timed("g_train", phase_train, torch, kern)
+    timed("g_parity", phase_train_parity, torch)
+    glue, bert = timed("h_glue", phase_glue, torch, kern)
+    timed("h_parity", phase_glue_parity, torch, kern)
+    timed("i_classify", phase_classify, torch, kern, bert)
     del bert
     torch.cuda.empty_cache()
-    phase_images(torch)
-    resnet = phase_resnet(torch, (fa, fd, pfd))
-    phase_dp(torch, (fa, fd, pfd), resnet["train"])
-    gang = phase_dp_m(torch, glue)
-    n = phase_n(torch, (fa, fd, pfd))
-    o = phase_fleet(torch, (fa, fd, pfd))
-    p = phase_flight_recorder(torch, (fa, fd, pfd))
+    timed("j_images", phase_images, torch)
+    resnet = timed("k_resnet", phase_resnet, torch, kern)
+    timed("l_dp", phase_dp, torch, kern, resnet["train"])
+    gang = timed("m_dp_m", phase_dp_m, torch, glue)
+    n = timed("n_int8", phase_n, torch, kern)
+    o = timed("o_fleet", phase_fleet, torch, kern)
+    p = timed("p_recorder", phase_flight_recorder, torch, kern)
     p_launches = p["lora_recorder"]["launches"]
     import shutil
     import tempfile
 
     sup_root = tempfile.mkdtemp(prefix="sparkdl_sup_")
     try:
-        q = phase_supervise(torch, sup_root)
+        q = timed("q_supervise", phase_supervise, torch, sup_root)
         q_launches = q["sup_bert_kill"]["launches"]
-        r = phase_import(torch, (fa, fd, pfd), q["dirs"])
+        r = timed("r_import", phase_import, torch, kern, q["dirs"])
     finally:
         shutil.rmtree(sup_root, ignore_errors=True)
-    phase_graph(torch)
-    t = phase_parallel(torch, (fa, fd, pfd))
-    u = phase_tp(torch, (fa, fd, pfd))
-    v = phase_sharded(torch, (fa, fd, pfd))
-    w = phase_fleet_remote(torch, (fa, fd, pfd))
+    timed("s_graph", phase_graph, torch)
+    t = timed("t_parallel", phase_parallel, torch, kern)
+    u = timed("u_tp", phase_tp, torch, kern)
+    v = timed("v_sharded", phase_sharded, torch, kern)
+    w = timed("w_fleet_remote", phase_fleet_remote, torch, kern)
     v_launches = {f"fsdp_tp_train_{a['arm']}": a["launches"]
                   for a in v["fsdp_tp_train"]["arms"]}
     v_launches["gpipe"] = v["gpipe"]["launches"]
@@ -8411,6 +8425,8 @@ def main() -> int:
     # the card path reads no DataFrame: nothing imported pyarrow or pandas
     assert not [m for m in sys.modules
                 if m.split(".")[0] in ("pyarrow", "pandas")]
+    walls["total"] = time.perf_counter() - T_START
+    emit({"phase_walls": walls})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

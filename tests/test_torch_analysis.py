@@ -15,6 +15,8 @@ seeded gang dir go through both packages' ``analyze``,
 the outputs are equal as JSON, floats within 1e-9.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import importlib.util
 import json
 import os

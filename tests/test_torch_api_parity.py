@@ -15,6 +15,8 @@ does" is a test: a name or knob added to the reference without its port,
 or a recorded difference without its record, fails here.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import ast
 import importlib
 import re

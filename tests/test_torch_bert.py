@@ -28,6 +28,8 @@ Tolerances:
 - dropout: the keep fraction over 10**6 draws within 5 sigma of 0.9.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import functools
 import math
 

@@ -12,6 +12,8 @@ model on seeded numpy batches. The kinds that kill the process
 (``sigkill``, ``decimate``) run in a child process with its own timeout.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import signal

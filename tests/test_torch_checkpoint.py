@@ -15,9 +15,12 @@ in other orders). A save and restore, and a resumed run on the CPU
 against an uninterrupted one, are held bit for bit.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import glob
 import json
 import os
+import threading
 
 import numpy as np
 import optax
@@ -37,6 +40,30 @@ from sparkdl_tpu_torch.runner.checkpoint import (CheckpointCorruptionError,
                                                  corrupt_latest_checkpoint,
                                                  load_portable,
                                                  save_portable)
+
+
+#: the longest a test waits for ``m.wait()``; a save here lands in well
+#: under a second, and a hung wait fails its test
+WAIT_S = 30.0
+
+
+def _wait(m):
+    """``m.wait()`` itself, on a thread of its own that must return
+    within WAIT_S; its error, if any, is raised here."""
+    errors = []
+
+    def call():
+        try:
+            m.wait()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t = threading.Thread(target=call, daemon=True)
+    t.start()
+    t.join(WAIT_S)
+    assert not t.is_alive(), f"m.wait() still blocked after {WAIT_S} s"
+    if errors:
+        raise errors[0]
 
 
 class Linear(torch.nn.Module):
@@ -164,16 +191,16 @@ def test_verify_disabled_by_env(tmp_path, monkeypatch):
 
 def test_wait_close_idempotent_and_safe_before_first_save(tmp_path):
     m = CheckpointManager(str(tmp_path / "ckpt"))
-    m.wait()
-    m.wait()
+    _wait(m)
+    _wait(m)
     m.close()
     m.close()
     m2 = CheckpointManager(str(tmp_path / "ckpt2"))
     m2.save(1, _state(1.0), wait=False)
-    m2.wait()  # the writer has landed the file and its manifest
+    _wait(m2)  # the writer has landed the file and its manifest
     assert m2.verify_step(1) == (True, "ok")
     m2.close()
-    m2.wait()  # after close: no-op
+    _wait(m2)  # after close: no-op
 
 
 def test_fit_error_path_closes_manager_once(tmp_path):
@@ -336,7 +363,7 @@ def test_roundtrip_is_bit_identical(tmp_path, async_save):
             p.add_(1.0)
         for buf in state.model.buffers():
             buf.add_(1.0)
-    m.wait()
+    _wait(m)
     fresh = TrainState.create(R.ResNet18(num_classes=5, width=8, seed=9),
                               sgd(0.05, momentum=0.9))
     m.restore(fresh)

@@ -9,6 +9,8 @@ The bodies are the reference's; the CUDA error texts the port adds are
 classified at the end. Framework-free apart from the DataFrame's pyarrow.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pyarrow as pa
 import pytest

@@ -26,6 +26,8 @@ which round P to bf16 before dV and dS/scale before dK and dQ: a = 2**-8,
 r = 2**-7. That function gives the reasons.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import math
 
 import numpy as np
@@ -235,7 +237,7 @@ def test_flash_attention_from_threads_at_several_lengths(dev):
         q, k, v, _ = cases[i]
         try:
             with torch.cuda.stream(torch.cuda.Stream()):
-                start.wait()
+                start.wait(60)
                 for _ in range(1000):
                     o = fa.flash_attention_fwd(q, k, v, True)[0]
                 torch.cuda.current_stream().synchronize()
@@ -248,7 +250,8 @@ def test_flash_attention_from_threads_at_several_lengths(dev):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
     assert not errors, errors[:3]
     for (_, _, _, want), got in zip(cases, outs):
         assert torch.equal(got, want)

@@ -11,6 +11,8 @@ index, skip-list, world size) and its postmortem's ``batch_index`` /
 model on seeded numpy batches.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 
 import numpy as np

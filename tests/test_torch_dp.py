@@ -26,6 +26,8 @@ Tolerances:
   against none, a resumed run against a straight one.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 from pathlib import Path

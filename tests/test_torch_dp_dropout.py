@@ -50,6 +50,8 @@ masks are never compared with the reference's bits. What is held:
   ``tests/test_torch_train.py``), the base weights bit-identical.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import dataclasses
 import os
 from pathlib import Path

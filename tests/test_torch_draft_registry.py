@@ -10,6 +10,8 @@ recorded difference), which is checked for its pairing and determinism
 only. Then a paged engine with ``spec_k`` and the registry draft on the
 CPU serves the streams of plain greedy decoding."""
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import jax
 import numpy as np
 import pytest

@@ -13,6 +13,8 @@ times. The fits train a 4×3 linear softmax model on seeded numpy batches
 (the reference's problem), the port's on the CPU.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import sys

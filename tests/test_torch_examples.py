@@ -12,6 +12,8 @@ equal the JAX package's ``generate`` with its ``ring_attention`` on a
 bitwise.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import functools
 import os
 import re

@@ -6,6 +6,8 @@ packages and requires the same output (float columns bitwise: both stages
 compute in float64 numpy on the host; errors with the same message),
 beside the reference test's own checks on the port."""
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pyarrow as pa
 import pytest

@@ -22,6 +22,8 @@ rounding each p_j to bf16 moves O by at most 2**-9·(P|V|), and l, summed
 from the unrounded p, disagrees with the rounded P by about as much again.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import math
 
 import jax.numpy as jnp

@@ -16,6 +16,8 @@ The CUDA kernel itself is held to ``attention_bwd_plain`` on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

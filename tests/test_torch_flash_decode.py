@@ -9,6 +9,8 @@ version on the card by ``tests/test_torch_cuda.py`` and
 f32 1e-5, bf16 2e-2.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -24,6 +24,8 @@ And the import guard: the router, the SLO module and the telemetry plane
 import no torch, and loading them initialises no CUDA and loads no jax.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import ast
 import pathlib
 import subprocess

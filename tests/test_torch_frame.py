@@ -4,6 +4,8 @@ too), and of ``tests/test_data.py``'s ``ArrowDataset`` tests on the port's
 ``runner.data.ArrowDataset``. The frame is host code, the same on both
 sides; each twin asserts what its original does."""
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pandas as pd
 import pyarrow as pa

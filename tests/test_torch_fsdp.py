@@ -24,6 +24,8 @@ Tolerances:
 - checkpoints: bitwise.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 from pathlib import Path
 

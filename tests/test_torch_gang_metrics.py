@@ -13,6 +13,8 @@ each runs through the reference and the port, each in its own directory,
 and their results are held equal.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 

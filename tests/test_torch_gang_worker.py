@@ -59,6 +59,8 @@ Usage: ``test_torch_gang_worker.py <mode> <in_dir> <out_dir> [device]``
   NCCL gang).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import os
 import sys
 

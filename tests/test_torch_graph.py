@@ -22,6 +22,8 @@ Beyond the twins: the cross-package magic refusal, the orbax directory's
 shapes.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import subprocess

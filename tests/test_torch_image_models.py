@@ -20,6 +20,8 @@ Tolerances:
   different points; measured ≤ 2^-7 here).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import functools
 
 import numpy as np

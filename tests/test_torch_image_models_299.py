@@ -13,6 +13,8 @@ Xception at 71x71, where every stride-2 pool meets an odd input (33, 17,
 ``(0, 1)`` — as the second one's meets 74 at the full 299x299.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pytest
 

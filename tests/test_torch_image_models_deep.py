@@ -7,6 +7,8 @@ same tolerance: f32 |Δ| ≤ 1e-5·max(1, max|ref|) + 1e-4·|ref| (the
 rationale is in that file's docstring).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import pytest
 
 from test_torch_image_models import (check_features_and_logits,

@@ -12,6 +12,8 @@ orders): downscale (antialiased) |Δ| ≤ 1e-2, measured 3.5e-3 at
 75→299. A batch already at the target size is returned unchanged.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import threading
 import time
 

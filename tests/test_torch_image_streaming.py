@@ -12,6 +12,8 @@ feeds the same CPU step); the fused/host-pack comparison is held to 1e-4
 (the reference's own rule there: the pack resizes in float on the host).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import os
 
 import numpy as np

@@ -17,6 +17,8 @@ featurizers with ``setWeights``. Tolerances, each stated where it is used:
   ~1e-5 in probability here); coefficients |Δ| ≤ 1e-3·max|w_ref| + 1e-3.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pyarrow as pa
 import pytest

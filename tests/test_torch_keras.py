@@ -26,6 +26,8 @@ statistics — to 1e-5 of each variable's largest magnitude, and the
 change each step made to ``STEP_SHARE`` of itself.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import subprocess

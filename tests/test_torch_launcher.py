@@ -6,6 +6,8 @@ Timing limits are the reference's: a dead rank is found in under 30 s
 against a 120 s timeout. The supervisor's twins are in
 ``tests/test_torch_supervise.py``."""
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import ast
 import sys
 import time
@@ -110,7 +112,8 @@ def test_every_rank_gets_the_rendezvous_env(tmp_path):
     assert [ln[1:] for ln in lines] == [["3", str(r), "x", "arg"]
                                         for r in range(3)]
     out = launcher.launch(str(script), np=1, args=["a"], env={"EXTRA": "y"},
-                          coordinator="127.0.0.1:4242", capture=True)
+                          coordinator="127.0.0.1:4242", capture=True,
+                          timeout_s=60.0)
     assert out[0].stdout.split() == ["127.0.0.1:4242", "1", "0", "y", "a"]
 
 

@@ -10,6 +10,8 @@ layers of f32 matmuls in different summation orders); greedy tokens and
 decode step counts are held exactly.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import ast
 import subprocess
 import sys

@@ -23,6 +23,8 @@ GPipe's forward atol 1e-6, its gradients atol 1e-4; the sharded feed
 bitwise against the unsharded runner; the image transformer atol 1e-6.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 from pathlib import Path
 
 import jax

@@ -6,6 +6,8 @@ and requires the same array bitwise (one library, one numpy fallback),
 beside the reference test's own checks; the resize twins keep the
 reference's closeness to ``jax.image.resize`` (1e-3 on 0–255)."""
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import threading
 
 import jax
@@ -202,13 +204,14 @@ def test_ensure_built_thread_safe_single_make(monkeypatch, tmp_path):
     results = []
 
     def worker():
-        barrier.wait()
+        barrier.wait(30)
         results.append(nat.ensure_built())
 
     threads = [threading.Thread(target=worker) for _ in range(4)]
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
     assert results == [False] * 4
     assert len(calls) == 1

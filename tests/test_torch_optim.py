@@ -15,6 +15,8 @@ optax's defaults (``weight_decay=1e-4``; ``decay=0.9``, ``eps=1e-8``
 inside the square root), which ``KerasImageFileEstimator`` names.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import optax
 import pytest

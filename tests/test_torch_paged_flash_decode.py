@@ -17,6 +17,8 @@ pools fold the scale in at another point (the kernel after each product,
 the plain version before), which moves f32 rounding only: 1e-5.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

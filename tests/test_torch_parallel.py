@@ -29,6 +29,8 @@ Tolerances:
   port's weight is), bitwise.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import functools
 from pathlib import Path
 

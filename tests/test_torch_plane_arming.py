@@ -14,6 +14,8 @@ on the CPU.
   the reference's keys.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import time

@@ -21,6 +21,8 @@ Three kinds of test:
   ``.safetensors`` files as the reference's does.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import subprocess

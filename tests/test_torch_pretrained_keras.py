@@ -14,6 +14,8 @@ the Keras forward at the reference's tolerance (2e-3), and
 reference's featurizer (the f32 rule of ``test_torch_image_models``).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pytest
 import torch

@@ -22,6 +22,8 @@ reach the router's placement, a silent channel makes the replica DEAD,
 cancels and drains cross the channel, and inline drive is refused.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import threading
@@ -334,8 +336,13 @@ class TestProxyOverLoopback:
         """A full remote queue raises ``QueueFullError`` here; the
         router's placement walks on to the next replica."""
         s = _Served(_stub_engine(queue_capacity=1, prefill_s=2.0))
+        s.proxy.submit([1, 2, 3], 4, block=False)
+        # once the first request holds a slot, the loop spends 2 s on its
+        # prefill chunk, so the queue the next submits fill stays full
+        _until(lambda: any(r is not None for r in s.engine._slots), 10.0,
+               "the first request in a slot")
         with pytest.raises(QueueFullError):
-            for i in range(3):
+            for i in range(1, 3):
                 s.proxy.submit([1 + i, 2, 3], 4, block=False)
         local = _stub_engine()
         fleet = EngineFleet([s.proxy, local], names=["a", "b"],

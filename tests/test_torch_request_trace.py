@@ -17,6 +17,8 @@ compared).
 Every HTTP endpoint binds port 0; every wait has its own timeout.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import re

@@ -34,6 +34,8 @@ Tolerances:
   the update after 4 steps here).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import functools
 
 import numpy as np

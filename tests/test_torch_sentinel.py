@@ -10,6 +10,8 @@ through both packages' sentinels and holds their anomaly events and
 counts equal.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import threading
 

@@ -21,6 +21,8 @@ copied device-free modules (scheduler, paging, prefix trie) to their
 originals.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

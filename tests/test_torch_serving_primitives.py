@@ -17,6 +17,8 @@ comparisons: it takes every parked and overhanging write, in no defined
 order on either side, and nothing reads it live.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

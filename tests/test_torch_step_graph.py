@@ -18,6 +18,8 @@ within 1 LSB and its scales within 1e-6 relative, as
 device fill indices must be equal after every step.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,8 @@ verdict) equal to the reference's. The CLI and the elastic restore of a
 replicated checkpoint close the file.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import sys

@@ -20,6 +20,8 @@ The expectations are the reference tests' own; the reference's workers
 run jax and are not started here.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import glob
 import json
 import time

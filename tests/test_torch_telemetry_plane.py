@@ -12,6 +12,8 @@ to the same books and the same Prometheus text.
 Every HTTP endpoint binds port 0; every wait has its own timeout.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import os
 import re

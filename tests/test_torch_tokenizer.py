@@ -7,6 +7,8 @@ drives ``registerTextGenerationUDF`` in both packages with the same
 weights (carried across by ``load_flax_params``) and compares the
 generated ids and strings for equality."""
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import random
 

@@ -30,6 +30,8 @@ The full tp 1/2/4 matrix runs as a 4-rank gang behind ``slow``, as the
 reference's does.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import json
 import threading
 from pathlib import Path

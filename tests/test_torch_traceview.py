@@ -13,6 +13,8 @@ goes through both packages' ``chrome_trace`` and ``validate_chrome_trace``:
 the traces are equal as JSON, floats within 1e-9.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import importlib.util
 import json
 import os
@@ -143,7 +145,8 @@ class TestTraceContext:
         with ev.span("step_compute"):
             t = threading.Thread(target=feeder)
             t.start()
-            t.join()
+            t.join(10)
+            assert not t.is_alive()
         by = {(r["name"], r["ph"]): r for r in rec.tail()}
         assert "parent_id" not in by[("data_fetch", "B")]
 

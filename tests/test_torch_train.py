@@ -17,6 +17,8 @@ magnifies the last bits of a small gradient); base weights bit-identical
 to their start in both packages.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import copy
 import math
 

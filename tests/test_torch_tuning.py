@@ -7,6 +7,8 @@ are equal as floats; the ``CrossValidator``'s and
 ``LogisticRegression`` runs on the CPU, ``device="cpu"``), beside the
 reference test's own checks."""
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pytest
 

@@ -11,6 +11,8 @@ class, to the reference UDF's output; sampled generation only to its own
 seed (the port draws from a ``torch.Generator``, not a JAX key).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import jax
 import jax.numpy as jnp

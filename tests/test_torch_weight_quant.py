@@ -21,6 +21,8 @@ the reference and carried across by ``load_flax_params``):
 - the reference's guards (an unknown weight or KV mode raises).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import os
 import subprocess
 import sys

@@ -18,6 +18,8 @@ port's. Tolerances, each stated where it is used:
   of that file).
 """
 
+import torch_threads  # noqa: F401  (PyTorch's threads: a worker's share)
+
 import numpy as np
 import pyarrow as pa
 import pytest
