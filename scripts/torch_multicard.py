@@ -3,15 +3,17 @@
 
 The port's counterpart of ``scripts/tp_serving_record.py`` and
 ``__graft_entry__.py::dryrun_multichip``: one gang of four ranks
-(``runner.launcher.launch``, rank r on ``cuda:r``) runs the legs below in
-order, each against a one-card or one-process reference from the same
-run; every failed check raises, so the exit code is not 0. Run from the
+(``runner.launcher.launch``, rank r on ``cuda:r``) runs legs 0–8 below in
+order, then the parent runs the fleets (legs 9–10), each against a
+one-card or one-process reference from the same run; every failed check
+raises, so the exit code is not 0. Run from the
 root of a checkout on a host with four cards::
 
     python3 scripts/torch_multicard.py [--legs comms,dp_resnet50,...]
 
-and on the CPU, as a four-rank gloo gang at tiny widths (what
-``tests/test_torch_multicard.py`` runs)::
+and on the CPU, as a four-rank gloo gang at tiny widths and the fleets'
+one- and two-rank gloo gangs (what ``tests/test_torch_multicard.py``
+runs)::
 
     python3 scripts/torch_multicard.py --device cpu --tiny
 
@@ -62,6 +64,33 @@ Legs (widths full on the card; depths cut as ``chip_smoke.py`` cuts them):
    forward and backward, against the bare flash kernel on one card;
    ``ring_generate`` at llama3_8b widths, depth 2, 2 × 4096 tokens, its
    last prefill logits against the flash prefill's.
+6. ``moe``: Switch MoE at Switch-Base-8's widths, 8 × 512 tokens, bf16,
+   on ``{"ep": 4}`` (2 experts a rank) against the unsharded module on
+   each card: the output and every gradient bitwise, or within
+   ``SHARD_SHARE``; the collectives a step.
+7. ``gpipe``: four llama3_8b-width ``LlamaLayer``s on ``{"pp": 4}``, 4
+   microbatches of 1 × 2048, bf16, the flash kernels, remat off and on:
+   the forward bitwise the four blocks applied in turn on one card, each
+   stage's gradient likewise (or within ``SHARD_SHARE``); M + P − 1 = 7
+   flash launches a rank a pass, a hop a tick each way.
+8. ``batch_runner_mesh``: the ResNet50 featurizer (bf16, 224²) with
+   ``numDevices`` 4 (``BatchRunner`` on ``{"data": 4}``), 16 batches of
+   256: the gathered output bitwise the one-card runner at the rank's 64
+   rows; rows/s beside one card's at 256; each rank's host stage ms.
+
+Then, from this process once the gang has ended, two fleets whose
+groups are gangs of their own on cards of their own
+(``launch(env={"CUDA_VISIBLE_DEVICES": ...})``, this script with
+``--fleet-worker``), behind one ``EngineFleet`` over ``RemoteEngine``
+proxies, with ``chip_smoke.py``'s phase w legs and checks (four clients,
+every stream delivered exactly once, held to the clean engine's):
+
+9. ``fleet_groups``: phase w's three one-rank groups on cards 1, 2, 3;
+   a clean leg, group a drained, group b SIGKILLed.
+10. ``fleet_tp_groups``: two tp-2 groups on cards 0-1 and 2-3 (phase
+    u's paged llama3_8b at depth 8); a clean leg, then group b's
+    follower SIGKILLed: b's gang fails, b goes DEAD, its requests finish
+    on a.
 
 The top-2 rule: a stream is fed to the model (one forward over prompt
 and stream, dense attention); wherever a token is not that forward's
@@ -99,7 +128,11 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as C  # noqa: E402  (constants and pure helpers)
 
 WORLD = 4
-LEGS = ("comms", "dp_resnet50", "dp_m", "tp_serve", "fsdp_tp_train", "sp")
+# the gang's legs, then the fleets' (run from the parent after the gang)
+GANG_LEGS = ("comms", "dp_resnet50", "dp_m", "tp_serve", "fsdp_tp_train",
+             "sp", "moe", "gpipe", "batch_runner_mesh")
+FLEET_LEGS = ("fleet_groups", "fleet_tp_groups")
+LEGS = GANG_LEGS + FLEET_LEGS
 T_START = time.perf_counter()
 GANG_TIMEOUT_S = 600.0  # the gang's limit: its legs take ~250 s on four H100s
 # dp_m's parity: tests/test_torch_dp_dropout.py's limits (the gang
@@ -120,6 +153,13 @@ FSDP_PARITY_LAYERS = 2
 # tp_serve's f32 streams: llama3_8b widths at this depth
 TP_F32_LAYERS = 2
 BUSBW_ITERS = 10
+# moe and gpipe: where the sharded arm is not bitwise the one-card arm,
+# each tensor within this share of its largest |value| (bf16: two
+# roundings of a product whose cuBLAS kernel differs; f32 on the CPU:
+# tests/test_torch_moe_pipeline.py's atol against the unsharded module)
+SHARD_SHARE = {"bfloat16": 2.0 ** -7, "float32": 1e-6}
+# batch_runner_mesh: seeded uint8 batches of 4 × 64 rows at 224²
+RUNNER_BATCHES = 16
 
 
 def sizes(tiny: bool) -> SimpleNamespace:
@@ -143,7 +183,14 @@ def sizes(tiny: bool) -> SimpleNamespace:
             fsdp_parity_layers=FSDP_PARITY_LAYERS, train_batch=2,
             train_seq=C.TRAIN_SEQ, ulysses=C.ULYSSES_SHAPE,
             ring_layers=C.RING_LAYERS, ring_prompts=C.RING_PROMPTS,
-            ring_len=C.RING_LEN, ring_new=C.RING_NEW)
+            ring_len=C.RING_LEN, ring_new=C.RING_NEW,
+            moe=(C.MOE_D, C.MOE_FF, C.MOE_E, C.MOE_CF),
+            moe_tokens=(C.MOE_BATCH, C.MOE_SEQ),
+            gpipe_micro=C.GPIPE_MICRO, gpipe_seq=C.GPIPE_SEQ,
+            runner_model="ResNet50", runner_dtype="bfloat16",
+            runner_batch=C.RUNNER_BATCH * WORLD,
+            runner_batches=RUNNER_BATCHES, runner_size=224,
+            fleet_layers=C.TP_LAYERS, fleet_block=16)
     return SimpleNamespace(
         tiny=True, comms_mb=1, resnet="narrow", resnet_batch=4,
         resnet_size=32, resnet_warmup=1, resnet_timed=2,
@@ -154,7 +201,10 @@ def sizes(tiny: bool) -> SimpleNamespace:
         tp_f32_layers=2, tp_new=8, tp_chunk=8, tp_slots=4, tp_max_len=64,
         fsdp_layers=C.FSDP_LAYERS, fsdp_steps=2, fsdp_parity_layers=2,
         train_batch=2, train_seq=16, ulysses=(1, 4, 64, 32), ring_layers=2,
-        ring_prompts=2, ring_len=32, ring_new=4)
+        ring_prompts=2, ring_len=32, ring_new=4, moe=(16, 32, 8, 1.25),
+        moe_tokens=(2, 16), gpipe_micro=C.GPIPE_MICRO, gpipe_seq=16,
+        runner_model="ResNet18", runner_dtype="float32", runner_batch=WORLD,
+        runner_batches=2, runner_size=32, fleet_layers=2, fleet_block=8)
 
 
 # --- helpers ------------------------------------------------------------------
@@ -1406,11 +1456,505 @@ def join_sp(recs: list) -> dict:
     return out
 
 
+# --- shared by moe and gpipe ---------------------------------------------------------
+
+def no_tf32(torch) -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def hold(got: dict, want: dict, dtype: str) -> dict:
+    """Each tensor of ``got`` against ``want``'s: whether bitwise, and its
+    max |difference| as a share of ``want``'s largest |value|; a tensor
+    that is not bitwise must lie within ``SHARD_SHARE[dtype]``."""
+    import torch
+
+    bitwise, share = {}, {}
+    for k, w in want.items():
+        g = got[k]
+        bitwise[k] = torch.equal(g, w)
+        top = w.float().abs().max().item()
+        share[k] = (g.float() - w.float()).abs().max().item() / max(
+            top, 1e-30)
+    worst = max(share, key=share.get)
+    out = dict(bitwise=all(bitwise.values()),
+               not_bitwise=sorted(k for k, b in bitwise.items() if not b),
+               max_share=share[worst], worst=worst,
+               share_limit=SHARD_SHARE[dtype])
+    assert out["bitwise"] or out["max_share"] <= out["share_limit"], out
+    return out
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+# --- leg 6: moe -------------------------------------------------------------------
+
+def leg_moe(torch, ctx, S, kernels, root: str,
+            moe_init: str | None = None) -> dict:
+    """Switch MoE on ``{"ep": 4}``: the module built alike on every rank
+    from a seed (on the CPU from the test's flax tree, ``--moe-init``),
+    placed by ``shard_moe`` (2 of the 8 experts a rank), against the
+    unsharded module on this card: the output and the gradients of
+    ``(y.float()**2).sum() + moe_aux_loss`` for x, the router and the
+    experts (gathered over ``ep``). Forward + backward ms of each arm, in
+    turns; the collectives a step."""
+    import torch.distributed as dist
+
+    from sparkdl_tpu_torch.core.runtime import make_mesh
+    from sparkdl_tpu_torch.parallel import fsdp
+    from sparkdl_tpu_torch.parallel import moe as M
+
+    dev = ctx.device
+    no_tf32(torch)
+    mesh = make_mesh({"ep": ctx.size})
+    d, ff, e, cf = S.moe
+    b, t = S.moe_tokens
+    dtype = torch.float32 if S.tiny else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    glob = M.SwitchMoE(d, e, ff, capacity_factor=cf, dtype=dtype,
+                       device=dev, generator=g)
+    if moe_init:
+        init = torch.load(moe_init, weights_only=False)
+        M.load_flax_params(glob, init["params"])
+        x = torch.as_tensor(init["x"]).to(dev)
+    else:
+        x = torch.randn((b, t, d), generator=g, device=dev).to(dtype)
+    assert same_on_ranks(torch, ctx, [float(x.double().sum())] + [
+        float(p.double().sum()) for p in glob.parameters()]), \
+        "the ranks built different modules"
+    local = M.shard_moe(glob, mesh)
+
+    def run(m):
+        xi = x.detach().clone().requires_grad_(True)
+        m.zero_grad(set_to_none=True)
+        inter = {}
+        y = m(xi, intermediates=inter)
+        aux = M.moe_aux_loss(inter)
+        ((y.float() ** 2).sum() + aux).backward()
+        return dict(y=y.detach(), aux=aux.detach(), x_grad=xi.grad,
+                    **{n: p.grad for n, p in m.named_parameters()})
+
+    fsdp.reset_collectives()
+    got = run(local)
+    sync(torch, dev)
+    colls = dict(fsdp.COLLECTIVES)
+    for n in [k for k in got if k.startswith("experts.")]:
+        part = got[n].contiguous()
+        whole = torch.empty((ctx.size * part.shape[0], *part.shape[1:]),
+                            dtype=part.dtype, device=dev)
+        dist.all_gather_into_tensor(whole, part, group=mesh.get_group("ep"))
+        got[n] = whole
+    want = run(glob)
+    rec = dict(config="Switch-Base-8 (d_model 768, d_ff 3072, 8 experts, "
+               "capacity factor 1.25)" if not S.tiny else
+               f"d_model {d}, d_ff {ff}, {e} experts, capacity factor {cf}",
+               dtype=dtype_name(dtype), tokens=b * t,
+               capacity=glob.capacity(b * t), mesh={"ep": ctx.size},
+               local_wi_shape=list(local.experts.wi.kernel.shape),
+               held_to_unsharded=hold(got, want, dtype_name(dtype)),
+               collectives_per_step=colls, aux_loss=float(got["aux"]))
+    # forward: reduce_out's sum; backward: copy_in's two (tokens, gate)
+    assert colls == {"all_gather": 0, "reduce_scatter": 0,
+                     "all_reduce": 3, "send_recv": 0}, colls
+    assert rec["local_wi_shape"][0] == e // ctx.size, rec
+    assert torch.isfinite(got["y"].float()).all()
+    if S.tiny:  # held to the JAX package's module by the test
+        rec["tensors"] = {k: v.float().cpu().tolist()
+                          for k, v in got.items()}
+    del want, got
+    ms = {"unsharded": [], "ep": []}
+    for arm in ("unsharded", "ep", "ep", "unsharded"):
+        m = glob if arm == "unsharded" else local
+        ms[arm].append(event_ms(torch, dev, lambda: run(m), 5))
+    rec["fwd_bwd_ms"] = ms
+    del glob, local
+    free(torch, dev)
+    return rec
+
+
+def join_moe(recs: list) -> dict:
+    out = {k: v for k, v in recs[0].items() if k != "tensors"}
+    assert all(r["aux_loss"] == recs[0]["aux_loss"] for r in recs)
+    out["held_to_unsharded_ranks"] = [r["held_to_unsharded"] for r in recs]
+    out["bitwise_on_every_rank"] = all(r["held_to_unsharded"]["bitwise"]
+                                       for r in recs)
+    out["fwd_bwd_ms_ranks"] = [r["fwd_bwd_ms"] for r in recs]
+    if "tensors" in recs[0]:
+        out["tensors_ranks"] = [r["tensors"] for r in recs]
+    return out
+
+
+# --- leg 7: gpipe -----------------------------------------------------------------
+
+def gpipe_collectives(m: int, p: int, backward: bool) -> dict:
+    """One ``gpipe`` pass over ``m`` microbatches and ``p`` stages: a hop
+    a tick (``m + p - 1`` ticks) forward and again backward, and the
+    output's one sum over ``pp``."""
+    return {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 1,
+            "send_recv": (m + p - 1) * (2 if backward else 1)}
+
+
+def leg_gpipe(torch, ctx, S, kernels, root: str) -> dict:
+    """GPipe on ``{"pp": 4}``: four different llama3_8b-width
+    ``LlamaLayer``s (seeded as ``chip_smoke.gpipe_leg`` seeds one), one a
+    stage, ``GPIPE_MICRO`` microbatches of 1 × ``GPIPE_SEQ``, the flash
+    kernels as attention, ``remat`` off and on. The forward against the
+    four blocks applied in turn to each microbatch on this card; the
+    backward of a weighted sum of the output, each stage's parameter
+    gradient gathered from its ``Shard(0)`` DTensor, against the one-card
+    sequential backward. Launches and hops a pass; the pipeline's and the
+    sequential ms (forward, and forward + backward), in turns."""
+    import math
+
+    from torch.func import functional_call
+
+    from sparkdl_tpu_torch.core.runtime import make_mesh
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.ops.flash_attention import resolve_attn_fn
+    from sparkdl_tpu_torch.parallel import (fsdp, gpipe, microbatch,
+                                            stack_stage_params,
+                                            stage_sharding)
+
+    fa = kernels[0]
+    dev = ctx.device
+    no_tf32(torch)
+    p, m = ctx.size, S.gpipe_micro
+    ticks = m + p - 1
+    mesh = make_mesh({"pp": p})
+    cfg = llama_cfg(L, S, p)
+    dtype = torch.float32 if S.tiny else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2)
+    layers = []
+    for _ in range(p):
+        layer = L.LlamaLayer(cfg, dtype=dtype, device=dev)
+        with torch.no_grad():
+            for name, w in layer.named_parameters():
+                if not name.endswith("scale"):
+                    w.copy_(torch.randn(w.shape, generator=g, device=dev)
+                            / math.sqrt(w.shape[1]))
+        layers.append(layer)
+    # the flash kernels: "auto" on the card; on the CPU their plain
+    # version through the wrapper, so the launches count there too
+    attn = resolve_attn_fn("auto") if dev.type == "cuda" \
+        else fa.flash_attention
+    pos = torch.arange(S.gpipe_seq, device=dev)
+    x = microbatch(torch.randn((m, S.gpipe_seq, cfg.hidden_size),
+                               generator=g, device=dev).to(dtype), m)
+    wgt = torch.randn(x.shape, generator=g, device=dev)  # the loss's, f32
+    assert same_on_ranks(torch, ctx, [float(x.double().sum())] + [
+        float(w.double().sum()) for lay in layers
+        for w in lay.parameters()]), "the ranks built different layers"
+    stacked = stage_sharding(mesh, stack_stage_params(
+        [{k: v.detach() for k, v in lay.named_parameters()}
+         for lay in layers]), "pp")
+    for leaf in stacked.values():
+        leaf.requires_grad_(True)
+
+    def stage_fn(params, h):
+        return functional_call(layers[0], params, (h, pos, attn))
+
+    def sequential():
+        outs = []
+        for i in range(m):
+            h = x[i]
+            for lay in layers:
+                h = lay(h, pos, attn)
+            outs.append(h)
+        return torch.stack(outs)
+
+    def seq_fwd_bwd():
+        for lay in layers:
+            lay.zero_grad(set_to_none=True)
+        (sequential().float() * wgt).sum().backward()
+
+    with torch.no_grad():
+        ref = sequential()
+    seq_fwd_bwd()
+    want = {k: torch.stack([dict(lay.named_parameters())[k].grad
+                            for lay in layers]) for k in stacked}
+    rec = dict(stage="LlamaLayer at llama3_8b widths" if not S.tiny
+               else "LlamaLayer at LlamaConfig.tiny() widths",
+               stages=p, mesh={"pp": p}, microbatches=m,
+               microbatch_shape=[1, S.gpipe_seq], dtype=dtype_name(dtype),
+               ticks=ticks, bubble_share_expected=(p - 1) / ticks,
+               loss="(y.float() * w).sum(), w seeded", arms={})
+    for remat in (False, True):
+        apply = gpipe(stage_fn, mesh, "pp", remat=remat)
+        C.reset_counts(*kernels)
+        fsdp.reset_collectives()
+        with torch.no_grad():
+            y = apply(stacked, x)
+        sync(torch, dev)
+        fwd = dict(launches=C.read_counts(*kernels),
+                   collectives=dict(fsdp.COLLECTIVES),
+                   bitwise_to_sequential=torch.equal(y, ref),
+                   max_abs_diff=(y.float() - ref.float()).abs().max()
+                   .item())
+        del y
+        # the forward is the same arithmetic on the same bits; the
+        # stage calls of the bubble run too (M + P - 1 a rank, not M)
+        assert fwd["bitwise_to_sequential"], fwd
+        assert fwd["launches"]["flash_attention"] == ticks, fwd
+        assert fwd["collectives"] == gpipe_collectives(m, p, False), fwd
+        for leaf in stacked.values():
+            leaf.grad = None
+        C.reset_counts(*kernels)
+        fsdp.reset_collectives()
+        (apply(stacked, x).float() * wgt).sum().backward()
+        sync(torch, dev)
+        bwd = dict(launches=C.read_counts(*kernels),
+                   collectives=dict(fsdp.COLLECTIVES))
+        got = {k: v.grad.full_tensor() for k, v in stacked.items()}
+        bwd["grads_held_to_sequential"] = hold(got, want, dtype_name(dtype))
+        del got
+        # each stage call once forward (once more under remat: its
+        # recompute), one flash backward a stage call, bubble ones too
+        assert bwd["launches"]["flash_attention"] == ticks * (
+            2 if remat else 1), bwd
+        assert bwd["launches"]["flash_attention_bwd"] == ticks, bwd
+        assert bwd["collectives"] == gpipe_collectives(m, p, True), bwd
+        rec["arms"][f"remat_{remat}"] = dict(forward=fwd, fwd_bwd=bwd)
+    apply = gpipe(stage_fn, mesh, "pp", remat=False)
+
+    def pipe_fwd_bwd():
+        for leaf in stacked.values():
+            leaf.grad = None
+        (apply(stacked, x).float() * wgt).sum().backward()
+
+    ms = {}
+    for arm in ("sequential", "pipeline", "pipeline", "sequential"):
+        with torch.no_grad():
+            ms.setdefault(f"{arm}_fwd", []).append(event_ms(
+                torch, dev, sequential if arm == "sequential"
+                else lambda: apply(stacked, x), 3))
+        ms.setdefault(f"{arm}_fwd_bwd", []).append(event_ms(
+            torch, dev, seq_fwd_bwd if arm == "sequential"
+            else pipe_fwd_bwd, 3))
+    rec["ms"] = ms
+    # one card runs M·P stage calls; the pipeline's critical path M + P - 1
+    rec["pipeline_over_sequential_fwd"] = (min(ms["pipeline_fwd"])
+                                           / min(ms["sequential_fwd"]))
+    rec["pipeline_over_sequential_fwd_ideal"] = ticks / (m * p)
+    del stacked, layers, want, ref
+    free(torch, dev)
+    return rec
+
+
+def join_gpipe(recs: list) -> dict:
+    out = dict(recs[0])
+    out["ms_ranks"] = [r["ms"] for r in recs]
+    out["grads_bitwise_on_every_rank"] = all(
+        r["arms"][a]["fwd_bwd"]["grads_held_to_sequential"]["bitwise"]
+        for r in recs for a in r["arms"])
+    assert all(r["arms"][a][k]["launches"] == recs[0]["arms"][a][k][
+        "launches"] for r in recs for a in r["arms"]
+        for k in ("forward", "fwd_bwd")), [r["arms"] for r in recs]
+    return out
+
+
+# --- leg 8: batch_runner_mesh -----------------------------------------------------
+
+def leg_batch_runner_mesh(torch, ctx, S, kernels, root: str) -> dict:
+    """The ResNet50 featurizer with ``numDevices`` 4 through its
+    ``_get_runner()`` (``BatchRunner(mesh=make_mesh({"data": 4}))``) over
+    RUNNER_BATCHES seeded uint8 batches of the global batch: the whole
+    gathered output bitwise the one-card runner at the rank's batch on the
+    same rows (cuDNN may pick other algorithms at another batch, so the
+    one-card runner at the global batch gives only a max |Δ|); the
+    aggregate rows/s beside one card's at the global batch, in turns;
+    each rank's host stage ms (pad, put, dispatch, fetch)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sparkdl_tpu_torch.runner import events
+    from sparkdl_tpu_torch.transformers import DeepImageFeaturizer
+
+    dev = ctx.device
+    no_tf32(torch)
+    torch.backends.cudnn.benchmark = False
+    if dev.type == "cuda":  # the featurizer's "cuda" resolves to cuda:r
+        assert torch.cuda.current_device() == dev.index, (
+            torch.cuda.current_device(), dev)
+    n, big = ctx.size, S.runner_batch
+    per = big // n
+
+    def runner(batch: int, devices: int):
+        kw = {} if dev.type == "cuda" else {"device": "cpu"}
+        f = DeepImageFeaturizer(modelName=S.runner_model,
+                                computeDtype=S.runner_dtype,
+                                batchSize=batch, seed=0, **kw)
+        f.set(f.numDevices, devices)  # > 1: the {"data": n} mesh
+        return f._get_runner()
+
+    arms = {"mesh": runner(big, n), "one_card_rank_batch": runner(per, 1),
+            "one_card_global_batch": runner(big, 1)}
+    assert arms["mesh"].mesh is not None and arms["mesh"]._n == n
+    rng = np.random.default_rng(5)
+    h = S.runner_size
+    wire = [rng.integers(0, 256, (big, h, h, 3), np.uint8)
+            for _ in range(S.runner_batches)]
+    chunks = [w[k * per:(k + 1) * per] for w in wire for k in range(n)]
+    for arm, r in arms.items():  # warm: one batch each
+        list(r.run(chunks[:1] if arm == "one_card_rank_batch"
+                   else wire[:1]))
+    outs, walls, stage_ms = {}, {a: [] for a in arms}, {}
+    recorder = events.get_recorder()
+    for arm in ("mesh", "one_card_global_batch", "one_card_global_batch",
+                "mesh"):
+        sync(torch, dev)
+        dist.barrier(group=ctx.gang.host_group)  # the ranks start together
+        recorder.ring.clear()
+        t0 = time.perf_counter()
+        outs[arm] = list(arms[arm].run(wire))
+        walls[arm].append(time.perf_counter() - t0)
+        if arm == "mesh":
+            stage_ms = {}
+            for ev in recorder.ring:
+                if ev.get("ph") == "E" and ev["name"] in (
+                        "pad", "put", "dispatch", "fetch"):
+                    stage_ms[ev["name"]] = stage_ms.get(ev["name"], 0.0) \
+                        + ev.get("dur_s", 0.0) * 1e3
+    got = np.concatenate(outs["mesh"])
+    t0 = time.perf_counter()
+    rank_batch = np.concatenate(list(arms["one_card_rank_batch"].run(
+        chunks)))
+    walls["one_card_rank_batch"].append(time.perf_counter() - t0)
+    whole = np.concatenate(outs["one_card_global_batch"])
+    rows = big * S.runner_batches
+    assert got.shape == whole.shape == (rows, whole.shape[1]), got.shape
+    assert np.isfinite(got).all()
+    rec = dict(model=S.runner_model, dtype=S.runner_dtype,
+               batches=S.runner_batches, batch_global=big,
+               batch_per_rank=per, wire=[h, h, 3], mesh={"data": n},
+               cudnn_benchmark=False, rows=rows,
+               bitwise_to_one_card_at_rank_batch=bool(
+                   np.array_equal(got, rank_batch)),
+               bitwise_to_one_card_at_global_batch=bool(
+                   np.array_equal(got, whole)),
+               max_abs_diff_to_one_card_at_global_batch=float(
+                   np.abs(got - whole).max()),
+               walls_s=walls, host_stage_ms=stage_ms,
+               ranks_alike=same_on_ranks(torch, ctx, [
+                   float(got.astype(np.float64).sum())]))
+    assert rec["bitwise_to_one_card_at_rank_batch"], rec
+    assert rec["ranks_alike"], rec
+    del arms, outs
+    free(torch, dev)
+    return rec
+
+
+def join_batch_runner_mesh(recs: list) -> dict:
+    r0 = recs[0]
+    assert all(r["bitwise_to_one_card_at_rank_batch"] for r in recs)
+    out = {k: v for k, v in r0.items()
+           if k not in ("walls_s", "host_stage_ms")}
+    # every rank yields every row: the gang's rate is its slowest rank's
+    mesh_s = max(min(r["walls_s"]["mesh"]) for r in recs)
+    one_s = [min(r["walls_s"]["one_card_global_batch"]) for r in recs]
+    out.update(aggregate_rows_per_s=r0["rows"] / mesh_s,
+               one_card_rows_per_s=[r0["rows"] / s for s in one_s],
+               aggregate_over_one_card=min(one_s) / mesh_s,
+               walls_s_ranks=[r["walls_s"] for r in recs],
+               host_stage_ms_ranks=[r["host_stage_ms"] for r in recs],
+               max_abs_diff_global_batch_ranks=[
+                   r["max_abs_diff_to_one_card_at_global_batch"]
+                   for r in recs])
+    return out
+
+
+# --- legs 9 and 10: fleets of groups on cards of their own ----------------------------
+
+# Each group is a gang of its own (``launcher.launch(np=tp, env=
+# {"CUDA_VISIBLE_DEVICES": cards})``, this script with ``--fleet-worker``),
+# so its rank r is ``cuda:r`` of the cards it sees. ``ref`` survives the
+# faults and serves every family's clean engine inline at the end; the
+# victim of ``kill`` is rank ``victim_rank`` of group b.
+FLEETS = {
+    # chip_smoke's phase w: three one-rank groups, on cards 1, 2 and 3
+    "fleet_groups": dict(groups=C.W_GROUPS, tp=1,
+                         cards={"a": "1", "b": "2", "c": "3"},
+                         ref=C.W_REF_GROUP, faults=("doom", "kill"),
+                         victim_rank=0),
+    # two tp-2 groups, on cards 0-1 and 2-3; b's follower is killed
+    "fleet_tp_groups": dict(groups={"a": "paged", "b": "paged"}, tp=2,
+                            cards={"a": "0,1", "b": "2,3"}, ref="a",
+                            faults=("kill",), victim_rank=1),
+}
+
+
+def fleet_prompts(torch, S, cfg) -> list:
+    """Phase u's prompts on the card; on the CPU TP_SLOTS seeded prompts
+    of 8 to 32 tokens (each with ``TP_NEW`` new tokens in ``tp_max_len``)."""
+    if not S.tiny:
+        return C.tp_prompts(torch, cfg)
+    g = torch.Generator().manual_seed(21)
+    lens = torch.randint(8, 33, (C.TP_SLOTS,), generator=g).tolist()
+    return [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in lens]
+
+
+def fleet_build(torch, spec: dict, dev) -> tuple:
+    """A fleet group's model and engines (``chip_smoke.fleet_group_worker``'s
+    ``build``): phase w's on the cards (``chip_smoke.w_build``); on the
+    CPU the tiny model in f32 and ``w_engine`` at the tiny sizes, the
+    kernels' plain versions counted as their launches."""
+    if not spec["tiny"]:
+        return C.w_build(torch, spec, dev)
+    from sparkdl_tpu_torch.models import llama as L
+    from sparkdl_tpu_torch.ops import flash_attention as fa
+    from sparkdl_tpu_torch.ops import flash_decode as fd
+    from sparkdl_tpu_torch.ops import paged_flash_decode as pfd
+
+    torch.set_num_threads(1)
+    count_plain_calls((fa, fd, pfd))
+    S = sizes(True)
+    model = build_llama(torch, L, llama_cfg(L, S, S.fleet_layers),
+                        torch.float32, dev, 21, fa.flash_attention)
+    return model, lambda family: C.w_engine(
+        torch, model, family, spec["tp"], slots=S.tp_slots,
+        max_len=S.tp_max_len, chunk=S.tp_chunk, block=S.fleet_block), \
+        S.fleet_layers
+
+
+def fleet_leg(torch, S, device: str, leg: str) -> dict:
+    """The groups of ``FLEETS[leg]``, each a gang of this script's
+    ``--fleet-worker`` on cards of its own, behind this process's
+    ``EngineFleet`` (``chip_smoke.fleet_remote``: the clean leg, then
+    each fault, every stream audited and held to the clean engines')."""
+    from sparkdl_tpu_torch.models import llama as L
+
+    f = FLEETS[leg]
+    t0 = time.perf_counter()
+    out = C.fleet_remote(
+        torch, fleet_prompts(torch, S, llama_cfg(L, S, S.fleet_layers)),
+        groups=f["groups"], tp=f["tp"], ref=f["ref"], faults=f["faults"],
+        victim_rank=f["victim_rank"], cards=f["cards"], device=device,
+        script=__file__, flag="--fleet-worker",
+        env={"OMP_NUM_THREADS": "1"} if device == "cpu" else None,
+        tag="torch_multicard " + leg, extra=dict(tiny=S.tiny))
+    ranks = out.pop("ranks")
+    return dict(
+        config=(f"LlamaConfig.llama3_8b(), {S.fleet_layers} layers, bf16"
+                if not S.tiny else f"LlamaConfig.tiny(), {S.fleet_layers} "
+                "layers, f32"), tp=f["tp"], group_cards=f["cards"],
+        groups={n: dict(family=f["groups"][n],
+                        ranks=[dict(rank=g["rank"], device=g["device"],
+                                    counts=g["counts"],
+                                    drained=g.get("drained"),
+                                    graphs=g["graphs"],
+                                    peak_gb=g["peak_gb"]) for g in rs])
+                for n, rs in ranks.items()},
+        **out, seconds=time.perf_counter() - t0)
+
+
 # --- the gang's worker and the parent ----------------------------------------------
 
 RUN = {"comms": leg_comms, "dp_resnet50": leg_dp_resnet50,
        "dp_m": leg_dp_m, "tp_serve": leg_tp_serve,
-       "fsdp_tp_train": leg_fsdp_tp_train, "sp": leg_sp}
+       "fsdp_tp_train": leg_fsdp_tp_train, "sp": leg_sp, "moe": leg_moe,
+       "gpipe": leg_gpipe, "batch_runner_mesh": leg_batch_runner_mesh}
 
 
 def worker(args) -> int:
@@ -1439,7 +1983,8 @@ def worker(args) -> int:
     try:
         for leg in args.legs:
             t0 = time.perf_counter()
-            kw = {"tp_init": args.tp_init} if leg == "tp_serve" else {}
+            kw = {"tp_init": args.tp_init} if leg == "tp_serve" else \
+                {"moe_init": args.moe_init} if leg == "moe" else {}
             rec = RUN[leg](torch, ctx, S, kernels, str(d), **kw)
             rec["leg_s"] = time.perf_counter() - t0
             (d / f"{leg}_rank{ctx.rank}.json").write_text(json.dumps(rec))
@@ -1450,7 +1995,9 @@ def worker(args) -> int:
 
 
 JOIN = {"comms": join_comms, "dp_m": join_dp_m, "tp_serve": join_tp_serve,
-        "fsdp_tp_train": join_fsdp_tp_train, "sp": join_sp}
+        "fsdp_tp_train": join_fsdp_tp_train, "sp": join_sp,
+        "moe": join_moe, "gpipe": join_gpipe,
+        "batch_runner_mesh": join_batch_runner_mesh}
 
 
 def env_line(torch, device: str) -> dict:
@@ -1502,7 +2049,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-init", default=None,
                     help="(CPU) tp_serve's f32 model and prompts: a "
                          "torch.save'd {cfg, params (flax tree), prompts}")
+    ap.add_argument("--moe-init", default=None,
+                    help="(CPU) moe's module and input: a torch.save'd "
+                         "{params (flax tree), x}")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-worker", nargs=2, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     args.legs = [x for x in args.legs.split(",") if x]
     bad = [x for x in args.legs if x not in LEGS]
@@ -1510,6 +2062,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown legs {bad}")
     if args.worker:
         return worker(args)
+    if args.fleet_worker:
+        return C.fleet_group_worker(*args.fleet_worker, build=fleet_build)
     if args.device == "cpu" and not args.tiny:
         ap.error("the CPU runs only the tiny gang: --device cpu --tiny")
     import torch
@@ -1535,20 +2089,45 @@ def main(argv=None) -> int:
     S = sizes(args.tiny)
     d = tempfile.mkdtemp(prefix="sparkdl_multicard_")
     gang_env = {"OMP_NUM_THREADS": "1"} if args.device == "cpu" else {}
+    gang_legs = [x for x in args.legs if x in GANG_LEGS]
+    fleet_legs = [x for x in args.legs if x in FLEET_LEGS]
+    fleets = {}  # leg: (record, or the exception it raised; seconds)
+
+    def run_fleets():
+        for leg in fleet_legs:
+            t = time.perf_counter()
+            try:
+                fleets[leg] = (fleet_leg(torch, S, args.device, leg),
+                               time.perf_counter() - t)
+            except Exception as e:  # noqa: BLE001 — raised below
+                fleets[leg] = (e, time.perf_counter() - t)
+                return
+
+    # on the CPU the fleets' gangs run beside the four-rank gang; on the
+    # cards they take the cards once it has ended
+    side = threading.Thread(target=run_fleets, daemon=True) \
+        if args.device == "cpu" and fleet_legs else None
+    if side is not None:
+        side.start()
     err = None
     try:
         t = time.perf_counter()
         try:
-            launcher.launch(
-                __file__, np=WORLD, env=gang_env, timeout_s=GANG_TIMEOUT_S,
-                args=["--worker", d, "--device", args.device,
-                      "--legs", ",".join(args.legs)]
-                + (["--tiny"] if args.tiny else [])
-                + (["--tp-init", args.tp_init] if args.tp_init else []))
+            if gang_legs:
+                launcher.launch(
+                    __file__, np=WORLD, env=gang_env,
+                    timeout_s=GANG_TIMEOUT_S,
+                    args=["--worker", d, "--device", args.device,
+                          "--legs", ",".join(gang_legs)]
+                    + (["--tiny"] if args.tiny else [])
+                    + (["--tp-init", args.tp_init] if args.tp_init else [])
+                    + (["--moe-init", args.moe_init] if args.moe_init
+                       else []))
         except Exception as e:  # print the legs that finished, then raise
             err = e
-        walls["gang"] = time.perf_counter() - t
-        for leg in args.legs:
+        if gang_legs:
+            walls["gang"] = time.perf_counter() - t
+        for leg in gang_legs:
             files = [Path(d) / f"{leg}_rank{r}.json" for r in range(WORLD)]
             if not all(f.exists() for f in files):
                 break
@@ -1566,8 +2145,26 @@ def main(argv=None) -> int:
                 cards=env["cards"])
             record["legs"][leg] = rec
             C.emit({k: v for k, v in rec.items()
-                    if k not in ("streams", "prompt_ids")})
+                    if k not in ("streams", "prompt_ids", "tensors_ranks")})
             walls[leg] = max(r["leg_s"] for r in recs)
+        if side is not None:
+            side.join()
+        elif fleet_legs and err is None:  # this process holds no model
+            free(torch, torch.device(args.device))
+            run_fleets()
+        for leg in fleet_legs:
+            if leg not in fleets:
+                break
+            rec, walls[leg] = fleets[leg]
+            if isinstance(rec, Exception):
+                err = err or rec
+                break
+            rec = dict(leg=leg, **rec, cards=env["cards"])
+            record["legs"][leg] = rec
+            C.emit({k: v for k, v in rec.items() if k != "legs"}
+                   | {"legs": [{k: v for k, v in lg.items()
+                                if k not in ("placed", "ended")}
+                               for lg in rec["legs"]]})
     finally:
         shutil.rmtree(d, ignore_errors=True)
     walls["total"] = time.perf_counter() - T_START

@@ -54,20 +54,36 @@ def elastic_min_np(env: dict | None = None) -> int:
     except (TypeError, ValueError):
         return 1
 
-# Status words that indicate the *platform* (not the program) broke.
-# UNAVAILABLE/ABORTED/CANCELLED: backend or coordination flake.
-# DEADLINE_EXCEEDED: rendezvous/collective timeout (peer died).
 # The torch.distributed texts a dead peer leaves in a survivor: NCCL's
 # watchdog timeout and aborted communicator, the TCPStore's
 # ``DistNetworkError`` / ``DistStoreError``, gloo's closed or reset pair.
+_PEER_LOST = (r"Watchdog caught collective operation timeout"
+              r"|NCCL communicator was aborted|DistNetworkError"
+              r"|DistStoreError|Connection (closed|reset) by peer")
+
+# Status words that indicate the *platform* (not the program) broke.
+# UNAVAILABLE/ABORTED/CANCELLED: backend or coordination flake.
+# DEADLINE_EXCEEDED: rendezvous/collective timeout (peer died).
 _RETRYABLE_PATTERNS = re.compile(
     r"(UNAVAILABLE|ABORTED|CANCELLED|DEADLINE_EXCEEDED"
     r"|backend setup|failed to connect|connection (reset|refused)"
     r"|socket closed|preempt|slice .* unhealthy|device or resource busy"
-    r"|coordination service|heartbeat"
-    r"|Watchdog caught collective operation timeout"
-    r"|NCCL communicator was aborted|DistNetworkError|DistStoreError"
-    r"|Connection (closed|reset) by peer)", re.IGNORECASE)
+    r"|coordination service|heartbeat|" + _PEER_LOST + ")", re.IGNORECASE)
+
+# A collective that failed because a peer of the gang is gone (the texts
+# above and NCCL's backend error): a request did not cause it, so no
+# per-request isolation may absorb it.
+_PEER_LOSS_PATTERNS = re.compile(
+    "(DistBackendError|" + _PEER_LOST + ")", re.IGNORECASE)
+
+
+def is_peer_loss(exc: BaseException) -> bool:
+    """Whether ``exc`` is a collective's failure on a gang whose peer is
+    gone (gloo raises on the dead pair; NCCL's watchdog or an aborted
+    communicator raises where it does not hang)."""
+    return _PEER_LOSS_PATTERNS.search(
+        f"{type(exc).__name__}: {exc}") is not None
+
 
 # Definitely-program failures even if they arrive wrapped in a runtime error.
 # The CUDA texts: ``torch.cuda.OutOfMemoryError`` ("CUDA out of memory")

@@ -45,6 +45,7 @@ import contextlib
 import logging
 import os
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable
 
@@ -87,6 +88,9 @@ class Gang:
 
 
 _GANG: list[Gang] = []  # the process's gang, once joined
+# The graph caches whose captured steps issue the gang's collectives (the
+# tensor-parallel serving backends'), held weakly until the gang is left
+_GANG_GRAPHS: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def _rendezvous(coordinator: str | None, num_processes: int | None,
@@ -139,11 +143,22 @@ def _init_gang(coordinator: str, size: int, rank: int,
     return g
 
 
+def hold_gang_graphs(cache) -> None:
+    """Register a ``core.runtime.CompileCache`` whose captured steps issue
+    the gang's collectives: :func:`leave_gang` drops its steps first."""
+    _GANG_GRAPHS.add(cache)
+
+
 def leave_gang() -> None:
     """Destroy this process's process group (no-op outside a gang); a
-    worker calls it before it exits."""
+    worker calls it before it exits. The captured steps of the caches
+    given to :func:`hold_gang_graphs` go first: NCCL destroys a
+    communicator only once no CUDA graph holds its kernels, so the graph
+    of a tensor-parallel engine still alive would hang the destroy."""
     if _GANG:
         _GANG.clear()
+        for cache in list(_GANG_GRAPHS):
+            cache.drop()
         dist.destroy_process_group()
 
 

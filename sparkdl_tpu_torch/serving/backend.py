@@ -101,6 +101,7 @@ from ..ops import flash_decode as fd
 from ..ops import paged_flash_decode as pfd
 from ..ops._build import CudaError
 from ..runner import chaos as chaos_lib
+from ..runner.xla_runner import hold_gang_graphs
 from .paging import PagedBlockManager
 from .prefix import (PrefixCache, prefix_cache_budget_bytes,
                      usable_reuse)
@@ -886,6 +887,7 @@ class TensorParallelLlamaSlotBackend(LlamaSlotBackend):
         local = _tp_setup(self, model, tp, mesh, weight_dtype)
         super().__init__(local, num_slots, max_len,
                          weight_dtype=weight_dtype, **kw)
+        hold_gang_graphs(self.graphs)  # its step holds NCCL kernels
 
     group_clock = _group_clock
 
@@ -904,5 +906,6 @@ class TensorParallelPagedLlamaSlotBackend(PagedLlamaSlotBackend):
         local = _tp_setup(self, model, tp, mesh, weight_dtype)
         super().__init__(local, num_slots, max_len,
                          weight_dtype=weight_dtype, **kw)
+        hold_gang_graphs(self.graphs)  # its step holds NCCL kernels
 
     group_clock = _group_clock

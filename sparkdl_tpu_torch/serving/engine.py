@@ -145,7 +145,7 @@ import threading
 import time
 
 from ..runner import chaos as chaos_lib
-from ..runner import events, telemetry
+from ..runner import events, failures, telemetry
 from ..runner import sentinel as sentinel_lib
 from .introspect import register_engine
 from .paging import BlockExhausted
@@ -368,6 +368,16 @@ ENGINE_SCOPED_EVENTS = frozenset({
     "serve_draft", "serve_engine_fatal", "serve_engine_failover",
     "serve_engine_drain",
 })
+
+
+def _not_per_request(exc: BaseException) -> bool:
+    """Errors no per-request isolation may absorb: a serving-fatal one
+    (step()'s failover seam owns it) and a collective that failed
+    because a peer of a tensor-parallel group is gone — no request caused
+    it, the group ends (the engine fails closed) and a fleet re-admits
+    what it held, where quarantining would fail the request outright."""
+    return getattr(exc, "serving_fatal", False) or \
+        failures.is_peer_loss(exc)
 
 
 def _req_trace(req: "Request") -> dict:
@@ -1832,7 +1842,7 @@ class GenerationEngine:
             self._requeue_for_blocks(req, slot)
             return False
         except Exception as e:  # noqa: BLE001 — reuse is an optimization
-            if getattr(e, "serving_fatal", False):
+            if _not_per_request(e):
                 raise  # step()'s failover seam owns it
             if self.paged:
                 # Paged begin_prefill is RESERVATION, not just reuse: a
@@ -1964,7 +1974,7 @@ class GenerationEngine:
         except ServingStallError:
             raise  # a wedged device is never a per-request fault
         except Exception as e:  # noqa: BLE001 — per-request isolation
-            if getattr(e, "serving_fatal", False):
+            if _not_per_request(e):
                 raise  # step()'s failover seam owns it
             dt_fail = time.perf_counter() - t0
             self._note_stall(dt_fail, n_running)
@@ -2061,7 +2071,7 @@ class GenerationEngine:
             except BlockExhausted:
                 raise  # capacity, not a fault: _refill requeues + waits
             except Exception as e:  # noqa: BLE001 — per-request isolation
-                if getattr(e, "serving_fatal", False):
+                if _not_per_request(e):
                     # e.g. backend.SlotCacheLost: the donated cache was
                     # consumed by the failing call — retrying reads a
                     # deleted buffer, so let step()'s failover seam
@@ -2129,7 +2139,7 @@ class GenerationEngine:
             except ServingStallError:
                 raise
             except Exception as e:  # noqa: BLE001 — retry taxonomy below
-                if getattr(e, "serving_fatal", False):
+                if _not_per_request(e):
                     raise  # step()'s failover seam owns it
                 attempts += 1
                 if attempts <= self.retries:
@@ -2275,7 +2285,7 @@ class GenerationEngine:
             chaos_lib.fire("serve_alloc", batch=slot)
             return bool(self.backend.ensure_block_for(slot, pos))
         except Exception as e:  # noqa: BLE001 — alloc faults backpressure
-            if getattr(e, "serving_fatal", False):
+            if _not_per_request(e):
                 raise
             log.warning("ensure_block_for(%s, %s) failed: %s: %s",
                         slot, pos, type(e).__name__, e)

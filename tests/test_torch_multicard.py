@@ -28,7 +28,25 @@ record, which the tests read. What is held:
   the unsharded step (the script's limits), the collectives a step the
   script's ``fsdp_collectives`` at both depths, both restores bitwise;
 - ``sp``: Ulysses bitwise to the bare kernel's plain version, the ring's
-  logits within ``RING_LOGIT_SHARE``, its hops sp - 1 a layer.
+  logits within ``RING_LOGIT_SHARE``, its hops sp - 1 a layer;
+- ``moe``: Switch MoE on ``{"ep": 4}`` (8 experts, 2 a rank) from a
+  flax tree made with numpy from a seed (``--moe-init``): each rank's
+  output and the gradients of ``(y**2).sum() + aux`` (x, router, the
+  gathered experts) against the one-process module (the script's check,
+  bitwise or within 1e-6) and against the JAX package's ``SwitchMoE`` on
+  the same tree, within ``tests/test_torch_moe_pipeline.py``'s
+  tolerances (outputs atol 1e-5, gradients rtol 1e-4 atol 1e-5);
+- ``gpipe``: four tiny ``LlamaLayer``s on ``{"pp": 4}``: the forward and
+  each stage's gradient against the one-process sequential blocks (the
+  script's check), 7 flash launches a rank a pass (M + P - 1), 7 hops
+  forward and 14 forward and backward;
+- ``batch_runner_mesh``: the featurizer's ``{"data": 4}`` runner bitwise
+  the one-process runner at the rank's batch;
+- ``fleet_groups`` and ``fleet_tp_groups``: one-rank and two-rank gloo
+  gangs behind an ``EngineFleet``: every stream delivered exactly once
+  (the script's audit) and equal to the clean engine's before its hop,
+  group b DEAD, its gang's failure the victim's SIGKILL, every rank's
+  launches = dispatches = layers × steps.
 
 And without four cards the script exits 2 before any leg.
 """
@@ -47,10 +65,15 @@ import pytest
 import torch
 
 from sparkdl_tpu.models import llama as JL
+from sparkdl_tpu.parallel import SwitchMoE as JMoE
+from sparkdl_tpu.parallel import moe_aux_loss as jax_moe_aux_loss
 
 ROOT = Path(__file__).resolve().parent.parent
 SCRIPT = ROOT / "scripts" / "torch_multicard.py"
-LEGS = ["comms", "dp_resnet50", "dp_m", "tp_serve", "fsdp_tp_train", "sp"]
+LEGS = ["comms", "dp_resnet50", "dp_m", "tp_serve", "fsdp_tp_train", "sp",
+        "moe", "gpipe", "batch_runner_mesh", "fleet_groups",
+        "fleet_tp_groups"]
+MOE_D, MOE_F, MOE_E, MOE_CF = 16, 32, 8, 1.25  # the script's tiny moe
 PARAM_SHARE, STAT_SHARE = 5e-4, 1e-4   # tests/test_torch_dp.py's
 GRAD_SHARE, LOSS_RTOL = 2e-6, 1e-6     # tests/test_torch_dp_dropout.py's
 TP_NEW = 8                             # the script's tiny tp_new
@@ -58,11 +81,29 @@ TP_CFG = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
               num_kv_heads=4, intermediate_size=256, rope_theta=10000.0)
 
 
-def _run(*args, timeout=300):
+def _run(*args, timeout=400):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, str(SCRIPT), *args], env=env,
                           capture_output=True, text=True, timeout=timeout,
                           cwd=ROOT)
+
+
+def _moe_tree(seed=3):
+    """The flax tree of a ``SwitchMoE`` (numpy, from a seed) and x."""
+    rng = np.random.RandomState(seed)
+
+    def w(*shape):
+        return (rng.randn(*shape) / np.sqrt(shape[-2])).astype(np.float32)
+
+    def b(*shape):
+        return (0.1 * rng.randn(*shape)).astype(np.float32)
+
+    params = {"router": {"kernel": w(MOE_D, MOE_E), "bias": b(MOE_E)},
+              "experts": {"wi": {"kernel": w(MOE_E, MOE_D, MOE_F),
+                                 "bias": b(MOE_E, MOE_F)},
+                          "wo": {"kernel": w(MOE_E, MOE_F, MOE_D),
+                                 "bias": b(MOE_E, MOE_D)}}}
+    return params, rng.randn(2, 16, MOE_D).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +111,8 @@ def gang(tmp_path_factory):
     """The script's record and stdout lines, the prompts and the JAX
     package's static streams they are held to."""
     d = tmp_path_factory.mktemp("multicard")
+    params, x = _moe_tree()
+    torch.save({"params": params, "x": x}, d / "moe.pt")
     cfg = JL.LlamaConfig(**TP_CFG)
     model = JL.LlamaModel(cfg)
     variables = model.init(jax.random.PRNGKey(1),
@@ -87,6 +130,7 @@ def gang(tmp_path_factory):
     torch.save({"cfg": TP_CFG, "params": params, "prompts": prompts},
                d / "tp.pt")
     proc = _run("--device", "cpu", "--tiny", "--tp-init", str(d / "tp.pt"),
+                "--moe-init", str(d / "moe.pt"),
                 "--out", str(d / "record.json"))
     assert proc.returncode == 0, proc.stderr[-6000:]
     return dict(record=json.loads((d / "record.json").read_text()),
@@ -216,3 +260,85 @@ def test_sp_ulysses_and_ring(gang):
     assert r["ring_vs_flash_logit_share"] <= r["logit_share_limit"]
     assert r["arms"]["ring"]["collectives"]["batch_isend_irecv"] == \
         r["layers"] * 3
+
+
+def test_moe_at_ep4_is_the_unsharded_and_the_reference_module(gang):
+    m = gang["record"]["legs"]["moe"]
+    assert m["mesh"] == {"ep": 4} and m["local_wi_shape"] == [2, MOE_D,
+                                                              MOE_F]
+    assert m["collectives_per_step"]["all_reduce"] == 3
+    for h in m["held_to_unsharded_ranks"]:
+        assert h["bitwise"] or h["max_share"] <= 1e-6, h
+    params, x = _moe_tree()
+    jmoe = JMoE(num_experts=MOE_E, d_ff=MOE_F, capacity_factor=MOE_CF)
+
+    def loss(p, xx):
+        y, st = jmoe.apply({"params": p}, xx, mutable=["intermediates"])
+        return (y ** 2).sum() + jax_moe_aux_loss(st["intermediates"])
+
+    y, st = jmoe.apply({"params": params}, x, mutable=["intermediates"])
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, x)
+    want = {"router.weight": np.asarray(gp["router"]["kernel"]).T,
+            "router.bias": gp["router"]["bias"], "x_grad": gx,
+            **{f"experts.{w}.{k}": gp["experts"][w][k]
+               for w in ("wi", "wo") for k in ("kernel", "bias")}}
+    for r, t in enumerate(m["tensors_ranks"]):
+        np.testing.assert_allclose(np.asarray(t["y"]), np.asarray(y),
+                                   atol=1e-5, err_msg=str(r))
+        np.testing.assert_allclose(
+            t["aux"], float(jax_moe_aux_loss(st["intermediates"])),
+            rtol=1e-6)
+        for name, g in want.items():
+            np.testing.assert_allclose(np.asarray(t[name]), np.asarray(g),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=f"rank {r} {name}")
+
+
+def test_gpipe_at_pp4_forward_and_backward(gang):
+    g = gang["record"]["legs"]["gpipe"]
+    assert g["mesh"] == {"pp": 4} and g["ticks"] == 7
+    for remat in (False, True):
+        arm = g["arms"][f"remat_{remat}"]
+        f, b = arm["forward"], arm["fwd_bwd"]
+        assert f["bitwise_to_sequential"], f
+        assert f["launches"]["flash_attention"] == 7
+        assert f["collectives"]["send_recv"] == 7
+        h = b["grads_held_to_sequential"]
+        assert h["bitwise"] or h["max_share"] <= 1e-6, h
+        assert b["launches"]["flash_attention"] == (14 if remat else 7)
+        assert b["launches"]["flash_attention_bwd"] == 7
+        assert b["collectives"]["send_recv"] == 14
+
+
+def test_batch_runner_mesh_is_the_one_process_runner(gang):
+    r = gang["record"]["legs"]["batch_runner_mesh"]
+    assert r["mesh"] == {"data": 4} and r["batch_per_rank"] == 1
+    assert r["bitwise_to_one_card_at_rank_batch"] and r["ranks_alike"]
+
+
+@pytest.mark.parametrize("leg,tp,faults", [
+    ("fleet_groups", 1, ["clean", "doom", "kill"]),
+    ("fleet_tp_groups", 2, ["clean", "kill"])])
+def test_fleet_streams_once_and_b_dead(gang, leg, tp, faults):
+    f = gang["record"]["legs"][leg]
+    assert f["tp"] == tp and [lg["leg"] for lg in f["legs"]] == faults
+    for lg in f["legs"]:
+        assert lg["new_tokens"] == f["requests"] * f["new"], lg
+        # the clean engine's stream up to the hop, and past it up to
+        # the first near tie
+        assert all(fl["position"] >= fl["hop_at"] for fl in lg["flips"])
+        assert lg["hops"] >= (lg["leg"] != "clean"), lg
+    assert f["legs"][0]["identical_streams"] == f["requests"]
+    assert f["states"]["b"] == "dead"
+    assert f["fleet_stats"]["replica_deaths"] == 1
+    assert f["fleet_stats"]["drains"] == faults.count("doom")
+    victim = f["victim_rank"]
+    assert set(f["gang_failures"]) == {"b"}
+    assert f"rank {victim} rc=-9" in f["gang_failures"]["b"]
+    for name, grp in f["groups"].items():
+        assert len(grp["ranks"]) == tp
+        for r in grp["ranks"]:
+            c = r["counts"]
+            kernel = "paged_flash_decode" if grp["family"] == "paged" \
+                else "flash_decode"
+            assert c[kernel] == c["dispatch"] == 2 * c["steps"] > 0, c
